@@ -7,39 +7,69 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: the card's name and power limit from ``nvidia-smi``; no
    CUDA card means exit 1 with no result;
-2. build: every kernel of the serving path compiled with ``nvcc`` for
-   ``sm_90a`` from the sources in this checkout, all at once;
-3. kernels against their plain PyTorch versions on the card: the
-   flash-attention forward over the reference's sweep plus the serving
-   path's shape, f32 (atol 3e-5) and bf16 (atol 3e-2), lse atol 1e-4 on
-   rows with an allowed key, and exact zeros on rows with none;
-4. the main path: yi-6b at full width (32 layers, bf16, random weights
+2. build: every kernel library (flash-attention forward and backward, the
+   checkpoint codec) compiled with ``nvcc`` for ``sm_90a`` from the sources
+   in this checkout, all at once;
+3. kernels against their plain PyTorch versions on the card:
+   * the flash-attention forward over the reference's sweep plus the
+     serving path's shape, f32 (atol 3e-5) and bf16 (atol 3e-2), lse atol
+     1e-4 on rows with an allowed key, and exact zeros on rows with none;
+   * the flash-attention backward over the same sweep plus the training
+     path's shape, from the same (q, k, v, out, lse, do): dq, dk, dv within
+     f32 atol 1e-4 + rtol 1e-4, bf16 atol 1e-3 + rtol 2^-7; two runs
+     bit-equal;
+   * the codec K1-K3 over n in {1, 255, 256, 257, 4096, 100000, the
+     training path's largest leaf} x f32/bf16/f16: codes, deltas, scales
+     and dequantized values bit-equal (0 mismatches);
+4. the serving path: yi-6b at full width (32 layers, bf16, random weights
    from a seeded generator) serves 4 requests of 512 prompt tokens and 32
    new tokens through ``ServeEngine.generate``, committing its KV cache to
    an in-process iCheck cluster.  The kernel launch counts are set to 0 just
    before and read just after: one flash-attention launch per layer.  The
    restored cache must equal a second prefill's bit for bit, and decoding
    from it must give the live run's tokens.  A 2-layer cut of the same
-   model in f32 is held against the plain CPU path on a short prompt;
-5. numbers: prefill and decode times, tokens/s, commit and restore wall
-   seconds, peak device memory, a ``torch.profiler`` window over one
-   prefill and over 8 decode steps (device busy time, idle share, top
-   kernels and host ops), and the ``kernels`` line (kernel, plain and SDPA
-   times at the path's shape, and the bound).
+   model in f32 is held against the plain CPU path on a short prompt; then
+   the serving numbers, and the weights are freed;
+5. the training path: ``ElasticTrainer`` trains qwen2.5-3b at full width
+   (36 layers, d_model 2048, bf16 compute, f32 master weights, full remat)
+   on 4096-token sequences, global batch 1 (cut from 256), 6 steps with a
+   q8-delta commit every 2 (keyframe, delta, delta) encoded on the card, 2
+   more steps as the uninterrupted reference; a fresh trainer restarts from
+   the agents, step and data state restored and every float leaf equal to
+   its committed codes (which lie within absmax/127 * 0.51 per block of
+   the state at commit), and trains 2 steps.  Counts are set to 0 before
+   and read after the 6 steps and their commits;
+6. a second training phase at full width cut to 8 layers: int8 gradient
+   compression (K1 + K3 in every step) and a 1 -> 2 logical-rank resize
+   with ``overlap_resize``;
+7. numbers: step ms, tokens/s, ``mfu``, commit and restart wall seconds,
+   bytes on the wire, peak device memory, host RSS, a ``torch.profiler``
+   window over one training step, and the ``kernels`` line (each kernel's
+   time, its plain version's, the bound, a library yardstick where one
+   PyTorch call computes the same function).
 
 The last line is ``{"ok": true, "device": {...}}``.  f32 matmuls run in full
 f32 (``allow_tf32`` is False).  Times are CUDA-event times of warm calls
-unless named wall times; the inputs of a kernel timing fit in L2.
+unless named wall times.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import os
+import resource
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+# the training path's state nearly fills the card: let the allocator grow
+# segments instead of fragmenting (read when torch first touches the card)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -57,6 +87,11 @@ SWEEP = [
 BATCH, PROMPT, GEN = 4, 512, 32
 ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
 LSE_ATOL = 1e-4
+BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2 ** -7)}
+# the training path: qwen2.5-3b, one 4096-token sequence a step
+TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 6, 2, 8
+CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
+CODEC_DTYPES = ("float32", "bfloat16", "float16")
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -133,9 +168,11 @@ def profile_window(fn, top: int = 8) -> dict:
 # --------------------------------------------------------------------------
 def build_kernels():
     from repro_torch.kernels import common
+    from repro_torch.kernels.ckpt_codec import kernel as codec_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
-    builders = {"flash_fwd": fa_kernel.build}
+    builders = {"flash_fwd": fa_kernel.build, "flash_bwd": fa_kernel.build_bwd,
+                "ckpt_codec": codec_kernel.build}
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(builders)) as pool:
         futures = {n: pool.submit(b) for n, b in builders.items()}
@@ -388,6 +425,479 @@ def attention_numbers(path_case, device):
             "flops": flops, "bytes": nbytes}
 
 
+# --------------------------------------------------------------------------
+# phase 3b: the backward and codec kernels against their plain versions
+# --------------------------------------------------------------------------
+def check_bwd_case(case, dtype, device, determinism=False) -> float:
+    """Backward kernel against the plain backward from the same (q, k, v,
+    out, lse, do); returns the max abs error over dq, dk, dv."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bwd_cuda
+
+    b, hq, hkv, t, s, d, causal, window = case
+    q, k, v = _inputs(7, b, hq, hkv, t, s, d, dtype, device)
+    dout = _inputs(8, b, hq, hkv, t, s, d, dtype, device)[0]
+    out, lse = attention_ref(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = BWD_TOL[dtype]
+    err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = (g.float() - w.float()).abs()
+        err = max(err, diff.max().item())
+        if not bool((diff <= atol + rtol * w.float().abs()).all()):
+            raise AssertionError(f"flash_bwd {case} {dtype} {name}: max abs "
+                                 f"err {diff.max().item()} (atol {atol}, "
+                                 f"rtol {rtol})")
+    if determinism:
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"flash_bwd {case} {dtype}: two runs differ")
+    return err
+
+
+def check_bwd(path_case, device) -> float:
+    """The sweep and the training path's shape, both dtypes; returns the
+    max abs error at the path's shape in bf16."""
+    path_err = None
+    for case in SWEEP + [path_case]:
+        for dtype in ("float32", "bfloat16"):
+            err = check_bwd_case(case, dtype, device,
+                                 determinism=case == path_case)
+            log(f"  flash_bwd {case} {dtype}: max abs err {err:.3e}")
+            if case == path_case and dtype == "bfloat16":
+                path_err = err
+    log("  flash_bwd: two runs at the path's shape are bit-equal")
+    return path_err
+
+
+def _codec_input(n, dtype, device, seed):
+    import numpy as np
+    import torch
+
+    if n <= 1 << 20:
+        x = np.random.default_rng(seed + n).standard_normal(n) \
+            .astype(np.float32) * 3
+        return torch.from_numpy(x).to(device, getattr(torch, dtype))
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(n, generator=g, device=device) \
+        .mul_(0.02).to(getattr(torch, dtype))
+
+
+def check_codec(ns, device) -> int:
+    """K1-K3 against their plain versions; returns the total number of
+    mismatching codes, deltas, scales and values (must be 0)."""
+    import torch
+
+    from repro_torch.kernels.ckpt_codec import kernel as K
+    from repro_torch.kernels.ckpt_codec import ref as R
+    from repro_torch.kernels.ckpt_codec.ops import _to_blocks
+
+    total = 0
+    for n in ns:
+        for dtype in CODEC_DTYPES:
+            x = _codec_input(n, dtype, device, 0)
+            b0 = _to_blocks(x)[0]
+            q, s = K.quantize_cuda(b0)
+            rq, rs = R.quantize_ref(b0)
+            bad = int((q != rq).sum()) + int((s != rs).sum())
+            del b0, x, rs
+            x1 = _codec_input(n, dtype, device, 1)
+            b1 = _to_blocks(x1)[0]
+            del x1
+            d, s1, q1 = K.quantize_delta_cuda(b1, q)
+            rd, rs1, rq1 = R.quantize_delta_ref(b1, rq)
+            del b1, rq
+            bad += int((d != rd).sum()) + int((s1 != rs1).sum()) \
+                + int((q1 != rq1).sum())
+            del d, rd, rs1, rq1, q
+            for out_dtype in (torch.float32, getattr(torch, dtype)):
+                y = K.dequantize_cuda(q1, s1, out_dtype)
+                ry = R.dequantize_ref(q1, s1, out_dtype)
+                bad += int((y != ry).sum())
+                del y, ry
+            torch.cuda.synchronize()
+            del q1, s1
+            log(f"  codec n={n} {dtype}: {bad} mismatches (codes, deltas, "
+                f"scales, values)")
+            total += bad
+    if total:
+        raise AssertionError(f"codec kernels: {total} mismatches")
+    return total
+
+
+# --------------------------------------------------------------------------
+# phase 5/6: the training path
+# --------------------------------------------------------------------------
+def reset_counts() -> None:
+    from repro_torch.kernels.ckpt_codec import kernel as codec_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    fa_kernel.launches = 0
+    fa_kernel.bwd_launches = 0
+    for name in codec_kernel.launches:
+        codec_kernel.launches[name] = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels.ckpt_codec import kernel as codec_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    return {"flash_fwd": fa_kernel.launches,
+            "flash_bwd": fa_kernel.bwd_launches, **codec_kernel.launches}
+
+
+def _float_leaves(tree):
+    from repro_torch.core.snapshot import _flatten, _leaf_name
+
+    return [(_leaf_name(path), t) for path, t in _flatten(tree)
+            if t.is_floating_point()]
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def committed_codes(trainer) -> dict:
+    """Each float leaf's chain head: (device codes, host scales)."""
+    out = {}
+    for name, _ in _float_leaves(trainer.state):
+        st = trainer.client.delta_chain_lookup(name, 1).parts[0]
+        out[name] = (st.codes_dev, st.scales)
+    return out
+
+
+def check_commit_bound(trainer, codes, device, rows=1 << 20) -> float:
+    """Every float leaf within absmax/127 * 0.51 per block of its committed
+    codes; returns the worst error / bound ratio."""
+    import torch
+
+    from repro_torch.kernels.ckpt_codec import dequantize
+    from repro_torch.kernels.ckpt_codec.ops import _to_blocks
+
+    worst = 0.0
+    with torch.no_grad():
+        for name, leaf in _float_leaves(trainer.state):
+            q, scales = codes[name]
+            scales = torch.from_numpy(scales).to(device)
+            blocks = _to_blocks(leaf)[0]
+            for i in range(0, blocks.shape[0], rows):
+                x = blocks[i:i + rows].float()
+                y = dequantize(q[i:i + rows], scales[i:i + rows], x.shape)
+                bound = x.abs().amax(1) / 127 * 0.51 + 1e-12
+                ratio = ((y - x).abs().amax(1) / bound).max().item()
+                worst = max(worst, ratio)
+                if ratio > 1:
+                    raise AssertionError(f"{name}: committed codes off by "
+                                         f"{ratio:.3f} of the bound")
+    return worst
+
+
+def check_restored(trainer, codes, device, rows=1 << 20) -> None:
+    """Every restored float leaf equals its committed codes dequantized,
+    bit for bit."""
+    import torch
+
+    from repro_torch.kernels.ckpt_codec import dequantize
+    from repro_torch.kernels.ckpt_codec.ops import _to_blocks
+
+    with torch.no_grad():
+        for name, leaf in _float_leaves(trainer.state):
+            q, scales = codes[name]
+            scales = torch.from_numpy(scales).to(device)
+            blocks = _to_blocks(leaf)[0]
+            for i in range(0, blocks.shape[0], rows):
+                y = dequantize(q[i:i + rows], scales[i:i + rows],
+                               blocks[i:i + rows].shape, leaf.dtype)
+                if not torch.equal(y, blocks[i:i + rows]):
+                    raise AssertionError(f"{name}: restored values differ "
+                                         f"from the committed codes")
+
+
+def host_rss() -> dict:
+    pages = int(Path("/proc/self/statm").read_text().split()[1])
+    return {"rss_bytes": pages * os.sysconf("SC_PAGE_SIZE"),
+            "max_rss_bytes":
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+
+
+def train_main_path(cfg, device, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                    commit_every=COMMIT_EVERY, node_memory=48 << 30,
+                    profile=False) -> dict:
+    """ElasticTrainer with q8-delta commits, then a restart from the agents.
+    Returns counts, losses, wall times and commit records."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import ICheckCluster
+    from repro_torch.core import events as E
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import ElasticTrainer
+
+    shape = ShapeConfig("train_4k_1", "train", seq, 1)
+    res = {"commits": [], "step_ms": []}
+    pfs = tempfile.mkdtemp(prefix="chip-smoke-pfs-")
+    res["pfs_free_bytes"] = shutil.disk_usage(pfs).free
+    log(f"  PFS {pfs}: {res['pfs_free_bytes']} bytes free")
+    kw = dict(app_id="train", seed=0, opt_cfg=AdamWConfig(), commit_every=0,
+              probe_every=0, total_steps=100, codec="q8-delta",
+              device=device)
+    try:
+        with ICheckCluster(n_icheck_nodes=2, n_spare_nodes=0,
+                           node_memory=node_memory, keep_l1=1,
+                           pfs_root=pfs, adaptive_interval=False) as cluster:
+            records = []
+            cluster.bus.subscribe(
+                lambda ev: records.append(dict(ev.payload)),
+                events=(E.CKPT_DELTA_COMMITTED,))
+            t0 = time.monotonic()
+            t1 = ElasticTrainer(cfg, shape, cluster, **kw)
+            _sync(device)
+            res["init_s"] = time.monotonic() - t0
+            reset_counts()
+            for i in range(1, steps + 1):
+                t0 = time.monotonic()
+                t1.run(1)
+                _sync(device)
+                res["step_ms"].append((time.monotonic() - t0) * 1e3)
+                log(f"  step {i}: {res['step_ms'][-1]:.1f} ms, loss "
+                    f"{t1.metrics_log[-1]['loss']:.4f}")
+                if i % commit_every == 0:
+                    t0 = time.monotonic()
+                    t1.commit(blocking=True)
+                    wall = time.monotonic() - t0
+                    rec = dict(records[-1], wall_s=wall, step=i,
+                               **host_rss())
+                    res["commits"].append(rec)
+                    log(f"  commit at step {i}: {json.dumps(rec)}")
+            _sync(device)
+            res["launches"] = read_counts()
+            res["losses"] = [m["loss"] for m in t1.metrics_log]
+            codes = committed_codes(t1)
+            res["commit_bound_ratio"] = check_commit_bound(t1, codes, device)
+            res["committed_step"] = int(t1.state.step)
+            if device.type == "cuda":
+                res["encode_ms"] = cuda_ms(lambda: _encode_all(t1, codes),
+                                           iters=1, warmup=1)
+            # the uninterrupted reference: 2 more steps, the first counted
+            reset_counts()
+            t1.run(1)
+            _sync(device)
+            res["launches_per_step"] = read_counts()
+            if profile:
+                res["profile_step"] = profile_window(lambda: t1.run(1))
+            else:
+                t1.run(1)
+            res["reference_losses"] = [m["loss"]
+                                       for m in t1.metrics_log[-2:]]
+            res["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+                if device.type == "cuda" else 0
+            _drop(t1)
+            del t1
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            # the drains finish, and L1 keeps only the newest checkpoint
+            cluster.controller.wait_for_drains(timeout=600)
+            res["pre_restart_rss"] = host_rss()
+            log(f"  before the restart: {json.dumps(res['pre_restart_rss'])}")
+
+            t0 = time.monotonic()
+            t2 = ElasticTrainer(cfg, shape, cluster, **kw)
+            _sync(device)
+            res["restart_s"] = time.monotonic() - t0
+            res["restart_rss"] = host_rss()
+            if not t2.restarted or int(t2.state.step) != \
+                    res["committed_step"] or \
+                    t2.data.state.step != res["committed_step"]:
+                raise AssertionError(
+                    f"restart: restarted={t2.restarted} step "
+                    f"{int(t2.state.step)} data {t2.data.state.step}, want "
+                    f"{res['committed_step']}")
+            log(f"  restart in {res['restart_s']:.1f} s: "
+                f"{json.dumps(res['restart_rss'])}")
+            check_restored(t2, codes, device)
+            del codes
+            t2.run(2)
+            res["restart_losses"] = [m["loss"] for m in t2.metrics_log]
+            if not np.all(np.isfinite(res["restart_losses"])):
+                raise AssertionError(f"losses after the restart: "
+                                     f"{res['restart_losses']}")
+            # a clean exit: the app's chain state (codes on the card) goes
+            t2.finalize()
+            t2.state = None
+            del t2
+    finally:
+        shutil.rmtree(pfs, ignore_errors=True)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        res["allocated_after"] = torch.cuda.memory_allocated()
+    return res
+
+
+def _drop(trainer) -> None:
+    """Let go of a trainer that "crashed" (no finalize): its state and
+    commit handles, and its subscription on the bus, which would keep it
+    alive."""
+    trainer._unsubscribe()
+    trainer.state = None
+    trainer._pending_commits.clear()
+
+
+def _encode_all(trainer, codes) -> None:
+    """One delta encode of every float leaf (K2), outputs discarded."""
+    from repro_torch.kernels.ckpt_codec import quantize_delta
+
+    for name, leaf in _float_leaves(trainer.state):
+        quantize_delta(leaf, codes[name][0])
+
+
+def train_cut_phase(cfg, device, seq=TRAIN_SEQ, node_memory=48 << 30
+                    ) -> dict:
+    """Gradient compression (K1 + K3 every step) and a 1 -> 2 logical-rank
+    resize with overlap_resize; returns counts, losses and the resize."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import ICheckCluster
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import ElasticTrainer
+
+    shape = ShapeConfig("train_4k_1", "train", seq, 1)
+    pfs = tempfile.mkdtemp(prefix="chip-smoke-pfs-")
+    res = {}
+    try:
+        with ICheckCluster(n_icheck_nodes=2, n_spare_nodes=0,
+                           node_memory=node_memory, keep_l1=1,
+                           pfs_root=pfs, adaptive_interval=False) as cluster:
+            t = ElasticTrainer(cfg, shape, cluster, app_id="train-cut",
+                               seed=1, opt_cfg=AdamWConfig(
+                                   compress_grads=True),
+                               commit_every=2, probe_every=0,
+                               total_steps=100, codec="q8-delta",
+                               overlap_resize=True, device=device)
+            reset_counts()
+            t0 = time.monotonic()
+            t.run(2)
+            cluster.rm.schedule_resize("train-cut", 2)
+            for _ in range(6):
+                t.run(1)
+                if t.resizes:
+                    break
+            _sync(device)
+            res["wall_s"] = time.monotonic() - t0
+            res["launches"] = read_counts()
+            res["resizes"] = t.resizes
+            res["ranks"] = t.app.ranks
+            res["steps_during_resize"] = t.steps_during_resize
+            res["losses"] = [m["loss"] for m in t.metrics_log]
+            t.run(1)
+            res["losses_after_resize"] = [m["loss"]
+                                          for m in t.metrics_log[-1:]]
+            t.finalize()
+            del t
+    finally:
+        shutil.rmtree(pfs, ignore_errors=True)
+    if res["resizes"] != 1 or res["ranks"] != 2:
+        raise AssertionError(f"resize: {res['resizes']} resizes, "
+                             f"{res['ranks']} ranks")
+    if not np.all(np.isfinite(res["losses"] + res["losses_after_resize"])):
+        raise AssertionError(f"cut phase losses: {res['losses']}")
+    if device.type == "cuda" and not (res["launches"]["quantize"]
+                                      and res["launches"]["dequantize"]):
+        raise AssertionError(f"cut phase did not run K1 and K3: "
+                             f"{res['launches']}")
+    gc.collect()
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 7: kernel numbers at the training path's shapes
+# --------------------------------------------------------------------------
+def bwd_numbers(path_case, device) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_ref)
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.ref import allowed_mask
+
+    b, hq, hkv, t, s, d, causal, window = path_case
+    q, k, v = _inputs(7, b, hq, hkv, t, s, d, "bfloat16", device)
+    dout = _inputs(8, b, hq, hkv, t, s, d, "bfloat16", device)[0]
+    out, lse = attention_ref(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                  **kw), iters=5)
+    plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout,
+                                                 **kw), iters=2, warmup=1)
+    # yardstick only, never called by the port: SDPA's backward (at T = S
+    # its top-left causal alignment equals the reference's bottom-right)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                             enable_gqa=True)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), dout, retain_graph=True), iters=5)
+    pairs = int(allowed_mask(t, s, causal, window, s - t).sum())
+    flops = 10 * b * hq * d * pairs     # five products, 2 FLOP per MAC
+    nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+              + 2 * out.numel()) * 2 + dout.numel() * 2 + 2 * lse.numel() * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "bytes": nbytes}
+
+
+def fwd_train_numbers(path_case, device) -> dict:
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    b, hq, hkv, t, s, d, causal, window = path_case
+    q, k, v = _inputs(7, b, hq, hkv, t, s, d, "bfloat16", device)
+    return {"ms": cuda_ms(lambda: flash_attention_cuda(
+        q, k, v, causal=causal, window=window, scale=d ** -0.5), iters=5)}
+
+
+def codec_numbers(n, device) -> dict:
+    """K1-K3 at the path's largest leaf (f32), beside their plain versions
+    and their byte bounds; no single PyTorch call computes them."""
+    from repro_torch.kernels.ckpt_codec import kernel as K
+    from repro_torch.kernels.ckpt_codec import ref as R
+    from repro_torch.kernels.ckpt_codec.ops import _to_blocks
+
+    x = _to_blocks(_codec_input(n, "float32", device, 0))[0]
+    q, s = K.quantize_cuda(x)
+    nb = x.shape[0]
+    out = {}
+    for name, fn, plain, nbytes in (
+            ("quantize", lambda: K.quantize_cuda(x),
+             lambda: R.quantize_ref(x), 4 * n + n + 4 * nb),
+            ("quantize_delta", lambda: K.quantize_delta_cuda(x, q),
+             lambda: R.quantize_delta_ref(x, q), 4 * n + 3 * n + 4 * nb),
+            ("dequantize", lambda: K.dequantize_cuda(q, s),
+             lambda: R.dequantize_ref(q, s), n + 4 * nb + 4 * n)):
+        out[name] = {"ms": cuda_ms(fn, iters=5),
+                     "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+                     "library_ms": None,
+                     "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+                     "bound_by": "bytes", "bytes": nbytes}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -409,11 +919,16 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params
+    from repro_torch.models import count_params, init_params
 
     cfg = get_config("yi-6b")
+    tcfg = get_config("qwen2.5-3b")
     path_case = (BATCH, cfg.num_heads, cfg.num_kv_heads, PROMPT, PROMPT,
                  cfg.resolved_head_dim, True, cfg.window)
+    train_case = (1, tcfg.num_heads, tcfg.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
+                  tcfg.resolved_head_dim, True, tcfg.window)
+    w_gu = tcfg.num_layers * 2 * tcfg.d_model * tcfg.d_ff
+    t_start = time.monotonic()
 
     log("phase 2: build")
     build_kernels()
@@ -421,9 +936,12 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions")
     path_err = check_kernels(path_case, device)
-    torch.cuda.synchronize()
+    bwd_err = check_bwd(train_case, device)
+    codec_bad = check_codec(CODEC_NS + [w_gu], device)
+    torch.cuda.empty_cache()
+    log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
 
-    log(f"phase 4: main path, {cfg.name} {cfg.num_layers} layers "
+    log(f"phase 4: serving, {cfg.name} {cfg.num_layers} layers "
         f"d_model {cfg.d_model} {cfg.dtype}, {BATCH} x {PROMPT} prompt "
         f"tokens, {GEN} new tokens")
     t0 = time.monotonic()
@@ -436,6 +954,7 @@ def main() -> int:
     res = serve_main_path(cfg, params, device,
                           n_layers_launch=cfg.num_layers)
     torch.cuda.synchronize()
+    serve_peak = torch.cuda.max_memory_allocated()
     log(f"  launches in the main path: {res['launches']}")
     log(f"  KV cache {res['kv_cache_bytes']} bytes; restored cache equals a "
         f"second prefill bit for bit; {GEN - 1} decode steps from it give "
@@ -443,9 +962,6 @@ def main() -> int:
     plain_err = check_against_plain(cfg, params, device)
     log(f"  2-layer f32 cut: card vs plain CPU logits max abs err "
         f"{plain_err:.3e}")
-    torch.cuda.synchronize()
-
-    log("phase 5: numbers")
     num = attention_numbers(path_case, device)
     torch.cuda.synchronize()
     serve = {
@@ -459,21 +975,113 @@ def main() -> int:
         "commit_wall_s": res["commit_s"],
         "restore_wall_s": res["restore_s"],
         "kv_cache_bytes": res["kv_cache_bytes"],
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated": serve_peak,
         "attention_flops": num["flops"], "attention_bytes": num["bytes"],
     }
     log(json.dumps({"serve": serve}))
     for name in ("profile_prefill", "profile_decode_8"):
         log(json.dumps({name: res[name]}))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 4 done at {time.monotonic() - t_start:.1f} s; weights "
+        f"freed, {torch.cuda.memory_allocated()} bytes allocated")
+
+    n_params = count_params(tcfg)
+    log(f"phase 5: training, {tcfg.name} {tcfg.num_layers} layers d_model "
+        f"{tcfg.d_model} {tcfg.dtype} compute, {n_params} params, "
+        f"{TRAIN_SEQ} tokens a step, q8-delta commit every {COMMIT_EVERY} "
+        f"steps")
+    torch.cuda.reset_peak_memory_stats()
+    tr = train_main_path(tcfg, device, profile=True)
+    frames = [(c["key_frames"], c["delta_frames"]) for c in tr["commits"]]
+    ratios = [c["raw_bytes"] / c["encoded_bytes"] for c in tr["commits"]]
+    if tr["launches"]["flash_fwd"] != 2 * tcfg.num_layers * TRAIN_STEPS or \
+            tr["launches"]["flash_bwd"] != tcfg.num_layers * TRAIN_STEPS:
+        raise AssertionError(f"training launches {tr['launches']}")
+    if not (tr["launches"]["quantize"] and tr["launches"]["quantize_delta"]):
+        raise AssertionError(f"commits did not run K1 and K2: "
+                             f"{tr['launches']}")
+    if not any(d for _, d in frames) or not frames[0][0] or \
+            min(ratios) <= 3:
+        raise AssertionError(f"commit frames {frames}, ratios {ratios}")
+    step_ms = sorted(tr["step_ms"][1:])[len(tr["step_ms"][1:]) // 2]
+    tokens_per_s = TRAIN_SEQ / (step_ms / 1e3)
+    train = {
+        "card": card, "params": n_params, "seq": TRAIN_SEQ, "batch": 1,
+        "step_ms_median": step_ms, "step_ms": tr["step_ms"],
+        "tokens_per_s": tokens_per_s,
+        "mfu": 6 * n_params * TRAIN_SEQ / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+        "init_s": tr["init_s"],
+        "commit_wall_s": [c["wall_s"] for c in tr["commits"]],
+        "commit_encode_s": [c["encode_s"] for c in tr["commits"]],
+        "device_encode_ms": tr["encode_ms"],
+        "wire_bytes": [c["encoded_bytes"] for c in tr["commits"]],
+        "raw_bytes": [c["raw_bytes"] for c in tr["commits"]],
+        "compression_ratio": ratios, "frames_key_delta": frames,
+        "commit_bound_ratio": tr["commit_bound_ratio"],
+        "restart_wall_s": tr["restart_s"],
+        "losses": tr["losses"], "reference_losses": tr["reference_losses"],
+        "restart_losses": tr["restart_losses"],
+        "launches": tr["launches"],
+        "launches_per_step": tr["launches_per_step"],
+        "max_memory_allocated": tr["max_memory_allocated"],
+        "host": host_rss(), "restart_host": tr["restart_rss"],
+        "pre_restart_host": tr["pre_restart_rss"],
+        "pfs_free_bytes": tr["pfs_free_bytes"],
+    }
+    log(card)
+    log(json.dumps({"train": train}))
+    log(json.dumps({"profile_train_step": tr["profile_step"]}))
+    log(f"  phase 5 done at {time.monotonic() - t_start:.1f} s; "
+        f"{tr['allocated_after']} bytes still allocated")
+
+    cut_cfg = dataclasses.replace(tcfg, num_layers=CUT_LAYERS)
+    log(f"phase 6: {tcfg.name} cut to {CUT_LAYERS} layers, compressed "
+        f"gradients, 1 -> 2 rank resize with overlap")
+    cut = train_cut_phase(cut_cfg, device)
+    log(json.dumps({"train_cut": cut}))
+    log(f"  phase 6 done at {time.monotonic() - t_start:.1f} s")
+
+    log("phase 7: numbers")
+    bwd = bwd_numbers(train_case, device)
+    fwd_train = fwd_train_numbers(train_case, device)
+    codec = codec_numbers(w_gu, device)
+    torch.cuda.synchronize()
+    log(json.dumps({"flash_fwd_train_shape": fwd_train,
+                    "flash_bwd_train_shape": bwd, "codec_w_gu": codec}))
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
         "launches": res["launches"]["flash_fwd"],
+        "launches_train": tr["launches"]["flash_fwd"],
         "max_abs_err": path_err, "ms": num["ms"],
         "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
         "bound_by": num["bound_by"], "library_ms": num["library_ms"],
+    }, {
+        "name": "flash_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/ops.py:94",
+        "launches": tr["launches"]["flash_bwd"],
+        "max_abs_err": bwd_err, "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
     }]
+    for name, line in (("quantize", 54), ("quantize_delta", 74),
+                       ("dequantize", 98)):
+        c = codec[name]
+        launches = cut["launches"][name] if name == "dequantize" \
+            else tr["launches"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/ckpt_codec/csrc/codec.cu",
+            "replaces": f"src/repro/kernels/ckpt_codec/kernel.py:{line}",
+            "launches": launches, "launches_cut_phase": cut["launches"][name],
+            "max_abs_err": float(codec_bad), "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    log(f"  total {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""Wrapper of the Hopper flash-attention forward kernel (``csrc/flash_fwd.cu``).
+"""Wrappers of the Hopper flash-attention kernels: the forward
+(``csrc/flash_fwd.cu``) and the backward (``csrc/flash_bwd.cu``).
 
-Replaces ``flash_attention_pallas`` (``src/repro/kernels/flash_attention/
-kernel.py:95``).  The CUDA source is compiled with ``nvcc`` for ``sm_90a``
-at first use (``kernels/common.load_library``) and called through its
-plain C interface with ``ctypes`` on PyTorch's current stream.
+Replace ``flash_attention_pallas`` (``src/repro/kernels/flash_attention/
+kernel.py:95``) and its XLA backward (``ops._xla_flash_bwd``, ``ops.py:94``).
+Each CUDA source is compiled with ``nvcc`` for ``sm_90a`` at first use
+(``kernels/common.load_library``) and called through its plain C interface
+with ``ctypes`` on PyTorch's current stream.
 """
 from __future__ import annotations
 
@@ -16,12 +18,14 @@ import torch
 from ..common import load_library
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu",)
+BWD_SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu",)
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the kernel in this process; a run sets it to 0 and reads it
-# to show that a path went through the kernel
+# launches of the forward and of the backward in this process; a run sets
+# them to 0 and reads them to show that a path went through the kernels
 launches = 0
+bwd_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -37,23 +41,37 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = load_library("flash_bwd", BWD_SOURCES)
+    fn = lib.flash_bwd
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 10 + [ci] * 6 + [ctypes.c_float, ci, ci, ci,
+                                               ci, vp]
+        fn.restype = ci
+        lib.flash_bwd_error_string.argtypes = [ci]
+        lib.flash_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def build() -> None:
-    """Compile (if needed) and load the kernel library."""
+    """Compile (if needed) and load the forward kernel's library."""
     _lib()
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, window: Optional[int],
-                         scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q: (B, Hq, T, D), k/v: (B, Hkv, S, D) CUDA tensors, contiguous, of
-    one dtype (f32 or bf16), D in {32, 64, 128}.  Returns ``(out in
-    q.dtype, lse f32 (B, Hq, T))``."""
-    global launches
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def build_bwd() -> None:
+    """Compile (if needed) and load the backward kernel's library."""
+    _bwd_lib()
+
+
+def _check_qkv(q, k, v, extra=()):
+    """Device, dtype, layout and shape checks shared by both kernels;
+    returns (b, hq, hkv, t, s, d)."""
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
         if t.device != q.device:
-            raise ValueError("q, k, v lie on different devices")
+            raise ValueError(f"{name} and q lie on different devices")
         if t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
         if not t.is_contiguous():
@@ -71,6 +89,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    return b, hq, hkv, t, s, d
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, window: Optional[int],
+                         scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q: (B, Hq, T, D), k/v: (B, Hkv, S, D) CUDA tensors, contiguous, of
+    one dtype (f32 or bf16), D in {32, 64, 128}.  Returns ``(out in
+    q.dtype, lse f32 (B, Hq, T))``."""
+    global launches
+    b, hq, hkv, t, s, d = _check_qkv(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -86,3 +115,43 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_fwd launch failed: {msg} ({status})")
     launches += 1
     return out, lse
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool, window: Optional[int],
+                             scale: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Gradients of the forward: q/out/dout (B, Hq, T, D), k/v (B, Hkv, S,
+    D) of one dtype, lse (B, Hq, T) f32, all contiguous CUDA tensors.
+    Returns ``(dq, dk, dv)`` in the inputs' dtype; deterministic."""
+    global bwd_launches
+    b, hq, hkv, t, s, d = _check_qkv(q, k, v, (("out", out),
+                                               ("dout", dout)))
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} / dout "
+                         f"{tuple(dout.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    if lse.shape != (b, hq, t) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous f32 {(b, hq, t)} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    dsum = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = lib.flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, t, s, d, float(scale),
+        int(causal), int(window is not None), int(window or 0),
+        _DTYPES[q.dtype], stream)
+    if status != 0:
+        msg = lib.flash_bwd_error_string(status).decode()
+        raise RuntimeError(f"flash_bwd launch failed: {msg} ({status})")
+    bwd_launches += 1
+    return dq, dk, dv

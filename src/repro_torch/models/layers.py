@@ -42,13 +42,35 @@ def rmsnorm_init(d: int, *, lead: Sequence[int] = (), device=None):
                                 device=device)}
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The reference's custom backward (``repro/models/layers.py:35-63``):
+    it saves x in its own dtype and the f32 ``rsig``, returns dx in x's
+    dtype and dscale summed over every row."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        rsig = torch.rsqrt(var + 1e-6)
+        ctx.save_for_backward(x, rsig, scale)
+        return (xf * rsig * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, rsig, scale = ctx.saved_tensors
+        d = x.shape[-1]
+        xf = x.float()
+        dyf = dy.float() * scale
+        inner = torch.sum(dyf * xf, dim=-1, keepdim=True) / d
+        dx = rsig * (dyf - xf * (rsig * rsig) * inner)
+        dscale = torch.sum((dy.float() * xf * rsig).reshape(-1, d), dim=0)
+        return dx.to(x.dtype), dscale
+
+
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Statistics in f32; the reference ignores ``eps`` and always uses
     1e-6 (``repro/models/layers.py:66-67``), and so does this."""
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + 1e-6) * params["scale"]
-    return y.to(x.dtype)
+    return _RMSNorm.apply(x, params["scale"])
 
 
 # --------------------------------------------------------------------------

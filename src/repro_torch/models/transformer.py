@@ -4,7 +4,9 @@ without MoE): the twin of ``repro/models/transformer.py`` on that path.
 * ``init_params(cfg, generator, device)``: a nested dict of f32 tensors
   whose names and shapes equal ``repro.models.init_params``; the layer
   stack is stacked on a leading "layers" axis under ``stack/b0``.
-* ``forward``: the scoring path.
+* ``forward`` / ``loss_fn``: the training and scoring path, each layer
+  recomputed in the backward (``torch.utils.checkpoint``) unless the
+  config's ``remat_policy`` is ``"none"``.
 * ``init_cache`` / ``prefill`` / ``decode_step``: the serving path.  The
   cache has the reference's layout, ``{"stack": {"b0": {"self":
   KVCache(k, v)}}, "tails": [], "idx": int32 0-d}`` with k/v of shape
@@ -19,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn
@@ -158,22 +161,52 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
     return x, positions
 
 
+def _remat(cfg: ModelConfig) -> bool:
+    """Recompute each layer in the backward (the reference's ``_remat``,
+    ``repro/models/transformer.py:328-341``): any policy but ``"none"``
+    keeps only the layer's input.  The reference's ``"dots"`` and
+    ``"psum"`` policies name XLA residuals and act here as ``"full"``."""
+    return cfg.remat_policy != "none" and torch.is_grad_enabled()
+
+
 def _run_stack(cfg: ModelConfig, params, x, positions, caches=None):
     n = stack_plan(cfg)["scan_len"]
+    remat = caches is None and _remat(cfg)
     for i in range(n):
         lp = _layer(params["stack"]["b0"], i)
         st = None if caches is None else _layer(caches["stack"]["b0"], i)
-        x, _ = _block_apply(cfg, lp, x, positions=positions, state=st)
+        if remat:
+            # the layer has no randomness, so no RNG state is kept
+            x = checkpoint(lambda h, lp=lp: _block_apply(
+                cfg, lp, h, positions=positions, state=None)[0], x,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, _ = _block_apply(cfg, lp, x, positions=positions, state=st)
     return x
 
 
 def forward(cfg: ModelConfig, params, batch):
-    """Scoring forward pass. Returns (logits, aux_loss = 0)."""
+    """Training / scoring forward pass. Returns (logits, aux_loss = 0)."""
     x, positions = _embed_inputs(cfg, params, batch)
     x = _run_stack(cfg, params, x, positions)
     x = rmsnorm(params["final_norm"], x)
     logits = lm_head_apply(params["lm_head"], x, valid_vocab=cfg.vocab_size)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Next-token cross-entropy over f32 logits, labels < 0 masked out
+    (``repro/models/transformer.py:429-441``). Returns (loss, metrics)."""
+    logits, aux = forward(cfg, params, batch)
+    labels = batch["labels"]
+    logits = logits[:, :-1, :].float()
+    targets = labels[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.clamp_min(0)[..., None])[..., 0]
+    mask = (targets >= 0).float()
+    xent = torch.sum((logz - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
+    loss = xent + aux
+    return loss, {"xent": xent, "aux": aux}
 
 
 # ==========================================================================

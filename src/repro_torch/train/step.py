@@ -1,0 +1,102 @@
+"""train_step factory: loss and gradients through autograd, microbatch
+gradient accumulation, AdamW update (the twin of ``repro/train/step.py``).
+
+Gradients land in f32 buffers of the parameters' layout.  Each layer of a
+stacked leaf enters the loss as a leaf tensor of its own (a detached view
+of the master weight), whose ``.grad`` is preset to the matching slice of
+the buffer, so autograd accumulates every layer's gradient in place: no
+full-size temporary per layer (which indexing a stacked leaf that itself
+requires grad would build) and no copy afterwards.  Microbatches
+accumulate into the same buffers.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..models import loss_fn
+from ..optim import AdamWConfig, adamw_update
+from .state import TrainState
+
+
+def _grad_leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    leaf = p.detach().requires_grad_()
+    leaf.grad = g
+    return leaf
+
+
+def _bind(params, grads, stacked: bool = False):
+    """The params tree for the loss: stacked leaves become lists of
+    per-layer leaves (``transformer._layer`` indexes either)."""
+    if isinstance(params, dict):
+        return {k: _bind(params[k], grads[k], stacked or k == "stack")
+                for k in params}
+    if stacked:
+        return [_grad_leaf(params[i], grads[i])
+                for i in range(params.shape[0])]
+    return _grad_leaf(params, grads)
+
+
+def zeros_like_tree(tree):
+    if isinstance(tree, dict):
+        return {k: zeros_like_tree(v) for k, v in tree.items()}
+    return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
+
+
+def compute_grads(cfg: ModelConfig, params, batch, grads=None):
+    """Loss and gradient of ``loss_fn`` at ``params``; the gradient is
+    added into ``grads`` (f32 buffers of the params' layout, made zero
+    when not given).  Returns (loss, metrics, grads)."""
+    if grads is None:
+        grads = zeros_like_tree(params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(cfg, _bind(params, grads), batch)
+        loss.backward()
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
+                    schedule: Optional[Callable] = None,
+                    microbatches: int = 1) -> Callable:
+    opt_cfg = opt_cfg or AdamWConfig()
+
+    def train_step(state: TrainState, batch: Dict) -> tuple:
+        """(state, batch of tensors) -> (state, metrics); the params and
+        moments are updated in place, ``state.step`` is a new tensor."""
+        params = state.params
+        if microbatches > 1:
+            b = batch["tokens"].shape[0]
+            if b % microbatches:
+                raise ValueError(f"batch {b} does not split into "
+                                 f"{microbatches} microbatches")
+            grads = zeros_like_tree(params)
+            lsum = 0.0
+            for i in range(microbatches):
+                mb = {k: v.chunk(microbatches)[i] for k, v in batch.items()}
+                loss, _, grads = compute_grads(cfg, params, mb, grads)
+                lsum = lsum + loss
+            with torch.no_grad():
+                for g in _leaves(grads):
+                    g.div_(microbatches)
+            loss = lsum / microbatches
+            metrics = {}
+        else:
+            loss, metrics, grads = compute_grads(cfg, params, batch)
+        _, new_opt, opt_metrics = adamw_update(grads, state.opt, params,
+                                               opt_cfg, schedule)
+        del grads
+        new_state = TrainState(params=params, opt=new_opt,
+                               step=state.step + 1)
+        return new_state, {"loss": loss, **metrics, **opt_metrics}
+
+    return train_step
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

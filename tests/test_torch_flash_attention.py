@@ -9,6 +9,9 @@ Rows with no allowed key are excluded from every comparison: the reference
 has no consistent answer there (it depends on its tile size); a separate
 case checks that the port gives zeros and lse = -inf.
 
+Gradients: dq/dk/dv against ``jax.grad`` of the reference's XLA backward,
+f32 atol 5e-4.
+
 f32 matmuls run in full precision: ``torch.backends.cuda.matmul.allow_tf32``
 is set False.  The kernel against its plain version on the card is in
 ``test_torch_kernels_cuda.py``, which imports no jax.
@@ -117,9 +120,48 @@ def test_port_ref_matches_jax_ref_scale():
 
 
 def test_forward_only():
+    """The op is no longer forward-only: an input that requires a gradient
+    gets one, and ``lse`` is not differentiable."""
     q, k, v = (torch.from_numpy(x) for x in _mk(1, 1, 2, 1, 8, 8, 32))
-    with pytest.raises(NotImplementedError):
-        attention(q.requires_grad_(), k, v)
+    out, lse = attention(q.requires_grad_(), k, v, return_lse=True)
+    assert out.requires_grad and not lse.requires_grad
+    out.sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
+
+
+@pytest.mark.parametrize("case", SWEEP)
+def test_grads_match_jax(case):
+    """dq, dk, dv of the port's ``attention`` (its plain backward on the
+    CPU) against ``jax.grad`` of the reference's ``attention(impl="xla")``
+    (the blockwise XLA backward), f32, atol 5e-4.  dq rows with no allowed
+    key are left out (no consistent answer in the reference); their
+    upstream gradient is zero, so they add nothing to dk and dv on either
+    side."""
+    import jax
+
+    b, hq, hkv, t, s, d, causal, window = case
+    q, k, v = _mk(11, b, hq, hkv, t, s, d)
+    live = _live_rows(t, s, causal, window)
+    do = np.random.default_rng(12).standard_normal(q.shape) \
+        .astype(np.float32) * live[None, None, :, None]
+
+    def jf(jq, jk, jv):
+        o = jax_attention(jq, jk, jv, causal=causal, window=window,
+                          impl="xla")
+        return jnp.sum(o * jnp.asarray(do))
+
+    jgrads = jax.grad(jf, argnums=(0, 1, 2))(*(jnp.asarray(x)
+                                                for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = attention(tq, tk, tv, causal=causal, window=window)
+    out.backward(torch.from_numpy(do))
+    for name, got, want in (("dq", tq.grad, jgrads[0]),
+                            ("dk", tk.grad, jgrads[1]),
+                            ("dv", tv.grad, jgrads[2])):
+        got, want = got.numpy(), np.asarray(want)
+        if name == "dq":
+            got, want = got[:, :, live], want[:, :, live]
+        np.testing.assert_allclose(got, want, atol=5e-4, err_msg=name)
 
 
 def test_dispatch_follows_input_device():

@@ -29,6 +29,8 @@ COPIES = (
        for n in ("blocks.py", "rs.py")]
     + [(SRC / "repro" / "configs" / n, SRC / "repro_torch" / "configs" / n)
        for n in ("__init__.py", "base.py", "yi_6b.py", "qwen2_5_3b.py")]
+    + [(SRC / "repro" / "data" / n, SRC / "repro_torch" / "data" / n)
+       for n in ("__init__.py", "pipeline.py")]
 )
 ML_DTYPES_IMPORT = '''try:  # np.dtype("bfloat16") — registered by jax's ml_dtypes dependency
     import ml_dtypes  # noqa: F401

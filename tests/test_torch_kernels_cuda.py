@@ -3,16 +3,28 @@ card.  Imports no jax, so it runs on a machine with a CUDA card and no jax:
 
   python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
-Every test skips without a card.  Tolerances: f32 atol 3e-5, bf16 atol
-3e-2 on the output, lse atol 1e-4, on rows with an allowed key;
-``allow_tf32`` is False so the plain version's f32 matmuls are full f32.
+Every test skips without a card.  Tolerances:
+
+* flash-attention forward: f32 atol 3e-5, bf16 atol 3e-2 on the output,
+  lse atol 1e-4, on rows with an allowed key;
+* flash-attention backward, from the same (q, k, v, out, lse, do): f32
+  atol 1e-4 + rtol 1e-4 (f32 sums in another order), bf16 atol 1e-3 +
+  rtol 2^-7 (both round one f32 value to bf16: one ulp apart at most);
+  two runs are bit-equal (no atomics);
+* codec K1-K3: bit-equal to the plain version and to the numpy host codec.
+
+``allow_tf32`` is False so the plain versions' f32 matmuls are full f32.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.flash_attention import attention, attention_ref  # noqa: E402
+from repro_torch.kernels.ckpt_codec import (dequantize_np, quantize_np,  # noqa: E402
+                                            to_blocks_np)
+from repro_torch.kernels.flash_attention import (attention,  # noqa: E402
+                                                 attention_bwd_ref,
+                                                 attention_ref)
 from repro_torch.kernels.flash_attention.ref import allowed_mask  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -92,3 +104,109 @@ def test_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_cuda(q.transpose(2, 3), k, v, causal=True,
                              window=None, scale=0.25)
+
+
+BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+           "bfloat16": dict(atol=1e-3, rtol=2 ** -7)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SWEEP)
+def test_bwd_kernel_matches_plain(card, case, dtype):
+    from repro_torch.kernels.flash_attention import kernel
+
+    b, hq, hkv, t, s, d, causal, window = case
+    q, k, v = _mk(card, 7, b, hq, hkv, t, s, d, dtype)
+    dout = _mk(card, 8, b, hq, hkv, t, s, d, dtype)[0]
+    out, lse = attention_ref(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    n0 = kernel.bwd_launches
+    got = kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert kernel.bwd_launches == n0 + 1
+    want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype],
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    again = kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+
+
+def test_bwd_rows_without_allowed_key_give_zero_grads(card):
+    q, k, v = _mk(card, 3, 1, 2, 1, 16, 8, 64, "float32")
+    for x in (q, k, v):
+        x.requires_grad_()
+    out = attention(q, k, v, causal=True)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert torch.all(q.grad[:, :, :8] == 0)
+    assert torch.isfinite(k.grad).all() and torch.isfinite(v.grad).all()
+
+
+def test_autograd_goes_through_both_kernels(card):
+    from repro_torch.kernels.flash_attention import kernel
+
+    q, k, v = _mk(card, 5, 1, 4, 2, 128, 128, 64, "bfloat16")
+    for x in (q, k, v):
+        x.requires_grad_()
+    f0, b0 = kernel.launches, kernel.bwd_launches
+    attention(q, k, v).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (kernel.launches - f0, kernel.bwd_launches - b0) == (1, 1)
+    assert q.grad.dtype == torch.bfloat16 and k.grad.shape == k.shape
+
+
+CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
+CODEC_DTYPES = ["float32", "bfloat16", "float16"]
+
+
+@pytest.mark.parametrize("dtype", CODEC_DTYPES)
+@pytest.mark.parametrize("n", CODEC_NS)
+def test_codec_kernels_match_plain_bit_for_bit(card, n, dtype):
+    from repro_torch.kernels.ckpt_codec import (dequantize, kernel, quantize,
+                                                quantize_delta, ref)
+    from repro_torch.kernels.ckpt_codec.ops import _to_blocks
+
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 3) \
+        .to(card, getattr(torch, dtype))
+    x1 = x + torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                              * 0.01).to(card, x.dtype)
+    blocks = _to_blocks(x)[0]
+    n0 = dict(kernel.launches)
+    q, s = quantize(x)
+    d, s1, q1 = quantize_delta(x1, q)
+    y = dequantize(q1, s1, (n,), x.dtype)
+    torch.cuda.synchronize()
+    assert {k: kernel.launches[k] - n0[k] for k in n0} == \
+        {"quantize": 1, "quantize_delta": 1, "dequantize": 1}
+    rq, rs = ref.quantize_ref(blocks)
+    rd, rs1, rq1 = ref.quantize_delta_ref(_to_blocks(x1)[0], rq)
+    for got, want in ((q, rq), (s, rs), (d, rd), (s1, rs1), (q1, rq1)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(y, ref.dequantize_ref(rq1, rs1, x.dtype)
+                       .reshape(-1)[:n])
+    hq, hs = quantize_np(to_blocks_np(x.float().cpu().numpy())[0])
+    np.testing.assert_array_equal(q.cpu().numpy(), hq)
+    np.testing.assert_array_equal(s.cpu().numpy(), hs)
+    want_y = dequantize_np(q1.cpu().numpy(), s1.cpu().numpy(), n, np.float32)
+    np.testing.assert_array_equal(y.float().cpu().numpy(),
+                                  torch.from_numpy(want_y).to(x.dtype)
+                                  .float().numpy())
+    assert torch.equal(torch.bitwise_xor(d, q), q1)
+
+
+def test_codec_kernel_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.ckpt_codec import kernel
+
+    x = torch.zeros((4, 256), device=card)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.quantize_cuda(x.double())
+    with pytest.raises(ValueError, match="256"):
+        kernel.quantize_cuda(torch.zeros((4, 128), device=card))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.quantize_cuda(x.cpu())
+    with pytest.raises(ValueError, match="prev_q"):
+        kernel.quantize_delta_cuda(x, torch.zeros((4, 256), device=card))

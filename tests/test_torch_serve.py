@@ -141,8 +141,18 @@ def test_snapshot_regions_match_reference(dtype):
 
 
 def test_q8_codecs_name_next_slice():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        snapshot_pytree({"w": torch.zeros(4)}, codec="q8")
+    """The q8 codecs came with the training slice: a float leaf is encoded
+    (its raw bytes never reach the host), a bf16 one is recorded as f32 for
+    numpy's sake, ints travel raw, and an unknown codec raises."""
+    snap = snapshot_pytree({"w": torch.zeros(4),
+                            "h": torch.ones(3, dtype=torch.bfloat16),
+                            "i": torch.tensor(2)}, codec="q8")
+    assert snap.regions["w"].encoded is not None and not snap.regions["w"].parts
+    assert snap.regions["h"].meta.dtype == "float32"
+    assert snap.regions["h"].encoded.raw_nbytes == 6
+    assert snap.regions["i"].encoded is None
+    with pytest.raises(ValueError, match="codec"):
+        snapshot_pytree({"w": torch.zeros(4)}, codec="zstd")
 
 
 def test_bf16_roundtrip_without_ml_dtypes():
