@@ -45,7 +45,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. numbers: step ms, tokens/s, ``mfu``, commit and restart wall seconds,
    bytes on the wire, peak device memory, host RSS, a ``torch.profiler``
    window over one training step, and the ``kernels`` line (each kernel's
-   time, its plain version's, the bound, a library yardstick where one
+   launches on the path named in ``launches_path``, its time, its plain
+   version's, the bound, a library yardstick where one
    PyTorch call computes the same function).
 
 The last line is ``{"ok": true, "device": {...}}``.  f32 matmuls run in full
@@ -64,6 +65,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -703,9 +705,13 @@ def train_main_path(cfg, device, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
                                        for m in t1.metrics_log[-2:]]
             res["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
                 if device.type == "cuda" else 0
-            _drop(t1)
+            # a "crash": the trainer is dropped without finalize, and with
+            # it goes its state on the card
+            t1_ref = weakref.ref(t1)
             del t1
             gc.collect()
+            if t1_ref() is not None:
+                raise AssertionError("the dropped trainer is still alive")
             if device.type == "cuda":
                 torch.cuda.empty_cache()
             # the drains finish, and L1 keeps only the newest checkpoint
@@ -745,15 +751,6 @@ def train_main_path(cfg, device, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
         torch.cuda.empty_cache()
         res["allocated_after"] = torch.cuda.memory_allocated()
     return res
-
-
-def _drop(trainer) -> None:
-    """Let go of a trainer that "crashed" (no finalize): its state and
-    commit handles, and its subscription on the bus, which would keep it
-    alive."""
-    trainer._unsubscribe()
-    trainer.state = None
-    trainer._pending_commits.clear()
 
 
 def _encode_all(trainer, codes) -> None:
@@ -1050,12 +1047,21 @@ def main() -> int:
     torch.cuda.synchronize()
     log(json.dumps({"flash_fwd_train_shape": fwd_train,
                     "flash_bwd_train_shape": bwd, "codec_w_gu": codec}))
+    # ``launches`` is the count from the run of the path named by
+    # ``launches_path``; ``launches_by_path`` gives every path's count
+    paths = {"serve": res["launches"], "train": tr["launches"],
+             "train_cut": cut["launches"]}
+
+    def counts(name, path):
+        return {"launches": paths[path][name], "launches_path": path,
+                "launches_by_path": {p: c[name] for p, c in paths.items()
+                                     if name in c}}
+
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
-        "launches": res["launches"]["flash_fwd"],
-        "launches_train": tr["launches"]["flash_fwd"],
+        **counts("flash_fwd", "serve"),
         "max_abs_err": path_err, "ms": num["ms"],
         "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
         "bound_by": num["bound_by"], "library_ms": num["library_ms"],
@@ -1063,7 +1069,7 @@ def main() -> int:
         "name": "flash_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/ops.py:94",
-        "launches": tr["launches"]["flash_bwd"],
+        **counts("flash_bwd", "train"),
         "max_abs_err": bwd_err, "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
@@ -1071,13 +1077,12 @@ def main() -> int:
     for name, line in (("quantize", 54), ("quantize_delta", 74),
                        ("dequantize", 98)):
         c = codec[name]
-        launches = cut["launches"][name] if name == "dequantize" \
-            else tr["launches"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/ckpt_codec/csrc/codec.cu",
             "replaces": f"src/repro/kernels/ckpt_codec/kernel.py:{line}",
-            "launches": launches, "launches_cut_phase": cut["launches"][name],
+            # K3 runs only where gradients are compressed: the cut phase
+            **counts(name, "train_cut" if name == "dequantize" else "train"),
             "max_abs_err": float(codec_bad), "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"]})

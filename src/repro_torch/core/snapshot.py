@@ -43,7 +43,7 @@ from . import plan as planlib
 from ..kernels.ckpt_codec import BLOCK, quantize, quantize_delta
 from .tiers import (Q8_EMPTY_DELTA_NBYTES, DeltaState, EncodedRegion,
                     _q8_full_size, is_float_dtype, pack_q8_region,
-                    q8_pack_full)
+                    q8_pack_delta, q8_pack_full)
 from .types import PartitionDesc, PartitionScheme, RegionMeta
 
 
@@ -185,17 +185,32 @@ def _is_float_leaf(leaf) -> bool:
     return is_float_dtype(np.asarray(leaf).dtype)
 
 
+def _delta_row_nbytes() -> int:
+    """Bytes one changed block adds to a delta frame, measured on the
+    packer itself (``tiers.q8_pack_delta``) so the two cannot drift."""
+    one = np.ones((1, BLOCK), np.int8)
+    blob = q8_pack_delta(BLOCK, one, np.ones((1, 1), np.float32),
+                         DeltaState(n=BLOCK, codes=np.zeros_like(one),
+                                    scales=np.ones((1, 1), np.float32)))
+    return len(blob) - Q8_EMPTY_DELTA_NBYTES
+
+
+_DELTA_ROW_NBYTES = _delta_row_nbytes()
+
+
 def _delta_is_smaller(d: torch.Tensor, s: torch.Tensor,
                       prev: DeltaState) -> bool:
-    """The packer's own choice (``tiers.pack_q8_region``), made on the
-    device: a sparse delta frame only when it is smaller than a keyframe.
-    A part that changed nearly everywhere then copies its codes, not its
-    delta, and the host builds no delta frame only to drop it."""
+    """``tiers.pack_q8_region``'s choice for one part, made on the device
+    from the dense XOR delta ``d`` and the new scales ``s``: a sparse delta
+    frame only when it is smaller than a keyframe.  A part that changed
+    nearly everywhere then copies its codes, not its delta, and the host
+    builds no delta frame only to drop it.  A block is changed when its
+    codes or its scale moved, as ``tiers.q8_pack_delta`` counts it."""
     prev_scales = torch.from_numpy(np.ascontiguousarray(prev.scales[:, 0]))
     changed = torch.ne(d, 0).any(dim=1) | torch.ne(s[:, 0],
                                                    prev_scales.to(s.device))
     nnz = int(changed.sum())
-    return Q8_EMPTY_DELTA_NBYTES + nnz * (8 + BLOCK) < _q8_full_size(
+    return Q8_EMPTY_DELTA_NBYTES + nnz * _DELTA_ROW_NBYTES < _q8_full_size(
         d.shape[0])
 
 
@@ -365,18 +380,25 @@ def restore_pytree(template, regions: Dict[str, Dict[int, np.ndarray]],
     return _unflatten(template, rebuild)
 
 
+def load_leaf_(name: str, leaf: torch.Tensor, meta: RegionMeta,
+               parts: Dict[int, np.ndarray]) -> None:
+    """Copy one region's fetched parts, placed by ``meta``'s boxes, into
+    ``leaf`` in place (shapes must agree)."""
+    full = _assemble(meta, parts)
+    if tuple(full.shape) != tuple(leaf.shape):
+        raise ValueError(f"{name}: restored shape {full.shape} != "
+                         f"{tuple(leaf.shape)}")
+    with torch.no_grad():
+        leaf.copy_(_host_tensor(full, leaf.dtype))
+
+
 def load_pytree_(tree, regions: Dict[str, Dict[int, np.ndarray]],
                  region_meta: Dict[str, RegionMeta]):
     """Copy fetched region parts into the tensors of ``tree`` in place
     (shapes must agree), one leaf at a time: the device holds no second
     copy of the state.  A region's host parts are released once copied.
     Returns ``tree``."""
-    with torch.no_grad():
-        for path, leaf in _flatten(tree):
-            name = _leaf_name(path)
-            full = _assemble(region_meta[name], regions.pop(name))
-            if tuple(full.shape) != tuple(leaf.shape):
-                raise ValueError(f"{name}: restored shape {full.shape} != "
-                                 f"{tuple(leaf.shape)}")
-            leaf.copy_(_host_tensor(full, leaf.dtype))
+    for path, leaf in _flatten(tree):
+        name = _leaf_name(path)
+        load_leaf_(name, leaf, region_meta[name], regions.pop(name))
     return tree

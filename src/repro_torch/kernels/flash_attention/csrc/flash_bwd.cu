@@ -9,14 +9,21 @@
 // p = exp(s - lse), with D = rowsum(do * o) in f32, dv = p^T do,
 // ds = p (do v^T - D), dq = scale ds k, dk = scale ds^T q.
 //
-// Deterministic, with no atomics: three kernels, each output element
+// Deterministic, with no atomics: four kernels, each output element
 // summed by one thread in a fixed order.
 //   1. rowdot: D = rowsum(do * o), one warp per query row.
-//   2. dkdv: one block per (b, kv-head, tile of 64 keys); it loops over the
-//      query heads of its group and over the query tiles the mask allows,
-//      and keeps its dk and dv tiles in registers.
-//   3. dq: one block per (b, q-head, tile of 64 queries); it loops over the
-//      key tiles the mask allows, with its dq tile in registers.
+//   2. dkdv: one block per (b, q-head, tile of 64 keys); it loops over the
+//      query tiles the mask allows, keeps its dk and dv tiles in registers
+//      and writes them, in f32, as that query head's part of its KV head's
+//      gradients.  One block per query head rather than per KV head gives
+//      g times more blocks, and the grid puts every head's first key tile
+//      (the most query tiles under a causal mask) first, so the longest
+//      blocks start first and the SMs finish together.
+//   3. dkdv_reduce: dk, dv = the sum of the g parts of each KV head, in
+//      head order.
+//   4. dq: one block per (b, q-head, tile of 64 queries), longest tiles
+//      first; it loops over the key tiles the mask allows, with its dq tile
+//      in registers.
 // Both main kernels recompute the 64x64 score tile and do.v^T in registers
 // (4x4 per thread), put p and ds in shared memory, and accumulate the
 // products over the tile from there.  Probabilities are masked to exact
@@ -31,6 +38,8 @@
 // runs on f32 FMAs fed from shared memory, not tensor cores, so it is
 // bound by FMA issue and shared-memory reads (67 TFLOP/s f32 peak at best);
 // mma/wgmma, TMA and pipelining come in later versions.
+#include <algorithm>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -124,13 +133,15 @@ rowdot_kernel(const T* __restrict__ dout, const T* __restrict__ out,
   if (lane == 0) Dsum[r] = acc;
 }
 
+// grid (Hq, key tiles, B); pdk / pdv are (B, Hq, S, D) f32
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ Dsum,
-            T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hkv, int Tq,
-            int S, float scale, int causal, int has_window, int window) {
+            float* __restrict__ pdk, float* __restrict__ pdv, int Hq,
+            int Hkv, int Tq, int S, float scale, int causal, int has_window,
+            int window) {
   constexpr int DP = D + 1;
   constexpr int NC = D / 16;
   extern __shared__ float smem[];
@@ -146,10 +157,10 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int k0 = blockIdx.x * BK;
-  const int hk = blockIdx.y;
+  const int h = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
   const int b = blockIdx.z;
-  const int g = Hq / Hkv;
+  const int hk = h / (Hq / Hkv);
   const int offset = S - Tq;      // bottom-right alignment
 
   const size_t kvoff = (size_t(b) * Hkv + hk) * size_t(S) * D;
@@ -167,72 +178,91 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_lo = causal ? max(0, k0 - offset) : 0;
   const int q_hi = has_window ? min(Tq, k_last + window - offset) : Tq;
 
-  for (int gi = 0; gi < g; ++gi) {
-    const int h = hk * g + gi;
-    const size_t qoff = (size_t(b) * Hq + h) * size_t(Tq);
-    for (int q0 = (q_lo / BQ) * BQ; q0 < q_hi; q0 += BQ) {
-      __syncthreads();            // the last tile's reads are done
-      load_tile<T, D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
-      load_tile<T, D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
-      for (int r = tid; r < BQ; r += NTHREADS) {
-        const bool in = q0 + r < Tq;
-        Ls[r] = in ? lse[qoff + q0 + r] : -INFINITY;
-        Dl[r] = in ? Dsum[qoff + q0 + r] : 0.f;
-      }
-      __syncthreads();
+  const size_t qoff = (size_t(b) * Hq + h) * size_t(Tq);
+  for (int q0 = (q_lo / BQ) * BQ; q0 < q_hi; q0 += BQ) {
+    __syncthreads();            // the last tile's reads are done
+    load_tile<T, D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
+    load_tile<T, D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
+    for (int r = tid; r < BQ; r += NTHREADS) {
+      const bool in = q0 + r < Tq;
+      Ls[r] = in ? lse[qoff + q0 + r] : -INFINITY;
+      Dl[r] = in ? Dsum[qoff + q0 + r] : 0.f;
+    }
+    __syncthreads();
 
-      float s[4][4], dp[4][4];
-      score_tiles<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    float s[4][4], dp[4][4];
+    score_tiles<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        const float L = Ls[r];
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i;
+      const float L = Ls[r];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          const bool ok = L > -INFINITY && allowed(q0 + r, k0 + c, Tq, S,
-                                                   offset, causal,
-                                                   has_window, window);
-          const float p = ok ? expf(s[i][j] - L) : 0.f;
-          Ps[r * PP + c] = p;
-          dSs[r * PP + c] = p * (dp[i][j] - Dl[r]);
-        }
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const bool ok = L > -INFINITY && allowed(q0 + r, k0 + c, Tq, S,
+                                                 offset, causal,
+                                                 has_window, window);
+        const float p = ok ? expf(s[i][j] - L) : 0.f;
+        Ps[r * PP + c] = p;
+        dSs[r * PP + c] = p * (dp[i][j] - Dl[r]);
       }
-      __syncthreads();
+    }
+    __syncthreads();
 
 #pragma unroll 4
-      for (int qq = 0; qq < BQ; ++qq) {
-        float pv[4], sv[4], ov[NC], qv[NC];
+    for (int qq = 0; qq < BQ; ++qq) {
+      float pv[4], sv[4], ov[NC], qv[NC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[qq * PP + ty * 4 + i];
-          sv[i] = dSs[qq * PP + ty * 4 + i];
-        }
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = Ps[qq * PP + ty * 4 + i];
+        sv[i] = dSs[qq * PP + ty * 4 + i];
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        ov[c] = dOs[qq * DP + tx + 16 * c];
+        qv[c] = Qs[qq * DP + tx + 16 * c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          ov[c] = dOs[qq * DP + tx + 16 * c];
-          qv[c] = Qs[qq * DP + tx + 16 * c];
+          adv[i][c] = fmaf(pv[i], ov[c], adv[i][c]);
+          adk[i][c] = fmaf(sv[i], qv[c], adk[i][c]);
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            adv[i][c] = fmaf(pv[i], ov[c], adv[i][c]);
-            adk[i][c] = fmaf(sv[i], qv[c], adk[i][c]);
-          }
-      }
     }
   }
 
+  const size_t poff = (size_t(b) * Hq + h) * size_t(S) * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = k0 + ty * 4 + i;
     if (r >= S) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      store_out(dk + kvoff + size_t(r) * D + tx + 16 * c, adk[i][c]);
-      store_out(dv + kvoff + size_t(r) * D + tx + 16 * c, adv[i][c]);
+      pdk[poff + size_t(r) * D + tx + 16 * c] = adk[i][c];
+      pdv[poff + size_t(r) * D + tx + 16 * c] = adv[i][c];
     }
+  }
+}
+
+// dk[b, hk] = sum over gi of pdk[b, hk * g + gi], in order of gi; dv alike
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+dkdv_reduce_kernel(const float* __restrict__ pdk,
+                   const float* __restrict__ pdv, T* __restrict__ dk,
+                   T* __restrict__ dv, int64_t head_elems, int64_t n, int g) {
+  for (int64_t i = int64_t(blockIdx.x) * NTHREADS + threadIdx.x; i < n;
+       i += int64_t(gridDim.x) * NTHREADS) {
+    const int64_t bh = i / head_elems;      // b * Hkv + hk
+    const int64_t e = i - bh * head_elems;
+    const int64_t p0 = bh * g * head_elems + e;
+    float sk = 0.f, sv = 0.f;
+    for (int gi = 0; gi < g; ++gi) {
+      sk += pdk[p0 + gi * head_elems];
+      sv += pdv[p0 + gi * head_elems];
+    }
+    store_out(dk + i, sk);
+    store_out(dv + i, sv);
   }
 }
 
@@ -257,8 +287,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
+  // grid (Hq, query tiles, B): the last query tile (the most key tiles
+  // under a causal mask) first
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int offset = S - Tq;
@@ -347,9 +379,9 @@ constexpr size_t dq_smem(int d) {
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, const void* lse,
-                   void* Dsum, void* dq, void* dk, void* dv, int B, int Hq,
-                   int Hkv, int Tq, int S, float scale, int causal,
-                   int has_window, int window, cudaStream_t st) {
+                   void* Dsum, void* part, void* dq, void* dk, void* dv,
+                   int B, int Hq, int Hkv, int Tq, int S, float scale,
+                   int causal, int has_window, int window, cudaStream_t st) {
   constexpr size_t smem_kv = dkdv_smem(D);
   constexpr size_t smem_q = dq_smem(D);
   static bool configured = false;   // the attributes are per kernel, once
@@ -376,14 +408,25 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if (S > 0) {
-    dim3 gkv((S + BK - 1) / BK, Hkv, B);
+    float* pdk = static_cast<float*>(part);
+    float* pdv = pdk + size_t(B) * Hq * S * D;
+    dim3 gkv(Hq, (S + BK - 1) / BK, B);
     dkdv_kernel<T, D><<<gkv, NTHREADS, smem_kv, st>>>(
-        qp, kp, vp, dop, lp, Dp, static_cast<T*>(dk), static_cast<T*>(dv),
-        Hq, Hkv, Tq, S, scale, causal, has_window, window);
+        qp, kp, vp, dop, lp, Dp, pdk, pdv, Hq, Hkv, Tq, S, scale, causal,
+        has_window, window);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    // a grid-stride loop; the cap only bounds the grid
+    const int64_t n = int64_t(B) * Hkv * S * D;
+    const int64_t blocks = std::min<int64_t>((n + NTHREADS - 1) / NTHREADS,
+                                             4096);
+    dkdv_reduce_kernel<T><<<unsigned(blocks), NTHREADS, 0, st>>>(
+        pdk, pdv, static_cast<T*>(dk), static_cast<T*>(dv), int64_t(S) * D,
+        n, Hq / Hkv);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  dim3 gq((Tq + BQ - 1) / BQ, Hq, B);
+  dim3 gq(Hq, (Tq + BQ - 1) / BQ, B);
   dq_kernel<T, D><<<gq, NTHREADS, smem_q, st>>>(
       qp, kp, vp, dop, lp, Dp, static_cast<T*>(dq), Hq, Hkv, Tq, S, scale,
       causal, has_window, window);
@@ -393,21 +436,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        const void* out, const void* dout, const void* lse,
-                       void* Dsum, void* dq, void* dk, void* dv, int B,
-                       int Hq, int Hkv, int Tq, int S, float scale,
+                       void* Dsum, void* part, void* dq, void* dk, void* dv,
+                       int B, int Hq, int Hkv, int Tq, int S, float scale,
                        int causal, int has_window, int window,
                        cudaStream_t st) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, out, dout, lse, Dsum, dq, dk, dv, B, Hq,
-                           Hkv, Tq, S, scale, causal, has_window, window, st);
+      return launch<T, 32>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
+                           B, Hq, Hkv, Tq, S, scale, causal, has_window,
+                           window, st);
     case 64:
-      return launch<T, 64>(q, k, v, out, dout, lse, Dsum, dq, dk, dv, B, Hq,
-                           Hkv, Tq, S, scale, causal, has_window, window, st);
+      return launch<T, 64>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
+                           B, Hq, Hkv, Tq, S, scale, causal, has_window,
+                           window, st);
     case 128:
-      return launch<T, 128>(q, k, v, out, dout, lse, Dsum, dq, dk, dv, B, Hq,
-                            Hkv, Tq, S, scale, causal, has_window, window,
-                            st);
+      return launch<T, 128>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
+                            B, Hq, Hkv, Tq, S, scale, causal, has_window,
+                            window, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -416,12 +461,14 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, out, dout, dq (B, Hq, T, D); k, v,
-// dk, dv (B, Hkv, S, D); lse and the scratch Dsum (B, Hq, T) f32; all
-// contiguous.  Launches the three kernels on `stream` without
+// dk, dv (B, Hkv, S, D); lse and the scratch Dsum (B, Hq, T) f32; the
+// scratch `part` (2, B, Hq, S, D) f32 (the per-query-head dk and dv); all
+// contiguous.  Launches the four kernels on `stream` without
 // synchronising and returns the first error.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* out, const void* dout, const void* lse,
-                         void* Dsum, void* dq, void* dk, void* dv, int B,
+                         void* Dsum, void* part, void* dq, void* dk, void* dv,
+                         int B,
                          int Hq, int Hkv, int Tq, int S, int D, float scale,
                          int causal, int has_window, int window, int dtype,
                          void* stream) {
@@ -430,13 +477,13 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_d<float>(D, q, k, v, out, dout, lse, Dsum, dq, dk, dv, B,
-                          Hq, Hkv, Tq, S, scale, causal, has_window, window,
-                          st);
+    e = dispatch_d<float>(D, q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
+                          B, Hq, Hkv, Tq, S, scale, causal, has_window,
+                          window, st);
   else if (dtype == 1)
-    e = dispatch_d<__nv_bfloat16>(D, q, k, v, out, dout, lse, Dsum, dq, dk,
-                                  dv, B, Hq, Hkv, Tq, S, scale, causal,
-                                  has_window, window, st);
+    e = dispatch_d<__nv_bfloat16>(D, q, k, v, out, dout, lse, Dsum, part,
+                                  dq, dk, dv, B, Hq, Hkv, Tq, S, scale,
+                                  causal, has_window, window, st);
   else
     e = cudaErrorInvalidValue;
   return int(e);

@@ -46,7 +46,7 @@ def _bwd_lib() -> ctypes.CDLL:
     fn = lib.flash_bwd
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 10 + [ci] * 6 + [ctypes.c_float, ci, ci, ci,
+        fn.argtypes = [vp] * 11 + [ci] * 6 + [ctypes.c_float, ci, ci, ci,
                                                ci, vp]
         fn.restype = ci
         lib.flash_bwd_error_string.argtypes = [ci]
@@ -142,12 +142,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     dsum = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    # each query head's part of its KV head's dk and dv, summed in head
+    # order by the last kernel (no atomics)
+    part = torch.empty((2, b, hq, s, d), dtype=torch.float32,
+                       device=q.device)
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = lib.flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, t, s, d, float(scale),
+        dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), part.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, t, s, d,
+        float(scale),
         int(causal), int(window is not None), int(window or 0),
         _DTYPES[q.dtype], stream)
     if status != 0:

@@ -26,7 +26,9 @@ copies of it.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
+import weakref
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -36,8 +38,9 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..core import ICheckClient, ICheckCluster, MalleableApp
 from ..core import events as icheck_events
 from ..core import plan as planlib
-from ..core.snapshot import (_flatten, _host_tensor, _leaf_name,
-                             describe_pytree, load_pytree_, snapshot_pytree)
+from ..core.snapshot import (_flatten, _leaf_name, describe_pytree,
+                             load_leaf_, load_pytree_, snapshot_pytree)
+from ..core.types import PartitionDesc, PartitionScheme
 from ..data import SyntheticLMData
 from ..optim import AdamWConfig, warmup_cosine
 from .state import make_train_state
@@ -64,34 +67,24 @@ class LogicalMesh:
         return _WholeBox()
 
 
-def default_make_mesh(ranks: int) -> LogicalMesh:
-    return LogicalMesh(ranks)
-
-
 class ElasticTrainer:
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  cluster: ICheckCluster, app_id: str = "train",
                  ranks: int = 1, seed: int = 0,
                  opt_cfg: Optional[AdamWConfig] = None,
                  commit_every: int = 10, probe_every: int = 100,
-                 global_batch: Optional[int] = None,
-                 make_mesh: Callable[[int], LogicalMesh] = default_make_mesh,
-                 codec: str = "raw", replication: int = 1,
-                 total_steps: int = 1000, adaptive_interval: bool = False,
-                 step_sim_s: float = 0.0, overlap_resize: bool = False,
-                 device="cuda"):
+                 codec: str = "raw", total_steps: int = 1000,
+                 overlap_resize: bool = False, device="cuda"):
         self.cfg = cfg
         self.shape = shape
         self.device = torch.device(device)
         self.app = MalleableApp(app_id, cluster.rm, ranks)
         self.proc_type = self.app.init_adapt()
         self.client = ICheckClient(app_id, cluster.controller, ranks=ranks,
-                                   codec=codec, replication=replication)
-        self.make_mesh = make_mesh
-        self.mesh = make_mesh(ranks)
+                                   codec=codec)
+        self.mesh = LogicalMesh(ranks)
         self.commit_every = commit_every
         self.probe_every = probe_every
-        self.global_batch = global_batch or shape.global_batch
         self.opt_cfg = opt_cfg or AdamWConfig()
         self.schedule = warmup_cosine(self.opt_cfg.lr, warmup=20,
                                       total=total_steps)
@@ -105,24 +98,24 @@ class ElasticTrainer:
         self._adapt_handles: Optional[Dict[str, object]] = None
         self._adapt_ctx: Optional[dict] = None
         self.steps_during_resize = 0
-        # adaptive checkpoint pacing (sim time), as in the reference
-        self.adaptive_interval = adaptive_interval
-        self.step_sim_s = float(step_sim_s)
-        self._clock = cluster.controller.clock
-        if adaptive_interval and self.step_sim_s <= 0 \
-                and self._clock.time_scale == 0:
-            raise ValueError(
-                "adaptive_interval=True needs step_sim_s > 0 (or a cluster "
-                "with time_scale > 0) so sim time advances between steps")
-        self._last_commit_t = self._clock.now()
-        self.interval_changes = 0
         self.ckpt_events: list = []
-        self._unsubscribe = cluster.controller.bus.subscribe(
-            self._on_ckpt_event,
-            events=(icheck_events.CKPT_IN_L1, icheck_events.CKPT_IN_L2,
-                    icheck_events.DRAIN_FAILED, icheck_events.CODEC_DEGRADED,
-                    icheck_events.RESIZE_FOREWARNED,
-                    icheck_events.INTERVAL_CHANGED))
+        # the bus holds the trainer weakly: a trainer dropped without
+        # ``finalize`` (a crash) releases its state, and its subscription
+        # goes with it
+        handler = weakref.WeakMethod(self._on_ckpt_event)
+
+        def on_event(ev) -> None:
+            h = handler()
+            if h is not None:
+                h(ev)
+
+        self._unsubscribe = weakref.finalize(
+            self, cluster.controller.bus.subscribe(
+                on_event,
+                events=(icheck_events.CKPT_IN_L1, icheck_events.CKPT_IN_L2,
+                        icheck_events.DRAIN_FAILED,
+                        icheck_events.CODEC_DEGRADED,
+                        icheck_events.RESIZE_FOREWARNED)))
 
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.state = make_train_state(cfg, gen, self.opt_cfg, self.device)
@@ -137,15 +130,6 @@ class ElasticTrainer:
 
     def _on_ckpt_event(self, ev) -> None:
         self.ckpt_events.append(ev.as_record())
-        if ev.name == icheck_events.INTERVAL_CHANGED \
-                and ev.payload.get("app") == self.client.app_id:
-            self.interval_changes += 1
-
-    def _commit_due(self, step: int) -> bool:
-        if self.adaptive_interval:
-            return (self._clock.now() - self._last_commit_t
-                    >= self.client.ckpt_interval_s)
-        return self.commit_every > 0 and step % self.commit_every == 0
 
     def _register_regions(self):
         self.client.add_adapt_snapshot(
@@ -178,7 +162,6 @@ class ElasticTrainer:
         self._pending_commits = [c for c in self._pending_commits
                                  if not c.done()]
         self._pending_commits.append(h)
-        self._last_commit_t = self._clock.now()
         return h
 
     def restart_if_available(self) -> bool:
@@ -202,23 +185,23 @@ class ElasticTrainer:
 
     def _load_parts(self, parts_of: Callable[[str], Dict[int, np.ndarray]],
                     boxes: Dict[str, tuple]) -> None:
-        """Write every leaf's redistributed parts into the live state."""
-        with torch.no_grad():
-            for path, leaf in _flatten(self.state):
-                name = _leaf_name(path)
-                full = np.zeros(tuple(leaf.shape),
-                                np.dtype(self.client.regions[name].dtype))
-                for idx, arr in parts_of(name).items():
-                    sl = tuple(slice(lo, hi) for lo, hi in boxes[name][idx])
-                    full[sl] = arr
-                leaf.copy_(_host_tensor(full, leaf.dtype))
+        """Write every leaf's redistributed parts, placed by their new
+        boxes, into the live state, one leaf at a time."""
+        for path, leaf in _flatten(self.state):
+            name = _leaf_name(path)
+            meta = dataclasses.replace(
+                self.client.regions[name],
+                partition=PartitionDesc(scheme=PartitionScheme.MESH,
+                                        num_parts=len(boxes[name]),
+                                        bounds=tuple(boxes[name])))
+            load_leaf_(name, leaf, meta, parts_of(name))
 
     def _redistribute(self, new_ranks: int):
         """Agent-side slice redistribution onto the new ranks (paper
         SSIII-B): commit (blocking) first, then pull the slices each new
         part needs from the agents."""
         self.commit(blocking=True)
-        new_mesh = self.make_mesh(new_ranks)
+        new_mesh = LogicalMesh(new_ranks)
         boxes = self._new_boxes(new_mesh)
         self._load_parts(
             lambda name: self.client.redistribute_mesh(name, boxes[name]),
@@ -230,7 +213,7 @@ class ElasticTrainer:
         per TrainState leaf; training continues on the old ranks while the
         streams run."""
         self.commit(blocking=True)
-        new_mesh = self.make_mesh(new_ranks)
+        new_mesh = LogicalMesh(new_ranks)
         boxes = self._new_boxes(new_mesh)
         self._adapt_handles = {
             name: self.client.redistribute_mesh(name, b, overlap=True)
@@ -275,7 +258,7 @@ class ElasticTrainer:
 
     # ------------------------------------------------------------------ run
     def _device_batch(self) -> Dict[str, torch.Tensor]:
-        batch = self.data.next_batch(self.global_batch)
+        batch = self.data.next_batch()
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in batch.items()}
 
@@ -290,18 +273,14 @@ class ElasticTrainer:
                 self.steps_during_resize += 1
             self.metrics_log.append(
                 {"step": step, "loss": float(metrics["loss"])})
-            if self.step_sim_s > 0:
-                self._clock.sleep(self.step_sim_s)
-            if self._commit_due(step):
+            if self.commit_every and step % self.commit_every == 0:
                 self.commit()
             if self.probe_every and step % self.probe_every == 0:
                 self.client.probe_agents()
         return {"steps": steps, "wall_s": time.monotonic() - t0,
                 "final_loss": self.metrics_log[-1]["loss"],
                 "resizes": self.resizes,
-                "steps_during_resize": self.steps_during_resize,
-                "interval_changes": self.interval_changes,
-                "ckpt_interval_s": self.client.ckpt_interval_s}
+                "steps_during_resize": self.steps_during_resize}
 
     def finalize(self):
         if self._adapt_handles is not None:

@@ -20,6 +20,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs files in parallel worker processes: few intra-op threads
+# keep this file from crowding the others off the cores
+torch.set_num_threads(2)
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -256,3 +256,28 @@ def test_describe_pytree_names_regions_without_a_copy():
         assert not r.parts
         assert (r.meta.shape, r.meta.dtype, r.meta.nbytes) == \
             (m.shape, m.dtype, m.nbytes)
+
+
+@pytest.mark.parametrize("changed", [0, 1, 252, 253])
+def test_device_frame_choice_equals_packer(changed):
+    """The delta-or-keyframe choice the snapshot makes from the device's
+    dense delta is the one ``tiers.pack_q8_region`` makes from the host
+    codes.  At 256 blocks a delta frame of 252 changed blocks is still the
+    smaller one (13 + 252 * 264 bytes against 9 + 256 * 260), and one of
+    253 is not."""
+    from repro_torch.core.snapshot import _delta_is_smaller
+    from repro_torch.core.tiers import DeltaState, pack_q8_region
+    from repro_torch.kernels.ckpt_codec import quantize, quantize_delta
+
+    nb = 256
+    x0 = np.random.default_rng(4).standard_normal(nb * 256) \
+        .astype(np.float32)
+    x1 = x0.copy()
+    x1.reshape(nb, 256)[:changed, 0] += 1.0
+    q0, s0 = quantize(torch.from_numpy(x0))
+    prev = DeltaState(n=x0.size, codes=q0.numpy(), scales=s0.numpy())
+    d, s, q = quantize_delta(torch.from_numpy(x1), q0)
+    _, _, frame = pack_q8_region({0: (x1.size, q.numpy(), s.numpy())},
+                                 {0: prev})
+    assert frame == ("delta" if changed <= 252 else "key")
+    assert _delta_is_smaller(d, s, prev) == (frame == "delta")

@@ -24,6 +24,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the suite runs files in parallel worker processes: few intra-op threads
+# keep this file from crowding the others off the cores
+torch.set_num_threads(2)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -325,6 +328,27 @@ def test_restart_equivalence():
     np.testing.assert_allclose(first + resumed, ref_losses, rtol=1e-6)
     for name, p in _walk(t2.state.params):
         assert torch.equal(p, ref_params[name]), name
+
+
+def test_dropped_trainer_releases_its_state():
+    """A trainer lost without ``finalize`` (a crash) is freed with its
+    state: the event bus holds it weakly, and its subscription goes too."""
+    import gc
+    import weakref
+
+    with ICheckCluster(n_icheck_nodes=2) as cluster:
+        t = _trainer(cluster, "app", 1, total_steps=4)
+        t.run(2)
+        t.commit(blocking=True)
+        subs = len(cluster.controller.bus._subs)
+        ref = weakref.ref(t)
+        del t
+        gc.collect()
+        assert ref() is None
+        assert len(cluster.controller.bus._subs) == subs - 1
+        t2 = _trainer(cluster, "app", 1, total_steps=4)
+        assert t2.restarted and int(t2.state.step) == 2
+        t2.finalize()
 
 
 def test_restart_from_l2_after_l1_loss():
