@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. environment: the card's name and power limit from ``nvidia-smi``; no
    CUDA card means exit 1 with no result;
 2. build: every kernel library (flash-attention forward and backward, the
-   checkpoint codec) compiled with ``nvcc`` for ``sm_90a`` from the sources
-   in this checkout, all at once;
+   checkpoint codec, the RWKV-6 recurrence, the Reed-Solomon encode)
+   compiled with ``nvcc`` for ``sm_90a`` from the sources in this
+   checkout, all at once;
 3. kernels against their plain PyTorch versions on the card:
    * the flash-attention forward over the reference's sweep plus the
      serving path's shape, f32 (atol 3e-5) and bf16 (atol 3e-2), lse atol
@@ -21,6 +22,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    * the codec K1-K3 over n in {1, 255, 256, 257, 4096, 100000, the
      training path's largest leaf} x f32/bf16/f16: codes, deltas, scales
      and dequantized values bit-equal (0 mismatches);
+   * the RWKV-6 recurrence K6 over the reference's sweep plus the serving
+     path's prefill (4, 64, 512, 64) and decode (4, 64, 1, 64) shapes, from
+     a carried state, f32 and bf16 r/k/v, against the plain chunked
+     version: atol 2e-3 (the reference's kernel tests), plus rtol 2^-7 on
+     a bf16 o; log_w below -30 (clamped); [0, T/2) then [T/2, T) equal to
+     one shot within atol 1e-5;
 4. the serving path: yi-6b at full width (32 layers, bf16, random weights
    from a seeded generator) serves 4 requests of 512 prompt tokens and 32
    new tokens through ``ServeEngine.generate``, committing its KV cache to
@@ -30,6 +37,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    from it must give the live run's tokens.  A 2-layer cut of the same
    model in f32 is held against the plain CPU path on a short prompt; then
    the serving numbers, and the weights are freed;
+4b. the same serving path for rwkv6-7b at full width (32 layers, d_model
+   4096, 64 heads of 64, d_ff 14336, vocab 65536, bf16, 7,551,455,232
+   params): K6 must run 32 times in prefill and 32 x 31 times in the
+   decode steps of ``generate``; the committed recurrent state (136,314,884
+   bytes whatever the prompt's length) is restored bit-equal to a second
+   prefill's, and decoding from it gives the live tokens; a 2-layer f32 cut
+   against the plain CPU path; then the weights are freed;
+4c. the Reed-Solomon encode K5, bit for bit against the numpy host codec
+   (``rs.rs_encode_np``): k in {1, 2, 4, 8} x m in {1, 2} x unaligned
+   strides, and k = 4, m = 2 over the RWKV state's bytes split as
+   ``rs.split_rows`` splits them (stride 34,078,721).  No serving or
+   training path runs K5 (the copied service encodes on the host), so its
+   launches are this check's;
 5. the training path: ``ElasticTrainer`` trains qwen2.5-3b at full width
    (36 layers, d_model 2048, bf16 compute, f32 master weights, full remat)
    on 4096-token sequences, global batch 1 (cut from 256), 6 steps with a
@@ -42,7 +62,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. a second training phase at full width cut to 8 layers: int8 gradient
    compression (K1 + K3 in every step) and a 1 -> 2 logical-rank resize
    with ``overlap_resize``;
-7. numbers: step ms, tokens/s, ``mfu``, commit and restart wall seconds,
+7. numbers: the serving lines (yi-6b, rwkv6-7b), step ms, tokens/s,
+   ``mfu``, commit and restart wall seconds,
    bytes on the wire, peak device memory, host RSS, a ``torch.profiler``
    window over one training step, and the ``kernels`` line (each kernel's
    launches on the path named in ``launches_path``, its time, its plain
@@ -93,10 +114,16 @@ BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2 ** -7)}
 # the training path: qwen2.5-3b, one 4096-token sequence a step
 TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 6, 2, 8
 CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
+# the sweep of tests/test_kernels_rwkv6.py plus the serving path's prefill
+# and decode shapes; (b, h, t, d)
+RWKV_SWEEP = [(2, 3, 130, 64), (1, 2, 64, 32), (1, 1, 7, 16)]
+RWKV_TOL = {"float32": (2e-3, 0.0), "bfloat16": (2e-3, 2 ** -7)}
+RS_STRIDES = [1, 15, 33, 4097, 100_003]
 CODEC_DTYPES = ("float32", "bfloat16", "float16")
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -171,10 +198,13 @@ def profile_window(fn, top: int = 8) -> dict:
 def build_kernels():
     from repro_torch.kernels import common
     from repro_torch.kernels.ckpt_codec import kernel as codec_kernel
+    from repro_torch.kernels.ckpt_codec import rs_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.rwkv6 import kernel as rwkv_kernel
 
     builders = {"flash_fwd": fa_kernel.build, "flash_bwd": fa_kernel.build_bwd,
-                "ckpt_codec": codec_kernel.build}
+                "ckpt_codec": codec_kernel.build, "rwkv6": rwkv_kernel.build,
+                "rs": rs_kernel.build}
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(builders)) as pool:
         futures = {n: pool.submit(b) for n, b in builders.items()}
@@ -255,42 +285,47 @@ def check_kernels(path_case, device) -> float:
 # --------------------------------------------------------------------------
 # phase 4: the main path
 # --------------------------------------------------------------------------
+def _check_launches(got: dict, want, what: str) -> None:
+    """Each kernel named in ``want`` launched exactly that many times."""
+    for name, n in (want or {}).items():
+        if got[name] != n:
+            raise AssertionError(f"{name} launched {got[name]} times in "
+                                 f"{what}, want {n}")
+
+
 def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
-                    gen=GEN, n_layers_launch=None):
+                    gen=GEN, want=None):
     """Serve one batch with iCheck checkpointing and check the restore.
+    ``want`` maps "generate", "prefill" and "decode" (the gen - 1 steps
+    from the restored state) to the launches each must count, by kernel.
     Returns a dict of counts and wall times."""
     import numpy as np
     import torch
 
     from repro_torch.core import ICheckClient, ICheckCluster
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.core.snapshot import snapshot_pytree
+    from repro_torch.core.snapshot import _flatten, _leaf_name, snapshot_pytree
     from repro_torch.serve import ServeEngine, serve_max_len
 
+    want = want or {}
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (batch_size, prompt))
              .astype(np.int32)}
     max_len = serve_max_len(cfg, prompt, gen)
     engine = ServeEngine(cfg, params, max_len=max_len, device=device)
-    res = {"kv_cache_bytes": 2 * cfg.num_layers * batch_size
-           * cfg.num_kv_heads * max_len * cfg.resolved_head_dim
-           * torch.finfo(getattr(torch, cfg.dtype)).bits // 8}
+    res = {}
     with ICheckCluster(n_icheck_nodes=1) as cluster:
         client = ICheckClient("serve", cluster.controller).init()
         sync = torch.cuda.synchronize if device.type == "cuda" else (
             lambda: None)
 
-        fa_kernel.launches = 0
+        reset_counts()
         sync()
         t0 = time.monotonic()
         out = engine.generate(batch, gen_len=gen, checkpoint_client=client)
         sync()
         res["generate_s"] = time.monotonic() - t0
-        res["launches"] = {"flash_fwd": fa_kernel.launches}
-        if n_layers_launch is not None and \
-                fa_kernel.launches != n_layers_launch:
-            raise AssertionError(f"flash_fwd launched {fa_kernel.launches} "
-                                 f"times in prefill, want {n_layers_launch}")
+        res["launches"] = read_counts()
+        _check_launches(res["launches"], want.get("generate"), "generate")
         if out.shape != (batch_size, gen) or out.min() < 0 or \
                 out.max() >= cfg.vocab_size:
             raise AssertionError(f"bad tokens {out.shape} "
@@ -304,25 +339,35 @@ def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
         sync()
         res["restore_s"] = time.monotonic() - t0
 
+        reset_counts()
         sync()
         t0 = time.monotonic()
         logits, fresh = engine.prefill(batch)
         sync()
         res["prefill_ms"] = (time.monotonic() - t0) * 1e3
+        _check_launches(read_counts(), want.get("prefill"), "prefill")
         if not torch.isfinite(logits).all():
             raise AssertionError("prefill logits are not finite")
-        kv_r, kv_f = restored["stack"]["b0"]["self"], fresh["stack"]["b0"][
-            "self"]
-        for name, got, want in (("k", kv_r.k, kv_f.k), ("v", kv_r.v, kv_f.v),
-                                ("idx", restored["idx"], fresh["idx"])):
-            if got.dtype != want.dtype or not torch.equal(got, want):
-                raise AssertionError(f"restored {name} differs from a "
-                                     f"second prefill")
+        got_leaves, want_leaves = list(_flatten(restored)), list(
+            _flatten(fresh))
+        if [p for p, _ in got_leaves] != [p for p, _ in want_leaves]:
+            raise AssertionError("restored state has other leaves than a "
+                                 "second prefill's")
+        for (path, got), (_, exp) in zip(got_leaves, want_leaves):
+            if got.dtype != exp.dtype or not torch.equal(got, exp):
+                raise AssertionError(f"restored {_leaf_name(path)} differs "
+                                     f"from a second prefill")
+        res["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for _, t in want_leaves)
+        res["state_leaves"] = {_leaf_name(p): list(t.shape)
+                               for p, t in want_leaves}
 
+        reset_counts()
         sync()
         t0 = time.monotonic()
         cont = engine.decode_greedy(restored, out[:, :1], gen - 1)
         res["decode_ms_per_token"] = (time.monotonic() - t0) * 1e3 / (gen - 1)
+        _check_launches(read_counts(), want.get("decode"), "decode")
         if not np.array_equal(cont, out[:, 1:]):
             raise AssertionError("decode from the restored cache diverged")
 
@@ -334,6 +379,11 @@ def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
         client.commit(1, {n: r.parts for n, r in snap.regions.items()}
                       ).wait(timeout=600)
         res["commit_s"] = time.monotonic() - t0
+        # the committed bytes, region after region, for K5's check
+        res["state_payload"] = np.concatenate(
+            [r.parts[0].reshape(-1).view(np.uint8)
+             for r in snap.regions.values()])
+        del snap
         if device.type == "cuda":
             # where the time goes, with the cluster's threads alive as in
             # the timed run: one prefill, then 8 decode steps
@@ -536,24 +586,257 @@ def check_codec(ns, device) -> int:
 
 
 # --------------------------------------------------------------------------
+# phase 3 / 4b / 4c: K6 against its plain version, RWKV-6 serving, K5
+# --------------------------------------------------------------------------
+def _rwkv_inputs(seed, case, dtype, device, decay_scale=1.0):
+    """r/k/v (dtype), log_w, u, s0 (f32) for one (b, h, t, d) case, made
+    with numpy from ``seed`` as tests/test_kernels_rwkv6.py makes them."""
+    import numpy as np
+    import torch
+
+    b, h, t, d = case
+    rng = np.random.default_rng(seed)
+
+    def f(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(device)
+
+    r, k, v = (f((b, h, t, d), 0.5).to(getattr(torch, dtype))
+               for _ in range(3))
+    lw = -torch.exp(f((b, h, t, d), 1.0)) * decay_scale
+    return r, k, v, lw, f((h, d), 0.5), f((b, h, d, d), 0.1)
+
+
+def _rwkv_err(got, want, dtype, what) -> float:
+    import torch
+
+    atol, rtol = RWKV_TOL[dtype]
+    err = 0.0
+    for name, g, w in (("o", *[x[0].float() for x in (got, want)]),
+                       ("sT", got[1], want[1])):
+        diff = (g - w).abs()
+        err = max(err, diff.max().item())
+        tol = atol + (rtol if name == "o" else 0.0) * w.abs()
+        if not bool(torch.all(diff <= tol)):
+            raise AssertionError(f"rwkv6 {what} {name}: max abs err "
+                                 f"{diff.max().item()} (atol {atol}, rtol "
+                                 f"{rtol if name == 'o' else 0})")
+    return err
+
+
+def check_rwkv6(path_cases, device) -> float:
+    """K6 against its plain chunked version on the card: the sweep and the
+    path's shapes from a carried state (T = 1 at decode), both dtypes,
+    extreme decay, and a state continuation; returns the max abs error at
+    the prefill shape in bf16."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_cuda
+
+    path_err = None
+    for case in RWKV_SWEEP + list(path_cases.values()):
+        for dtype in ("float32", "bfloat16"):
+            inputs = _rwkv_inputs(3, case, dtype, device)
+            got = rwkv6_cuda(*inputs)
+            again = rwkv6_cuda(*inputs)
+            want = rwkv6_chunked(*inputs)
+            torch.cuda.synchronize()
+            err = _rwkv_err(got, want, dtype, f"{case} {dtype}")
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"rwkv6 {case} {dtype}: two runs differ")
+            log(f"  rwkv6 {case} {dtype}: max abs err {err:.3e}")
+            if case == path_cases["prefill"] and dtype == "bfloat16":
+                path_err = err
+    for scale in (10.0, 100.0):
+        inputs = _rwkv_inputs(4, (1, 2, 96, 32), "float32", device, scale)
+        if not bool((inputs[3] < -30).any()):
+            raise AssertionError("the extreme-decay case has no log_w < -30")
+        got = rwkv6_cuda(*inputs)
+        if not (torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()):
+            raise AssertionError(f"rwkv6 decay x{scale}: not finite")
+        err = _rwkv_err(got, rwkv6_chunked(*inputs, chunk=32), "float32",
+                        f"decay x{scale}")
+        log(f"  rwkv6 (1, 2, 96, 32) log_w x{scale} (below -30, clamped): "
+            f"max abs err {err:.3e}")
+    r, k, v, lw, u, s0 = _rwkv_inputs(5, path_cases["prefill"], "float32",
+                                      device)
+    o, s = rwkv6_cuda(r, k, v, lw, u, s0)
+    h = r.shape[2] // 2
+    o1, s1 = rwkv6_cuda(*(x[:, :, :h].contiguous() for x in (r, k, v, lw)),
+                        u, s0)
+    o2, s2 = rwkv6_cuda(*(x[:, :, h:].contiguous() for x in (r, k, v, lw)),
+                        u, s1)
+    err = max((torch.cat([o1, o2], 2) - o).abs().max().item(),
+              (s2 - s).abs().max().item())
+    if not err <= 1e-5:
+        raise AssertionError(f"rwkv6 continuation: max abs err {err}")
+    log(f"  rwkv6 [0, T/2) then [T/2, T) vs one shot at "
+        f"{path_cases['prefill']}: max abs err {err:.3e} (atol 1e-5)")
+    return path_err
+
+
+def rwkv6_numbers(case, device) -> dict:
+    """K6 at one of the path's shapes (bf16 r/k/v): its time, its plain
+    version's, and its bound: each input read once and each output written
+    once, or 5 f32 operations per state element per token (the decay's
+    multiply-add, k v's product, r S's multiply-add) at the f32 rate."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_cuda
+
+    b, h, t, d = case
+    inputs = _rwkv_inputs(3, case, "bfloat16", device)
+    ms = cuda_ms(lambda: rwkv6_cuda(*inputs))
+    plain_ms = cuda_ms(lambda: rwkv6_chunked(*inputs), iters=3, warmup=1)
+    nbytes = b * h * t * d * (3 * 2 + 4 + 2) + h * d * 4 \
+        + 2 * b * h * d * d * 4
+    flops = 5 * b * h * t * d * d
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def serve_rwkv6_phase(rcfg, device, card) -> dict:
+    """rwkv6-7b at full width through ``serve_main_path``: K6's launches
+    asserted (32 a prefill, 32 x 31 in the decode steps), the 2-layer f32
+    cut against the plain CPU path, K6's numbers; prints the
+    ``serve_rwkv6`` line and the profile windows, frees the weights.
+    Returns the launches, numbers and the committed state's bytes."""
+    import torch
+
+    from repro_torch.models import count_params, init_params
+
+    n_params = count_params(rcfg)
+    if n_params != 7_551_455_232:
+        raise AssertionError(f"{rcfg.name}: {n_params} params")
+    n = rcfg.num_layers
+    t0 = time.monotonic()
+    params = init_params(rcfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    torch.cuda.synchronize()
+    log(f"  params: {n_params} f32 in {time.monotonic() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_main_path(rcfg, params, device, want={
+        "generate": {"rwkv6": n + n * (GEN - 1), "flash_fwd": 0},
+        "prefill": {"rwkv6": n},
+        "decode": {"rwkv6": n * (GEN - 1)}})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches in the main path: {res['launches']}")
+    log(f"  recurrent state {res['state_bytes']} bytes "
+        f"{json.dumps(res['state_leaves'])}; restored state equals a second "
+        f"prefill bit for bit; {GEN - 1} decode steps from it give the live "
+        f"tokens")
+    plain_err = check_against_plain(rcfg, params, device)
+    log(f"  2-layer f32 cut: card vs plain CPU logits max abs err "
+        f"{plain_err:.3e}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rh = rcfg.d_model // rcfg.rwkv_head_dim
+    numbers = {name: rwkv6_numbers((BATCH, rh, t, rcfg.rwkv_head_dim),
+                                   device)
+               for name, t in (("prefill", PROMPT), ("decode", 1))}
+    serve = {
+        "card": card, "params": n_params,
+        "prefill_ms": res["prefill_ms"],
+        "decode_ms_per_token": res["decode_ms_per_token"],
+        "decode_ms_per_token_no_cluster":
+            res["decode_ms_per_token_no_cluster"],
+        "output_tokens_per_s": BATCH * GEN / res["generate_s"],
+        "generate_wall_s": res["generate_s"],
+        "commit_wall_s": res["commit_s"],
+        "commit_wait_s": res["commit_wait_s"],
+        "restore_wall_s": res["restore_s"],
+        "state_bytes": res["state_bytes"],
+        "max_memory_allocated": peak,
+        "plain_cut_max_abs_err": plain_err,
+        "rwkv6_prefill_shape": numbers["prefill"],
+        "rwkv6_decode_shape": numbers["decode"],
+    }
+    log(json.dumps({"serve_rwkv6": serve}))
+    for name in ("profile_prefill", "profile_decode_8"):
+        log(json.dumps({f"rwkv6_{name}": res[name]}))
+    return {"launches": res["launches"], "numbers": numbers,
+            "state_payload": res["state_payload"]}
+
+
+def check_rs(device, payload) -> dict:
+    """K5 bit for bit against ``rs.rs_encode_np``: k in {1, 2, 4, 8}, m in
+    {1, 2}, unaligned strides, then k = 4, m = 2 over ``payload`` split as
+    ``rs.split_rows`` splits it.  Counts are set to 0 before and read
+    after; then K5's numbers on the payload."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ckpt_codec import (rs_encode, rs_encode_np,
+                                                split_rows)
+    from repro_torch.kernels.ckpt_codec.rs_kernel import (rs_encode_cuda,
+                                                          rs_encode_ref)
+
+    bad = 0
+    reset_counts()
+    for k in (1, 2, 4, 8):
+        for m in (1, 2):
+            for n in RS_STRIDES:
+                data = np.random.default_rng(10 * k + n).integers(
+                    0, 256, (k, n), dtype=np.uint8)
+                got = rs_encode(torch.from_numpy(data).to(device), m=m)
+                bad += int((got.cpu().numpy() != rs_encode_np(data, m))
+                           .sum())
+    log(f"  rs_encode k in (1, 2, 4, 8) x m in (1, 2) x strides "
+        f"{RS_STRIDES}: {bad} mismatching bytes")
+    rows = split_rows(payload.tobytes(), 4)
+    dev = torch.from_numpy(rows).to(device)
+    got = rs_encode(dev, m=2)
+    state_bad = int((got.cpu().numpy() != rs_encode_np(rows, 2)).sum())
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"  rs_encode k=4 m=2 over the {payload.size}-byte RWKV state "
+        f"(stride {rows.shape[1]}): {state_bad} mismatching bytes")
+    bad += state_bad
+    if bad:
+        raise AssertionError(f"rs_encode: {bad} bytes differ from the host "
+                             f"codec")
+    nbytes = (rows.shape[0] + 2) * rows.shape[1]
+    numbers = {"k": 4, "m": 2, "stride": int(rows.shape[1]),
+               "ms": cuda_ms(lambda: rs_encode_cuda(dev, 2)),
+               "plain_ms": cuda_ms(lambda: rs_encode_ref(dev, 2), iters=2,
+                                   warmup=1),
+               "library_ms": None,
+               "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+               "bound_by": "bytes", "bytes": nbytes}
+    return {"launches": launches, "mismatches": bad, "numbers": numbers}
+
+
+# --------------------------------------------------------------------------
 # phase 5/6: the training path
 # --------------------------------------------------------------------------
 def reset_counts() -> None:
     from repro_torch.kernels.ckpt_codec import kernel as codec_kernel
+    from repro_torch.kernels.ckpt_codec import rs_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.rwkv6 import kernel as rwkv_kernel
 
     fa_kernel.launches = 0
     fa_kernel.bwd_launches = 0
     for name in codec_kernel.launches:
         codec_kernel.launches[name] = 0
+    rwkv_kernel.launches = 0
+    rs_kernel.launches = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels.ckpt_codec import kernel as codec_kernel
+    from repro_torch.kernels.ckpt_codec import rs_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.rwkv6 import kernel as rwkv_kernel
 
     return {"flash_fwd": fa_kernel.launches,
-            "flash_bwd": fa_kernel.bwd_launches, **codec_kernel.launches}
+            "flash_bwd": fa_kernel.bwd_launches, **codec_kernel.launches,
+            "rwkv6": rwkv_kernel.launches, "rs_encode": rs_kernel.launches}
 
 
 def _float_leaves(tree):
@@ -919,7 +1202,11 @@ def main() -> int:
     from repro_torch.models import count_params, init_params
 
     cfg = get_config("yi-6b")
+    rcfg = get_config("rwkv6-7b")
     tcfg = get_config("qwen2.5-3b")
+    rh = rcfg.d_model // rcfg.rwkv_head_dim
+    rwkv_cases = {"prefill": (BATCH, rh, PROMPT, rcfg.rwkv_head_dim),
+                  "decode": (BATCH, rh, 1, rcfg.rwkv_head_dim)}
     path_case = (BATCH, cfg.num_heads, cfg.num_kv_heads, PROMPT, PROMPT,
                  cfg.resolved_head_dim, True, cfg.window)
     train_case = (1, tcfg.num_heads, tcfg.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
@@ -935,6 +1222,7 @@ def main() -> int:
     path_err = check_kernels(path_case, device)
     bwd_err = check_bwd(train_case, device)
     codec_bad = check_codec(CODEC_NS + [w_gu], device)
+    rwkv_err = check_rwkv6(rwkv_cases, device)
     torch.cuda.empty_cache()
     log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
 
@@ -948,12 +1236,14 @@ def main() -> int:
     log(f"  params: {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
         f"f32 in {time.monotonic() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    res = serve_main_path(cfg, params, device,
-                          n_layers_launch=cfg.num_layers)
+    res = serve_main_path(cfg, params, device, want={
+        "generate": {"flash_fwd": cfg.num_layers},
+        "prefill": {"flash_fwd": cfg.num_layers}})
     torch.cuda.synchronize()
     serve_peak = torch.cuda.max_memory_allocated()
+    del res["state_payload"]
     log(f"  launches in the main path: {res['launches']}")
-    log(f"  KV cache {res['kv_cache_bytes']} bytes; restored cache equals a "
+    log(f"  KV cache {res['state_bytes']} bytes; restored cache equals a "
         f"second prefill bit for bit; {GEN - 1} decode steps from it give "
         f"the live tokens")
     plain_err = check_against_plain(cfg, params, device)
@@ -971,7 +1261,7 @@ def main() -> int:
         "generate_wall_s": res["generate_s"],
         "commit_wall_s": res["commit_s"],
         "restore_wall_s": res["restore_s"],
-        "kv_cache_bytes": res["kv_cache_bytes"],
+        "state_bytes": res["state_bytes"],
         "max_memory_allocated": serve_peak,
         "attention_flops": num["flops"], "attention_bytes": num["bytes"],
     }
@@ -983,6 +1273,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 4 done at {time.monotonic() - t_start:.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
+
+    log(f"phase 4b: serving, {rcfg.name} {rcfg.num_layers} layers d_model "
+        f"{rcfg.d_model} {rcfg.dtype}, {BATCH} x {PROMPT} prompt tokens, "
+        f"{GEN} new tokens")
+    rw = serve_rwkv6_phase(rcfg, device, card)
+    log(f"  phase 4b done at {time.monotonic() - t_start:.1f} s; weights "
+        f"freed, {torch.cuda.memory_allocated()} bytes allocated")
+
+    log("phase 4c: Reed-Solomon encode against the host codec")
+    rs = check_rs(device, rw.pop("state_payload"))
+    log(json.dumps({"rs_encode_state": rs["numbers"]}))
+    log(f"  phase 4c done at {time.monotonic() - t_start:.1f} s")
 
     n_params = count_params(tcfg)
     log(f"phase 5: training, {tcfg.name} {tcfg.num_layers} layers d_model "
@@ -1049,8 +1351,9 @@ def main() -> int:
                     "flash_bwd_train_shape": bwd, "codec_w_gu": codec}))
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
-    paths = {"serve": res["launches"], "train": tr["launches"],
-             "train_cut": cut["launches"]}
+    paths = {"serve": res["launches"], "serve_rwkv6": rw["launches"],
+             "train": tr["launches"], "train_cut": cut["launches"],
+             "rs_encode_check": rs["launches"]}
 
     def counts(name, path):
         return {"launches": paths[path][name], "launches_path": path,
@@ -1086,6 +1389,26 @@ def main() -> int:
             "max_abs_err": float(codec_bad), "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    rn = rw["numbers"]["prefill"]
+    kernels.append({
+        "name": "rwkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:86",
+        **counts("rwkv6", "serve_rwkv6"),
+        "max_abs_err": rwkv_err, "ms": rn["ms"], "plain_ms": rn["plain_ms"],
+        "bound_ms": rn["bound_ms"], "bound_by": rn["bound_by"],
+        "library_ms": None,
+        "decode_shape": rw["numbers"]["decode"]})
+    rsn = rs["numbers"]
+    kernels.append({
+        "name": "rs_encode", "route": "cuda",
+        "source": "src/repro_torch/kernels/ckpt_codec/csrc/rs.cu",
+        "replaces": "src/repro/kernels/ckpt_codec/rs_kernel.py:87",
+        # no serving or training path runs K5: its launches are its check's
+        **counts("rs_encode", "rs_encode_check"),
+        "max_abs_err": float(rs["mismatches"]), "ms": rsn["ms"],
+        "plain_ms": rsn["plain_ms"], "bound_ms": rsn["bound_ms"],
+        "bound_by": rsn["bound_by"], "library_ms": None})
     log(f"  total {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -7,7 +7,10 @@ The twin of ``repro/kernels/ckpt_codec/ops.py``.
 before the device-to-host copy, and ``optim.adamw`` runs :func:`quantize`
 + :func:`dequantize` for its int8 gradient compression.  The host restart
 path (``core/tiers.q8_chain_decode``) applies the same XOR + dequantize in
-numpy, bit for bit.
+numpy, bit for bit.  :func:`rs_encode` is the device Reed-Solomon
+parity (K5 on CUDA tensors); like the reference's, no commit path calls
+it: ``core/tiers.py`` encodes the erasure-coded L1 fragments on the host
+with ``rs.rs_encode_np``.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from ..common import on_cuda
 from . import kernel as K
 from . import ref as R
+from . import rs_kernel as RS
 from .blocks import BLOCK
 
 
@@ -71,3 +75,15 @@ def undelta_dequantize(delta: torch.Tensor, prev_q: torch.Tensor,
                        dtype=torch.float32) -> torch.Tensor:
     """Invert a delta commit: codes = delta ^ prev_q, then dequantize."""
     return dequantize(torch.bitwise_xor(delta, prev_q), scale, shape, dtype)
+
+
+def rs_encode(data_rows, m: int = 1) -> torch.Tensor:
+    """Reed-Solomon parity: (k, stride) bytes -> (m, stride) uint8.
+
+    The device twin of :func:`.rs.rs_encode_np`, bit for bit: the Hopper
+    kernel on a CUDA tensor, the plain xtime version otherwise (a numpy
+    array is taken as a CPU tensor)."""
+    x = torch.as_tensor(data_rows)
+    if on_cuda(x):
+        return RS.rs_encode_cuda(x.to(torch.uint8).contiguous(), m)
+    return RS.rs_encode_ref(x.to(torch.uint8), m)

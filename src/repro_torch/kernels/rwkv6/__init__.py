@@ -1,0 +1,6 @@
+"""RWKV-6 time-mix recurrence: the Hopper kernel K6 (``csrc/rwkv6.cu``)
+on CUDA tensors, the plain chunked version on CPU tensors."""
+from .ops import rwkv6
+from .ref import LOG_W_MIN, rwkv6_chunked, rwkv6_ref
+
+__all__ = ["rwkv6", "rwkv6_ref", "rwkv6_chunked", "LOG_W_MIN"]

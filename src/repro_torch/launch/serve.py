@@ -1,10 +1,11 @@
 """Serving driver, the twin of ``repro.launch.serve`` (tiny configs).
 
-  python -m repro_torch.launch.serve --arch yi-6b --batch 4 \
-      --prompt-len 32 --gen 16 [--icheck] [--device cuda|cpu]
+  python -m repro_torch.launch.serve --arch yi-6b|qwen2.5-3b|rwkv6-7b \
+      --batch 4 --prompt-len 32 --gen 16 [--icheck] [--device cuda|cpu]
 
-With --icheck, the filled KV cache is committed to agents after prefill
-(serving-state fault tolerance).
+With --icheck, the filled KV cache (attention) or recurrent state
+(RWKV-6) is committed to agents after prefill (serving-state fault
+tolerance).
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""Core building blocks: RMSNorm, dense projections, RoPE, gated FFNs,
-embeddings.  Plain functions on tensors; parameters are nested dicts with
-the reference's names and shapes (``repro/models/layers.py``).
+"""Core building blocks: RMSNorm, RWKV-6's per-head group norm, dense
+projections, RoPE, gated FFNs, embeddings.  Plain functions on tensors;
+parameters are nested dicts with the reference's names and shapes
+(``repro/models/layers.py``).
 
 Initialisers take an explicit ``torch.Generator`` and ``device`` and a
 ``lead`` shape prepended to every parameter, which is how a stack of
@@ -71,6 +72,19 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Statistics in f32; the reference ignores ``eps`` and always uses
     1e-6 (``repro/models/layers.py:66-67``), and so does this."""
     return _RMSNorm.apply(x, params["scale"])
+
+
+def groupnorm_heads(x: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor, eps: float = 64e-5) -> torch.Tensor:
+    """Per-head group norm of RWKV-6's wkv output
+    (``repro/models/layers.py:70-79``).  x: (B, T, H, D), normalised over
+    D per head with f32 statistics; scale/bias: (H, D), applied in f32;
+    the result is cast back to x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,138 @@
+"""RWKV-6 (Finch) block: data-dependent token-shift time-mix over the
+recurrence kernel (K6) + squared-ReLU channel-mix.
+
+The twin of ``repro/models/rwkv6_layer.py:22-132``, with the same leaf
+names and shapes, so ``convert.params_from_numpy`` carries the
+reference's parameters across unchanged.  As in the reference, matrices
+and ``mu`` are cast to the activation dtype where they are used, while
+``w0`` (added to a product, which promotes to f32), ``u`` (read in f32 by
+the kernel) and ``gn_scale`` / ``gn_bias`` (applied in f32 by
+``groupnorm_heads``) stay f32.
+
+State carried for decode, per block:
+  ``shift_tm`` / ``shift_cm``: (B, d_model) -- previous token's activations
+  ``wkv``: (B, H, Dh, Dh) f32 -- the linear-attention state.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.rwkv6 import rwkv6 as rwkv6_core
+from .layers import _dense_init, _normal, groupnorm_heads
+
+LORA_RANK = 32
+# leaves the reference uses in f32 whatever the compute dtype
+F32_LEAVES = ("w0", "u", "gn_scale", "gn_bias")
+
+
+class RWKVState(NamedTuple):
+    shift_tm: torch.Tensor        # (B, D)
+    shift_cm: torch.Tensor        # (B, D)
+    wkv: torch.Tensor             # (B, H, Dh, Dh) f32
+
+
+def _full(lead, shape, value, device) -> torch.Tensor:
+    return torch.full((*lead, *shape), value, dtype=torch.float32,
+                      device=device)
+
+
+def timemix_init(generator, d_model: int, head_dim: int, *,
+                 lead: Sequence[int] = (), device=None):
+    h = d_model // head_dim
+    d = d_model
+
+    def dense(shape, scale=None):
+        return _dense_init(generator, shape, scale, lead=lead, device=device)
+
+    return {
+        # r/k/v/g projections stacked: one contraction
+        "w_rkvg": _normal(generator, (*lead, 4, d, d), device).mul_(d ** -0.5),
+        "wo": dense((d, d)),
+        # data-dependent decay: w = exp(-exp(w0 + (x @ A) @ B))
+        "w0": _full(lead, (d,), -4.0, device),
+        "wA": dense((d, LORA_RANK)),
+        "wB": dense((LORA_RANK, d), scale=0.01),
+        # token-shift interpolation factors (static mu + data-dependent lora)
+        "mu": _full(lead, (5, d), 0.5, device),            # r, k, v, w, g
+        "muA": dense((d, LORA_RANK)),
+        "muB": dense((LORA_RANK, 5 * d), scale=0.01),
+        "u": _full(lead, (h, head_dim), 0.0, device),       # bonus
+        "gn_scale": _full(lead, (h, head_dim), 1.0, device),
+        "gn_bias": _full(lead, (h, head_dim), 0.0, device),
+    }
+
+
+def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, D); last: (B, D) previous token (zeros at sequence
+    start)."""
+    return torch.cat([last[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
+
+
+def timemix_apply(params, x: torch.Tensor, state_tm: torch.Tensor,
+                  wkv_state: torch.Tensor, head_dim: int):
+    """Returns (out (B, T, D), the last token's x (B, D), the new wkv
+    state (B, H, Dh, Dh) f32)."""
+    b, t, d = x.shape
+    h = d // head_dim
+    dt = x.dtype
+    delta = _token_shift(x, state_tm) - x
+    # data-dependent interpolation (RWKV-6 "ddlerp")
+    lora = torch.tanh(x @ params["muA"].to(dt))
+    lora = (lora @ params["muB"].to(dt)).reshape(b, t, 5, d)
+    mix = params["mu"].to(dt)[None, None] + lora
+    xr, xk, xv, xw, xg = [x + delta * mix[:, :, i] for i in range(5)]
+
+    xs4 = torch.stack([xr, xk, xv, xg]).reshape(4, b * t, d)
+    rkvg = torch.matmul(xs4, params["w_rkvg"].to(dt)).reshape(4, b, t, d)
+    r, k, v, g = rkvg[0], rkvg[1], rkvg[2], rkvg[3]
+    # w0 is f32: the sum promotes to f32, as in the reference
+    wlog = params["w0"] + torch.tanh(xw @ params["wA"].to(dt)) \
+        @ params["wB"].to(dt)
+    log_w = -torch.exp(wlog.float())                     # (B, T, D) <= 0
+
+    def heads(z):
+        return z.reshape(b, t, h, head_dim).transpose(1, 2)
+
+    o, wkv_new = rwkv6_core(heads(r), heads(k), heads(v), heads(log_w),
+                            params["u"], wkv_state)
+    o = groupnorm_heads(o.transpose(1, 2), params["gn_scale"],
+                        params["gn_bias"])
+    o = o.reshape(b, t, d) * F.silu(g)
+    return o @ params["wo"].to(dt), x[:, -1, :], wkv_new
+
+
+def chanmix_init(generator, d_model: int, d_ff: int, *,
+                 lead: Sequence[int] = (), device=None):
+    def dense(shape):
+        return _dense_init(generator, shape, lead=lead, device=device)
+
+    return {"wk": dense((d_model, d_ff)), "wv": dense((d_ff, d_model)),
+            "wr": dense((d_model, d_model)),
+            "mu": _full(lead, (2, d_model), 0.5, device)}      # k, r
+
+
+def chanmix_apply(params, x: torch.Tensor, state_cm: torch.Tensor):
+    """Returns (out (B, T, D), the last token's x (B, D))."""
+    dt = x.dtype
+    delta = _token_shift(x, state_cm) - x
+    mu = params["mu"].to(dt)
+    xk = x + delta * mu[0]
+    xr = x + delta * mu[1]
+    k = torch.square(F.relu(xk @ params["wk"].to(dt)))
+    kv = k @ params["wv"].to(dt)
+    return torch.sigmoid(xr @ params["wr"].to(dt)) * kv, x[:, -1, :]
+
+
+def init_state(batch: int, d_model: int, head_dim: int, dtype, *,
+               lead: Sequence[int] = (), device=None) -> RWKVState:
+    h = d_model // head_dim
+    return RWKVState(
+        shift_tm=torch.zeros((*lead, batch, d_model), dtype=dtype,
+                             device=device),
+        shift_cm=torch.zeros((*lead, batch, d_model), dtype=dtype,
+                             device=device),
+        wkv=torch.zeros((*lead, batch, h, head_dim, head_dim),
+                        dtype=torch.float32, device=device))

@@ -1,5 +1,6 @@
 """The LM backbone for dense attention models (``mixer="attention"``
-without MoE): the twin of ``repro/models/transformer.py`` on that path.
+without MoE) and RWKV-6 (``mixer="rwkv6"``): the twin of
+``repro/models/transformer.py`` on those paths.
 
 * ``init_params(cfg, generator, device)``: a nested dict of f32 tensors
   whose names and shapes equal ``repro.models.init_params``; the layer
@@ -8,9 +9,11 @@ without MoE): the twin of ``repro/models/transformer.py`` on that path.
   recomputed in the backward (``torch.utils.checkpoint``) unless the
   config's ``remat_policy`` is ``"none"``.
 * ``init_cache`` / ``prefill`` / ``decode_step``: the serving path.  The
-  cache has the reference's layout, ``{"stack": {"b0": {"self":
-  KVCache(k, v)}}, "tails": [], "idx": int32 0-d}`` with k/v of shape
-  (L, B, Hkv, S, D), and is written in place.
+  cache has the reference's layout, ``{"stack": {"b0": ...}, "tails": [],
+  "idx": int32 0-d}``, with ``b0`` a ``{"self": KVCache(k, v)}`` of k/v
+  (L, B, Hkv, S, D) for attention and an ``RWKVState`` (shift_tm,
+  shift_cm (L, B, D), wkv (L, B, H, Dh, Dh) f32) for RWKV-6, and is
+  written in place.
 
 A Python loop over the stacked layers takes the place of ``lax.scan``;
 on one device the reference's sharding constraints are no-ops and are
@@ -25,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn
+from . import rwkv6_layer as rwkv
 from .layers import (embed_apply, embed_init, ffn_apply, ffn_init,
                      lm_head_apply, lm_head_init, rmsnorm, rmsnorm_init)
 
@@ -35,30 +39,48 @@ Params = Dict[str, Any]
 # layer-stack layout
 # ==========================================================================
 def stack_plan(cfg: ModelConfig) -> Dict[str, Any]:
-    """How layers are grouped: dense attention models stack every layer
-    as one super-layer ``b0`` with no tail layers."""
+    """How layers are grouped: dense attention and RWKV-6 models stack
+    every layer as one super-layer ``b0`` with no tail layers."""
+    if cfg.mixer == "rwkv6" and cfg.ffn == "rwkv_cmix":
+        return dict(scan_kinds=("rwkv",), scan_len=cfg.num_layers,
+                    tail_kinds=(), enc_layers=0)
     if (cfg.mixer != "attention" or cfg.ffn == "moe" or cfg.is_encdec
             or cfg.frontend != "token"):
         raise NotImplementedError(
             f"{cfg.name}: the port builds dense token-input attention "
-            f"models only (mixer={cfg.mixer}, ffn={cfg.ffn})")
+            f"models and RWKV-6 only (mixer={cfg.mixer}, ffn={cfg.ffn})")
     return dict(scan_kinds=("attn",), scan_len=cfg.num_layers,
                 tail_kinds=(), enc_layers=0)
 
 
+def _kind(cfg: ModelConfig) -> str:
+    return stack_plan(cfg)["scan_kinds"][0]
+
+
 def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (views, no copies)."""
+    """Layer ``i`` of a stacked tree (views, no copies); a NamedTuple
+    (``KVCache``, ``RWKVState``) keeps its type, field by field."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, attn.KVCache):
-        return attn.KVCache(*(None if t is None else t[i] for t in tree))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(None if t is None else t[i] for t in tree))
     return tree[i]
 
 
 # ==========================================================================
 # per-layer blocks
 # ==========================================================================
-def _block_init(generator, cfg: ModelConfig, *, lead, device):
+def _block_init(generator, cfg: ModelConfig, kind: str, *, lead, device):
+    if kind == "rwkv":
+        return {
+            "norm1": rmsnorm_init(cfg.d_model, lead=lead, device=device),
+            "tm": rwkv.timemix_init(generator, cfg.d_model,
+                                    cfg.rwkv_head_dim, lead=lead,
+                                    device=device),
+            "norm2": rmsnorm_init(cfg.d_model, lead=lead, device=device),
+            "cm": rwkv.chanmix_init(generator, cfg.d_model, cfg.d_ff,
+                                    lead=lead, device=device),
+        }
     hd = cfg.resolved_head_dim
     return {
         "norm1": rmsnorm_init(cfg.d_model, lead=lead, device=device),
@@ -76,10 +98,34 @@ def _attn_kw(cfg: ModelConfig):
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
 
 
+def _rwkv_block(cfg: ModelConfig, p: Params, x, state):
+    """One RWKV-6 layer over T >= 1 tokens from ``state`` (None: zeros,
+    when scoring), the reference's ``"rwkv"`` kind
+    (``repro/models/transformer.py:166-181,245-255``).  The new state is
+    written into ``state``'s tensors in place.  Returns (x, state)."""
+    st = state if state is not None else rwkv.init_state(
+        x.shape[0], cfg.d_model, cfg.rwkv_head_dim, x.dtype,
+        device=x.device)
+    y, shift_tm, wkv = rwkv.timemix_apply(p["tm"], rmsnorm(p["norm1"], x),
+                                          st.shift_tm, st.wkv,
+                                          cfg.rwkv_head_dim)
+    x = x + y
+    y, shift_cm = rwkv.chanmix_apply(p["cm"], rmsnorm(p["norm2"], x),
+                                     st.shift_cm)
+    x = x + y
+    if state is not None:
+        state.shift_tm.copy_(shift_tm)
+        state.shift_cm.copy_(shift_cm)
+        state.wkv.copy_(wkv)
+    return x, state
+
+
 def _block_apply(cfg: ModelConfig, p: Params, x, *, positions, state):
     """Full-sequence application of one layer.  ``state`` is None when
     scoring; for prefill it is this layer's cache slot, filled in place.
     Returns (x, state)."""
+    if _kind(cfg) == "rwkv":
+        return _rwkv_block(cfg, p, x, state)
     h = rmsnorm(p["norm1"], x)
     if state is not None:
         y, kvc = attn.attn_apply(p["attn"], h, positions=positions,
@@ -108,6 +154,8 @@ def _write_prefill_cache(cache: attn.KVCache, kvc: attn.KVCache):
 
 def _block_decode(cfg: ModelConfig, p: Params, x, idx, *, state):
     """One-token decode of one layer. x: (B, 1, D). Returns (x, state)."""
+    if _kind(cfg) == "rwkv":
+        return _rwkv_block(cfg, p, x, state)
     h = rmsnorm(p["norm1"], x)
     y, kvc = attn.attn_decode(p["attn"], h, state["self"], idx,
                               **_attn_kw(cfg))
@@ -128,7 +176,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return {
         "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model,
                             device=device),
-        "stack": {"b0": _block_init(generator, cfg, lead=(plan["scan_len"],),
+        "stack": {"b0": _block_init(generator, cfg, plan["scan_kinds"][0],
+                                    lead=(plan["scan_len"],),
                                     device=device)},
         "final_norm": rmsnorm_init(cfg.d_model, device=device),
         "lm_head": lm_head_init(generator, cfg.d_model, cfg.padded_vocab,
@@ -138,11 +187,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def cast_params(params: Params, dtype) -> Params:
     """Every matrix and bias cast once to the compute ``dtype``; norm
-    scales stay f32, as the reference multiplies by them in f32."""
+    scales and RWKV-6's ``w0``, ``u``, ``gn_scale`` and ``gn_bias`` stay
+    f32, as the reference uses them in f32."""
+    keep = ("scale",) + rwkv.F32_LEAVES
+
     def walk(tree, key=""):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
-        return tree if key == "scale" else tree.to(dtype)
+        return tree if key in keep else tree.to(dtype)
     return walk(params)
 
 
@@ -214,17 +266,23 @@ def loss_fn(cfg: ModelConfig, params, batch):
 # ==========================================================================
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> Dict[str, Any]:
-    """Decode cache for a batch of ``batch`` sequences."""
+    """Decode cache for a batch of ``batch`` sequences: a KV cache of
+    ``max_len`` slots, or RWKV-6's recurrent state, whose size does not
+    depend on ``max_len``."""
+    dtype = dtype or _dtype(cfg)
+    n = stack_plan(cfg)["scan_len"]
+    idx = torch.zeros((), dtype=torch.int32, device=device)
+    if _kind(cfg) == "rwkv":
+        state = rwkv.init_state(batch, cfg.d_model, cfg.rwkv_head_dim, dtype,
+                                lead=(n,), device=device)
+        return {"stack": {"b0": state}, "tails": [], "idx": idx}
     if cfg.window is not None:
         raise NotImplementedError("the sliding-window ring-buffer cache is "
                                   "not ported yet")
-    dtype = dtype or _dtype(cfg)
-    n = stack_plan(cfg)["scan_len"]
     kv = attn.init_kv_cache(batch, cfg.num_kv_heads, max_len,
                             cfg.resolved_head_dim, dtype, quant=cfg.kv_quant,
                             lead=(n,), device=device)
-    return {"stack": {"b0": {"self": kv}}, "tails": [],
-            "idx": torch.zeros((), dtype=torch.int32, device=device)}
+    return {"stack": {"b0": {"self": kv}}, "tails": [], "idx": idx}
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):

@@ -1,10 +1,13 @@
 """Batched serving engine: prefill + greedy decode over the backbone's
 cache API, with iCheck serving-state checkpointing (a preempted inference
-node restores its KV cache from the agents instead of re-running prefill).
+node restores its KV cache / recurrent state from the agents instead of
+re-running prefill).
 
 The twin of ``repro/serve/engine.py``.  Prefill and decode run eagerly on
-``device``; the cache is written in place, so a snapshot copies it to the
-host (synchronously) before the first decode step writes into it.
+``device``; the KV cache / recurrent state is written in place, so a
+snapshot copies it to the host (synchronously) before the first decode
+step writes into it.  An RWKV-6 model's state does not grow with the
+prompt: ``max_len`` sizes only a KV cache.
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ class ServeEngine:
 
     @torch.no_grad()
     def prefill(self, batch: Dict):
-        """Prefill a fresh cache: returns (last-position logits, cache)."""
+        """Prefill a fresh KV cache / recurrent state: returns
+        (last-position logits, cache)."""
         tokens = self._tokens(batch["tokens"])
         cache = init_cache(self.cfg, tokens.shape[0], self.max_len,
                            device=self.device)
@@ -69,7 +73,8 @@ class ServeEngine:
         """Greedy generation. batch: {"tokens": (B, T)} -> (B, gen_len).
 
         ``checkpoint_client``: optional ICheckClient; if given, the filled
-        cache is committed after prefill (serving-state fault tolerance).
+        KV cache / recurrent state is committed after prefill
+        (serving-state fault tolerance).
         """
         logits, cache = self.prefill(batch)
         if checkpoint_client is not None:
@@ -83,10 +88,11 @@ class ServeEngine:
         return np.concatenate([first, rest], axis=1)
 
     def restore_serving_state(self, checkpoint_client, batch_size: int):
-        """Rebuild the prefilled cache from the checkpoint service.
+        """Rebuild the prefilled KV cache / recurrent state from the
+        checkpoint service.
 
         The restart half of serving-state fault tolerance: fetch the
-        committed cache from the agents (L1) or the PFS (L2) instead of
+        committed state from the agents (L1) or the PFS (L2) instead of
         re-running prefill.  Returns the restored cache on ``device``, or
         None when nothing was committed.
         """

@@ -28,7 +28,8 @@ COPIES = (
         SRC / "repro_torch" / "kernels" / "ckpt_codec" / n)
        for n in ("blocks.py", "rs.py")]
     + [(SRC / "repro" / "configs" / n, SRC / "repro_torch" / "configs" / n)
-       for n in ("__init__.py", "base.py", "yi_6b.py", "qwen2_5_3b.py")]
+       for n in ("__init__.py", "base.py", "yi_6b.py", "qwen2_5_3b.py",
+                 "rwkv6_7b.py")]
     + [(SRC / "repro" / "data" / n, SRC / "repro_torch" / "data" / n)
        for n in ("__init__.py", "pipeline.py")]
 )

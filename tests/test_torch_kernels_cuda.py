@@ -11,7 +11,12 @@ Every test skips without a card.  Tolerances:
   atol 1e-4 + rtol 1e-4 (f32 sums in another order), bf16 atol 1e-3 +
   rtol 2^-7 (both round one f32 value to bf16: one ulp apart at most);
   two runs are bit-equal (no atomics);
-* codec K1-K3: bit-equal to the plain version and to the numpy host codec.
+* codec K1-K3: bit-equal to the plain version and to the numpy host codec;
+* RWKV-6 (K6) against its plain chunked version: f32 atol 2e-3 (the
+  reference's kernel tests), bf16 r/k/v the same plus rtol 2^-7 on o (one
+  bf16 rounding of an f32 value apart); two runs bit-equal; the carried
+  state continues a run within atol 1e-5;
+* Reed-Solomon encode (K5): bit-equal to the numpy host codec.
 
 ``allow_tf32`` is False so the plain versions' f32 matmuls are full f32.
 """
@@ -210,3 +215,160 @@ def test_codec_kernel_rejects_what_it_does_not_take(card):
         kernel.quantize_cuda(x.cpu())
     with pytest.raises(ValueError, match="prev_q"):
         kernel.quantize_delta_cuda(x, torch.zeros((4, 256), device=card))
+
+
+# --------------------------------------------------------------------------
+# K6: the RWKV-6 recurrence, against its plain chunked version
+# --------------------------------------------------------------------------
+# the sweep of tests/test_kernels_rwkv6.py, plus rwkv6-7b's prefill and
+# decode shapes; (b, h, t, d)
+RWKV_SWEEP = [(2, 3, 130, 64), (1, 2, 64, 32), (1, 1, 7, 16),
+              (4, 64, 512, 64), (4, 64, 1, 64)]
+# f32: atol 2e-3 (the reference's kernel tests); bf16 r/k/v: the same plus
+# rtol 2^-7 on o (both round one f32 value to bf16)
+RWKV_TOL = {"float32": (2e-3, 0.0), "bfloat16": (2e-3, 2 ** -7)}
+
+
+def _rwkv_inputs(card, seed, b, h, t, d, dtype, decay_scale=1.0):
+    rng = np.random.default_rng(seed)
+
+    def f(shape, scale):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(card)
+
+    r, k, v = (f((b, h, t, d), 0.5).to(getattr(torch, dtype))
+               for _ in range(3))
+    lw = -torch.exp(f((b, h, t, d), 1.0)) * decay_scale
+    return r, k, v, lw, f((h, d), 0.5), f((b, h, d, d), 0.1)
+
+
+def _rwkv_check(got, want, dtype):
+    atol, rtol = RWKV_TOL[dtype]
+    assert got[0].dtype == want[0].dtype and got[1].dtype == torch.float32
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(got[1], want[1], atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RWKV_SWEEP)
+def test_rwkv6_kernel_matches_plain(card, case, dtype):
+    from repro_torch.kernels.rwkv6 import kernel, rwkv6, rwkv6_chunked
+
+    inputs = _rwkv_inputs(card, 3, *case, dtype)
+    n0 = kernel.launches
+    got = rwkv6(*inputs)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    _rwkv_check(got, rwkv6_chunked(*inputs), dtype)
+    again = rwkv6(*inputs)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("decay_scale", [10.0, 100.0])
+def test_rwkv6_kernel_extreme_decay(card, decay_scale):
+    """log_w far below -30 is clamped as the plain version clamps it."""
+    from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_chunked
+
+    inputs = _rwkv_inputs(card, 4, 1, 2, 96, 32, "float32", decay_scale)
+    assert (inputs[3] < -30).any()
+    got = rwkv6(*inputs)
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    _rwkv_check(got, rwkv6_chunked(*inputs, chunk=32), "float32")
+
+
+def test_rwkv6_kernel_state_continuation(card):
+    """[0, T/2) then [T/2, T) from the carried state == one shot, and T = 1
+    steps from the carried state continue it."""
+    from repro_torch.kernels.rwkv6 import rwkv6
+
+    r, k, v, lw, u, s0 = _rwkv_inputs(card, 5, 2, 4, 64, 64, "float32")
+    o, s = rwkv6(r, k, v, lw, u, s0)
+    o1, s1 = rwkv6(r[:, :, :32], k[:, :, :32], v[:, :, :32], lw[:, :, :32],
+                   u, s0)
+    o2, s2 = rwkv6(r[:, :, 32:], k[:, :, 32:], v[:, :, 32:], lw[:, :, 32:],
+                   u, s1)
+    torch.testing.assert_close(torch.cat([o1, o2], 2), o, atol=1e-5, rtol=0)
+    torch.testing.assert_close(s2, s, atol=1e-5, rtol=0)
+    st, outs = s1, []
+    for t in range(32, 64):
+        ot, st = rwkv6(r[:, :, t:t + 1], k[:, :, t:t + 1], v[:, :, t:t + 1],
+                       lw[:, :, t:t + 1], u, st)
+        outs.append(ot)
+    torch.testing.assert_close(torch.cat(outs, 2), o2, atol=1e-5, rtol=0)
+    torch.testing.assert_close(st, s, atol=1e-5, rtol=0)
+
+
+def test_rwkv6_cuda_call_with_grad_raises(card):
+    from repro_torch.kernels.rwkv6 import rwkv6
+
+    r, k, v, lw, u, s0 = _rwkv_inputs(card, 6, 1, 2, 8, 16, "float32")
+    r.requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        rwkv6(r, k, v, lw, u, s0)
+    with torch.no_grad():
+        rwkv6(r, k, v, lw, u, s0)
+
+
+def test_rwkv6_kernel_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.rwkv6 import rwkv6
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_cuda
+
+    r, k, v, lw, u, s0 = _rwkv_inputs(card, 7, 1, 2, 8, 16, "float32")
+    with pytest.raises(ValueError, match="head dim"):
+        rwkv6_cuda(*(x[..., :8].contiguous() for x in (r, k, v, lw)),
+                   u[:, :8].contiguous(), s0[..., :8, :8].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        rwkv6_cuda(r.half(), k.half(), v.half(), lw, u, s0)
+    with pytest.raises(ValueError, match="log_w"):
+        rwkv6_cuda(r, k, v, lw.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_cuda(r.transpose(2, 3).contiguous().transpose(2, 3), k, v, lw,
+                   u, s0)
+    with pytest.raises(ValueError, match="u must be"):
+        rwkv6(r, k, v, lw, u[:1], s0)
+
+
+# --------------------------------------------------------------------------
+# K5: the Reed-Solomon encode, bit for bit against the host codec
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1, 15, 16, 33, 513, 4097, 100_003])
+def test_rs_encode_kernel_matches_host_codec(card, k, m, n):
+    from repro_torch.kernels.ckpt_codec import rs_encode, rs_encode_np
+    from repro_torch.kernels.ckpt_codec import rs_kernel
+
+    data = np.random.default_rng(10 * k + n).integers(0, 256, (k, n),
+                                                      dtype=np.uint8)
+    n0 = rs_kernel.launches
+    got = rs_encode(torch.from_numpy(data).to(card), m=m)
+    torch.cuda.synchronize()
+    assert rs_kernel.launches == n0 + 1
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (m, n)
+    np.testing.assert_array_equal(got.cpu().numpy(), rs_encode_np(data, m))
+
+
+def test_rs_encode_kernel_on_a_view_at_an_odd_address(card):
+    """Rows that start at no 16-byte boundary, and data whose first byte
+    does not either."""
+    from repro_torch.kernels.ckpt_codec import rs_encode, rs_encode_np
+
+    buf = np.random.default_rng(2).integers(0, 256, 4 * 1001 + 3,
+                                            dtype=np.uint8)
+    dev = torch.from_numpy(buf).to(card)[3:].view(4, 1001)
+    got = rs_encode(dev, m=2)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  rs_encode_np(buf[3:].reshape(4, 1001), 2))
+
+
+def test_rs_encode_kernel_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.ckpt_codec.rs_kernel import rs_encode_cuda
+
+    x = torch.zeros((4, 64), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="m=3"):
+        rs_encode_cuda(x, 3)
+    with pytest.raises(ValueError, match="uint8"):
+        rs_encode_cuda(x.int(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        rs_encode_cuda(x.t(), 1)
