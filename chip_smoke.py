@@ -8,13 +8,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. environment: the card's name and power limit from ``nvidia-smi``; no
    CUDA card means exit 1 with no result;
 2. build: every kernel library (flash-attention forward and backward, the
-   checkpoint codec, the RWKV-6 recurrence, the Reed-Solomon encode)
-   compiled with ``nvcc`` for ``sm_90a`` from the sources in this
-   checkout, all at once;
+   checkpoint codec, the RWKV-6 recurrence, the Reed-Solomon encode, the
+   RG-LRU scan) compiled with ``nvcc`` for ``sm_90a`` from the sources in
+   this checkout, all at once;
 3. kernels against their plain PyTorch versions on the card:
    * the flash-attention forward over the reference's sweep plus the
-     serving path's shape, f32 (atol 3e-5) and bf16 (atol 3e-2), lse atol
-     1e-4 on rows with an allowed key, and exact zeros on rows with none;
+     serving path's shape, and at head dim 256 (MQA, causal) with windows
+     of 128 and 2048 at T = 300, recurrentgemma-9b's prefill shape (4, 16,
+     1, 512, 512) and T = 2560 (the window hides keys), f32 (atol 3e-5)
+     and bf16 (atol 3e-2), lse atol 1e-4 on rows with an allowed key, and
+     exact zeros on rows with none;
    * the flash-attention backward over the same sweep plus the training
      path's shape, from the same (q, k, v, out, lse, do): dq, dk, dv within
      f32 atol 1e-4 + rtol 1e-4, bf16 atol 1e-3 + rtol 2^-7; two runs
@@ -28,6 +31,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      version: atol 2e-3 (the reference's kernel tests), plus rtol 2^-7 on
      a bf16 o; log_w below -30 (clamped); [0, T/2) then [T/2, T) equal to
      one shot within atol 1e-5;
+   * the RG-LRU scan K7 over the reference's sweep plus the serving path's
+     prefill (4, 512, 4096) and decode (4, 1, 4096) shapes, with h0 and
+     without, f32 and bf16 g, against the plain chunked version: h_final
+     and an f32 h within atol 2e-4 (the reference's kernel tests), a bf16
+     h within atol 2e-4 + rtol 2^-7; two runs bit-equal; [0, T/2) then
+     [T/2, T) equal to one shot;
 4. the serving path: yi-6b at full width (32 layers, bf16, random weights
    from a seeded generator) serves 4 requests of 512 prompt tokens and 32
    new tokens through ``ServeEngine.generate``, committing its KV cache to
@@ -50,6 +59,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``rs.split_rows`` splits them (stride 34,078,721).  No serving or
    training path runs K5 (the copied service encodes on the host), so its
    launches are this check's;
+4d. the same serving path for recurrentgemma-9b at full width (38 layers:
+   12 x (RG-LRU, RG-LRU, attention) + 2 RG-LRU tail layers, d_model 4096,
+   16 heads of 256 over one KV head with window 2048, d_ff 12288, vocab
+   256,000, bf16, 10,444,771,328 params): K7 must run 26 times in prefill
+   and 26 x 31 in the decode steps of ``generate``, K4 (head dim 256) 12
+   times in prefill and never in decode; the 30,998,532-byte state (ring
+   caches and RG-LRU states) is restored bit-equal to a second prefill's
+   and decoding from it gives the live tokens.  Then one 2560-token
+   prompt and 16 new tokens (2048 ring slots: prefill rolls the ring,
+   decode writes into it), its 26,230,788-byte state checked the same
+   way; a 5-layer f32 cut (one super-layer and both tail layers) against
+   the plain CPU path within 1e-4; then the weights are freed;
 5. the training path: ``ElasticTrainer`` trains qwen2.5-3b at full width
    (36 layers, d_model 2048, bf16 compute, f32 master weights, full remat)
    on 4096-token sequences, global batch 1 (cut from 256), 6 steps with a
@@ -62,7 +83,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. a second training phase at full width cut to 8 layers: int8 gradient
    compression (K1 + K3 in every step) and a 1 -> 2 logical-rank resize
    with ``overlap_resize``;
-7. numbers: the serving lines (yi-6b, rwkv6-7b), step ms, tokens/s,
+7. numbers: the serving lines (yi-6b, rwkv6-7b, recurrentgemma-9b), step
+   ms, tokens/s,
    ``mfu``, commit and restart wall seconds,
    bytes on the wire, peak device memory, host RSS, a ``torch.profiler``
    window over one training step, and the ``kernels`` line (each kernel's
@@ -119,6 +141,17 @@ CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
 RWKV_SWEEP = [(2, 3, 130, 64), (1, 2, 64, 32), (1, 1, 7, 16)]
 RWKV_TOL = {"float32": (2e-3, 0.0), "bfloat16": (2e-3, 2 ** -7)}
 RS_STRIDES = [1, 15, 33, 4097, 100_003]
+# the sweep of tests/test_kernels_rglru.py plus the serving path's prefill
+# and decode shapes; (b, t, d)
+RGLRU_SWEEP = [(2, 100, 256), (1, 64, 128), (1, 5, 512), (3, 33, 96)]
+RGLRU_TOL = {"float32": (2e-4, 0.0), "bfloat16": (2e-4, 2 ** -7)}
+# recurrentgemma-9b's attention at head dim 256 (MQA, causal, window
+# 2048): a short window, the serving path's prefill, a window that hides
+# keys; (b, hq, hkv, t, s, d, causal, window)
+D256_SWEEP = [(1, 4, 1, 300, 300, 256, True, 128),
+              (1, 16, 1, 2560, 2560, 256, True, 2048)]
+# its ring sub-phase: one sequence longer than the window
+RING_PROMPT, RING_GEN = 2560, 16
 CODEC_DTYPES = ("float32", "bfloat16", "float16")
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -157,6 +190,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def _device_us(evt) -> float:
     return (getattr(evt, "self_device_time_total", None)
             or getattr(evt, "self_cuda_time_total", 0))
+
+
+def device_kernel_ms(fn, name: str, iters: int = 20):
+    """Mean device time a call of the kernels whose name contains ``name``
+    over ``iters`` calls of ``fn`` under ``torch.profiler``.  At a
+    launch-bound shape the CUDA-event time of back-to-back calls is the
+    host's rate of enqueueing them, not the card's time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    return us / 1e3 / iters if us > 0 else "not measured"
 
 
 def profile_window(fn, top: int = 8) -> dict:
@@ -200,11 +253,12 @@ def build_kernels():
     from repro_torch.kernels.ckpt_codec import kernel as codec_kernel
     from repro_torch.kernels.ckpt_codec import rs_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.rglru import kernel as rglru_kernel
     from repro_torch.kernels.rwkv6 import kernel as rwkv_kernel
 
     builders = {"flash_fwd": fa_kernel.build, "flash_bwd": fa_kernel.build_bwd,
                 "ckpt_codec": codec_kernel.build, "rwkv6": rwkv_kernel.build,
-                "rs": rs_kernel.build}
+                "rs": rs_kernel.build, "rglru": rglru_kernel.build}
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(builders)) as pool:
         futures = {n: pool.submit(b) for n, b in builders.items()}
@@ -257,21 +311,26 @@ def check_attention_case(case, dtype, device) -> float:
     return err
 
 
-def check_kernels(path_case, device) -> float:
-    """Every case of the sweep and the path's shape, both dtypes; returns
+def check_kernels(path_case, device, sweep=SWEEP) -> float:
+    """Every case of ``sweep`` and the path's shape, both dtypes; returns
     the max abs error at the path's shape in bf16."""
-    import torch
-
-    from repro_torch.kernels.flash_attention import attention
-
     path_err = None
-    for case in SWEEP + [path_case]:
+    for case in sweep + [path_case]:
         for dtype in ("float32", "bfloat16"):
             err = check_attention_case(case, dtype, device)
             log(f"  flash_fwd {case} {dtype}: max abs err {err:.3e}")
             if case == path_case and dtype == "bfloat16":
                 path_err = err
-    # T > S: the first T - S query rows see no key and must be exact zeros
+    return path_err
+
+
+def check_empty_rows(device) -> None:
+    """T > S: the first T - S query rows see no key and must be exact
+    zeros."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention
+
     q, k, v = _inputs(3, 2, 4, 2, 96, 40, 128, "bfloat16", device)
     out, lse = attention(q, k, v, causal=True, return_lse=True)
     torch.cuda.synchronize()
@@ -279,7 +338,6 @@ def check_kernels(path_case, device) -> float:
             and torch.all(torch.isneginf(lse[:, :, :56]))):
         raise AssertionError("rows without an allowed key are not zero")
     log("  flash_fwd T=96 > S=40: rows without an allowed key are zeros")
-    return path_err
 
 
 # --------------------------------------------------------------------------
@@ -404,17 +462,20 @@ def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
     return res
 
 
-def check_against_plain(cfg, params, device):
-    """A 2-layer cut of the model in f32: the card's prefill logits (the
-    kernel) against the plain CPU path's, on a short prompt."""
+def check_against_plain(cfg, params, device, layers=2, atol=1e-3):
+    """A cut of the model to its first ``layers`` layers (whole super-layers
+    plus the tail layers) in f32: the card's prefill logits (the kernels)
+    against the plain CPU path's, on a short prompt."""
     import numpy as np
     import torch
 
-    from repro_torch.models import init_cache, prefill
+    from repro_torch.models import init_cache, prefill, stack_plan
 
-    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    small = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    n = stack_plan(small)["scan_len"]
     cut = {k: v for k, v in params.items() if k != "stack"}
-    cut["stack"] = {"b0": _map(lambda t: t[:2], params["stack"]["b0"])}
+    cut["stack"] = {b: _map(lambda t: t[:n], sub)
+                    for b, sub in params["stack"].items()}
     toks = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 64)).astype(np.int32)
     logits = {}
@@ -426,9 +487,9 @@ def check_against_plain(cfg, params, device):
                                        .to(dev)}, cache)
         logits[dev.type] = lg.float().cpu()
     err = (logits[device.type] - logits["cpu"]).abs().max().item()
-    if not err <= 1e-3:
-        raise AssertionError(f"2-layer f32 logits: card vs plain CPU max abs "
-                             f"err {err} (atol 1e-3)")
+    if not err <= atol:
+        raise AssertionError(f"{layers}-layer f32 logits: card vs plain CPU "
+                             f"max abs err {err} (atol {atol})")
     return err
 
 
@@ -677,7 +738,9 @@ def check_rwkv6(path_cases, device) -> float:
 
 
 def rwkv6_numbers(case, device) -> dict:
-    """K6 at one of the path's shapes (bf16 r/k/v): its time, its plain
+    """K6 at one of the path's shapes (bf16 r/k/v): its time (CUDA events,
+    and the profiler's device time a call in ``device_ms``: at the decode
+    shape the events measure the wrapper's host cost), its plain
     version's, and its bound: each input read once and each output written
     once, or 5 f32 operations per state element per token (the decay's
     multiply-add, k v's product, r S's multiply-add) at the f32 rate."""
@@ -687,13 +750,14 @@ def rwkv6_numbers(case, device) -> dict:
     b, h, t, d = case
     inputs = _rwkv_inputs(3, case, "bfloat16", device)
     ms = cuda_ms(lambda: rwkv6_cuda(*inputs))
+    device_ms = device_kernel_ms(lambda: rwkv6_cuda(*inputs), "rwkv6_kernel")
     plain_ms = cuda_ms(lambda: rwkv6_chunked(*inputs), iters=3, warmup=1)
     nbytes = b * h * t * d * (3 * 2 + 4 + 2) + h * d * 4 \
         + 2 * b * h * d * d * 4
     flops = 5 * b * h * t * d * d
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
 
@@ -812,12 +876,221 @@ def check_rs(device, payload) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 3 / 4d: K7 against its plain version, recurrentgemma serving
+# --------------------------------------------------------------------------
+def _rglru_inputs(seed, case, dtype, device):
+    """log_a, g (dtype), h0 (f32) for one (b, t, d) case, made with numpy
+    from ``seed`` as tests/test_kernels_rglru.py makes them."""
+    import numpy as np
+    import torch
+
+    b, t, d = case
+    rng = np.random.default_rng(seed)
+    la = -np.exp(rng.standard_normal((b, t, d))).astype(np.float32)
+    g = rng.standard_normal((b, t, d)).astype(np.float32)
+    h0 = rng.standard_normal((b, d)).astype(np.float32)
+    return (torch.from_numpy(la).to(device),
+            torch.from_numpy(g).to(device, getattr(torch, dtype)),
+            torch.from_numpy(h0).to(device))
+
+
+def check_rglru(path_cases, device) -> float:
+    """K7 against its plain chunked version on the card: the sweep and the
+    path's shapes (T = 1 at decode), with h0 and without, f32 and bf16 g;
+    two runs bit-equal; [0, T/2) then [T/2, T) equal to one shot.  Returns
+    the max abs error at the prefill shape, bf16 g, with h0."""
+    import torch
+
+    from repro_torch.kernels.rglru import rglru_chunked
+    from repro_torch.kernels.rglru.kernel import rglru_cuda
+
+    path_err = None
+    for case in RGLRU_SWEEP + list(path_cases.values()):
+        for dtype in ("float32", "bfloat16"):
+            atol, rtol = RGLRU_TOL[dtype]
+            la, g, h0 = _rglru_inputs(3, case, dtype, device)
+            for init in (h0, None):
+                got = rglru_cuda(la, g, init)
+                again = rglru_cuda(la, g, init)
+                want = rglru_chunked(la, g, init)
+                torch.cuda.synchronize()
+                dh = (got[0].float() - want[0].float()).abs()
+                dT = (got[1] - want[1]).abs()
+                what = f"rglru {case} {dtype} h0={init is not None}"
+                if not (bool(torch.all(dh <= atol + rtol
+                                       * want[0].float().abs()))
+                        and dT.max().item() <= atol):
+                    raise AssertionError(
+                        f"{what}: max abs err h {dh.max().item()}, h_final "
+                        f"{dT.max().item()} (atol {atol}, rtol {rtol} on h)")
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError(f"{what}: two runs differ")
+                err = max(dh.max().item(), dT.max().item())
+                log(f"  {what}: max abs err {err:.3e}")
+                if case == path_cases["prefill"] and dtype == "bfloat16" \
+                        and init is not None:
+                    path_err = err
+    la, g, h0 = _rglru_inputs(5, path_cases["prefill"], "bfloat16", device)
+    h, hT = rglru_cuda(la, g, h0)
+    half = la.shape[1] // 2
+    h1, s1 = rglru_cuda(la[:, :half].contiguous(), g[:, :half].contiguous(),
+                        h0)
+    h2, s2 = rglru_cuda(la[:, half:].contiguous(), g[:, half:].contiguous(),
+                        s1)
+    torch.cuda.synchronize()
+    if not (torch.equal(torch.cat([h1, h2], 1), h) and torch.equal(s2, hT)):
+        raise AssertionError("rglru continuation differs from one shot")
+    log(f"  rglru [0, T/2) then [T/2, T) at {path_cases['prefill']} bf16: "
+        f"equal to one shot")
+    return path_err
+
+
+def rglru_numbers(case, device) -> dict:
+    """K7 at one of the path's shapes (bf16 g, f32 log_a and h0): its time
+    (``ms``: the profiler's device time a call; ``event_ms``: CUDA events
+    over back-to-back calls, which at these shapes measure the wrapper's
+    host cost), its plain version's, and its bound: log_a (4 B), g and h
+    (2 B each) per element, h0 and h_final (4 B) per channel, or an exp
+    and an FMA per element (3 f32 operations) at the f32 rate."""
+    from repro_torch.kernels.rglru import rglru_chunked
+    from repro_torch.kernels.rglru.kernel import rglru_cuda
+
+    b, t, d = case
+    la, g, h0 = _rglru_inputs(3, case, "bfloat16", device)
+    event_ms = cuda_ms(lambda: rglru_cuda(la, g, h0))
+    ms = device_kernel_ms(lambda: rglru_cuda(la, g, h0), "rglru_kernel")
+    if not isinstance(ms, float):
+        raise AssertionError(f"the profiler saw no rglru kernel at {case}")
+    plain_ms = cuda_ms(lambda: rglru_chunked(la, g, h0), iters=3, warmup=1)
+    nbytes = b * t * d * (4 + 2 + 2) + 2 * b * d * 4
+    flops = 3 * b * t * d
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return {"ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def gate_product_ms(gcfg, device, tokens) -> float:
+    """The RG-LRU's two f32 gate products (``yf @ w_ai``, full f32: TF32
+    is off) for ``tokens`` tokens, one layer's worth, in ms."""
+    import torch
+
+    n = gcfg.resolved_rnn_width
+    gen = torch.Generator(device=device).manual_seed(2)
+    yf = torch.randn((tokens, n), generator=gen, device=device)
+    w = torch.randn((2, n, n), generator=gen, device=device)
+    return cuda_ms(lambda: (yf @ w[0], yf @ w[1]), iters=10)
+
+
+def serve_recurrentgemma_phase(gcfg, device, card) -> dict:
+    """recurrentgemma-9b at full width through ``serve_main_path``: K7's
+    and K4's launches asserted (26 and 12 a prefill, 26 a decode step), the
+    committed state's size, then the ring sub-phase (one prompt longer
+    than the window), the 5-layer f32 cut (one super-layer and both tail
+    layers) against the plain CPU path, K7's and K4's numbers at the
+    path's shapes; prints the ``serve_recurrentgemma`` line and the profile
+    windows, frees the weights.  Returns launches and numbers."""
+    import torch
+
+    from repro_torch.models import count_params, init_params, stack_plan
+
+    n_params = count_params(gcfg)
+    if n_params != 10_444_771_328:
+        raise AssertionError(f"{gcfg.name}: {n_params} params")
+    plan = stack_plan(gcfg)
+    kinds = plan["scan_kinds"] * plan["scan_len"] + plan["tail_kinds"]
+    n_rec, n_attn = kinds.count("rec"), kinds.count("attn")
+    t0 = time.monotonic()
+    params = init_params(gcfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    torch.cuda.synchronize()
+    log(f"  params: {n_params} f32 in {time.monotonic() - t0:.1f} s; "
+        f"{n_rec} RG-LRU and {n_attn} attention layers")
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for name, batch, prompt, gen, state_bytes in (
+            ("serve", BATCH, PROMPT, GEN, 30_998_532),
+            ("ring", 1, RING_PROMPT, RING_GEN, 26_230_788)):
+        res = serve_main_path(gcfg, params, device, batch_size=batch,
+                              prompt=prompt, gen=gen, want={
+                                  "generate": {"rglru": n_rec * gen,
+                                               "flash_fwd": n_attn},
+                                  "prefill": {"rglru": n_rec,
+                                              "flash_fwd": n_attn},
+                                  "decode": {"rglru": n_rec * (gen - 1),
+                                             "flash_fwd": 0}})
+        res.pop("state_payload")
+        if res["state_bytes"] != state_bytes:
+            raise AssertionError(f"{name}: state of {res['state_bytes']} "
+                                 f"bytes, want {state_bytes}")
+        log(f"  {name}: {batch} x {prompt} prompt tokens, {gen} new: "
+            f"launches {res['launches']}; state {res['state_bytes']} bytes "
+            f"restored bit-equal to a second prefill; {gen - 1} decode "
+            f"steps from it give the live tokens")
+        runs[name] = res
+    ring_k = runs["ring"]["state_leaves"]["stack/b2/self/k"]
+    if ring_k != [plan["scan_len"], 1, gcfg.num_kv_heads, gcfg.window,
+                  gcfg.resolved_head_dim]:
+        raise AssertionError(f"ring slots {ring_k}")
+    log(f"  ring: {RING_PROMPT}-token prompt in {gcfg.window} slots "
+        f"{ring_k}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    plain_err = check_against_plain(gcfg, params, device, layers=5,
+                                    atol=1e-4)
+    log(f"  5-layer f32 cut: card vs plain CPU logits max abs err "
+        f"{plain_err:.3e}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = runs["serve"]
+    w = gcfg.resolved_rnn_width
+    numbers = {name: rglru_numbers((BATCH, t, w), device)
+               for name, t in (("prefill", PROMPT), ("decode", 1))}
+    attn_case = (BATCH, gcfg.num_heads, gcfg.num_kv_heads, PROMPT, PROMPT,
+                 gcfg.resolved_head_dim, True, gcfg.window)
+    attn_num = attention_numbers(attn_case, device)
+    gate_ms = gate_product_ms(gcfg, device, BATCH * PROMPT)
+    serve = {
+        "card": card, "params": n_params,
+        "prefill_ms": res["prefill_ms"],
+        "decode_ms_per_token": res["decode_ms_per_token"],
+        "decode_ms_per_token_no_cluster":
+            res["decode_ms_per_token_no_cluster"],
+        "output_tokens_per_s": BATCH * GEN / res["generate_s"],
+        "generate_wall_s": res["generate_s"],
+        "commit_wall_s": res["commit_s"],
+        "commit_wait_s": res["commit_wait_s"],
+        "restore_wall_s": res["restore_s"],
+        "state_bytes": res["state_bytes"],
+        "max_memory_allocated": peak,
+        "plain_cut_max_abs_err": plain_err,
+        "f32_gate_products_ms_per_layer": gate_ms,
+        "f32_gate_products_ms_per_prefill": gate_ms * n_rec,
+        "rglru_prefill_shape": numbers["prefill"],
+        "rglru_decode_shape": numbers["decode"],
+        "flash_fwd_d256_prefill_shape": attn_num,
+        "ring": {k: runs["ring"][k] for k in (
+            "prefill_ms", "decode_ms_per_token", "generate_s", "commit_s",
+            "restore_s", "state_bytes")},
+    }
+    log(json.dumps({"serve_recurrentgemma": serve}))
+    for name in ("profile_prefill", "profile_decode_8"):
+        log(json.dumps({f"recurrentgemma_{name}": res[name]}))
+    return {"launches": res["launches"],
+            "ring_launches": runs["ring"]["launches"], "numbers": numbers,
+            "attn": attn_num}
+
+
+# --------------------------------------------------------------------------
 # phase 5/6: the training path
 # --------------------------------------------------------------------------
 def reset_counts() -> None:
     from repro_torch.kernels.ckpt_codec import kernel as codec_kernel
     from repro_torch.kernels.ckpt_codec import rs_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.rglru import kernel as rglru_kernel
     from repro_torch.kernels.rwkv6 import kernel as rwkv_kernel
 
     fa_kernel.launches = 0
@@ -826,17 +1099,20 @@ def reset_counts() -> None:
         codec_kernel.launches[name] = 0
     rwkv_kernel.launches = 0
     rs_kernel.launches = 0
+    rglru_kernel.launches = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels.ckpt_codec import kernel as codec_kernel
     from repro_torch.kernels.ckpt_codec import rs_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.rglru import kernel as rglru_kernel
     from repro_torch.kernels.rwkv6 import kernel as rwkv_kernel
 
     return {"flash_fwd": fa_kernel.launches,
             "flash_bwd": fa_kernel.bwd_launches, **codec_kernel.launches,
-            "rwkv6": rwkv_kernel.launches, "rs_encode": rs_kernel.launches}
+            "rwkv6": rwkv_kernel.launches, "rs_encode": rs_kernel.launches,
+            "rglru": rglru_kernel.launches}
 
 
 def _float_leaves(tree):
@@ -1143,15 +1419,6 @@ def bwd_numbers(path_case, device) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
-def fwd_train_numbers(path_case, device) -> dict:
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-
-    b, hq, hkv, t, s, d, causal, window = path_case
-    q, k, v = _inputs(7, b, hq, hkv, t, s, d, "bfloat16", device)
-    return {"ms": cuda_ms(lambda: flash_attention_cuda(
-        q, k, v, causal=causal, window=window, scale=d ** -0.5), iters=5)}
-
-
 def codec_numbers(n, device) -> dict:
     """K1-K3 at the path's largest leaf (f32), beside their plain versions
     and their byte bounds; no single PyTorch call computes them."""
@@ -1203,12 +1470,17 @@ def main() -> int:
 
     cfg = get_config("yi-6b")
     rcfg = get_config("rwkv6-7b")
+    gcfg = get_config("recurrentgemma-9b")
     tcfg = get_config("qwen2.5-3b")
     rh = rcfg.d_model // rcfg.rwkv_head_dim
     rwkv_cases = {"prefill": (BATCH, rh, PROMPT, rcfg.rwkv_head_dim),
                   "decode": (BATCH, rh, 1, rcfg.rwkv_head_dim)}
+    rglru_cases = {"prefill": (BATCH, PROMPT, gcfg.resolved_rnn_width),
+                   "decode": (BATCH, 1, gcfg.resolved_rnn_width)}
     path_case = (BATCH, cfg.num_heads, cfg.num_kv_heads, PROMPT, PROMPT,
                  cfg.resolved_head_dim, True, cfg.window)
+    d256_case = (BATCH, gcfg.num_heads, gcfg.num_kv_heads, PROMPT, PROMPT,
+                 gcfg.resolved_head_dim, True, gcfg.window)
     train_case = (1, tcfg.num_heads, tcfg.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
                   tcfg.resolved_head_dim, True, tcfg.window)
     w_gu = tcfg.num_layers * 2 * tcfg.d_model * tcfg.d_ff
@@ -1220,9 +1492,12 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions")
     path_err = check_kernels(path_case, device)
+    d256_err = check_kernels(d256_case, device, D256_SWEEP)
+    check_empty_rows(device)
     bwd_err = check_bwd(train_case, device)
     codec_bad = check_codec(CODEC_NS + [w_gu], device)
     rwkv_err = check_rwkv6(rwkv_cases, device)
+    rglru_err = check_rglru(rglru_cases, device)
     torch.cuda.empty_cache()
     log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
 
@@ -1286,6 +1561,13 @@ def main() -> int:
     log(json.dumps({"rs_encode_state": rs["numbers"]}))
     log(f"  phase 4c done at {time.monotonic() - t_start:.1f} s")
 
+    log(f"phase 4d: serving, {gcfg.name} {gcfg.num_layers} layers d_model "
+        f"{gcfg.d_model} {gcfg.dtype}, {BATCH} x {PROMPT} prompt tokens, "
+        f"{GEN} new tokens; then 1 x {RING_PROMPT}, {RING_GEN} new tokens")
+    rg = serve_recurrentgemma_phase(gcfg, device, card)
+    log(f"  phase 4d done at {time.monotonic() - t_start:.1f} s; weights "
+        f"freed, {torch.cuda.memory_allocated()} bytes allocated")
+
     n_params = count_params(tcfg)
     log(f"phase 5: training, {tcfg.name} {tcfg.num_layers} layers d_model "
         f"{tcfg.d_model} {tcfg.dtype} compute, {n_params} params, "
@@ -1344,7 +1626,7 @@ def main() -> int:
 
     log("phase 7: numbers")
     bwd = bwd_numbers(train_case, device)
-    fwd_train = fwd_train_numbers(train_case, device)
+    fwd_train = attention_numbers(train_case, device)
     codec = codec_numbers(w_gu, device)
     torch.cuda.synchronize()
     log(json.dumps({"flash_fwd_train_shape": fwd_train,
@@ -1352,6 +1634,8 @@ def main() -> int:
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
     paths = {"serve": res["launches"], "serve_rwkv6": rw["launches"],
+             "serve_recurrentgemma": rg["launches"],
+             "serve_recurrentgemma_ring": rg["ring_launches"],
              "train": tr["launches"], "train_cut": cut["launches"],
              "rs_encode_check": rs["launches"]}
 
@@ -1368,6 +1652,17 @@ def main() -> int:
         "max_abs_err": path_err, "ms": num["ms"],
         "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
         "bound_by": num["bound_by"], "library_ms": num["library_ms"],
+        "train_shape": {k: fwd_train[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }, {
+        # the same kernel's head-dim-256 instance, on recurrentgemma-9b's
+        # path (its windowed MQA layers)
+        "name": "flash_fwd_d256", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
+        **counts("flash_fwd", "serve_recurrentgemma"),
+        "max_abs_err": d256_err, **{k: rg["attn"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }, {
         "name": "flash_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
@@ -1409,6 +1704,16 @@ def main() -> int:
         "max_abs_err": float(rs["mismatches"]), "ms": rsn["ms"],
         "plain_ms": rsn["plain_ms"], "bound_ms": rsn["bound_ms"],
         "bound_by": rsn["bound_by"], "library_ms": None})
+    gn = rg["numbers"]["prefill"]
+    kernels.append({
+        "name": "rglru", "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+        "replaces": "src/repro/kernels/rglru/kernel.py:58",
+        **counts("rglru", "serve_recurrentgemma"),
+        "max_abs_err": rglru_err, "ms": gn["ms"], "plain_ms": gn["plain_ms"],
+        "bound_ms": gn["bound_ms"], "bound_by": gn["bound_by"],
+        "library_ms": None,
+        "decode_shape": rg["numbers"]["decode"]})
     log(f"  total {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -15,7 +15,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..common import load_library
+from ..common import check_tensor, load_library
 from .blocks import BLOCK
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "codec.cu",)
@@ -48,18 +48,7 @@ def build() -> None:
 
 
 def _check(name: str, t: torch.Tensor, dtypes, nb: int, device) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
-    if t.device != device:
-        raise ValueError(f"{name} lies on {t.device}, not {device}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name} has dtype {t.dtype}; the kernel takes "
-                         f"{sorted(map(str, dtypes))}")
-    if t.dim() != 2 or t.shape[1] != BLOCK or t.shape[0] != nb:
-        raise ValueError(f"{name} must be ({nb}, {BLOCK}), got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
+    check_tensor(name, t, (nb, BLOCK), dtypes, device)
     if t.data_ptr() % 16:
         raise ValueError(f"{name} is not 16-byte aligned")
 

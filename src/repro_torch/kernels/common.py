@@ -53,6 +53,24 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"inputs on mixed or unsupported devices: {sorted(kinds)}")
 
 
+def check_tensor(name: str, t: torch.Tensor, shape, dtypes, device) -> None:
+    """Raise ValueError unless ``t`` lies on CUDA ``device``, has one of
+    ``dtypes``, has ``shape`` and is contiguous: what a kernel wrapper
+    checks before it passes a pointer."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, not {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} has dtype {t.dtype}; the kernel takes "
+                         f"{sorted(map(str, dtypes))}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -19,7 +19,11 @@ from ..common import load_library
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu",)
 BWD_SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu",)
-HEAD_DIMS = (32, 64, 128)
+# head dims each kernel is instantiated for: the forward also at 256
+# (recurrentgemma-9b's attention layers); no training path needs the
+# backward there
+FWD_HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the forward and of the backward in this process; a run sets
@@ -64,9 +68,10 @@ def build_bwd() -> None:
     _bwd_lib()
 
 
-def _check_qkv(q, k, v, extra=()):
+def _check_qkv(q, k, v, head_dims, what, extra=()):
     """Device, dtype, layout and shape checks shared by both kernels;
-    returns (b, hq, hkv, t, s, d)."""
+    ``head_dims`` are the ones kernel ``what`` is built for.  Returns
+    (b, hq, hkv, t, s, d)."""
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
@@ -85,8 +90,8 @@ def _check_qkv(q, k, v, extra=()):
     if v.shape != k.shape or bk != b or dk != d:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"{what}: head dim {d} not in {head_dims}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
     return b, hq, hkv, t, s, d
@@ -96,10 +101,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: Optional[int],
                          scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Hq, T, D), k/v: (B, Hkv, S, D) CUDA tensors, contiguous, of
-    one dtype (f32 or bf16), D in {32, 64, 128}.  Returns ``(out in
+    one dtype (f32 or bf16), D in {32, 64, 128, 256}.  Returns ``(out in
     q.dtype, lse f32 (B, Hq, T))``."""
     global launches
-    b, hq, hkv, t, s, d = _check_qkv(q, k, v)
+    b, hq, hkv, t, s, d = _check_qkv(q, k, v, FWD_HEAD_DIMS, "flash_fwd")
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -125,11 +130,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Gradients of the forward: q/out/dout (B, Hq, T, D), k/v (B, Hkv, S,
-    D) of one dtype, lse (B, Hq, T) f32, all contiguous CUDA tensors.
-    Returns ``(dq, dk, dv)`` in the inputs' dtype; deterministic."""
+    D) of one dtype, lse (B, Hq, T) f32, all contiguous CUDA tensors, D
+    in {32, 64, 128}.  Returns ``(dq, dk, dv)`` in the inputs' dtype;
+    deterministic."""
     global bwd_launches
-    b, hq, hkv, t, s, d = _check_qkv(q, k, v, (("out", out),
-                                               ("dout", dout)))
+    b, hq, hkv, t, s, d = _check_qkv(q, k, v, BWD_HEAD_DIMS, "flash_bwd",
+                                     (("out", out), ("dout", dout)))
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} / dout "
                          f"{tuple(dout.shape)} must match q "

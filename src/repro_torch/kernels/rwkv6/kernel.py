@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-from ..common import load_library
+from ..common import check_tensor, load_library
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "rwkv6.cu",)
 HEAD_DIMS = (16, 32, 64)
@@ -41,21 +41,6 @@ def build() -> None:
     _lib()
 
 
-def _check(name, t, shape, dtypes, device) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
-    if t.device != device:
-        raise ValueError(f"{name} lies on {t.device}, not {device}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name} has dtype {t.dtype}; the kernel takes "
-                         f"{sorted(map(str, dtypes))}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must be {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                log_w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -71,10 +56,10 @@ def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.dtype not in _DTYPES:
         raise ValueError(f"dtype {r.dtype} not supported: f32 or bf16")
     for name, x in (("r", r), ("k", k), ("v", v)):
-        _check(name, x, (b, h, t, d), (r.dtype,), r.device)
-    _check("log_w", log_w, (b, h, t, d), (torch.float32,), r.device)
-    _check("u", u, (h, d), (torch.float32,), r.device)
-    _check("s0", s0, (b, h, d, d), (torch.float32,), r.device)
+        check_tensor(name, x, (b, h, t, d), (r.dtype,), r.device)
+    check_tensor("log_w", log_w, (b, h, t, d), (torch.float32,), r.device)
+    check_tensor("u", u, (h, d), (torch.float32,), r.device)
+    check_tensor("s0", s0, (b, h, d, d), (torch.float32,), r.device)
     o = torch.empty_like(v)
     if t == 0 or b * h == 0:
         return o, s0.clone()

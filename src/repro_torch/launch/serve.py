@@ -1,11 +1,13 @@
 """Serving driver, the twin of ``repro.launch.serve`` (tiny configs).
 
-  python -m repro_torch.launch.serve --arch yi-6b|qwen2.5-3b|rwkv6-7b \
+  python -m repro_torch.launch.serve \
+      --arch yi-6b|qwen2.5-3b|rwkv6-7b|recurrentgemma-9b \
       --batch 4 --prompt-len 32 --gen 16 [--icheck] [--device cuda|cpu]
 
-With --icheck, the filled KV cache (attention) or recurrent state
-(RWKV-6) is committed to agents after prefill (serving-state fault
-tolerance).
+With --icheck, the filled KV cache (attention), recurrent state (RWKV-6)
+or both (the RG-LRU hybrid: ring caches of its windowed attention layers
+and its RG-LRU states) is committed to agents after prefill
+(serving-state fault tolerance).
 """
 from __future__ import annotations
 

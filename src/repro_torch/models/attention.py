@@ -5,7 +5,10 @@ self-attention case.  Prefill attention runs the flash-attention op, which
 launches the Hopper kernel on CUDA tensors.  Decode keeps the reference's
 plain f32 softmax over the whole cache (``attention.py:222-246``): with one
 query per step it is bound by reading the cache, and the reference leaves
-it to XLA as this leaves it to ``torch.matmul``.
+it to XLA as this leaves it to ``torch.matmul``.  A sliding-window layer's
+cache is a ring of ``min(max_len, window)`` slots (``attention.py:
+170-246``): position p lives in slot p % S, and keys are RoPE'd with their
+absolute positions at insert, so an overwritten slot needs no re-rotation.
 """
 from __future__ import annotations
 
@@ -106,12 +109,14 @@ def init_kv_cache(batch: int, num_kv_heads: int, max_len: int, head_dim: int,
 def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
                 num_heads: int, num_kv_heads: int, head_dim: int,
                 rope_theta: float = 10000.0, use_rope: bool = True,
+                window: Optional[int] = None,
                 scale: Optional[float] = None):
-    """One-token self-attention decode over a full (not ring, not int8)
-    cache. x: (B, 1, d_model); idx: 0-d int32 position.
+    """One-token self-attention decode over a (not int8) cache.
+    x: (B, 1, d_model); idx: 0-d int32 position.
 
-    The new K/V are written into ``cache`` in place at slot ``idx`` (the
-    reference returns an updated copy; the same tensors come back here).
+    The new K/V are written into ``cache`` in place at slot ``idx``, or
+    ``idx % S`` for a sliding-window layer's ring (the reference returns
+    an updated copy; the same tensors come back here).
     """
     b = x.shape[0]
     s = cache.k.shape[2]
@@ -130,6 +135,8 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
     if use_rope:
         k_new = apply_rope(k_new, pos, rope_theta)
     slot = idx.reshape(1).long()
+    if window is not None:
+        slot = slot % s
     cache.k.index_copy_(2, slot, k_new.to(cache.k.dtype))
     cache.v.index_copy_(2, slot, v_new.to(cache.v.dtype))
 
@@ -137,7 +144,11 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
     qg = q.reshape(b, num_kv_heads, g, head_dim).float() * scale
     kf, vf = cache.k.float(), cache.v.float()
     scores = torch.matmul(qg, kf.transpose(-1, -2))          # (B,Hkv,G,S)
-    valid = torch.arange(s, device=x.device) <= idx
+    kpos = torch.arange(s, device=x.device)
+    if window is not None:
+        valid = kpos < torch.clamp(idx + 1, max=s)      # slots written
+    else:
+        valid = kpos <= idx
     scores = torch.where(valid, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     o = torch.matmul(p, vf)                                   # (B,Hkv,G,D)

@@ -1,19 +1,24 @@
 """The LM backbone for dense attention models (``mixer="attention"``
-without MoE) and RWKV-6 (``mixer="rwkv6"``): the twin of
+without MoE), RWKV-6 (``mixer="rwkv6"``) and the RG-LRU hybrid
+(``mixer="rglru_hybrid"``, Griffin / RecurrentGemma): the twin of
 ``repro/models/transformer.py`` on those paths.
 
 * ``init_params(cfg, generator, device)``: a nested dict of f32 tensors
   whose names and shapes equal ``repro.models.init_params``; the layer
-  stack is stacked on a leading "layers" axis under ``stack/b0``.
+  stack is stacked on a leading "layers" axis, one super-layer of the
+  plan's kinds under ``stack/b0``, ``stack/b1``, ..., and the hybrid's
+  leftover layers are ``tail0``, ``tail1``, ... (``stack_plan``).
 * ``forward`` / ``loss_fn``: the training and scoring path, each layer
   recomputed in the backward (``torch.utils.checkpoint``) unless the
   config's ``remat_policy`` is ``"none"``.
 * ``init_cache`` / ``prefill`` / ``decode_step``: the serving path.  The
-  cache has the reference's layout, ``{"stack": {"b0": ...}, "tails": [],
-  "idx": int32 0-d}``, with ``b0`` a ``{"self": KVCache(k, v)}`` of k/v
-  (L, B, Hkv, S, D) for attention and an ``RWKVState`` (shift_tm,
-  shift_cm (L, B, D), wkv (L, B, H, Dh, Dh) f32) for RWKV-6, and is
-  written in place.
+  cache has the reference's layout, ``{"stack": {"b0": ...}, "tails":
+  [...], "idx": int32 0-d}``: a ``{"self": KVCache(k, v)}`` of k/v
+  (L, B, Hkv, S, D) for an attention layer (S = min(max_len, window), a
+  ring, for a sliding-window layer), an ``RWKVState`` (shift_tm, shift_cm
+  (L, B, D), wkv (L, B, H, Dh, Dh) f32) for RWKV-6 and an ``RGLRUState``
+  (conv (L, B, W-1, N), h (L, B, N) f32) for an RG-LRU layer; tail layers
+  have no leading L.  It is written in place.
 
 A Python loop over the stacked layers takes the place of ``lax.scan``;
 on one device the reference's sharding constraints are no-ops and are
@@ -28,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn
+from . import rglru_layer as rglru
 from . import rwkv6_layer as rwkv
 from .layers import (embed_apply, embed_init, ffn_apply, ffn_init,
                      lm_head_apply, lm_head_init, rmsnorm, rmsnorm_init)
@@ -39,22 +45,34 @@ Params = Dict[str, Any]
 # layer-stack layout
 # ==========================================================================
 def stack_plan(cfg: ModelConfig) -> Dict[str, Any]:
-    """How layers are grouped: dense attention and RWKV-6 models stack
-    every layer as one super-layer ``b0`` with no tail layers."""
+    """How layers are grouped (``repro/models/transformer.py:49-68``):
+    dense attention and RWKV-6 models stack every layer as one super-layer
+    ``b0``; the RG-LRU hybrid stacks one pattern period, e.g. (rec, rec,
+    attn), as ``b0, b1, b2`` and runs the leftovers as tail layers."""
     if cfg.mixer == "rwkv6" and cfg.ffn == "rwkv_cmix":
         return dict(scan_kinds=("rwkv",), scan_len=cfg.num_layers,
                     tail_kinds=(), enc_layers=0)
+    if cfg.mixer == "rglru_hybrid" and cfg.ffn != "moe":
+        period = cfg.pattern or ("rec", "rec", "attn")
+        n_scan = cfg.num_layers // len(period)
+        n_tail = cfg.num_layers - n_scan * len(period)
+        tail = (cfg.tail_layers or ("rec",) * n_tail)[:n_tail]
+        return dict(scan_kinds=tuple(period), scan_len=n_scan,
+                    tail_kinds=tuple(tail), enc_layers=0)
     if (cfg.mixer != "attention" or cfg.ffn == "moe" or cfg.is_encdec
             or cfg.frontend != "token"):
         raise NotImplementedError(
             f"{cfg.name}: the port builds dense token-input attention "
-            f"models and RWKV-6 only (mixer={cfg.mixer}, ffn={cfg.ffn})")
+            f"models, RWKV-6 and the RG-LRU hybrid only (mixer={cfg.mixer}, "
+            f"ffn={cfg.ffn})")
     return dict(scan_kinds=("attn",), scan_len=cfg.num_layers,
                 tail_kinds=(), enc_layers=0)
 
 
-def _kind(cfg: ModelConfig) -> str:
-    return stack_plan(cfg)["scan_kinds"][0]
+def _layer_window(cfg: ModelConfig, kind: str) -> Optional[int]:
+    if kind == "attn" and cfg.mixer == "rglru_hybrid":
+        return cfg.window or 2048
+    return cfg.window
 
 
 def _layer(tree, i: int):
@@ -71,6 +89,17 @@ def _layer(tree, i: int):
 # per-layer blocks
 # ==========================================================================
 def _block_init(generator, cfg: ModelConfig, kind: str, *, lead, device):
+    if kind == "rec":
+        return {
+            "norm1": rmsnorm_init(cfg.d_model, lead=lead, device=device),
+            "rec": rglru.recurrent_init(generator, cfg.d_model,
+                                        cfg.resolved_rnn_width,
+                                        cfg.conv1d_width, lead=lead,
+                                        device=device),
+            "norm2": rmsnorm_init(cfg.d_model, lead=lead, device=device),
+            "ffn": ffn_init(generator, cfg.d_model, cfg.d_ff, lead=lead,
+                            device=device),
+        }
     if kind == "rwkv":
         return {
             "norm1": rmsnorm_init(cfg.d_model, lead=lead, device=device),
@@ -120,44 +149,78 @@ def _rwkv_block(cfg: ModelConfig, p: Params, x, state):
     return x, state
 
 
-def _block_apply(cfg: ModelConfig, p: Params, x, *, positions, state):
-    """Full-sequence application of one layer.  ``state`` is None when
-    scoring; for prefill it is this layer's cache slot, filled in place.
-    Returns (x, state)."""
-    if _kind(cfg) == "rwkv":
+def _rec_block(cfg: ModelConfig, p: Params, x, state):
+    """One RG-LRU layer over T >= 1 tokens from ``state`` (None: zeros,
+    when scoring), the reference's ``"rec"`` kind
+    (``repro/models/transformer.py:182-190,256-260``).  The new state is
+    written into ``state``'s tensors in place.  Returns (x, state)."""
+    st = state if state is not None else rglru.init_state(
+        x.shape[0], cfg.resolved_rnn_width, cfg.conv1d_width, x.dtype,
+        device=x.device)
+    y, new = rglru.recurrent_apply(p["rec"], rmsnorm(p["norm1"], x), st)
+    x = x + y
+    x = x + ffn_apply(p["ffn"], rmsnorm(p["norm2"], x), kind=cfg.ffn)
+    if state is not None:
+        state.conv.copy_(new.conv)
+        state.h.copy_(new.h)
+    return x, state
+
+
+def _block_apply(cfg: ModelConfig, p: Params, x, *, kind: str, positions,
+                 state):
+    """Full-sequence application of one layer of ``kind``.  ``state`` is
+    None when scoring; for prefill it is this layer's cache slot, filled
+    in place.  Returns (x, state)."""
+    if kind == "rwkv":
         return _rwkv_block(cfg, p, x, state)
+    if kind == "rec":
+        return _rec_block(cfg, p, x, state)
+    window = _layer_window(cfg, kind)
     h = rmsnorm(p["norm1"], x)
     if state is not None:
         y, kvc = attn.attn_apply(p["attn"], h, positions=positions,
-                                 window=cfg.window, return_cache=True,
+                                 window=window, return_cache=True,
                                  **_attn_kw(cfg))
-        state = dict(state, self=_write_prefill_cache(state["self"], kvc))
+        state = dict(state, self=_write_prefill_cache(state["self"], kvc,
+                                                      window))
     else:
         y = attn.attn_apply(p["attn"], h, positions=positions,
-                            window=cfg.window, **_attn_kw(cfg))
+                            window=window, **_attn_kw(cfg))
     x = x + y
     x = x + ffn_apply(p["ffn"], rmsnorm(p["norm2"], x), kind=cfg.ffn)
     return x, state
 
 
-def _write_prefill_cache(cache: attn.KVCache, kvc: attn.KVCache):
-    """Store prefill K/V into slots [0, T) of the cache, in place (the
-    reference's ``dynamic_update_slice`` at offset 0)."""
-    t = kvc.k.shape[2]
-    if t > cache.k.shape[2]:
-        raise ValueError(f"prompt of {t} tokens exceeds the cache's "
-                         f"{cache.k.shape[2]} slots")
-    cache.k[:, :, :t].copy_(kvc.k)
-    cache.v[:, :, :t].copy_(kvc.v)
+def _write_prefill_cache(cache: attn.KVCache, kvc: attn.KVCache, window):
+    """Store prefill K/V into the cache in place: slots [0, T), or for a
+    sliding-window ring shorter than the prompt the last S positions,
+    rotated so that absolute position p lives in slot p % S as decode's
+    ring writes expect (the reference's ``_write_prefill_cache``,
+    ``repro/models/transformer.py:193-222``)."""
+    s, t = cache.k.shape[2], kvc.k.shape[2]
+    if t <= s:
+        cache.k[:, :, :t].copy_(kvc.k)
+        cache.v[:, :, :t].copy_(kvc.v)
+        return cache
+    if window is None:
+        raise ValueError(f"prompt of {t} tokens exceeds the cache's {s} "
+                         f"slots")
+    shift = (t - s) % s
+    cache.k.copy_(torch.roll(kvc.k[:, :, t - s:], shift, dims=2))
+    cache.v.copy_(torch.roll(kvc.v[:, :, t - s:], shift, dims=2))
     return cache
 
 
-def _block_decode(cfg: ModelConfig, p: Params, x, idx, *, state):
+def _block_decode(cfg: ModelConfig, p: Params, x, idx, *, kind: str,
+                  state):
     """One-token decode of one layer. x: (B, 1, D). Returns (x, state)."""
-    if _kind(cfg) == "rwkv":
+    if kind == "rwkv":
         return _rwkv_block(cfg, p, x, state)
+    if kind == "rec":
+        return _rec_block(cfg, p, x, state)
     h = rmsnorm(p["norm1"], x)
     y, kvc = attn.attn_decode(p["attn"], h, state["self"], idx,
+                              window=_layer_window(cfg, kind),
                               **_attn_kw(cfg))
     x = x + y
     x = x + ffn_apply(p["ffn"], rmsnorm(p["norm2"], x), kind=cfg.ffn)
@@ -173,23 +236,29 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     allocates nothing).  Names and shapes equal the reference's; the
     values differ, since the two frameworks draw different numbers."""
     plan = stack_plan(cfg)
-    return {
+    params = {
         "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model,
                             device=device),
-        "stack": {"b0": _block_init(generator, cfg, plan["scan_kinds"][0],
-                                    lead=(plan["scan_len"],),
-                                    device=device)},
-        "final_norm": rmsnorm_init(cfg.d_model, device=device),
-        "lm_head": lm_head_init(generator, cfg.d_model, cfg.padded_vocab,
-                                device=device),
+        "stack": {f"b{i}": _block_init(generator, cfg, kind,
+                                       lead=(plan["scan_len"],),
+                                       device=device)
+                  for i, kind in enumerate(plan["scan_kinds"])},
     }
+    for i, kind in enumerate(plan["tail_kinds"]):
+        params[f"tail{i}"] = _block_init(generator, cfg, kind, lead=(),
+                                         device=device)
+    params["final_norm"] = rmsnorm_init(cfg.d_model, device=device)
+    params["lm_head"] = lm_head_init(generator, cfg.d_model,
+                                     cfg.padded_vocab, device=device)
+    return params
 
 
 def cast_params(params: Params, dtype) -> Params:
     """Every matrix and bias cast once to the compute ``dtype``; norm
-    scales and RWKV-6's ``w0``, ``u``, ``gn_scale`` and ``gn_bias`` stay
-    f32, as the reference uses them in f32."""
-    keep = ("scale",) + rwkv.F32_LEAVES
+    scales, RWKV-6's ``w0``, ``u``, ``gn_scale`` and ``gn_bias``, and the
+    RG-LRU's ``w_ai`` and ``lam`` stay f32, as the reference uses them in
+    f32."""
+    keep = ("scale",) + rwkv.F32_LEAVES + rglru.F32_LEAVES
 
     def walk(tree, key=""):
         if isinstance(tree, dict):
@@ -221,19 +290,31 @@ def _remat(cfg: ModelConfig) -> bool:
     return cfg.remat_policy != "none" and torch.is_grad_enabled()
 
 
+def _layers(cfg: ModelConfig, params, caches=None):
+    """(kind, layer params, layer cache or None) for every layer in order:
+    the stacked super-layers, then the tail layers."""
+    plan = stack_plan(cfg)
+    for i in range(plan["scan_len"]):
+        for j, kind in enumerate(plan["scan_kinds"]):
+            yield (kind, _layer(params["stack"][f"b{j}"], i),
+                   None if caches is None
+                   else _layer(caches["stack"][f"b{j}"], i))
+    for j, kind in enumerate(plan["tail_kinds"]):
+        yield (kind, params[f"tail{j}"],
+               None if caches is None else caches["tails"][j])
+
+
 def _run_stack(cfg: ModelConfig, params, x, positions, caches=None):
-    n = stack_plan(cfg)["scan_len"]
     remat = caches is None and _remat(cfg)
-    for i in range(n):
-        lp = _layer(params["stack"]["b0"], i)
-        st = None if caches is None else _layer(caches["stack"]["b0"], i)
+    for kind, lp, st in _layers(cfg, params, caches):
         if remat:
             # the layer has no randomness, so no RNG state is kept
-            x = checkpoint(lambda h, lp=lp: _block_apply(
-                cfg, lp, h, positions=positions, state=None)[0], x,
-                use_reentrant=False, preserve_rng_state=False)
+            x = checkpoint(lambda h, lp=lp, kind=kind: _block_apply(
+                cfg, lp, h, kind=kind, positions=positions, state=None)[0],
+                x, use_reentrant=False, preserve_rng_state=False)
         else:
-            x, _ = _block_apply(cfg, lp, x, positions=positions, state=st)
+            x, _ = _block_apply(cfg, lp, x, kind=kind, positions=positions,
+                                state=st)
     return x
 
 
@@ -264,25 +345,45 @@ def loss_fn(cfg: ModelConfig, params, batch):
 # ==========================================================================
 # serving: cache init / prefill / decode
 # ==========================================================================
+def _kind_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     dtype, lead, device):
+    """One layer's (or, with ``lead``, a stack's) zero cache of ``kind``
+    (``repro/models/transformer.py:462-485``)."""
+    if kind == "attn":
+        window = _layer_window(cfg, kind)
+        s = min(max_len, window) if window else max_len
+        return {"self": attn.init_kv_cache(batch, cfg.num_kv_heads, s,
+                                           cfg.resolved_head_dim, dtype,
+                                           quant=cfg.kv_quant, lead=lead,
+                                           device=device)}
+    if kind == "rwkv":
+        return rwkv.init_state(batch, cfg.d_model, cfg.rwkv_head_dim, dtype,
+                               lead=lead, device=device)
+    if kind == "rec":
+        return rglru.init_state(batch, cfg.resolved_rnn_width,
+                                cfg.conv1d_width, dtype, lead=lead,
+                                device=device)
+    raise ValueError(kind)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> Dict[str, Any]:
     """Decode cache for a batch of ``batch`` sequences: a KV cache of
-    ``max_len`` slots, or RWKV-6's recurrent state, whose size does not
+    ``max_len`` slots (a ring of ``min(max_len, window)`` for a
+    sliding-window layer), or a recurrent state, whose size does not
     depend on ``max_len``."""
     dtype = dtype or _dtype(cfg)
-    n = stack_plan(cfg)["scan_len"]
-    idx = torch.zeros((), dtype=torch.int32, device=device)
-    if _kind(cfg) == "rwkv":
-        state = rwkv.init_state(batch, cfg.d_model, cfg.rwkv_head_dim, dtype,
-                                lead=(n,), device=device)
-        return {"stack": {"b0": state}, "tails": [], "idx": idx}
-    if cfg.window is not None:
-        raise NotImplementedError("the sliding-window ring-buffer cache is "
-                                  "not ported yet")
-    kv = attn.init_kv_cache(batch, cfg.num_kv_heads, max_len,
-                            cfg.resolved_head_dim, dtype, quant=cfg.kv_quant,
-                            lead=(n,), device=device)
-    return {"stack": {"b0": {"self": kv}}, "tails": [], "idx": idx}
+    plan = stack_plan(cfg)
+    lead = (plan["scan_len"],)
+    return {
+        "stack": {f"b{i}": _kind_cache_init(cfg, kind, batch, max_len, dtype,
+                                            lead, device)
+                  for i, kind in enumerate(plan["scan_kinds"])},
+        "tails": [_kind_cache_init(cfg, kind, batch, max_len, dtype, (),
+                                   device)
+                  for kind in plan["tail_kinds"]],
+        "idx": torch.zeros((), dtype=torch.int32, device=device),
+    }
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):
@@ -303,9 +404,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     the cache written in place and its ``idx`` advanced."""
     x = embed_apply(params["embed"], tokens).to(_dtype(cfg))
     idx = cache["idx"]
-    for i in range(stack_plan(cfg)["scan_len"]):
-        x, _ = _block_decode(cfg, _layer(params["stack"]["b0"], i), x, idx,
-                             state=_layer(cache["stack"]["b0"], i))
+    for kind, lp, st in _layers(cfg, params, cache):
+        x, _ = _block_decode(cfg, lp, x, idx, kind=kind, state=st)
     x = rmsnorm(params["final_norm"], x)
     logits = lm_head_apply(params["lm_head"], x,
                            valid_vocab=cfg.vocab_size)[:, 0, :]

@@ -7,7 +7,9 @@ The twin of ``repro/serve/engine.py``.  Prefill and decode run eagerly on
 ``device``; the KV cache / recurrent state is written in place, so a
 snapshot copies it to the host (synchronously) before the first decode
 step writes into it.  An RWKV-6 model's state does not grow with the
-prompt: ``max_len`` sizes only a KV cache.
+prompt, and a sliding-window layer's ring (recurrentgemma-9b's attention
+layers) holds at most ``window`` slots: ``max_len`` sizes only a KV cache,
+up to the window.
 """
 from __future__ import annotations
 

@@ -9,6 +9,9 @@ Rows with no allowed key are excluded from every comparison: the reference
 has no consistent answer there (it depends on its tile size); a separate
 case checks that the port gives zeros and lse = -inf.
 
+Head dim 256 with a sliding window (recurrentgemma-9b's attention
+layers) takes the forward's tolerances.
+
 Gradients: dq/dk/dv against ``jax.grad`` of the reference's XLA backward,
 f32 atol 5e-4.
 
@@ -92,6 +95,21 @@ def test_forward_matches_jax(case, dtype):
                                      return_lse=True)
     np.testing.assert_allclose(lse.numpy()[:, :, live],
                                np.asarray(jlse)[:, :, live], atol=1e-5)
+
+
+# recurrentgemma's attention layers: MQA at head dim 256 under a sliding
+# window, cut to a few heads and tokens; the window hides keys in each
+D256 = [
+    (1, 4, 1, 48, 48, 256, True, 16),
+    (2, 2, 1, 40, 40, 256, True, 8),
+    (1, 2, 1, 1, 40, 256, True, 16),          # decode-like (T=1)
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", D256)
+def test_forward_matches_jax_at_head_dim_256(case, dtype):
+    test_forward_matches_jax(case, dtype)
 
 
 def test_rows_without_allowed_key_are_zero():

@@ -16,7 +16,14 @@ Every test skips without a card.  Tolerances:
   reference's kernel tests), bf16 r/k/v the same plus rtol 2^-7 on o (one
   bf16 rounding of an f32 value apart); two runs bit-equal; the carried
   state continues a run within atol 1e-5;
-* Reed-Solomon encode (K5): bit-equal to the numpy host codec.
+* Reed-Solomon encode (K5): bit-equal to the numpy host codec;
+* RG-LRU scan (K7) against its plain chunked version: h_final and an f32
+  h within atol 2e-4 (the reference's kernel tests), a bf16 h within atol
+  2e-4 + rtol 2^-7 (one bf16 rounding of an f32 value apart); two runs
+  bit-equal; [0, T/2) then [T/2, T) equal to one shot (the same f32
+  steps);
+* the flash-attention forward at head dim 256 (recurrentgemma-9b's MQA
+  layers): the forward's tolerances above.
 
 ``allow_tf32`` is False so the plain versions' f32 matmuls are full f32.
 """
@@ -109,6 +116,33 @@ def test_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_cuda(q.transpose(2, 3), k, v, causal=True,
                              window=None, scale=0.25)
+
+
+# recurrentgemma-9b's attention: 16 query heads of 256 over one KV head,
+# causal, window 2048; its prefill shape, and a window that hides keys
+D256_CASES = [
+    (1, 4, 1, 300, 300, 256, True, 128),
+    (4, 16, 1, 512, 512, 256, True, 2048),
+    (1, 16, 1, 2560, 2560, 256, True, 2048),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", D256_CASES)
+def test_kernel_matches_plain_at_head_dim_256(card, case, dtype):
+    test_kernel_matches_plain(card, case, dtype)
+
+
+def test_bwd_kernel_refuses_head_dim_256(card):
+    """The backward is built for the training paths' head dims only."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bwd_cuda
+
+    q, k, v = _mk(card, 2, 1, 2, 1, 8, 8, 256, "float32")
+    lse = torch.zeros((1, 2, 8), device=card)
+    with pytest.raises(ValueError, match="flash_bwd: head dim 256"):
+        flash_attention_bwd_cuda(q, k, v, q, lse, q, causal=True,
+                                 window=None, scale=1 / 16)
 
 
 BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
@@ -372,3 +406,95 @@ def test_rs_encode_kernel_rejects_what_it_does_not_take(card):
         rs_encode_cuda(x.int(), 1)
     with pytest.raises(ValueError, match="contiguous"):
         rs_encode_cuda(x.t(), 1)
+
+
+# --------------------------------------------------------------------------
+# K7: the RG-LRU scan, against its plain chunked version
+# --------------------------------------------------------------------------
+# the sweep of tests/test_kernels_rglru.py, plus recurrentgemma-9b's
+# prefill and decode shapes; (b, t, d)
+RGLRU_SWEEP = [(2, 100, 256), (1, 64, 128), (1, 5, 512), (3, 33, 96),
+               (4, 512, 4096), (4, 1, 4096)]
+RGLRU_TOL = {"float32": (2e-4, 0.0), "bfloat16": (2e-4, 2 ** -7)}
+
+
+def _rglru_inputs(card, seed, b, t, d, dtype):
+    """log_a, g, h0 as tests/test_kernels_rglru.py makes them."""
+    rng = np.random.default_rng(seed)
+    la = -np.exp(rng.standard_normal((b, t, d))).astype(np.float32)
+    g = rng.standard_normal((b, t, d)).astype(np.float32)
+    h0 = rng.standard_normal((b, d)).astype(np.float32)
+    return (torch.from_numpy(la).to(card),
+            torch.from_numpy(g).to(card, getattr(torch, dtype)),
+            torch.from_numpy(h0).to(card))
+
+
+def _rglru_check(got, want, dtype):
+    atol, rtol = RGLRU_TOL[dtype]
+    assert got[0].dtype == want[0].dtype and got[1].dtype == torch.float32
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(got[1], want[1], atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_SWEEP)
+def test_rglru_kernel_matches_plain(card, case, dtype, with_h0):
+    from repro_torch.kernels.rglru import kernel, rglru, rglru_chunked
+
+    la, g, h0 = _rglru_inputs(card, 3, *case, dtype)
+    h0 = h0 if with_h0 else None
+    n0 = kernel.launches
+    got = rglru(la, g, h0)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    _rglru_check(got, rglru_chunked(la, g, h0), dtype)
+    again = rglru(la, g, h0)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_kernel_state_continuation(card, dtype):
+    """[0, T/2) then [T/2, T) from the carried state, and T = 1 steps from
+    it, equal one shot: the kernel takes the same f32 steps."""
+    from repro_torch.kernels.rglru import rglru
+
+    la, g, h0 = _rglru_inputs(card, 5, 4, 64, 4096, dtype)
+    h, hT = rglru(la, g, h0)
+    h1, s1 = rglru(la[:, :32].contiguous(), g[:, :32].contiguous(), h0)
+    h2, s2 = rglru(la[:, 32:].contiguous(), g[:, 32:].contiguous(), s1)
+    assert torch.equal(torch.cat([h1, h2], 1), h) and torch.equal(s2, hT)
+    st, outs = s1, []
+    for t in range(32, 64):
+        ht, st = rglru(la[:, t:t + 1].contiguous(),
+                       g[:, t:t + 1].contiguous(), st)
+        outs.append(ht)
+    assert torch.equal(torch.cat(outs, 1), h2) and torch.equal(st, hT)
+
+
+def test_rglru_cuda_call_with_grad_raises(card):
+    from repro_torch.kernels.rglru import rglru
+
+    la, g, h0 = _rglru_inputs(card, 6, 1, 8, 64, "float32")
+    g.requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        rglru(la, g, h0)
+    with torch.no_grad():
+        rglru(la, g, h0)
+
+
+def test_rglru_kernel_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.rglru.kernel import rglru_cuda
+
+    la, g, h0 = _rglru_inputs(card, 7, 2, 8, 64, "float32")
+    with pytest.raises(ValueError, match="dtype"):
+        rglru_cuda(la, g.half(), h0)
+    with pytest.raises(ValueError, match="log_a"):
+        rglru_cuda(la.bfloat16(), g, h0)
+    with pytest.raises(ValueError, match="h0"):
+        rglru_cuda(la, g, h0[:1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_cuda(la, g.transpose(1, 2).contiguous().transpose(1, 2), h0)
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_cuda(la.cpu(), g.cpu(), h0.cpu())
