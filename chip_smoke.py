@@ -44,8 +44,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    before and read just after: one flash-attention launch per layer.  The
    restored cache must equal a second prefill's bit for bit, and decoding
    from it must give the live run's tokens.  A 2-layer cut of the same
-   model in f32 is held against the plain CPU path on a short prompt; then
-   the serving numbers, and the weights are freed;
+   model in f32 is held against the plain CPU path on a short prompt
+   (atol 1e-3); then the weights are freed and the serving numbers
+   printed.  4b and 4d run the same phase (``serve_model_phase``);
 4b. the same serving path for rwkv6-7b at full width (32 layers, d_model
    4096, 64 heads of 64, d_ff 14336, vocab 65536, bf16, 7,551,455,232
    params): K6 must run 32 times in prefill and 32 x 31 times in the
@@ -70,7 +71,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    prompt and 16 new tokens (2048 ring slots: prefill rolls the ring,
    decode writes into it), its 26,230,788-byte state checked the same
    way; a 5-layer f32 cut (one super-layer and both tail layers) against
-   the plain CPU path within 1e-4; then the weights are freed;
+   the plain CPU path within 1e-4, and again with its window cut to 16, a
+   40-token prompt (the ring rolls in prefill) and 20 decode steps (their
+   writes wrap the ring), prefill and every step's logits within 1e-4;
+   then the weights are freed;
 5. the training path: ``ElasticTrainer`` trains qwen2.5-3b at full width
    (36 layers, d_model 2048, bf16 compute, f32 master weights, full remat)
    on 4096-token sequences, global batch 1 (cut from 256), 6 steps with a
@@ -93,8 +97,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    PyTorch call computes the same function).
 
 The last line is ``{"ok": true, "device": {...}}``.  f32 matmuls run in full
-f32 (``allow_tf32`` is False).  Times are CUDA-event times of warm calls
-unless named wall times.
+f32 (``allow_tf32`` is False).  A kernel's ``ms``, ``plain_ms`` and
+``library_ms`` are device times of warm calls (``device_ms``: CUDA events
+around calls queued behind a spin kernel, so the host's cost per call
+stays out); ``event_ms`` is the CUDA-event time of back-to-back calls of
+the kernel's wrapper, host included.  The profile windows'
+busy times come from ``torch.profiler``, which can drop kernel records
+(so they are lower bounds).  Other times are wall times.
 """
 from __future__ import annotations
 
@@ -135,6 +144,8 @@ LSE_ATOL = 1e-4
 BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2 ** -7)}
 # the training path: qwen2.5-3b, one 4096-token sequence a step
 TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 6, 2, 8
+# the cut phase's overlap resize must complete within this wall time
+RESIZE_WAIT_S = 300
 CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
 # the sweep of tests/test_kernels_rwkv6.py plus the serving path's prefill
 # and decode shapes; (b, h, t, d)
@@ -150,13 +161,23 @@ RGLRU_TOL = {"float32": (2e-4, 0.0), "bfloat16": (2e-4, 2 ** -7)}
 # keys; (b, hq, hkv, t, s, d, causal, window)
 D256_SWEEP = [(1, 4, 1, 300, 300, 256, True, 128),
               (1, 16, 1, 2560, 2560, 256, True, 2048)]
-# its ring sub-phase: one sequence longer than the window
+# its ring sub-phase: one sequence longer than the window; its 5-layer
+# f32 cut against the plain CPU path with the window cut so that the
+# prompt rolls the ring and the decode steps wrap it: (window, prompt,
+# decode steps)
 RING_PROMPT, RING_GEN = 2560, 16
+RING_CUT = (16, 40, 20)
 CODEC_DTYPES = ("float32", "bfloat16", "float16")
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_F32_FLOPS = 67e12          # outside the tensor cores
+# at most the SM clock (1.98 GHz): ``torch.cuda._sleep`` spins at least
+# as long as asked
+SPIN_CYCLES_PER_S = 2.0e9
+# the numbers of each kernel in the ``kernels`` line
+TIME_KEYS = ("ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
 
 
 def log(msg: str) -> None:
@@ -192,24 +213,39 @@ def _device_us(evt) -> float:
             or getattr(evt, "self_cuda_time_total", 0))
 
 
-def device_kernel_ms(fn, name: str, iters: int = 20):
-    """Mean device time a call of the kernels whose name contains ``name``
-    over ``iters`` calls of ``fn`` under ``torch.profiler``.  At a
-    launch-bound shape the CUDA-event time of back-to-back calls is the
-    host's rate of enqueueing them, not the card's time."""
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of one call of ``fn``: ``iters`` calls queued
+    behind a spin kernel (``torch.cuda._sleep``) that keeps the card busy
+    until the host has enqueued them all, then timed with CUDA events, so
+    the card runs them back to back and the host's cost per call (all that
+    back-to-back events measure at a launch-bound shape: ``event_ms``)
+    stays out.  Every kernel time in the ``kernels`` line is this (``ms``,
+    ``plain_ms``, ``library_ms``)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    spin_s = 2 * (time.perf_counter() - t0) + 1e-3
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        start.record()
+        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
+        enqueue_s = time.perf_counter() - t0
+        end.record()
         torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name in e.key)
-    return us / 1e3 / iters if us > 0 else "not measured"
+        if enqueue_s < spin_s / 2:
+            return start.elapsed_time(end) / iters
+        spin_s *= 4
+    raise AssertionError(f"the host took {enqueue_s} s to enqueue {iters} "
+                         f"calls: the spin kernel cannot hide it")
 
 
 def profile_window(fn, top: int = 8) -> dict:
@@ -462,34 +498,131 @@ def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
     return res
 
 
-def check_against_plain(cfg, params, device, layers=2, atol=1e-3):
+def serve_model_phase(cfg, device, card, line, n_params, want, *,
+                      state_bytes=None, subruns=(), plain=None,
+                      numbers=dict):
+    """``cfg`` at full width through ``serve_main_path``: its parameter
+    count held to ``n_params``; random f32 weights from a seeded
+    generator; BATCH x PROMPT prompt tokens and GEN new ones, then each of
+    ``subruns`` ((name, batch, prompt, gen, state bytes)), each run's
+    launches held to ``want(gen)`` and its committed state's size to its
+    bytes (None: not held).  Then each cut of ``plain`` (name ->
+    ``check_against_plain`` keywords; by default 2 layers, atol 1e-3)
+    against the plain CPU path.  The weights are freed, and ``numbers()``
+    (kernel numbers at the path's shapes) goes into the ``line`` JSON line
+    beside the serving numbers; the profile windows follow.  Returns the
+    runs' results by name ("serve" first) and the numbers."""
+    import torch
+
+    from repro_torch.models import count_params, init_params
+
+    got = count_params(cfg)
+    if got != n_params:
+        raise AssertionError(f"{cfg.name}: {got} params, want {n_params}")
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    torch.cuda.synchronize()
+    log(f"  params: {n_params} f32 in {time.monotonic() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for name, batch, prompt, gen, nbytes in (
+            ("serve", BATCH, PROMPT, GEN, state_bytes), *subruns):
+        res = serve_main_path(cfg, params, device, batch_size=batch,
+                              prompt=prompt, gen=gen, want=want(gen))
+        if nbytes is not None and res["state_bytes"] != nbytes:
+            raise AssertionError(f"{name}: state of {res['state_bytes']} "
+                                 f"bytes, want {nbytes}")
+        log(f"  {name}: {batch} x {prompt} prompt tokens, {gen} new: "
+            f"launches {res['launches']}; state {res['state_bytes']} bytes "
+            f"{json.dumps(res['state_leaves'])} restored bit-equal to a "
+            f"second prefill; {gen - 1} decode steps from it give the live "
+            f"tokens")
+        runs[name] = res
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    errs = {}
+    for name, kw in (plain or {"plain_cut": {}}).items():
+        err = check_against_plain(cfg, params, device, **kw)
+        errs[f"{name}_max_abs_err"] = err
+        log(f"  {name} {kw}: card vs plain CPU logits max abs err "
+            f"{err:.3e}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    nums = numbers()
+    res = runs["serve"]
+    serve = {
+        "card": card, "params": n_params,
+        "prefill_ms": res["prefill_ms"],
+        "decode_ms_per_token": res["decode_ms_per_token"],
+        "decode_ms_per_token_no_cluster":
+            res["decode_ms_per_token_no_cluster"],
+        "output_tokens_per_s": BATCH * GEN / res["generate_s"],
+        "generate_wall_s": res["generate_s"],
+        "commit_wall_s": res["commit_s"],
+        "commit_wait_s": res["commit_wait_s"],
+        "restore_wall_s": res["restore_s"],
+        "state_bytes": res["state_bytes"],
+        "max_memory_allocated": peak, **errs,
+        **{name: {k: r[k] for k in (
+            "prefill_ms", "decode_ms_per_token", "generate_s", "commit_s",
+            "restore_s", "state_bytes")}
+           for name, r in runs.items() if name != "serve"},
+        **nums,
+    }
+    log(json.dumps({line: serve}))
+    for name in ("profile_prefill", "profile_decode_8"):
+        log(json.dumps({f"{line}_{name}": res[name]}))
+    return runs, nums
+
+
+def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
+                        window=None, prompt=64, steps=0):
     """A cut of the model to its first ``layers`` layers (whole super-layers
-    plus the tail layers) in f32: the card's prefill logits (the kernels)
-    against the plain CPU path's, on a short prompt."""
+    plus the tail layers) in f32, ``window`` (if given) in place of the
+    config's: the card's logits (the kernels) against the plain CPU path's
+    after a ``prompt``-token prefill and after each of ``steps`` decode
+    steps, which both devices take with the CPU's greedy tokens.  A
+    prompt longer than the window rolls the ring cache in prefill; decode
+    steps past it write across the ring's wrap.  Returns the max abs
+    error."""
     import numpy as np
     import torch
 
-    from repro_torch.models import init_cache, prefill, stack_plan
+    from repro_torch.models import decode_step, init_cache, prefill, \
+        stack_plan
 
-    small = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    small = dataclasses.replace(cfg, num_layers=layers, dtype="float32",
+                                window=window or cfg.window)
     n = stack_plan(small)["scan_len"]
     cut = {k: v for k, v in params.items() if k != "stack"}
     cut["stack"] = {b: _map(lambda t: t[:n], sub)
                     for b, sub in params["stack"].items()}
     toks = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 64)).astype(np.int32)
+        0, cfg.vocab_size, (2, prompt)).astype(np.int32)
     logits = {}
-    for dev in (device, torch.device("cpu")):
+    for dev in (torch.device("cpu"), device):
         p = _map(lambda t: t.to(dev), cut)
-        cache = init_cache(small, 2, 64, device=dev)
+        cache = init_cache(small, 2, prompt + steps, device=dev)
         with torch.no_grad():
-            lg, _ = prefill(small, p, {"tokens": torch.from_numpy(toks)
-                                       .to(dev)}, cache)
-        logits[dev.type] = lg.float().cpu()
-    err = (logits[device.type] - logits["cpu"]).abs().max().item()
+            lg, cache = prefill(small, p, {"tokens": torch.from_numpy(toks)
+                                           .to(dev)}, cache)
+            out = [lg.float().cpu()]
+            greedy = logits.get("cpu", out)     # the CPU's tokens drive both
+            for i in range(steps):
+                nxt = greedy[i].argmax(-1)[:, None].to(dev)
+                lg, cache = decode_step(small, p, cache, nxt)
+                out.append(lg.float().cpu())
+        logits[dev.type] = out
+        del p, cache
+    err = max((a - b).abs().max().item()
+              for a, b in zip(logits[device.type], logits["cpu"]))
     if not err <= atol:
-        raise AssertionError(f"{layers}-layer f32 logits: card vs plain CPU "
-                             f"max abs err {err} (atol {atol})")
+        raise AssertionError(
+            f"{layers}-layer f32 cut (window {small.window}, {prompt} prompt "
+            f"tokens, {steps} decode steps): card vs plain CPU logits max "
+            f"abs err {err} (atol {atol})")
     return err
 
 
@@ -513,26 +646,30 @@ def attention_numbers(path_case, device):
     b, hq, hkv, t, s, d, causal, window = path_case
     q, k, v = _inputs(7, b, hq, hkv, t, s, d, "bfloat16", device)
     scale = d ** -0.5
-    ms = cuda_ms(lambda: flash_attention_cuda(
-        q, k, v, causal=causal, window=window, scale=scale))
-    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=causal,
-                                             window=window), iters=5)
+
+    def kernel():
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+
+    plain_ms = device_ms(lambda: attention_ref(q, k, v, causal=causal,
+                                               window=window), iters=5)
     # yardstick only, never called by the port; at T = S its top-left
     # causal alignment equals the reference's bottom-right one
     try:
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True))
     except TypeError:        # a torch without enable_gqa
         g = hq // hkv
         ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
             q, ke, ve, is_causal=causal))
     pairs = int(allowed_mask(t, s, causal, window, s - t).sum())
     flops = 4 * b * hq * d * pairs             # Q.K^T and P.V, 2 per MAC
     nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2 \
         + b * hq * t * 4                       # out bf16, lse f32
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+    return {"ms": device_ms(kernel), "event_ms": cuda_ms(kernel),
+            "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "flops": flops, "bytes": nbytes}
@@ -738,93 +875,27 @@ def check_rwkv6(path_cases, device) -> float:
 
 
 def rwkv6_numbers(case, device) -> dict:
-    """K6 at one of the path's shapes (bf16 r/k/v): its time (CUDA events,
-    and the profiler's device time a call in ``device_ms``: at the decode
-    shape the events measure the wrapper's host cost), its plain
-    version's, and its bound: each input read once and each output written
-    once, or 5 f32 operations per state element per token (the decay's
-    multiply-add, k v's product, r S's multiply-add) at the f32 rate."""
+    """K6 at one of the path's shapes (bf16 r/k/v): its device time and
+    its plain version's (``device_ms``), the CUDA-event time, and its
+    bound: each input read once and each output written once, or 5 f32
+    operations per state element per token (the decay's multiply-add,
+    k v's product, r S's multiply-add) at the f32 rate."""
     from repro_torch.kernels.rwkv6 import rwkv6_chunked
     from repro_torch.kernels.rwkv6.kernel import rwkv6_cuda
 
     b, h, t, d = case
     inputs = _rwkv_inputs(3, case, "bfloat16", device)
-    ms = cuda_ms(lambda: rwkv6_cuda(*inputs))
-    device_ms = device_kernel_ms(lambda: rwkv6_cuda(*inputs), "rwkv6_kernel")
-    plain_ms = cuda_ms(lambda: rwkv6_chunked(*inputs), iters=3, warmup=1)
+    ms = device_ms(lambda: rwkv6_cuda(*inputs))
+    event_ms = cuda_ms(lambda: rwkv6_cuda(*inputs))
+    plain_ms = device_ms(lambda: rwkv6_chunked(*inputs), iters=3)
     nbytes = b * h * t * d * (3 * 2 + 4 + 2) + h * d * 4 \
         + 2 * b * h * d * d * 4
     flops = 5 * b * h * t * d * d
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+    return {"ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
-
-
-def serve_rwkv6_phase(rcfg, device, card) -> dict:
-    """rwkv6-7b at full width through ``serve_main_path``: K6's launches
-    asserted (32 a prefill, 32 x 31 in the decode steps), the 2-layer f32
-    cut against the plain CPU path, K6's numbers; prints the
-    ``serve_rwkv6`` line and the profile windows, frees the weights.
-    Returns the launches, numbers and the committed state's bytes."""
-    import torch
-
-    from repro_torch.models import count_params, init_params
-
-    n_params = count_params(rcfg)
-    if n_params != 7_551_455_232:
-        raise AssertionError(f"{rcfg.name}: {n_params} params")
-    n = rcfg.num_layers
-    t0 = time.monotonic()
-    params = init_params(rcfg, torch.Generator(device=device).manual_seed(0),
-                         device=device)
-    torch.cuda.synchronize()
-    log(f"  params: {n_params} f32 in {time.monotonic() - t0:.1f} s")
-    torch.cuda.reset_peak_memory_stats()
-    res = serve_main_path(rcfg, params, device, want={
-        "generate": {"rwkv6": n + n * (GEN - 1), "flash_fwd": 0},
-        "prefill": {"rwkv6": n},
-        "decode": {"rwkv6": n * (GEN - 1)}})
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"  launches in the main path: {res['launches']}")
-    log(f"  recurrent state {res['state_bytes']} bytes "
-        f"{json.dumps(res['state_leaves'])}; restored state equals a second "
-        f"prefill bit for bit; {GEN - 1} decode steps from it give the live "
-        f"tokens")
-    plain_err = check_against_plain(rcfg, params, device)
-    log(f"  2-layer f32 cut: card vs plain CPU logits max abs err "
-        f"{plain_err:.3e}")
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    rh = rcfg.d_model // rcfg.rwkv_head_dim
-    numbers = {name: rwkv6_numbers((BATCH, rh, t, rcfg.rwkv_head_dim),
-                                   device)
-               for name, t in (("prefill", PROMPT), ("decode", 1))}
-    serve = {
-        "card": card, "params": n_params,
-        "prefill_ms": res["prefill_ms"],
-        "decode_ms_per_token": res["decode_ms_per_token"],
-        "decode_ms_per_token_no_cluster":
-            res["decode_ms_per_token_no_cluster"],
-        "output_tokens_per_s": BATCH * GEN / res["generate_s"],
-        "generate_wall_s": res["generate_s"],
-        "commit_wall_s": res["commit_s"],
-        "commit_wait_s": res["commit_wait_s"],
-        "restore_wall_s": res["restore_s"],
-        "state_bytes": res["state_bytes"],
-        "max_memory_allocated": peak,
-        "plain_cut_max_abs_err": plain_err,
-        "rwkv6_prefill_shape": numbers["prefill"],
-        "rwkv6_decode_shape": numbers["decode"],
-    }
-    log(json.dumps({"serve_rwkv6": serve}))
-    for name in ("profile_prefill", "profile_decode_8"):
-        log(json.dumps({f"rwkv6_{name}": res[name]}))
-    return {"launches": res["launches"], "numbers": numbers,
-            "state_payload": res["state_payload"]}
 
 
 def check_rs(device, payload) -> dict:
@@ -866,9 +937,9 @@ def check_rs(device, payload) -> dict:
                              f"codec")
     nbytes = (rows.shape[0] + 2) * rows.shape[1]
     numbers = {"k": 4, "m": 2, "stride": int(rows.shape[1]),
-               "ms": cuda_ms(lambda: rs_encode_cuda(dev, 2)),
-               "plain_ms": cuda_ms(lambda: rs_encode_ref(dev, 2), iters=2,
-                                   warmup=1),
+               "ms": device_ms(lambda: rs_encode_cuda(dev, 2)),
+               "event_ms": cuda_ms(lambda: rs_encode_cuda(dev, 2)),
+               "plain_ms": device_ms(lambda: rs_encode_ref(dev, 2), iters=2),
                "library_ms": None,
                "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
                "bound_by": "bytes", "bytes": nbytes}
@@ -946,22 +1017,19 @@ def check_rglru(path_cases, device) -> float:
 
 
 def rglru_numbers(case, device) -> dict:
-    """K7 at one of the path's shapes (bf16 g, f32 log_a and h0): its time
-    (``ms``: the profiler's device time a call; ``event_ms``: CUDA events
-    over back-to-back calls, which at these shapes measure the wrapper's
-    host cost), its plain version's, and its bound: log_a (4 B), g and h
-    (2 B each) per element, h0 and h_final (4 B) per channel, or an exp
-    and an FMA per element (3 f32 operations) at the f32 rate."""
+    """K7 at one of the path's shapes (bf16 g, f32 log_a and h0): its
+    device time and its plain version's (``device_ms``), the CUDA-event
+    time, and its bound: log_a (4 B), g and h (2 B each) per element, h0
+    and h_final (4 B) per channel, or an exp and an FMA per element (3 f32
+    operations) at the f32 rate."""
     from repro_torch.kernels.rglru import rglru_chunked
     from repro_torch.kernels.rglru.kernel import rglru_cuda
 
     b, t, d = case
     la, g, h0 = _rglru_inputs(3, case, "bfloat16", device)
+    ms = device_ms(lambda: rglru_cuda(la, g, h0))
     event_ms = cuda_ms(lambda: rglru_cuda(la, g, h0))
-    ms = device_kernel_ms(lambda: rglru_cuda(la, g, h0), "rglru_kernel")
-    if not isinstance(ms, float):
-        raise AssertionError(f"the profiler saw no rglru kernel at {case}")
-    plain_ms = cuda_ms(lambda: rglru_chunked(la, g, h0), iters=3, warmup=1)
+    plain_ms = device_ms(lambda: rglru_chunked(la, g, h0), iters=3)
     nbytes = b * t * d * (4 + 2 + 2) + 2 * b * d * 4
     flops = 3 * b * t * d
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
@@ -973,114 +1041,63 @@ def rglru_numbers(case, device) -> dict:
 
 def gate_product_ms(gcfg, device, tokens) -> float:
     """The RG-LRU's two f32 gate products (``yf @ w_ai``, full f32: TF32
-    is off) for ``tokens`` tokens, one layer's worth, in ms."""
+    is off) for ``tokens`` tokens, one layer's worth: device ms."""
     import torch
 
     n = gcfg.resolved_rnn_width
     gen = torch.Generator(device=device).manual_seed(2)
     yf = torch.randn((tokens, n), generator=gen, device=device)
     w = torch.randn((2, n, n), generator=gen, device=device)
-    return cuda_ms(lambda: (yf @ w[0], yf @ w[1]), iters=10)
+    return device_ms(lambda: (yf @ w[0], yf @ w[1]), iters=10)
 
 
-def serve_recurrentgemma_phase(gcfg, device, card) -> dict:
-    """recurrentgemma-9b at full width through ``serve_main_path``: K7's
-    and K4's launches asserted (26 and 12 a prefill, 26 a decode step), the
-    committed state's size, then the ring sub-phase (one prompt longer
-    than the window), the 5-layer f32 cut (one super-layer and both tail
-    layers) against the plain CPU path, K7's and K4's numbers at the
-    path's shapes; prints the ``serve_recurrentgemma`` line and the profile
-    windows, frees the weights.  Returns launches and numbers."""
-    import torch
+def serve_recurrentgemma_phase(gcfg, device, card):
+    """recurrentgemma-9b through ``serve_model_phase``: K7's and K4's
+    launches asserted (26 and 12 a prefill, 26 a decode step), the
+    committed state's size, the ring sub-phase (one prompt longer than the
+    window), the 5-layer f32 cut (one super-layer and both tail layers)
+    against the plain CPU path, and again with a cut window that the
+    prompt and the decode steps overrun; K7's and K4's numbers at the
+    path's shapes.  Returns the runs and the numbers."""
+    from repro_torch.models import stack_plan
 
-    from repro_torch.models import count_params, init_params, stack_plan
-
-    n_params = count_params(gcfg)
-    if n_params != 10_444_771_328:
-        raise AssertionError(f"{gcfg.name}: {n_params} params")
     plan = stack_plan(gcfg)
     kinds = plan["scan_kinds"] * plan["scan_len"] + plan["tail_kinds"]
     n_rec, n_attn = kinds.count("rec"), kinds.count("attn")
-    t0 = time.monotonic()
-    params = init_params(gcfg, torch.Generator(device=device).manual_seed(0),
-                         device=device)
-    torch.cuda.synchronize()
-    log(f"  params: {n_params} f32 in {time.monotonic() - t0:.1f} s; "
-        f"{n_rec} RG-LRU and {n_attn} attention layers")
-    torch.cuda.reset_peak_memory_stats()
-    runs = {}
-    for name, batch, prompt, gen, state_bytes in (
-            ("serve", BATCH, PROMPT, GEN, 30_998_532),
-            ("ring", 1, RING_PROMPT, RING_GEN, 26_230_788)):
-        res = serve_main_path(gcfg, params, device, batch_size=batch,
-                              prompt=prompt, gen=gen, want={
-                                  "generate": {"rglru": n_rec * gen,
-                                               "flash_fwd": n_attn},
-                                  "prefill": {"rglru": n_rec,
-                                              "flash_fwd": n_attn},
-                                  "decode": {"rglru": n_rec * (gen - 1),
-                                             "flash_fwd": 0}})
-        res.pop("state_payload")
-        if res["state_bytes"] != state_bytes:
-            raise AssertionError(f"{name}: state of {res['state_bytes']} "
-                                 f"bytes, want {state_bytes}")
-        log(f"  {name}: {batch} x {prompt} prompt tokens, {gen} new: "
-            f"launches {res['launches']}; state {res['state_bytes']} bytes "
-            f"restored bit-equal to a second prefill; {gen - 1} decode "
-            f"steps from it give the live tokens")
-        runs[name] = res
+    log(f"  {n_rec} RG-LRU and {n_attn} attention layers")
+
+    def want(gen):
+        return {"generate": {"rglru": n_rec * gen, "flash_fwd": n_attn},
+                "prefill": {"rglru": n_rec, "flash_fwd": n_attn},
+                "decode": {"rglru": n_rec * (gen - 1), "flash_fwd": 0}}
+
+    def numbers():
+        w = gcfg.resolved_rnn_width
+        gate_ms = gate_product_ms(gcfg, device, BATCH * PROMPT)
+        return {"f32_gate_products_ms_per_layer": gate_ms,
+                "f32_gate_products_ms_per_prefill": gate_ms * n_rec,
+                **{f"rglru_{name}_shape": rglru_numbers((BATCH, t, w), device)
+                   for name, t in (("prefill", PROMPT), ("decode", 1))},
+                "flash_fwd_d256_prefill_shape": attention_numbers(
+                    (BATCH, gcfg.num_heads, gcfg.num_kv_heads, PROMPT, PROMPT,
+                     gcfg.resolved_head_dim, True, gcfg.window), device)}
+
+    window, prompt, steps = RING_CUT
+    runs, nums = serve_model_phase(
+        gcfg, device, card, "serve_recurrentgemma", 10_444_771_328, want,
+        state_bytes=30_998_532,
+        subruns=[("ring", 1, RING_PROMPT, RING_GEN, 26_230_788)],
+        plain={"plain_cut": dict(layers=5, atol=1e-4),
+               "plain_ring_cut": dict(layers=5, atol=1e-4, window=window,
+                                      prompt=prompt, steps=steps)},
+        numbers=numbers)
     ring_k = runs["ring"]["state_leaves"]["stack/b2/self/k"]
     if ring_k != [plan["scan_len"], 1, gcfg.num_kv_heads, gcfg.window,
                   gcfg.resolved_head_dim]:
         raise AssertionError(f"ring slots {ring_k}")
     log(f"  ring: {RING_PROMPT}-token prompt in {gcfg.window} slots "
         f"{ring_k}")
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    plain_err = check_against_plain(gcfg, params, device, layers=5,
-                                    atol=1e-4)
-    log(f"  5-layer f32 cut: card vs plain CPU logits max abs err "
-        f"{plain_err:.3e}")
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    res = runs["serve"]
-    w = gcfg.resolved_rnn_width
-    numbers = {name: rglru_numbers((BATCH, t, w), device)
-               for name, t in (("prefill", PROMPT), ("decode", 1))}
-    attn_case = (BATCH, gcfg.num_heads, gcfg.num_kv_heads, PROMPT, PROMPT,
-                 gcfg.resolved_head_dim, True, gcfg.window)
-    attn_num = attention_numbers(attn_case, device)
-    gate_ms = gate_product_ms(gcfg, device, BATCH * PROMPT)
-    serve = {
-        "card": card, "params": n_params,
-        "prefill_ms": res["prefill_ms"],
-        "decode_ms_per_token": res["decode_ms_per_token"],
-        "decode_ms_per_token_no_cluster":
-            res["decode_ms_per_token_no_cluster"],
-        "output_tokens_per_s": BATCH * GEN / res["generate_s"],
-        "generate_wall_s": res["generate_s"],
-        "commit_wall_s": res["commit_s"],
-        "commit_wait_s": res["commit_wait_s"],
-        "restore_wall_s": res["restore_s"],
-        "state_bytes": res["state_bytes"],
-        "max_memory_allocated": peak,
-        "plain_cut_max_abs_err": plain_err,
-        "f32_gate_products_ms_per_layer": gate_ms,
-        "f32_gate_products_ms_per_prefill": gate_ms * n_rec,
-        "rglru_prefill_shape": numbers["prefill"],
-        "rglru_decode_shape": numbers["decode"],
-        "flash_fwd_d256_prefill_shape": attn_num,
-        "ring": {k: runs["ring"][k] for k in (
-            "prefill_ms", "decode_ms_per_token", "generate_s", "commit_s",
-            "restore_s", "state_bytes")},
-    }
-    log(json.dumps({"serve_recurrentgemma": serve}))
-    for name in ("profile_prefill", "profile_decode_8"):
-        log(json.dumps({f"recurrentgemma_{name}": res[name]}))
-    return {"launches": res["launches"],
-            "ring_launches": runs["ring"]["launches"], "numbers": numbers,
-            "attn": attn_num}
+    return runs, nums
 
 
 # --------------------------------------------------------------------------
@@ -1348,10 +1365,14 @@ def train_cut_phase(cfg, device, seq=TRAIN_SEQ, node_memory=48 << 30
             t0 = time.monotonic()
             t.run(2)
             cluster.rm.schedule_resize("train-cut", 2)
-            for _ in range(6):
+            # the resize completes once the background streams are ready,
+            # which takes as long as the host needs: step until then
+            deadline = time.monotonic() + RESIZE_WAIT_S
+            while not t.resizes and time.monotonic() < deadline:
                 t.run(1)
-                if t.resizes:
-                    break
+            handles = t._adapt_handles or {}
+            res["streams_ready"] = [sum(h.ready() for h in handles.values()),
+                                    len(handles)]
             _sync(device)
             res["wall_s"] = time.monotonic() - t0
             res["launches"] = read_counts()
@@ -1367,8 +1388,10 @@ def train_cut_phase(cfg, device, seq=TRAIN_SEQ, node_memory=48 << 30
     finally:
         shutil.rmtree(pfs, ignore_errors=True)
     if res["resizes"] != 1 or res["ranks"] != 2:
-        raise AssertionError(f"resize: {res['resizes']} resizes, "
-                             f"{res['ranks']} ranks")
+        raise AssertionError(
+            f"resize: {res['resizes']} resizes, {res['ranks']} ranks after "
+            f"{res['steps_during_resize']} steps and {RESIZE_WAIT_S} s; "
+            f"overlap streams ready: {res['streams_ready']}")
     if not np.all(np.isfinite(res["losses"] + res["losses_after_resize"])):
         raise AssertionError(f"cut phase losses: {res['losses']}")
     if device.type == "cuda" and not (res["launches"]["quantize"]
@@ -1397,24 +1420,27 @@ def bwd_numbers(path_case, device) -> dict:
     dout = _inputs(8, b, hq, hkv, t, s, d, "bfloat16", device)[0]
     out, lse = attention_ref(q, k, v, causal=causal, window=window)
     kw = dict(causal=causal, window=window, scale=d ** -0.5)
-    ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout,
-                                                  **kw), iters=5)
-    plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout,
-                                                 **kw), iters=2, warmup=1)
+
+    def kernel():
+        return flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+
+    plain_ms = device_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout,
+                                                   **kw), iters=2)
     # yardstick only, never called by the port: SDPA's backward (at T = S
     # its top-left causal alignment equals the reference's bottom-right)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                              enable_gqa=True)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+    lib_ms = device_ms(lambda: torch.autograd.grad(
         lib_out, (qg, kg, vg), dout, retain_graph=True), iters=5)
     pairs = int(allowed_mask(t, s, causal, window, s - t).sum())
     flops = 10 * b * hq * d * pairs     # five products, 2 FLOP per MAC
     nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
               + 2 * out.numel()) * 2 + dout.numel() * 2 + 2 * lse.numel() * 4
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
+    return {"ms": device_ms(kernel, iters=5),
+            "event_ms": cuda_ms(kernel, iters=5), "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "flops": flops, "bytes": nbytes}
 
@@ -1437,8 +1463,9 @@ def codec_numbers(n, device) -> dict:
              lambda: R.quantize_delta_ref(x, q), 4 * n + 3 * n + 4 * nb),
             ("dequantize", lambda: K.dequantize_cuda(q, s),
              lambda: R.dequantize_ref(q, s), n + 4 * nb + 4 * n)):
-        out[name] = {"ms": cuda_ms(fn, iters=5),
-                     "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+        out[name] = {"ms": device_ms(fn, iters=5),
+                     "event_ms": cuda_ms(fn, iters=5),
+                     "plain_ms": device_ms(plain, iters=2),
                      "library_ms": None,
                      "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
                      "bound_by": "bytes", "bytes": nbytes}
@@ -1466,7 +1493,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     from repro_torch.configs import get_config
-    from repro_torch.models import count_params, init_params
+    from repro_torch.models import count_params
 
     cfg = get_config("yi-6b")
     rcfg = get_config("rwkv6-7b")
@@ -1504,67 +1531,50 @@ def main() -> int:
     log(f"phase 4: serving, {cfg.name} {cfg.num_layers} layers "
         f"d_model {cfg.d_model} {cfg.dtype}, {BATCH} x {PROMPT} prompt "
         f"tokens, {GEN} new tokens")
-    t0 = time.monotonic()
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                         device=device)
-    torch.cuda.synchronize()
-    log(f"  params: {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
-        f"f32 in {time.monotonic() - t0:.1f} s")
-    torch.cuda.reset_peak_memory_stats()
-    res = serve_main_path(cfg, params, device, want={
-        "generate": {"flash_fwd": cfg.num_layers},
-        "prefill": {"flash_fwd": cfg.num_layers}})
-    torch.cuda.synchronize()
-    serve_peak = torch.cuda.max_memory_allocated()
-    del res["state_payload"]
-    log(f"  launches in the main path: {res['launches']}")
-    log(f"  KV cache {res['state_bytes']} bytes; restored cache equals a "
-        f"second prefill bit for bit; {GEN - 1} decode steps from it give "
-        f"the live tokens")
-    plain_err = check_against_plain(cfg, params, device)
-    log(f"  2-layer f32 cut: card vs plain CPU logits max abs err "
-        f"{plain_err:.3e}")
-    num = attention_numbers(path_case, device)
-    torch.cuda.synchronize()
-    serve = {
-        "card": card,
-        "prefill_ms": res["prefill_ms"],
-        "decode_ms_per_token": res["decode_ms_per_token"],
-        "decode_ms_per_token_no_cluster":
-            res["decode_ms_per_token_no_cluster"],
-        "output_tokens_per_s": BATCH * GEN / res["generate_s"],
-        "generate_wall_s": res["generate_s"],
-        "commit_wall_s": res["commit_s"],
-        "restore_wall_s": res["restore_s"],
-        "state_bytes": res["state_bytes"],
-        "max_memory_allocated": serve_peak,
-        "attention_flops": num["flops"], "attention_bytes": num["bytes"],
-    }
-    log(json.dumps({"serve": serve}))
-    for name in ("profile_prefill", "profile_decode_8"):
-        log(json.dumps({name: res[name]}))
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    n = cfg.num_layers
+    runs, num = serve_model_phase(
+        cfg, device, card, "serve", 6_061_035_520,
+        lambda gen: {"generate": {"flash_fwd": n},
+                     "prefill": {"flash_fwd": n}},
+        numbers=lambda: {"flash_fwd_serve_shape": attention_numbers(
+            path_case, device)})
+    yi_launches = runs["serve"]["launches"]
+    num = num["flash_fwd_serve_shape"]
+    del runs
     log(f"  phase 4 done at {time.monotonic() - t_start:.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
     log(f"phase 4b: serving, {rcfg.name} {rcfg.num_layers} layers d_model "
         f"{rcfg.d_model} {rcfg.dtype}, {BATCH} x {PROMPT} prompt tokens, "
         f"{GEN} new tokens")
-    rw = serve_rwkv6_phase(rcfg, device, card)
+    n = rcfg.num_layers
+    runs, rw_num = serve_model_phase(
+        rcfg, device, card, "serve_rwkv6", 7_551_455_232,
+        lambda gen: {"generate": {"rwkv6": n * gen, "flash_fwd": 0},
+                     "prefill": {"rwkv6": n},
+                     "decode": {"rwkv6": n * (gen - 1)}},
+        state_bytes=136_314_884,
+        numbers=lambda: {f"rwkv6_{name}_shape": rwkv6_numbers(
+            (BATCH, rh, t, rcfg.rwkv_head_dim), device)
+            for name, t in (("prefill", PROMPT), ("decode", 1))})
+    rw_launches = runs["serve"]["launches"]
+    rw_payload = runs["serve"].pop("state_payload")
+    del runs
     log(f"  phase 4b done at {time.monotonic() - t_start:.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
     log("phase 4c: Reed-Solomon encode against the host codec")
-    rs = check_rs(device, rw.pop("state_payload"))
+    rs = check_rs(device, rw_payload)
+    del rw_payload
     log(json.dumps({"rs_encode_state": rs["numbers"]}))
     log(f"  phase 4c done at {time.monotonic() - t_start:.1f} s")
 
     log(f"phase 4d: serving, {gcfg.name} {gcfg.num_layers} layers d_model "
         f"{gcfg.d_model} {gcfg.dtype}, {BATCH} x {PROMPT} prompt tokens, "
         f"{GEN} new tokens; then 1 x {RING_PROMPT}, {RING_GEN} new tokens")
-    rg = serve_recurrentgemma_phase(gcfg, device, card)
+    runs, rg_num = serve_recurrentgemma_phase(gcfg, device, card)
+    rg_launches = {name: r["launches"] for name, r in runs.items()}
+    del runs
     log(f"  phase 4d done at {time.monotonic() - t_start:.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
@@ -1633,9 +1643,9 @@ def main() -> int:
                     "flash_bwd_train_shape": bwd, "codec_w_gu": codec}))
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
-    paths = {"serve": res["launches"], "serve_rwkv6": rw["launches"],
-             "serve_recurrentgemma": rg["launches"],
-             "serve_recurrentgemma_ring": rg["ring_launches"],
+    paths = {"serve": yi_launches, "serve_rwkv6": rw_launches,
+             "serve_recurrentgemma": rg_launches["serve"],
+             "serve_recurrentgemma_ring": rg_launches["ring"],
              "train": tr["launches"], "train_cut": cut["launches"],
              "rs_encode_check": rs["launches"]}
 
@@ -1644,76 +1654,51 @@ def main() -> int:
                 "launches_by_path": {p: c[name] for p, c in paths.items()
                                      if name in c}}
 
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
-        **counts("flash_fwd", "serve"),
-        "max_abs_err": path_err, "ms": num["ms"],
-        "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
-        "bound_by": num["bound_by"], "library_ms": num["library_ms"],
-        "train_shape": {k: fwd_train[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    }, {
+    def row(name, source, replaces, launches, err, n, **shapes):
+        """One kernel's entry: every time is ``device_ms`` (``event_ms``
+        beside it); ``shapes`` are its numbers at other shapes."""
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/{source}",
+                "replaces": f"src/repro/kernels/{replaces}", **launches,
+                "max_abs_err": err, **{k: n[k] for k in TIME_KEYS},
+                **{shape: {k: v[k] for k in TIME_KEYS}
+                   for shape, v in shapes.items()}}
+
+    fa = "flash_attention/csrc/"
+    kernels = [
+        row("flash_fwd", fa + "flash_fwd.cu", "flash_attention/kernel.py:95",
+            counts("flash_fwd", "serve"), path_err, num,
+            train_shape=fwd_train),
         # the same kernel's head-dim-256 instance, on recurrentgemma-9b's
         # path (its windowed MQA layers)
-        "name": "flash_fwd_d256", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
-        **counts("flash_fwd", "serve_recurrentgemma"),
-        "max_abs_err": d256_err, **{k: rg["attn"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-    }, {
-        "name": "flash_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
-        "replaces": "src/repro/kernels/flash_attention/ops.py:94",
-        **counts("flash_bwd", "train"),
-        "max_abs_err": bwd_err, "ms": bwd["ms"],
-        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
-        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
-    }]
+        row("flash_fwd_d256", fa + "flash_fwd.cu",
+            "flash_attention/kernel.py:95",
+            counts("flash_fwd", "serve_recurrentgemma"), d256_err,
+            rg_num["flash_fwd_d256_prefill_shape"]),
+        row("flash_bwd", fa + "flash_bwd.cu", "flash_attention/ops.py:94",
+            counts("flash_bwd", "train"), bwd_err, bwd)]
     for name, line in (("quantize", 54), ("quantize_delta", 74),
                        ("dequantize", 98)):
-        c = codec[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/ckpt_codec/csrc/codec.cu",
-            "replaces": f"src/repro/kernels/ckpt_codec/kernel.py:{line}",
-            # K3 runs only where gradients are compressed: the cut phase
-            **counts(name, "train_cut" if name == "dequantize" else "train"),
-            "max_abs_err": float(codec_bad), "ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
-    rn = rw["numbers"]["prefill"]
-    kernels.append({
-        "name": "rwkv6", "route": "cuda",
-        "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
-        "replaces": "src/repro/kernels/rwkv6/kernel.py:86",
-        **counts("rwkv6", "serve_rwkv6"),
-        "max_abs_err": rwkv_err, "ms": rn["ms"], "plain_ms": rn["plain_ms"],
-        "bound_ms": rn["bound_ms"], "bound_by": rn["bound_by"],
-        "library_ms": None,
-        "decode_shape": rw["numbers"]["decode"]})
-    rsn = rs["numbers"]
-    kernels.append({
-        "name": "rs_encode", "route": "cuda",
-        "source": "src/repro_torch/kernels/ckpt_codec/csrc/rs.cu",
-        "replaces": "src/repro/kernels/ckpt_codec/rs_kernel.py:87",
+        # K3 runs only where gradients are compressed: the cut phase
+        kernels.append(row(
+            name, "ckpt_codec/csrc/codec.cu",
+            f"ckpt_codec/kernel.py:{line}",
+            counts(name, "train_cut" if name == "dequantize" else "train"),
+            float(codec_bad), codec[name]))
+    kernels += [
+        row("rwkv6", "rwkv6/csrc/rwkv6.cu", "rwkv6/kernel.py:86",
+            counts("rwkv6", "serve_rwkv6"), rwkv_err,
+            rw_num["rwkv6_prefill_shape"],
+            decode_shape=rw_num["rwkv6_decode_shape"]),
         # no serving or training path runs K5: its launches are its check's
-        **counts("rs_encode", "rs_encode_check"),
-        "max_abs_err": float(rs["mismatches"]), "ms": rsn["ms"],
-        "plain_ms": rsn["plain_ms"], "bound_ms": rsn["bound_ms"],
-        "bound_by": rsn["bound_by"], "library_ms": None})
-    gn = rg["numbers"]["prefill"]
-    kernels.append({
-        "name": "rglru", "route": "cuda",
-        "source": "src/repro_torch/kernels/rglru/csrc/rglru.cu",
-        "replaces": "src/repro/kernels/rglru/kernel.py:58",
-        **counts("rglru", "serve_recurrentgemma"),
-        "max_abs_err": rglru_err, "ms": gn["ms"], "plain_ms": gn["plain_ms"],
-        "bound_ms": gn["bound_ms"], "bound_by": gn["bound_by"],
-        "library_ms": None,
-        "decode_shape": rg["numbers"]["decode"]})
+        row("rs_encode", "ckpt_codec/csrc/rs.cu",
+            "ckpt_codec/rs_kernel.py:87",
+            counts("rs_encode", "rs_encode_check"), float(rs["mismatches"]),
+            rs["numbers"]),
+        row("rglru", "rglru/csrc/rglru.cu", "rglru/kernel.py:58",
+            counts("rglru", "serve_recurrentgemma"), rglru_err,
+            rg_num["rglru_prefill_shape"],
+            decode_shape=rg_num["rglru_decode_shape"])]
     log(f"  total {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
@@ -1721,14 +1706,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

@@ -19,16 +19,15 @@ from .ref import rglru_chunked
 
 
 def rglru(log_a: torch.Tensor, g: torch.Tensor,
-          h0: Optional[torch.Tensor] = None, *, chunk: int = 64):
+          h0: Optional[torch.Tensor] = None):
     """RG-LRU core: h_t = exp(log_a_t) * h_{t-1} + g_t.  log_a, g:
     (B, T, D), log_a <= 0; h0: (B, D) or None (zeros).
 
     Returns ``(h: (B, T, D) in g.dtype, h_final: (B, D) f32)``.
-    ``chunk`` is the plain version's chunk length; the kernel needs none.
     """
     tensors = (log_a, g) + (() if h0 is None else (h0,))
     if not on_cuda(*tensors):
-        return rglru_chunked(log_a, g, h0, chunk=chunk)
+        return rglru_chunked(log_a, g, h0)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             "rglru on CUDA has no backward kernel yet (it comes with hybrid "
