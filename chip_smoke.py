@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--old-tree DIR]
+
+``--old-tree`` names a checkout of an earlier commit (its ``src/``) whose
+flash-attention kernels run bf16 on the FMA design; phase 7 then times them
+against this tree's in turns (old, new, new, old) and adds ``old_ms`` to
+K4's rows.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: the card's name and power limit from ``nvidia-smi``; no
    CUDA card means exit 1 with no result;
-2. build: every kernel library (flash-attention forward and backward, the
-   checkpoint codec, the RWKV-6 recurrence, the Reed-Solomon encode, the
-   RG-LRU scan) compiled with ``nvcc`` for ``sm_90a`` from the sources in
-   this checkout, all at once;
+2. build: every kernel library (flash-attention forward and backward in
+   f32 on FMAs and in bf16 on wgmma fed by TMA, the checkpoint codec, the
+   RWKV-6 recurrence, the Reed-Solomon encode, the RG-LRU scan) compiled
+   with ``nvcc`` for ``sm_90a`` from the sources in this checkout, all at
+   once; each library's registers, spills and its ``HGMMA`` and ``UTMALDG``
+   instruction counts (``cuobjdump -sass``), which must not be 0 for the
+   bf16 flash-attention libraries;
 3. kernels against their plain PyTorch versions on the card:
    * the flash-attention forward over the reference's sweep plus the
      serving path's shape, and at head dim 256 (MQA, causal) with windows
@@ -19,9 +27,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      and bf16 (atol 3e-2), lse atol 1e-4 on rows with an allowed key, and
      exact zeros on rows with none;
    * the flash-attention backward over the same sweep plus the training
-     path's shape, from the same (q, k, v, out, lse, do): dq, dk, dv within
-     f32 atol 1e-4 + rtol 1e-4, bf16 atol 1e-3 + rtol 2^-7; two runs
-     bit-equal;
+     path's shape, from the same (q, k, v, out, lse, do): f32 dq, dk, dv
+     within atol 1e-4 + rtol 1e-4; bf16 dq, dk, dv each within twice
+     SDPA's max abs error of the plain backward run on f32 copies of the
+     inputs (both printed: the kernel rounds P and dS to bf16 for the
+     tensor cores, as SDPA does); two runs bit-equal;
    * the codec K1-K3 over n in {1, 255, 256, 257, 4096, 100000, the
      training path's largest leaf} x f32/bf16/f16: codes, deltas, scales
      and dequantized values bit-equal (0 mismatches);
@@ -141,7 +151,10 @@ SWEEP = [
 BATCH, PROMPT, GEN = 4, 512, 32
 ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
 LSE_ATOL = 1e-4
-BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2 ** -7)}
+BWD_TOL = {"float32": (1e-4, 1e-4)}
+# a bf16 backward's max abs error against the plain backward on f32 copies
+# of its inputs may be at most this many times SDPA's
+BWD_BF16_VS_SDPA = 2.0
 # the training path: qwen2.5-3b, one 4096-token sequence a step
 TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 6, 2, 8
 # the cut phase's overlap resize must complete within this wall time
@@ -284,6 +297,17 @@ def profile_window(fn, top: int = 8) -> dict:
 # --------------------------------------------------------------------------
 # phase 2: build
 # --------------------------------------------------------------------------
+def sass_counts(path) -> dict:
+    """How many wgmma (``HGMMA``) and TMA-load (``UTMALDG``) instructions
+    ``cuobjdump -sass`` finds in one built library."""
+    from repro_torch.kernels import common
+
+    tool = Path(common.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+
+
 def build_kernels():
     from repro_torch.kernels import common
     from repro_torch.kernels.ckpt_codec import kernel as codec_kernel
@@ -292,9 +316,12 @@ def build_kernels():
     from repro_torch.kernels.rglru import kernel as rglru_kernel
     from repro_torch.kernels.rwkv6 import kernel as rwkv_kernel
 
-    builders = {"flash_fwd": fa_kernel.build, "flash_bwd": fa_kernel.build_bwd,
-                "ckpt_codec": codec_kernel.build, "rwkv6": rwkv_kernel.build,
-                "rs": rs_kernel.build, "rglru": rglru_kernel.build}
+    # the flash-attention libraries: f32 FMA kernels and the bf16 sm90 ones
+    builders = {name: (lambda name=name: fa_kernel.build(name))
+                for name in fa_kernel.LIBRARIES}
+    builders.update({"ckpt_codec": codec_kernel.build,
+                     "rwkv6": rwkv_kernel.build, "rs": rs_kernel.build,
+                     "rglru": rglru_kernel.build})
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(builders)) as pool:
         futures = {n: pool.submit(b) for n, b in builders.items()}
@@ -303,10 +330,15 @@ def build_kernels():
     log(f"build: {len(builders)} kernel(s) in "
         f"{time.monotonic() - t0:.2f} s wall")
     for name in builders:
-        log(f"  {name}: nvcc {common.build_seconds.get(name, 0.0):.2f} s")
+        counts = sass_counts(common.library_paths[name])
+        log(f"  {name}: nvcc {common.build_seconds.get(name, 0.0):.2f} s, "
+            f"HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}")
         for line in common.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
+        if name.endswith("_sm90") and not all(counts.values()):
+            raise AssertionError(f"{name} has no wgmma or no TMA load: "
+                                 f"{counts}")
 
 
 # --------------------------------------------------------------------------
@@ -678,9 +710,43 @@ def attention_numbers(path_case, device):
 # --------------------------------------------------------------------------
 # phase 3b: the backward and codec kernels against their plain versions
 # --------------------------------------------------------------------------
+def sdpa_grads(q, k, v, dout, causal, window):
+    """SDPA's gradients of the same function, as f32: the yardstick of the
+    bf16 backward's error.  Rows with no allowed key are left out (their
+    gradients are zeros); at T = S with no window, SDPA's top-left causal
+    mask is the bottom-right one, elsewhere it gets the boolean mask.  K
+    and V are repeated to the query heads, and their gradients summed in
+    f32 over each group and rounded to the inputs' dtype, as SDPA's own
+    GQA backward returns them."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import allowed_mask
+
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = hq // hkv
+    ok = allowed_mask(t, s, causal, window, s - t, q.device)
+    live = ok.any(dim=1)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (
+        q[:, :, live], k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
+    if causal and window is None and t == s:
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    else:
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=ok[live])
+    gq, gk, gv = torch.autograd.grad(out, (qg, kg, vg), dout[:, :, live])
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq[:, :, live] = gq.float()
+    return dq, *(x.float().reshape(b, hkv, g, s, d).sum(2).to(k.dtype)
+                 .float() for x in (gk, gv))
+
+
 def check_bwd_case(case, dtype, device, determinism=False) -> float:
     """Backward kernel against the plain backward from the same (q, k, v,
-    out, lse, do); returns the max abs error over dq, dk, dv."""
+    out, lse, do); returns the max abs error over dq, dk, dv.  f32: within
+    ``BWD_TOL``.  bf16: the kernel rounds P and dS to bf16 for its tensor
+    cores, as SDPA does, so each of dq, dk, dv must lie within twice SDPA's
+    max abs error of the plain backward run on f32 copies of the inputs."""
     import torch
 
     from repro_torch.kernels.flash_attention import attention_bwd_ref
@@ -694,17 +760,34 @@ def check_bwd_case(case, dtype, device, determinism=False) -> float:
     out, lse = attention_ref(q, k, v, causal=causal, window=window)
     kw = dict(causal=causal, window=window, scale=d ** -0.5)
     got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
-    want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
-    torch.cuda.synchronize()
-    atol, rtol = BWD_TOL[dtype]
     err = 0.0
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        diff = (g.float() - w.float()).abs()
-        err = max(err, diff.max().item())
-        if not bool((diff <= atol + rtol * w.float().abs()).all()):
-            raise AssertionError(f"flash_bwd {case} {dtype} {name}: max abs "
-                                 f"err {diff.max().item()} (atol {atol}, "
-                                 f"rtol {rtol})")
+    if dtype == "float32":
+        want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        atol, rtol = BWD_TOL[dtype]
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            diff = (g.float() - w.float()).abs()
+            err = max(err, diff.max().item())
+            if not bool((diff <= atol + rtol * w.float().abs()).all()):
+                raise AssertionError(f"flash_bwd {case} {dtype} {name}: max "
+                                     f"abs err {diff.max().item()} (atol "
+                                     f"{atol}, rtol {rtol})")
+    else:
+        want = attention_bwd_ref(q.float(), k.float(), v.float(),
+                                 out.float(), lse, dout.float(), **kw)
+        lib = sdpa_grads(q, k, v, dout, causal, window)
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, w, x in zip(("dq", "dk", "dv"), got, want, lib):
+            e = (g.float() - w).abs().max().item()
+            e_lib = (x - w).abs().max().item()
+            errs.append(f"{name} {e:.3e} (SDPA {e_lib:.3e})")
+            err = max(err, e)
+            if not e <= BWD_BF16_VS_SDPA * e_lib:
+                raise AssertionError(f"flash_bwd {case} bf16 {name}: max abs "
+                                     f"err {e} > {BWD_BF16_VS_SDPA} x SDPA's "
+                                     f"{e_lib}")
+        log(f"  flash_bwd {case} bf16 against f32: {', '.join(errs)}")
     if determinism:
         again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
@@ -1447,7 +1530,12 @@ def bwd_numbers(path_case, device) -> dict:
 
 def codec_numbers(n, device) -> dict:
     """K1-K3 at the path's largest leaf (f32), beside their plain versions
-    and their byte bounds; no single PyTorch call computes them."""
+    and their byte bounds.  One PyTorch call computes K3's function,
+    ``torch.mul(codes, scales)`` (int8 x f32 promotes to f32, as
+    ``dequantize_ref``): its time is K3's ``library_ms``.  None computes K1
+    or K2 (absmax, divide, round and clamp, with an XOR for K2)."""
+    import torch
+
     from repro_torch.kernels.ckpt_codec import kernel as K
     from repro_torch.kernels.ckpt_codec import ref as R
     from repro_torch.kernels.ckpt_codec.ops import _to_blocks
@@ -1456,20 +1544,95 @@ def codec_numbers(n, device) -> dict:
     q, s = K.quantize_cuda(x)
     nb = x.shape[0]
     out = {}
-    for name, fn, plain, nbytes in (
+    for name, fn, plain, lib, nbytes in (
             ("quantize", lambda: K.quantize_cuda(x),
-             lambda: R.quantize_ref(x), 4 * n + n + 4 * nb),
+             lambda: R.quantize_ref(x), None, 4 * n + n + 4 * nb),
             ("quantize_delta", lambda: K.quantize_delta_cuda(x, q),
-             lambda: R.quantize_delta_ref(x, q), 4 * n + 3 * n + 4 * nb),
+             lambda: R.quantize_delta_ref(x, q), None,
+             4 * n + 3 * n + 4 * nb),
             ("dequantize", lambda: K.dequantize_cuda(q, s),
-             lambda: R.dequantize_ref(q, s), n + 4 * nb + 4 * n)):
+             lambda: R.dequantize_ref(q, s), lambda: torch.mul(q, s),
+             n + 4 * nb + 4 * n)):
         out[name] = {"ms": device_ms(fn, iters=5),
                      "event_ms": cuda_ms(fn, iters=5),
                      "plain_ms": device_ms(plain, iters=2),
-                     "library_ms": None,
+                     "library_ms": lib and device_ms(lib, iters=5),
                      "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
                      "bound_by": "bytes", "bytes": nbytes}
     return out
+
+
+def old_vs_new(old, new, iters) -> dict:
+    """Device times in turns, old, new, new, old, so that a drift of the
+    card's clock during the four weighs on both alike."""
+    turns = [device_ms(fn, iters=iters) for fn in (old, new, new, old)]
+    return {"old_ms": (turns[0] + turns[3]) / 2,
+            "new_ms": (turns[1] + turns[2]) / 2, "turns": turns}
+
+
+def k4_old_vs_new(old_tree, fwd_cases, bwd_case, device) -> dict:
+    """K4's bf16 kernels as ``old_tree`` builds them (the FMA design) against
+    this tree's, forward at each of ``fwd_cases`` and backward at
+    ``bwd_case``, from the same inputs.  The old libraries keep the C
+    interface of this tree's (``kernel.ARGTYPES``)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    csrc = (Path(old_tree) / "src" / "repro_torch" / "kernels"
+            / "flash_attention" / "csrc")
+    fns = {}
+    for kind in ("fwd", "bwd"):
+        lib = ctypes.CDLL(str(common.build_library(
+            f"flash_{kind}_old", [csrc / f"flash_{kind}.cu"])))
+        fn = getattr(lib, f"flash_{kind}")
+        fn.argtypes = K.ARGTYPES[kind]
+        fn.restype = ctypes.c_int
+        fns[kind] = fn
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def launcher(kind, *args):
+        def run():
+            status = fns[kind](*args, stream)
+            if status:
+                raise RuntimeError(f"old flash_{kind} failed: {status}")
+        return run
+
+    res = {}
+    for name, case in fwd_cases.items():
+        b, hq, hkv, t, s, d, causal, window = case
+        q, k, v = _inputs(7, b, hq, hkv, t, s, d, "bfloat16", device)
+        out = torch.empty_like(q)
+        lse = torch.empty((b, hq, t), dtype=torch.float32, device=device)
+        kw = dict(causal=causal, window=window, scale=d ** -0.5)
+        res[name] = old_vs_new(
+            launcher("fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), b, hq, hkv, t, s, d,
+                     d ** -0.5, int(causal), int(window is not None),
+                     int(window or 0), 1),
+            lambda: K.flash_attention_cuda(q, k, v, **kw), iters=20)
+    b, hq, hkv, t, s, d, causal, window = bwd_case
+    q, k, v = _inputs(7, b, hq, hkv, t, s, d, "bfloat16", device)
+    dout = _inputs(8, b, hq, hkv, t, s, d, "bfloat16", device)[0]
+    out, lse = attention_ref(q, k, v, causal=causal, window=window)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dsum = torch.empty_like(lse)
+    part = torch.empty((2, b, hq, s, d), dtype=torch.float32, device=device)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    res["bwd"] = old_vs_new(
+        launcher("bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                 dsum.data_ptr(), part.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), b, hq, hkv, t, s, d,
+                 d ** -0.5, int(causal), int(window is not None),
+                 int(window or 0), 1),
+        lambda: K.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw),
+        iters=5)
+    return res
 
 
 def main() -> int:
@@ -1483,6 +1646,12 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 1
+    old_tree = None
+    if sys.argv[1:2] == ["--old-tree"] and len(sys.argv) == 3:
+        old_tree = Path(sys.argv[2]).resolve()
+    elif len(sys.argv) > 1:
+        print(__doc__.split("\n\n")[1], file=sys.stderr)
+        return 2
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1641,6 +1810,17 @@ def main() -> int:
     torch.cuda.synchronize()
     log(json.dumps({"flash_fwd_train_shape": fwd_train,
                     "flash_bwd_train_shape": bwd, "codec_w_gu": codec}))
+    if old_tree is not None:
+        log(f"  K4 against {old_tree}'s kernels, old, new, new, old")
+        old = k4_old_vs_new(old_tree, {"serve": path_case, "d256": d256_case,
+                                       "train": train_case},
+                            train_case, device)
+        log(json.dumps({"flash_old_vs_new": old}))
+        num["old_ms"] = old["serve"]["old_ms"]
+        fwd_train["old_ms"] = old["train"]["old_ms"]
+        rg_num["flash_fwd_d256_prefill_shape"]["old_ms"] = \
+            old["d256"]["old_ms"]
+        bwd["old_ms"] = old["bwd"]["old_ms"]
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
     paths = {"serve": yi_launches, "serve_rwkv6": rw_launches,
@@ -1656,26 +1836,31 @@ def main() -> int:
 
     def row(name, source, replaces, launches, err, n, **shapes):
         """One kernel's entry: every time is ``device_ms`` (``event_ms``
-        beside it); ``shapes`` are its numbers at other shapes."""
+        beside it, and ``old_ms`` where an old tree was timed); ``shapes``
+        are its numbers at other shapes."""
+        def times(x):
+            return {k: x[k] for k in (*TIME_KEYS, "old_ms") if k in x}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/{source}",
                 "replaces": f"src/repro/kernels/{replaces}", **launches,
-                "max_abs_err": err, **{k: n[k] for k in TIME_KEYS},
-                **{shape: {k: v[k] for k in TIME_KEYS}
-                   for shape, v in shapes.items()}}
+                "max_abs_err": err, **times(n),
+                **{shape: times(v) for shape, v in shapes.items()}}
 
+    # the paths run K4 in bf16: the sm90 kernels (f32 ones only in checks)
     fa = "flash_attention/csrc/"
     kernels = [
-        row("flash_fwd", fa + "flash_fwd.cu", "flash_attention/kernel.py:95",
+        row("flash_fwd", fa + "flash_fwd_sm90.cu",
+            "flash_attention/kernel.py:95",
             counts("flash_fwd", "serve"), path_err, num,
             train_shape=fwd_train),
         # the same kernel's head-dim-256 instance, on recurrentgemma-9b's
         # path (its windowed MQA layers)
-        row("flash_fwd_d256", fa + "flash_fwd.cu",
+        row("flash_fwd_d256", fa + "flash_fwd_sm90.cu",
             "flash_attention/kernel.py:95",
             counts("flash_fwd", "serve_recurrentgemma"), d256_err,
             rg_num["flash_fwd_d256_prefill_shape"]),
-        row("flash_bwd", fa + "flash_bwd.cu", "flash_attention/ops.py:94",
+        row("flash_bwd", fa + "flash_bwd_sm90.cu",
+            "flash_attention/ops.py:94",
             counts("flash_bwd", "train"), bwd_err, bwd)]
     for name, line in (("quantize", 54), ("quantize_delta", 74),
                        ("dequantize", 98)):

@@ -36,6 +36,8 @@ _lock = threading.Lock()
 # was already built
 build_seconds: Dict[str, float] = {}
 build_logs: Dict[str, str] = {}
+# the shared library each loaded name came from
+library_paths: Dict[str, Path] = {}
 
 
 def next_multiple(x: int, m: int) -> int:
@@ -71,7 +73,7 @@ def check_tensor(name: str, t: torch.Tensor, shape, dtypes, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -83,19 +85,21 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_library(name: str, sources: Sequence[Path]) -> Path:
+def build_library(name: str, sources: Sequence[Path],
+                  headers: Sequence[Path] = ()) -> Path:
     """Compile ``sources`` into a shared library unless the same build
-    exists; returns its path, named by a hash of the sources and the
-    flags.  Raises with the compiler's output on a failed build."""
+    exists; returns its path, named by a hash of the sources, the headers
+    they include and the flags.  Raises with the compiler's output on a
+    failed build."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         h.update(Path(src).read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
     t0 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -107,13 +111,15 @@ def build_library(name: str, sources: Sequence[Path]) -> Path:
     return out
 
 
-def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
+def load_library(name: str, sources: Sequence[Path],
+                 headers: Sequence[Path] = ()) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library, once per process.
     Libraries of different kernels build concurrently from threads."""
     lib = _libs.get(name)
     if lib is None:
-        path = build_library(name, sources)
+        path = build_library(name, sources, headers)
         with _lock:
             lib = _libs.setdefault(name, ctypes.CDLL(str(path)))
+            library_paths.setdefault(name, path)
     return lib
 

@@ -1,6 +1,7 @@
-// Flash-attention backward for Hopper (sm_90a): GQA, causal (bottom-right)
-// or sliding window; dq, dk, dv from q, k, v, out, the f32 log-sum-exp and
-// the output's gradient.
+// Flash-attention backward for f32 inputs (sm_90a): GQA, causal
+// (bottom-right) or sliding window; dq, dk, dv from q, k, v, out, the f32
+// log-sum-exp and the output's gradient.  bf16 inputs go to the tensor-core
+// kernels of flash_bwd_sm90.cu; f32 stays here, on f32 FMAs.
 //
 // Replaces the backward of K4 (flash_attention_pallas, src/repro/kernels/
 // flash_attention/kernel.py:95), which JAX runs as the XLA blockwise
@@ -40,7 +41,6 @@
 // mma/wgmma, TMA and pipelining come in later versions.
 #include <algorithm>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -52,25 +52,17 @@ constexpr int BK = 64;          // keys per tile
 constexpr int NTHREADS = 256;   // 16 x 16 threads, 4x4 score micro-tile each
 constexpr int PP = BK + 1;      // padded row stride of the p / ds tiles
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // a (rows x D) tile of a (.., len, D) tensor into shared memory with row
 // stride D + 1 (conflict-free column reads); rows past `len` are zeros
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
                                           int len, float mul) {
   constexpr int DP = D + 1;
   for (int i = threadIdx.x; i < ROWS * D; i += NTHREADS) {
     const int r = i / D, c = i % D;
     float x = 0.f;
-    if (r0 + r < len) x = to_f32(src[size_t(r0 + r) * D + c]) * mul;
+    if (r0 + r < len) x = src[size_t(r0 + r) * D + c] * mul;
     dst[r * DP + c] = x;
   }
 }
@@ -118,26 +110,25 @@ __device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-rowdot_kernel(const T* __restrict__ dout, const T* __restrict__ out,
+rowdot_kernel(const float* __restrict__ dout, const float* __restrict__ out,
               float* __restrict__ Dsum, int64_t rows, int D) {
   const int lane = threadIdx.x & 31;
   const int64_t r = int64_t(blockIdx.x) * (NTHREADS / 32) + (threadIdx.x >> 5);
   if (r >= rows) return;
   float acc = 0.f;
   for (int c = lane; c < D; c += 32)
-    acc = fmaf(to_f32(dout[r * D + c]), to_f32(out[r * D + c]), acc);
+    acc = fmaf(dout[r * D + c], out[r * D + c], acc);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
   if (lane == 0) Dsum[r] = acc;
 }
 
 // grid (Hq, key tiles, B); pdk / pdv are (B, Hq, S, D) f32
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ Dsum,
             float* __restrict__ pdk, float* __restrict__ pdv, int Hq,
             int Hkv, int Tq, int S, float scale, int causal, int has_window,
@@ -164,8 +155,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int offset = S - Tq;      // bottom-right alignment
 
   const size_t kvoff = (size_t(b) * Hkv + hk) * size_t(S) * D;
-  load_tile<T, D, BK>(Ks, k + kvoff, k0, S, 1.f);
-  load_tile<T, D, BK>(Vs, v + kvoff, k0, S, 1.f);
+  load_tile<D, BK>(Ks, k + kvoff, k0, S, 1.f);
+  load_tile<D, BK>(Vs, v + kvoff, k0, S, 1.f);
 
   float adk[4][NC], adv[4][NC];   // keys ty*4+i, columns tx+16c
 #pragma unroll
@@ -181,8 +172,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qoff = (size_t(b) * Hq + h) * size_t(Tq);
   for (int q0 = (q_lo / BQ) * BQ; q0 < q_hi; q0 += BQ) {
     __syncthreads();            // the last tile's reads are done
-    load_tile<T, D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
-    load_tile<T, D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
+    load_tile<D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
+    load_tile<D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
     for (int r = tid; r < BQ; r += NTHREADS) {
       const bool in = q0 + r < Tq;
       Ls[r] = in ? lse[qoff + q0 + r] : -INFINITY;
@@ -246,11 +237,11 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // dk[b, hk] = sum over gi of pdk[b, hk * g + gi], in order of gi; dv alike
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 dkdv_reduce_kernel(const float* __restrict__ pdk,
-                   const float* __restrict__ pdv, T* __restrict__ dk,
-                   T* __restrict__ dv, int64_t head_elems, int64_t n, int g) {
+                   const float* __restrict__ pdv, float* __restrict__ dk,
+                   float* __restrict__ dv, int64_t head_elems, int64_t n,
+                   int g) {
   for (int64_t i = int64_t(blockIdx.x) * NTHREADS + threadIdx.x; i < n;
        i += int64_t(gridDim.x) * NTHREADS) {
     const int64_t bh = i / head_elems;      // b * Hkv + hk
@@ -261,17 +252,17 @@ dkdv_reduce_kernel(const float* __restrict__ pdk,
       sk += pdk[p0 + gi * head_elems];
       sv += pdv[p0 + gi * head_elems];
     }
-    store_out(dk + i, sk);
-    store_out(dv + i, sv);
+    dk[i] = sk;
+    dv[i] = sv;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ Dsum,
-          T* __restrict__ dq, int Hq, int Hkv, int Tq, int S, float scale,
+          float* __restrict__ dq, int Hq, int Hkv, int Tq, int S, float scale,
           int causal, int has_window, int window) {
   constexpr int DP = D + 1;
   constexpr int NC = D / 16;
@@ -297,8 +288,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t qoff = (size_t(b) * Hq + h) * size_t(Tq);
   const size_t kvoff = (size_t(b) * Hkv + hk) * size_t(S) * D;
-  load_tile<T, D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
-  load_tile<T, D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
+  load_tile<D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
+  load_tile<D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
   for (int r = tid; r < BQ; r += NTHREADS) {
     const bool in = q0 + r < Tq;
     Ls[r] = in ? lse[qoff + q0 + r] : -INFINITY;
@@ -321,8 +312,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
     __syncthreads();              // the last tile's reads are done
-    load_tile<T, D, BK>(Ks, k + kvoff, k0, S, 1.f);
-    load_tile<T, D, BK>(Vs, v + kvoff, k0, S, 1.f);
+    load_tile<D, BK>(Ks, k + kvoff, k0, S, 1.f);
+    load_tile<D, BK>(Vs, v + kvoff, k0, S, 1.f);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -363,7 +354,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= Tq) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      store_out(dq + (qoff + r) * D + tx + 16 * c, acc[i][c] * scale);
+      dq[(qoff + r) * D + tx + 16 * c] = acc[i][c] * scale;
   }
 }
 
@@ -376,7 +367,7 @@ constexpr size_t dq_smem(int d) {
                           2 * BQ);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, const void* lse,
                    void* Dsum, void* part, void* dq, void* dk, void* dv,
@@ -387,31 +378,31 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   static bool configured = false;   // the attributes are per kernel, once
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         int(smem_kv));
     if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(dq_kernel<T, D>,
+    e = cudaFuncSetAttribute(dq_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(smem_q));
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
   const float* lp = static_cast<const float*>(lse);
   float* Dp = static_cast<float*>(Dsum);
   const int64_t rows = int64_t(B) * Hq * Tq;
-  rowdot_kernel<T><<<unsigned((rows + 7) / 8), NTHREADS, 0, st>>>(
-      dop, static_cast<const T*>(out), Dp, rows, D);
+  rowdot_kernel<<<unsigned((rows + 7) / 8), NTHREADS, 0, st>>>(
+      dop, static_cast<const float*>(out), Dp, rows, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if (S > 0) {
     float* pdk = static_cast<float*>(part);
     float* pdv = pdk + size_t(B) * Hq * S * D;
     dim3 gkv(Hq, (S + BK - 1) / BK, B);
-    dkdv_kernel<T, D><<<gkv, NTHREADS, smem_kv, st>>>(
+    dkdv_kernel<D><<<gkv, NTHREADS, smem_kv, st>>>(
         qp, kp, vp, dop, lp, Dp, pdk, pdv, Hq, Hkv, Tq, S, scale, causal,
         has_window, window);
     e = cudaGetLastError();
@@ -420,20 +411,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     const int64_t n = int64_t(B) * Hkv * S * D;
     const int64_t blocks = std::min<int64_t>((n + NTHREADS - 1) / NTHREADS,
                                              4096);
-    dkdv_reduce_kernel<T><<<unsigned(blocks), NTHREADS, 0, st>>>(
-        pdk, pdv, static_cast<T*>(dk), static_cast<T*>(dv), int64_t(S) * D,
-        n, Hq / Hkv);
+    dkdv_reduce_kernel<<<unsigned(blocks), NTHREADS, 0, st>>>(
+        pdk, pdv, static_cast<float*>(dk), static_cast<float*>(dv),
+        int64_t(S) * D, n, Hq / Hkv);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   dim3 gq(Hq, (Tq + BQ - 1) / BQ, B);
-  dq_kernel<T, D><<<gq, NTHREADS, smem_q, st>>>(
-      qp, kp, vp, dop, lp, Dp, static_cast<T*>(dq), Hq, Hkv, Tq, S, scale,
+  dq_kernel<D><<<gq, NTHREADS, smem_q, st>>>(
+      qp, kp, vp, dop, lp, Dp, static_cast<float*>(dq), Hq, Hkv, Tq, S, scale,
       causal, has_window, window);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        const void* out, const void* dout, const void* lse,
                        void* Dsum, void* part, void* dq, void* dk, void* dv,
@@ -442,15 +432,15 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        cudaStream_t st) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
+      return launch<32>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
                            B, Hq, Hkv, Tq, S, scale, causal, has_window,
                            window, st);
     case 64:
-      return launch<T, 64>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
+      return launch<64>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
                            B, Hq, Hkv, Tq, S, scale, causal, has_window,
                            window, st);
     case 128:
-      return launch<T, 128>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
+      return launch<128>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
                             B, Hq, Hkv, Tq, S, scale, causal, has_window,
                             window, st);
     default:
@@ -460,9 +450,10 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q, out, dout, dq (B, Hq, T, D); k, v,
-// dk, dv (B, Hkv, S, D); lse and the scratch Dsum (B, Hq, T) f32; the
-// scratch `part` (2, B, Hq, S, D) f32 (the per-query-head dk and dv); all
+// dtype: 0 = float32 (bf16 goes to flash_bwd_sm90.cu).  q, out, dout, dq
+// (B, Hq, T, D); k, v, dk, dv (B, Hkv, S, D); lse and the scratch Dsum
+// (B, Hq, T) f32; the scratch `part` (2, B, Hq, S, D) f32 (the
+// per-query-head dk and dv); all
 // contiguous.  Launches the four kernels on `stream` without
 // synchronising and returns the first error.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
@@ -477,13 +468,8 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_d<float>(D, q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
-                          B, Hq, Hkv, Tq, S, scale, causal, has_window,
-                          window, st);
-  else if (dtype == 1)
-    e = dispatch_d<__nv_bfloat16>(D, q, k, v, out, dout, lse, Dsum, part,
-                                  dq, dk, dv, B, Hq, Hkv, Tq, S, scale,
-                                  causal, has_window, window, st);
+    e = dispatch_d(D, q, k, v, out, dout, lse, Dsum, part, dq, dk, dv, B,
+                   Hq, Hkv, Tq, S, scale, causal, has_window, window, st);
   else
     e = cudaErrorInvalidValue;
   return int(e);

@@ -1,5 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a): GQA, causal or sliding
-// window, online softmax, returns out and the f32 log-sum-exp.
+// Flash-attention forward for f32 inputs (sm_90a): GQA, causal or sliding
+// window, online softmax, returns out and the f32 log-sum-exp.  bf16 inputs
+// go to the tensor-core kernel of flash_fwd_sm90.cu; f32 stays here, on
+// f32 FMAs, because TF32 tensor cores would not meet f32's tolerances.
 //
 // Replaces flash_attention_pallas (src/repro/kernels/flash_attention/
 // kernel.py:95, body _fa_kernel at :34).  Same function, not the same
@@ -31,7 +33,6 @@
 // and softmax statistics are f32, masked scores are -1e30.  A row with no
 // allowed key gets zeros and lse = -inf (the reference's answer there
 // depends on its tile size).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -43,14 +44,6 @@ constexpr int BK = 64;          // keys per KV tile
 constexpr int NTHREADS = 256;   // 16 x 16 threads, 4x4 score micro-tile each
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 constexpr size_t smem_bytes(int d) {
   // Q and K tiles with a padded row stride (d + 1: conflict-free column
@@ -72,10 +65,10 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int Hq, int Hkv, int Tq, int S,
                  float scale, int causal, int has_window, int window) {
   constexpr int DP = D + 1;
@@ -96,14 +89,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (Hq / Hkv);
   const int offset = S - Tq;    // bottom-right alignment
 
-  const T* qb = q + (size_t(b) * Hq + h) * size_t(Tq) * D;
-  const T* kb = k + (size_t(b) * Hkv + hk) * size_t(S) * D;
-  const T* vb = v + (size_t(b) * Hkv + hk) * size_t(S) * D;
+  const float* qb = q + (size_t(b) * Hq + h) * size_t(Tq) * D;
+  const float* kb = k + (size_t(b) * Hkv + hk) * size_t(S) * D;
+  const float* vb = v + (size_t(b) * Hkv + hk) * size_t(S) * D;
 
   for (int i = tid; i < BQ * D; i += NTHREADS) {
     const int r = i / D, c = i % D;
     float x = 0.f;
-    if (q0 + r < Tq) x = to_f32(qb[size_t(q0 + r) * D + c]) * scale;
+    if (q0 + r < Tq) x = qb[size_t(q0 + r) * D + c] * scale;
     Qs[r * DP + c] = x;
   }
 
@@ -130,8 +123,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / D, c = i % D;
       float kx = 0.f, vx = 0.f;
       if (k0 + r < S) {
-        kx = to_f32(kb[size_t(k0 + r) * D + c]);
-        vx = to_f32(vb[size_t(k0 + r) * D + c]);
+        kx = kb[size_t(k0 + r) * D + c];
+        vx = vb[size_t(k0 + r) * D + c];
       }
       Ks[r * DP + c] = kx;
       Vs[r * D + c] = vx;
@@ -199,7 +192,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + (size_t(b) * Hq + h) * size_t(Tq) * D;
+  float* ob = out + (size_t(b) * Hq + h) * size_t(Tq) * D;
   float* lb = lse + (size_t(b) * Hq + h) * size_t(Tq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -208,12 +201,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const bool any = l[i] > 0.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      store_out(ob + size_t(r) * D + tx + 16 * c, any ? acc[i][c] / l[i] : 0.f);
+      ob[size_t(r) * D + tx + 16 * c] = any ? acc[i][c] / l[i] : 0.f;
     if (tx == 0) lb[r] = any ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int Hq, int Hkv, int Tq, int S,
                    float scale, int causal, int has_window, int window,
@@ -222,36 +215,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   static bool configured = false;   // the attribute is per kernel, once
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         int(smem));
     if (e != cudaSuccess) return e;
     configured = true;
   }
   dim3 grid((Tq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), static_cast<float*>(lse),
-      Hq, Hkv, Tq, S, scale, causal, has_window, window);
+  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), Hq, Hkv, Tq, S, scale, causal, has_window,
+      window);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        void* out, void* lse, int B, int Hq, int Hkv, int Tq,
                        int S, float scale, int causal, int has_window,
                        int window, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
+      return launch<32>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
                            causal, has_window, window, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
+      return launch<64>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
                            causal, has_window, window, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
+      return launch<128>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
                             causal, has_window, window, stream);
     case 256:
-      return launch<T, 256>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
+      return launch<256>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
                             causal, has_window, window, stream);
     default:
       return cudaErrorInvalidValue;
@@ -260,9 +253,10 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q (B, Hq, T, D), k/v (B, Hkv, S, D),
-// out (B, Hq, T, D), lse (B, Hq, T) f32, all contiguous.  Launches on
-// `stream` without synchronising and returns cudaGetLastError().
+// dtype: 0 = float32 (bf16 goes to flash_fwd_sm90.cu).  q (B, Hq, T, D),
+// k/v (B, Hkv, S, D), out (B, Hq, T, D), lse (B, Hq, T) f32, all
+// contiguous.  Launches on `stream` without synchronising and returns
+// cudaGetLastError().
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int Hq, int Hkv, int Tq,
                          int S, int D, float scale, int causal, int has_window,
@@ -272,11 +266,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_d<float>(D, q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
-                          causal, has_window, window, st);
-  else if (dtype == 1)
-    e = dispatch_d<__nv_bfloat16>(D, q, k, v, out, lse, B, Hq, Hkv, Tq, S,
-                                  scale, causal, has_window, window, st);
+    e = dispatch_d(D, q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale, causal,
+                   has_window, window, st);
   else
     e = cudaErrorInvalidValue;
   return int(e);

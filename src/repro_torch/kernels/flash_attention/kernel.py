@@ -1,5 +1,9 @@
-"""Wrappers of the Hopper flash-attention kernels: the forward
-(``csrc/flash_fwd.cu``) and the backward (``csrc/flash_bwd.cu``).
+"""Wrappers of the Hopper flash-attention kernels, routed by dtype:
+
+* bf16: the tensor-core kernels, wgmma fed by TMA (``csrc/flash_fwd_sm90.cu``
+  and ``csrc/flash_bwd_sm90.cu``, over ``csrc/sm90.cuh``);
+* f32: the f32-FMA kernels (``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``),
+  which TF32 tensor cores could not replace within f32's tolerances.
 
 Replace ``flash_attention_pallas`` (``src/repro/kernels/flash_attention/
 kernel.py:95``) and its XLA backward (``ops._xla_flash_bwd``, ``ops.py:94``).
@@ -17,8 +21,13 @@ import torch
 
 from ..common import load_library
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu",)
-BWD_SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_bwd.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+# library name -> its source; the sm90 ones include SM90_HEADERS
+LIBRARIES = {"flash_fwd": _CSRC / "flash_fwd.cu",
+             "flash_bwd": _CSRC / "flash_bwd.cu",
+             "flash_fwd_sm90": _CSRC / "flash_fwd_sm90.cu",
+             "flash_bwd_sm90": _CSRC / "flash_bwd_sm90.cu"}
+SM90_HEADERS = (_CSRC / "sm90.cuh",)
 # head dims each kernel is instantiated for: the forward also at 256
 # (recurrentgemma-9b's attention layers); no training path needs the
 # backward there
@@ -32,40 +41,43 @@ launches = 0
 bwd_launches = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library("flash_fwd", SOURCES)
-    fn = lib.flash_fwd
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# the C entry's arguments: the forward's and the backward's, one interface
+# for both dtypes' libraries
+ARGTYPES = {
+    "fwd": [_VP] * 5 + [_CI] * 6 + [ctypes.c_float] + [_CI] * 4 + [_VP],
+    "bwd": [_VP] * 11 + [_CI] * 6 + [ctypes.c_float] + [_CI] * 4 + [_VP]}
+
+
+def _lib(name: str):
+    """The loaded library ``name`` and its C entry (of the same name)."""
+    lib = load_library(name, (LIBRARIES[name],),
+                       SM90_HEADERS if name.endswith("_sm90") else ())
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                       ctypes.c_float, ci, ci, ci, ci, vp]
-        fn.restype = ci
-        lib.flash_fwd_error_string.argtypes = [ci]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
-    return lib
+        fn.argtypes = ARGTYPES["bwd" if "bwd" in name else "fwd"]
+        fn.restype = _CI
+        err = getattr(lib, name + "_error_string")
+        err.argtypes = [_CI]
+        err.restype = ctypes.c_char_p
+    return lib, fn
 
 
-def _bwd_lib() -> ctypes.CDLL:
-    lib = load_library("flash_bwd", BWD_SOURCES)
-    fn = lib.flash_bwd
-    if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 11 + [ci] * 6 + [ctypes.c_float, ci, ci, ci,
-                                               ci, vp]
-        fn.restype = ci
-        lib.flash_bwd_error_string.argtypes = [ci]
-        lib.flash_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+def _call(name: str, *args) -> None:
+    lib, fn = _lib(name)
+    status = fn(*args)
+    if status != 0:
+        msg = getattr(lib, name + "_error_string")(status).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({status})")
 
 
-def build() -> None:
-    """Compile (if needed) and load the forward kernel's library."""
-    _lib()
+def build(name: str) -> None:
+    """Compile (if needed) and load library ``name`` of ``LIBRARIES``."""
+    _lib(name)
 
 
-def build_bwd() -> None:
-    """Compile (if needed) and load the backward kernel's library."""
-    _bwd_lib()
+def _library(kind: str, dtype: torch.dtype) -> str:
+    return f"flash_{kind}_sm90" if dtype == torch.bfloat16 else f"flash_{kind}"
 
 
 def _check_qkv(q, k, v, head_dims, what, extra=()):
@@ -94,6 +106,12 @@ def _check_qkv(q, k, v, head_dims, what, extra=()):
         raise ValueError(f"{what}: head dim {d} not in {head_dims}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if q.dtype == torch.bfloat16:
+        # TMA reads each head's rows from a 16-byte aligned base
+        for name, x in (("q", q), ("k", k), ("v", v), *extra):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name}.data_ptr() is not 16-byte aligned, "
+                                 f"which the bf16 (TMA) kernel needs")
     return b, hq, hkv, t, s, d
 
 
@@ -101,23 +119,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: Optional[int],
                          scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Hq, T, D), k/v: (B, Hkv, S, D) CUDA tensors, contiguous, of
-    one dtype (f32 or bf16), D in {32, 64, 128, 256}.  Returns ``(out in
-    q.dtype, lse f32 (B, Hq, T))``."""
+    one dtype (f32 or bf16; bf16 16-byte aligned), D in {32, 64, 128, 256}.
+    Returns ``(out in q.dtype, lse f32 (B, Hq, T))``."""
     global launches
     b, hq, hkv, t, s, d = _check_qkv(q, k, v, FWD_HEAD_DIMS, "flash_fwd")
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = lib.flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, hq, hkv, t, s, d, float(scale), int(causal),
-        int(window is not None), int(window or 0), _DTYPES[q.dtype], stream)
-    if status != 0:
-        msg = lib.flash_fwd_error_string(status).decode()
-        raise RuntimeError(f"flash_fwd launch failed: {msg} ({status})")
+    _call(_library("fwd", q.dtype),
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+          lse.data_ptr(), b, hq, hkv, t, s, d, float(scale), int(causal),
+          int(window is not None), int(window or 0), _DTYPES[q.dtype], stream)
     launches += 1
     return out, lse
 
@@ -130,9 +144,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Gradients of the forward: q/out/dout (B, Hq, T, D), k/v (B, Hkv, S,
-    D) of one dtype, lse (B, Hq, T) f32, all contiguous CUDA tensors, D
-    in {32, 64, 128}.  Returns ``(dq, dk, dv)`` in the inputs' dtype;
-    deterministic."""
+    D) of one dtype (bf16 16-byte aligned), lse (B, Hq, T) f32, all
+    contiguous CUDA tensors, D in {32, 64, 128}.  Returns ``(dq, dk,
+    dv)`` in the inputs' dtype; deterministic."""
     global bwd_launches
     b, hq, hkv, t, s, d = _check_qkv(q, k, v, BWD_HEAD_DIMS, "flash_bwd",
                                      (("out", out), ("dout", dout)))
@@ -152,17 +166,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     # order by the last kernel (no atomics)
     part = torch.empty((2, b, hq, s, d), dtype=torch.float32,
                        device=q.device)
-    lib = _bwd_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = lib.flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), part.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, t, s, d,
-        float(scale),
-        int(causal), int(window is not None), int(window or 0),
-        _DTYPES[q.dtype], stream)
-    if status != 0:
-        msg = lib.flash_bwd_error_string(status).decode()
-        raise RuntimeError(f"flash_bwd launch failed: {msg} ({status})")
+    _call(_library("bwd", q.dtype),
+          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+          dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), part.data_ptr(),
+          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, t, s, d,
+          float(scale), int(causal), int(window is not None),
+          int(window or 0), _DTYPES[q.dtype], stream)
     bwd_launches += 1
     return dq, dk, dv

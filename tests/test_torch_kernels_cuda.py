@@ -8,9 +8,14 @@ Every test skips without a card.  Tolerances:
 * flash-attention forward: f32 atol 3e-5, bf16 atol 3e-2 on the output,
   lse atol 1e-4, on rows with an allowed key;
 * flash-attention backward, from the same (q, k, v, out, lse, do): f32
-  atol 1e-4 + rtol 1e-4 (f32 sums in another order), bf16 atol 1e-3 +
-  rtol 2^-7 (both round one f32 value to bf16: one ulp apart at most);
-  two runs are bit-equal (no atomics);
+  atol 1e-4 + rtol 1e-4 (f32 sums in another order); bf16 dq, dk, dv each
+  within twice SDPA's max abs error of the plain backward run on f32
+  copies of the inputs (the tensor-core kernels round P and dS to bf16
+  for their products, as SDPA does); two runs are bit-equal (no atomics);
+* bf16 runs on the sm90 (wgmma + TMA) libraries and f32 on the FMA ones,
+  with the same tolerances, at every head dim, ragged T and S at the new
+  tile sizes, a window edge that crosses a tile, GQA groups 1 to 16 and
+  rows with no allowed key; a misaligned bf16 input raises;
 * codec K1-K3: bit-equal to the plain version and to the numpy host codec;
 * RWKV-6 (K6) against its plain chunked version: f32 atol 2e-3 (the
   reference's kernel tests), bf16 r/k/v the same plus rtol 2^-7 on o (one
@@ -145,30 +150,79 @@ def test_bwd_kernel_refuses_head_dim_256(card):
                                  window=None, scale=1 / 16)
 
 
-BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
-           "bfloat16": dict(atol=1e-3, rtol=2 ** -7)}
+BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4)}
+
+
+def _sdpa_grads(q, k, v, dout, causal, window):
+    """SDPA's gradients of the same function, in f32: the yardstick of the
+    bf16 backward.  Rows with no allowed key are left out (their gradients
+    are zeros); at T = S with no window SDPA's top-left causal mask is the
+    bottom-right one, elsewhere it gets the boolean mask; K and V are
+    repeated to the query heads, and their gradients summed in f32 over
+    each group and rounded to the inputs' dtype, as SDPA's own GQA
+    backward returns them."""
+    import torch.nn.functional as F
+
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    g = hq // hkv
+    ok = allowed_mask(t, s, causal, window, s - t, q.device)
+    live = ok.any(dim=1)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (
+        q[:, :, live], k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
+    if causal and window is None and t == s:
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    else:
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=ok[live])
+    gq, gk, gv = torch.autograd.grad(out, (qg, kg, vg), dout[:, :, live])
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq[:, :, live] = gq.float()
+    return dq, *(x.float().reshape(b, hkv, g, s, d).sum(2).to(k.dtype)
+                 .float() for x in (gk, gv))
+
+
+def _check_bwd(card, case, dtype, seed=7):
+    """The backward kernel on one case against the plain backward; returns
+    its (dq, dk, dv) and the inputs' call so a test can run it again."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    b, hq, hkv, t, s, d, causal, window = case
+    q, k, v = _mk(card, seed, b, hq, hkv, t, s, d, dtype)
+    dout = _mk(card, seed + 1, b, hq, hkv, t, s, d, dtype)[0]
+    out, lse = attention_ref(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    n0 = kernel.bwd_launches
+
+    def run():
+        return kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+
+    got = run()
+    torch.cuda.synchronize()
+    assert kernel.bwd_launches == n0 + 1
+    if dtype == "float32":
+        want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype],
+                                       msg=lambda m, name=name: f"{name}: {m}")
+        return got, run
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                             lse, dout.float(), **kw)
+    lib = _sdpa_grads(q, k, v, dout, causal, window)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, lib):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        err = (g.float() - w).abs().max().item()
+        lib_err = (x - w).abs().max().item()
+        print(f"{case} {name}: max abs err {err:.3e}, SDPA {lib_err:.3e}")
+        assert err <= 2 * lib_err, (name, err, lib_err)
+    return got, run
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", SWEEP)
 def test_bwd_kernel_matches_plain(card, case, dtype):
-    from repro_torch.kernels.flash_attention import kernel
-
-    b, hq, hkv, t, s, d, causal, window = case
-    q, k, v = _mk(card, 7, b, hq, hkv, t, s, d, dtype)
-    dout = _mk(card, 8, b, hq, hkv, t, s, d, dtype)[0]
-    out, lse = attention_ref(q, k, v, causal=causal, window=window)
-    kw = dict(causal=causal, window=window, scale=d ** -0.5)
-    n0 = kernel.bwd_launches
-    got = kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
-    torch.cuda.synchronize()
-    assert kernel.bwd_launches == n0 + 1
-    want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape, name
-        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL[dtype],
-                                   msg=lambda m, name=name: f"{name}: {m}")
-    again = kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    got, run = _check_bwd(card, case, dtype)
+    again = run()
     for g, g2 in zip(got, again):
         assert torch.equal(g, g2)
 
@@ -195,6 +249,101 @@ def test_autograd_goes_through_both_kernels(card):
     torch.cuda.synchronize()
     assert (kernel.launches - f0, kernel.bwd_launches - b0) == (1, 1)
     assert q.grad.dtype == torch.bfloat16 and k.grad.shape == k.shape
+
+
+# --------------------------------------------------------------------------
+# K4 in bf16: the sm90 kernels (wgmma fed by TMA)
+# --------------------------------------------------------------------------
+# (b, hq, hkv, t, s, causal, window) at each head dim: T = 1 under S > T,
+# T and S ragged at the tiles of 64 and 128 rows, a window whose edge
+# crosses a tile, GQA groups 1, 2, 8 and 16, T > S (the first T - S rows
+# see no key), and no mask
+SM90_CASES = [
+    (1, 4, 4, 1, 160, True, None),
+    (1, 4, 2, 127, 127, True, None),
+    (2, 8, 1, 129, 200, True, None),
+    (1, 16, 1, 200, 333, True, 100),
+    (1, 4, 2, 96, 40, True, None),
+    (1, 2, 2, 200, 200, False, None),
+]
+
+
+@pytest.fixture
+def libraries(monkeypatch):
+    """The names of the kernel libraries each call of the wrappers ran."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    called = []
+    real = kernel._call
+
+    def spy(name, *args):
+        called.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(kernel, "_call", spy)
+    return called
+
+
+@pytest.mark.parametrize("case", SM90_CASES)
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_sm90_fwd_matches_plain(card, libraries, d, case):
+    b, hq, hkv, t, s, causal, window = case
+    test_kernel_matches_plain(card, (b, hq, hkv, t, s, d, causal, window),
+                              "bfloat16")
+    assert libraries == ["flash_fwd_sm90"]
+    q, k, v = _mk(card, 7, b, hq, hkv, t, s, d, "bfloat16")
+    out, lse = attention(q, k, v, causal=causal, window=window,
+                         return_lse=True)
+    dead = ~allowed_mask(t, s, causal, window, s - t, card).any(dim=1)
+    assert torch.all(out[:, :, dead] == 0)
+    assert torch.all(torch.isneginf(lse[:, :, dead]))
+
+
+@pytest.mark.parametrize("case", SM90_CASES)
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_sm90_bwd_matches_plain(card, libraries, d, case):
+    b, hq, hkv, t, s, causal, window = case
+    (dq, _, _), _ = _check_bwd(card, (b, hq, hkv, t, s, d, causal, window),
+                               "bfloat16")
+    assert libraries == ["flash_bwd_sm90"]
+    dead = ~allowed_mask(t, s, causal, window, s - t, card).any(dim=1)
+    assert torch.all(dq[:, :, dead] == 0)
+
+
+def test_sm90_bwd_runs_are_bit_equal(card, libraries):
+    got, run = _check_bwd(card, (2, 8, 2, 384, 384, 64, True, None),
+                          "bfloat16", seed=11)
+    for g, g2 in zip(got, run()):
+        assert torch.equal(g, g2)
+    assert libraries == ["flash_bwd_sm90"] * 2
+
+
+def test_f32_stays_on_the_fma_kernels(card, libraries):
+    q, k, v = _mk(card, 5, 1, 4, 2, 64, 64, 64, "float32")
+    for x in (q, k, v):
+        x.requires_grad_()
+    attention(q, k, v).sum().backward()
+    torch.cuda.synchronize()
+    assert libraries == ["flash_fwd", "flash_bwd"]
+
+
+def test_sm90_rejects_a_misaligned_input(card):
+    """TMA needs 16-byte aligned bases; the wrapper raises, never copies."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+
+    q, k, v = _mk(card, 1, 1, 2, 1, 64, 64, 64, "bfloat16")
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
+    q_odd = buf[1:].view(q.shape)
+    q_odd.copy_(q)
+    assert q_odd.is_contiguous() and q_odd.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q_odd, k, v, causal=True, window=None,
+                             scale=0.125)
+    lse = torch.zeros((1, 2, 64), device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd_cuda(q_odd, k, v, q, lse, q, causal=True,
+                                 window=None, scale=0.125)
 
 
 CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
