@@ -1,12 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-  python3 chip_smoke.py [--old-tree DIR]
-
-``--old-tree`` names a checkout of an earlier commit (its ``src/``) whose
-flash-attention kernels run bf16 on the FMA design; phase 7 then times them
-against this tree's in turns (old, new, new, old) and adds ``old_ms`` to
-K4's rows.
+  python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -24,14 +19,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      serving path's shape, and at head dim 256 (MQA, causal) with windows
      of 128 and 2048 at T = 300, recurrentgemma-9b's prefill shape (4, 16,
      1, 512, 512) and T = 2560 (the window hides keys), f32 (atol 3e-5)
-     and bf16 (atol 3e-2), lse atol 1e-4 on rows with an allowed key, and
-     exact zeros on rows with none;
+     and bf16 (atol 3e-2, and an error norm at most 2^-7 of the plain
+     output's), lse atol 1e-4 on rows with an allowed key, and exact zeros
+     on rows with none; the bf16 forward at the training path's shape too;
    * the flash-attention backward over the same sweep plus the training
      path's shape, from the same (q, k, v, out, lse, do): f32 dq, dk, dv
      within atol 1e-4 + rtol 1e-4; bf16 dq, dk, dv each within twice
-     SDPA's max abs error of the plain backward run on f32 copies of the
-     inputs (both printed: the kernel rounds P and dS to bf16 for the
-     tensor cores, as SDPA does); two runs bit-equal;
+     SDPA's error (memory-efficient backend) of the plain backward run on
+     f32 copies of the inputs, in max abs and in the error norm over each
+     tile of 64 rows (``tests/torch_flash_checks.py``; the kernel rounds P
+     and dS to bf16 for the tensor cores, as SDPA does; both printed); two
+     runs bit-equal;
    * the codec K1-K3 over n in {1, 255, 256, 257, 4096, 100000, the
      training path's largest leaf} x f32/bf16/f16: codes, deltas, scales
      and dequantized values bit-equal (0 mismatches);
@@ -152,9 +150,6 @@ BATCH, PROMPT, GEN = 4, 512, 32
 ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
 LSE_ATOL = 1e-4
 BWD_TOL = {"float32": (1e-4, 1e-4)}
-# a bf16 backward's max abs error against the plain backward on f32 copies
-# of its inputs may be at most this many times SDPA's
-BWD_BF16_VS_SDPA = 2.0
 # the training path: qwen2.5-3b, one 4096-token sequence a step
 TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 6, 2, 8
 # the cut phase's overlap resize must complete within this wall time
@@ -357,8 +352,10 @@ def _inputs(seed, b, hq, hkv, t, s, d, dtype, device):
 
 def check_attention_case(case, dtype, device) -> float:
     """Kernel against plain on one case; returns the max abs error of the
-    output over rows with an allowed key."""
+    output over rows with an allowed key.  bf16 also holds the output's
+    error norm to ``FWD_REL_BF16`` of the plain output's."""
     import torch
+    from torch_flash_checks import FWD_REL_BF16, fwd_rel_err
 
     from repro_torch.kernels.flash_attention import attention, attention_ref
     from repro_torch.kernels.flash_attention.ref import allowed_mask
@@ -376,6 +373,15 @@ def check_attention_case(case, dtype, device) -> float:
         raise AssertionError(f"flash_fwd {case} {dtype}: max abs err {err} "
                              f"(atol {ATOL[dtype]}), lse err {lerr} "
                              f"(atol {LSE_ATOL})")
+    if dtype == "bfloat16":
+        rel = fwd_rel_err(out, ref, live)
+        log(f"  flash_fwd {case} bf16: error norm {rel:.3e} of the plain "
+            f"output's (its rms "
+            f"{ref.float()[:, :, live].square().mean().sqrt().item():.3e})")
+        if not rel <= FWD_REL_BF16:
+            raise AssertionError(f"flash_fwd {case} bf16: error norm {rel} "
+                                 f"of the plain output's (at most "
+                                 f"{FWD_REL_BF16})")
     return err
 
 
@@ -710,44 +716,15 @@ def attention_numbers(path_case, device):
 # --------------------------------------------------------------------------
 # phase 3b: the backward and codec kernels against their plain versions
 # --------------------------------------------------------------------------
-def sdpa_grads(q, k, v, dout, causal, window):
-    """SDPA's gradients of the same function, as f32: the yardstick of the
-    bf16 backward's error.  Rows with no allowed key are left out (their
-    gradients are zeros); at T = S with no window, SDPA's top-left causal
-    mask is the bottom-right one, elsewhere it gets the boolean mask.  K
-    and V are repeated to the query heads, and their gradients summed in
-    f32 over each group and rounded to the inputs' dtype, as SDPA's own
-    GQA backward returns them."""
-    import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_attention.ref import allowed_mask
-
-    b, hq, t, d = q.shape
-    hkv, s = k.shape[1], k.shape[2]
-    g = hq // hkv
-    ok = allowed_mask(t, s, causal, window, s - t, q.device)
-    live = ok.any(dim=1)
-    qg, kg, vg = (x.detach().requires_grad_() for x in (
-        q[:, :, live], k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
-    if causal and window is None and t == s:
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    else:
-        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=ok[live])
-    gq, gk, gv = torch.autograd.grad(out, (qg, kg, vg), dout[:, :, live])
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dq[:, :, live] = gq.float()
-    return dq, *(x.float().reshape(b, hkv, g, s, d).sum(2).to(k.dtype)
-                 .float() for x in (gk, gv))
-
-
 def check_bwd_case(case, dtype, device, determinism=False) -> float:
     """Backward kernel against the plain backward from the same (q, k, v,
     out, lse, do); returns the max abs error over dq, dk, dv.  f32: within
     ``BWD_TOL``.  bf16: the kernel rounds P and dS to bf16 for its tensor
     cores, as SDPA does, so each of dq, dk, dv must lie within twice SDPA's
-    max abs error of the plain backward run on f32 copies of the inputs."""
+    error of the plain backward run on f32 copies of the inputs, in max
+    abs and over each tile of rows (``check_bf16_grads``)."""
     import torch
+    from torch_flash_checks import check_bf16_grads, sdpa_grads, summary
 
     from repro_torch.kernels.flash_attention import attention_bwd_ref
     from repro_torch.kernels.flash_attention import attention_ref
@@ -777,17 +754,9 @@ def check_bwd_case(case, dtype, device, determinism=False) -> float:
                                  out.float(), lse, dout.float(), **kw)
         lib = sdpa_grads(q, k, v, dout, causal, window)
         torch.cuda.synchronize()
-        errs = []
-        for name, g, w, x in zip(("dq", "dk", "dv"), got, want, lib):
-            e = (g.float() - w).abs().max().item()
-            e_lib = (x - w).abs().max().item()
-            errs.append(f"{name} {e:.3e} (SDPA {e_lib:.3e})")
-            err = max(err, e)
-            if not e <= BWD_BF16_VS_SDPA * e_lib:
-                raise AssertionError(f"flash_bwd {case} bf16 {name}: max abs "
-                                     f"err {e} > {BWD_BF16_VS_SDPA} x SDPA's "
-                                     f"{e_lib}")
-        log(f"  flash_bwd {case} bf16 against f32: {', '.join(errs)}")
+        res = check_bf16_grads(f"flash_bwd {case} bf16", got, want, lib)
+        err = max(r["max_abs"] for r in res.values())
+        log(f"  flash_bwd {case} bf16 against f32: {summary(res)}")
     if determinism:
         again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
         torch.cuda.synchronize()
@@ -1562,79 +1531,6 @@ def codec_numbers(n, device) -> dict:
     return out
 
 
-def old_vs_new(old, new, iters) -> dict:
-    """Device times in turns, old, new, new, old, so that a drift of the
-    card's clock during the four weighs on both alike."""
-    turns = [device_ms(fn, iters=iters) for fn in (old, new, new, old)]
-    return {"old_ms": (turns[0] + turns[3]) / 2,
-            "new_ms": (turns[1] + turns[2]) / 2, "turns": turns}
-
-
-def k4_old_vs_new(old_tree, fwd_cases, bwd_case, device) -> dict:
-    """K4's bf16 kernels as ``old_tree`` builds them (the FMA design) against
-    this tree's, forward at each of ``fwd_cases`` and backward at
-    ``bwd_case``, from the same inputs.  The old libraries keep the C
-    interface of this tree's (``kernel.ARGTYPES``)."""
-    import ctypes
-
-    import torch
-
-    from repro_torch.kernels import common
-    from repro_torch.kernels.flash_attention import attention_ref
-    from repro_torch.kernels.flash_attention import kernel as K
-
-    csrc = (Path(old_tree) / "src" / "repro_torch" / "kernels"
-            / "flash_attention" / "csrc")
-    fns = {}
-    for kind in ("fwd", "bwd"):
-        lib = ctypes.CDLL(str(common.build_library(
-            f"flash_{kind}_old", [csrc / f"flash_{kind}.cu"])))
-        fn = getattr(lib, f"flash_{kind}")
-        fn.argtypes = K.ARGTYPES[kind]
-        fn.restype = ctypes.c_int
-        fns[kind] = fn
-    stream = torch.cuda.current_stream(device).cuda_stream
-
-    def launcher(kind, *args):
-        def run():
-            status = fns[kind](*args, stream)
-            if status:
-                raise RuntimeError(f"old flash_{kind} failed: {status}")
-        return run
-
-    res = {}
-    for name, case in fwd_cases.items():
-        b, hq, hkv, t, s, d, causal, window = case
-        q, k, v = _inputs(7, b, hq, hkv, t, s, d, "bfloat16", device)
-        out = torch.empty_like(q)
-        lse = torch.empty((b, hq, t), dtype=torch.float32, device=device)
-        kw = dict(causal=causal, window=window, scale=d ** -0.5)
-        res[name] = old_vs_new(
-            launcher("fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), lse.data_ptr(), b, hq, hkv, t, s, d,
-                     d ** -0.5, int(causal), int(window is not None),
-                     int(window or 0), 1),
-            lambda: K.flash_attention_cuda(q, k, v, **kw), iters=20)
-    b, hq, hkv, t, s, d, causal, window = bwd_case
-    q, k, v = _inputs(7, b, hq, hkv, t, s, d, "bfloat16", device)
-    dout = _inputs(8, b, hq, hkv, t, s, d, "bfloat16", device)[0]
-    out, lse = attention_ref(q, k, v, causal=causal, window=window)
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    dsum = torch.empty_like(lse)
-    part = torch.empty((2, b, hq, s, d), dtype=torch.float32, device=device)
-    kw = dict(causal=causal, window=window, scale=d ** -0.5)
-    res["bwd"] = old_vs_new(
-        launcher("bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                 dsum.data_ptr(), part.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), b, hq, hkv, t, s, d,
-                 d ** -0.5, int(causal), int(window is not None),
-                 int(window or 0), 1),
-        lambda: K.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw),
-        iters=5)
-    return res
-
-
 def main() -> int:
     import torch
 
@@ -1646,13 +1542,8 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 1
-    old_tree = None
-    if sys.argv[1:2] == ["--old-tree"] and len(sys.argv) == 3:
-        old_tree = Path(sys.argv[2]).resolve()
-    elif len(sys.argv) > 1:
-        print(__doc__.split("\n\n")[1], file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
+    # the port, and the bf16 flash-attention checks shared with its tests
+    sys.path[:0] = [str(SRC), str(ROOT / "tests")]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -1688,6 +1579,8 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions")
     path_err = check_kernels(path_case, device)
+    train_err = check_attention_case(train_case, "bfloat16", device)
+    log(f"  flash_fwd {train_case} bfloat16: max abs err {train_err:.3e}")
     d256_err = check_kernels(d256_case, device, D256_SWEEP)
     check_empty_rows(device)
     bwd_err = check_bwd(train_case, device)
@@ -1810,17 +1703,6 @@ def main() -> int:
     torch.cuda.synchronize()
     log(json.dumps({"flash_fwd_train_shape": fwd_train,
                     "flash_bwd_train_shape": bwd, "codec_w_gu": codec}))
-    if old_tree is not None:
-        log(f"  K4 against {old_tree}'s kernels, old, new, new, old")
-        old = k4_old_vs_new(old_tree, {"serve": path_case, "d256": d256_case,
-                                       "train": train_case},
-                            train_case, device)
-        log(json.dumps({"flash_old_vs_new": old}))
-        num["old_ms"] = old["serve"]["old_ms"]
-        fwd_train["old_ms"] = old["train"]["old_ms"]
-        rg_num["flash_fwd_d256_prefill_shape"]["old_ms"] = \
-            old["d256"]["old_ms"]
-        bwd["old_ms"] = old["bwd"]["old_ms"]
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
     paths = {"serve": yi_launches, "serve_rwkv6": rw_launches,
@@ -1836,10 +1718,9 @@ def main() -> int:
 
     def row(name, source, replaces, launches, err, n, **shapes):
         """One kernel's entry: every time is ``device_ms`` (``event_ms``
-        beside it, and ``old_ms`` where an old tree was timed); ``shapes``
-        are its numbers at other shapes."""
+        beside it); ``shapes`` are its numbers at other shapes."""
         def times(x):
-            return {k: x[k] for k in (*TIME_KEYS, "old_ms") if k in x}
+            return {k: x[k] for k in TIME_KEYS if k in x}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/{source}",
                 "replaces": f"src/repro/kernels/{replaces}", **launches,

@@ -44,7 +44,7 @@ bwd_launches = 0
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # the C entry's arguments: the forward's and the backward's, one interface
 # for both dtypes' libraries
-ARGTYPES = {
+_ARGTYPES = {
     "fwd": [_VP] * 5 + [_CI] * 6 + [ctypes.c_float] + [_CI] * 4 + [_VP],
     "bwd": [_VP] * 11 + [_CI] * 6 + [ctypes.c_float] + [_CI] * 4 + [_VP]}
 
@@ -55,7 +55,7 @@ def _lib(name: str):
                        SM90_HEADERS if name.endswith("_sm90") else ())
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = ARGTYPES["bwd" if "bwd" in name else "fwd"]
+        fn.argtypes = _ARGTYPES["bwd" if "bwd" in name else "fwd"]
         fn.restype = _CI
         err = getattr(lib, name + "_error_string")
         err.argtypes = [_CI]

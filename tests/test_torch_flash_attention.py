@@ -190,3 +190,42 @@ def test_dispatch_follows_input_device():
     assert on_cuda(q, k, v) is False
     with pytest.raises(ValueError):
         on_cuda(q, k.to("meta"))
+
+
+# a fault in the last rows of one gradient: (gradient, rows counted from
+# the end, factor); None is the right answer
+FAULTS = [None, ("dv", 64, 0.0), ("dk", 40, 1.03), ("dq", 64, 0.0),
+          ("dv", 8, 1.1)]
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_bf16_grad_check_finds_a_wrong_tail(fault):
+    """The card's bf16 backward check (``torch_flash_checks``) on a causal
+    T = S = 512: the last keys' gradients are a few hundredths of the
+    first keys', so a small fault there hides under the max abs error
+    (dk x 1.03, dv x 1.1); the error norm over each tile of rows must
+    still find it, and a zeroed tile.  The plain backward on
+    the bf16 inputs stands in for both the kernel and SDPA."""
+    from torch_flash_checks import check_bf16_grads
+
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+
+    b, hq, hkv, t, d = 1, 4, 2, 512, 32
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _mk(21, b, hq, hkv, t, t, d))
+    do = torch.from_numpy(_mk(22, b, hq, hkv, t, t, d)[0]).bfloat16()
+    out, lse = attention_ref(q, k, v, causal=True)
+    kw = dict(causal=True, window=None, scale=d ** -0.5)
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                             lse, do.float(), **kw)
+    lib = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    got = [g.clone() for g in lib]
+    if fault is None:
+        res = check_bf16_grads("plain", got, want, lib)
+        assert all(r["worst_tile_ratio"] <= 1 for r in res.values())
+        return
+    name, rows, factor = fault
+    g = got[("dq", "dk", "dv").index(name)]
+    g[:, :, -rows:] *= factor
+    with pytest.raises(AssertionError, match=f"faulty {name}: "):
+        check_bf16_grads("faulty", got, want, lib)

@@ -5,13 +5,15 @@ card.  Imports no jax, so it runs on a machine with a CUDA card and no jax:
 
 Every test skips without a card.  Tolerances:
 
-* flash-attention forward: f32 atol 3e-5, bf16 atol 3e-2 on the output,
-  lse atol 1e-4, on rows with an allowed key;
+* flash-attention forward: f32 atol 3e-5, bf16 atol 3e-2 on the output
+  and its error norm at most 2^-7 of the plain output's, lse atol 1e-4,
+  on rows with an allowed key;
 * flash-attention backward, from the same (q, k, v, out, lse, do): f32
   atol 1e-4 + rtol 1e-4 (f32 sums in another order); bf16 dq, dk, dv each
-  within twice SDPA's max abs error of the plain backward run on f32
-  copies of the inputs (the tensor-core kernels round P and dS to bf16
-  for their products, as SDPA does); two runs are bit-equal (no atomics);
+  within twice SDPA's error of the plain backward run on f32 copies of the
+  inputs, in max abs and in the error norm over each tile of 64 rows (the
+  tensor-core kernels round P and dS to bf16 for their products, as SDPA
+  does; ``torch_flash_checks.py``); two runs are bit-equal (no atomics);
 * bf16 runs on the sm90 (wgmma + TMA) libraries and f32 on the FMA ones,
   with the same tolerances, at every head dim, ragged T and S at the new
   tile sizes, a window edge that crosses a tile, GQA groups 1 to 16 and
@@ -43,6 +45,8 @@ from repro_torch.kernels.flash_attention import (attention,  # noqa: E402
                                                  attention_bwd_ref,
                                                  attention_ref)
 from repro_torch.kernels.flash_attention.ref import allowed_mask  # noqa: E402
+from torch_flash_checks import (FWD_REL_BF16, check_bf16_grads,  # noqa: E402
+                                fwd_rel_err, sdpa_grads, summary)
 
 pytestmark = pytest.mark.cuda
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -95,6 +99,8 @@ def test_kernel_matches_plain(card, case, dtype):
                                atol=ATOL[dtype], rtol=0)
     torch.testing.assert_close(lse[:, :, live], rlse[:, :, live],
                                atol=1e-4, rtol=0)
+    if dtype == "bfloat16":
+        assert fwd_rel_err(out, ref, live) <= FWD_REL_BF16
 
 
 def test_rows_without_allowed_key_are_zero(card):
@@ -153,34 +159,6 @@ def test_bwd_kernel_refuses_head_dim_256(card):
 BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4)}
 
 
-def _sdpa_grads(q, k, v, dout, causal, window):
-    """SDPA's gradients of the same function, in f32: the yardstick of the
-    bf16 backward.  Rows with no allowed key are left out (their gradients
-    are zeros); at T = S with no window SDPA's top-left causal mask is the
-    bottom-right one, elsewhere it gets the boolean mask; K and V are
-    repeated to the query heads, and their gradients summed in f32 over
-    each group and rounded to the inputs' dtype, as SDPA's own GQA
-    backward returns them."""
-    import torch.nn.functional as F
-
-    b, hq, t, d = q.shape
-    hkv, s = k.shape[1], k.shape[2]
-    g = hq // hkv
-    ok = allowed_mask(t, s, causal, window, s - t, q.device)
-    live = ok.any(dim=1)
-    qg, kg, vg = (x.detach().requires_grad_() for x in (
-        q[:, :, live], k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
-    if causal and window is None and t == s:
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    else:
-        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=ok[live])
-    gq, gk, gv = torch.autograd.grad(out, (qg, kg, vg), dout[:, :, live])
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dq[:, :, live] = gq.float()
-    return dq, *(x.float().reshape(b, hkv, g, s, d).sum(2).to(k.dtype)
-                 .float() for x in (gk, gv))
-
-
 def _check_bwd(card, case, dtype, seed=7):
     """The backward kernel on one case against the plain backward; returns
     its (dq, dk, dv) and the inputs' call so a test can run it again."""
@@ -208,13 +186,11 @@ def _check_bwd(card, case, dtype, seed=7):
         return got, run
     want = attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
                              lse, dout.float(), **kw)
-    lib = _sdpa_grads(q, k, v, dout, causal, window)
-    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, lib):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
-        err = (g.float() - w).abs().max().item()
-        lib_err = (x - w).abs().max().item()
-        print(f"{case} {name}: max abs err {err:.3e}, SDPA {lib_err:.3e}")
-        assert err <= 2 * lib_err, (name, err, lib_err)
+    res = check_bf16_grads(str(case), got, want,
+                           sdpa_grads(q, k, v, dout, causal, window))
+    print(f"{case}: {summary(res)}")
     return got, run
 
 
