@@ -9,11 +9,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA card means exit 1 with no result;
 2. build: every kernel library (flash-attention forward and backward in
    f32 on FMAs and in bf16 on wgmma fed by TMA, the checkpoint codec, the
-   RWKV-6 recurrence, the Reed-Solomon encode, the RG-LRU scan) compiled
+   RWKV-6 recurrence, sequential and chunked on mma.sync fed by TMA, the
+   Reed-Solomon encode, the RG-LRU scan) compiled
    with ``nvcc`` for ``sm_90a`` from the sources in this checkout, all at
-   once; each library's registers, spills and its ``HGMMA`` and ``UTMALDG``
-   instruction counts (``cuobjdump -sass``), which must not be 0 for the
-   bf16 flash-attention libraries;
+   once; each library's registers, spills and its ``HGMMA``, ``HMMA`` and
+   ``UTMALDG`` instruction counts (``cuobjdump -sass``): wgmma and TMA
+   loads must be there in the bf16 flash-attention libraries, mma.sync and
+   TMA loads in the chunked RWKV-6 one;
 3. kernels against their plain PyTorch versions on the card:
    * the flash-attention forward over the reference's sweep plus the
      serving path's shape, and at head dim 256 (MQA, causal) with windows
@@ -35,10 +37,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      and dequantized values bit-equal (0 mismatches);
    * the RWKV-6 recurrence K6 over the reference's sweep plus the serving
      path's prefill (4, 64, 512, 64) and decode (4, 64, 1, 64) shapes, from
-     a carried state, f32 and bf16 r/k/v, against the plain chunked
-     version: atol 2e-3 (the reference's kernel tests), plus rtol 2^-7 on
-     a bf16 o; log_w below -30 (clamped); [0, T/2) then [T/2, T) equal to
-     one shot within atol 1e-5;
+     a carried state, against the plain chunked version: the sequential
+     kernel with f32 and bf16 r/k/v, the chunked tensor-core kernel with
+     bf16; atol 2e-3 (the reference's kernel tests), plus rtol 2^-7 on a
+     bf16 o; two runs bit-equal; log_w x10 and x100, below -30 (clamped),
+     in f32 and bf16; [0, T/2) then [T/2, T) equal to one shot within atol
+     1e-5 (T/2 a chunk boundary), and a split off a chunk boundary within
+     the tolerance above;
    * the RG-LRU scan K7 over the reference's sweep plus the serving path's
      prefill (4, 512, 4096) and decode (4, 1, 4096) shapes, with h0 and
      without, f32 and bf16 g, against the plain chunked version: h_final
@@ -58,7 +63,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 4b. the same serving path for rwkv6-7b at full width (32 layers, d_model
    4096, 64 heads of 64, d_ff 14336, vocab 65536, bf16, 7,551,455,232
    params): K6 must run 32 times in prefill and 32 x 31 times in the
-   decode steps of ``generate``; the committed recurrent state (136,314,884
+   decode steps of ``generate`` (the chunked kernel in prefill, the
+   sequential one in the one-token decode steps); the committed recurrent
+   state (136,314,884
    bytes whatever the prompt's length) is restored bit-equal to a second
    prefill's, and decoding from it gives the live tokens; a 2-layer f32 cut
    against the plain CPU path; then the weights are freed;
@@ -292,15 +299,24 @@ def profile_window(fn, top: int = 8) -> dict:
 # --------------------------------------------------------------------------
 # phase 2: build
 # --------------------------------------------------------------------------
+# the tensor-core and TMA instructions each tensor-core library must hold:
+# wgmma (``HGMMA``) in the flash-attention ones, mma.sync (``HMMA``) in the
+# chunked RWKV-6 one, TMA loads (``UTMALDG``) in all
+SASS_REQUIRED = {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
+                 "flash_bwd_sm90": ("HGMMA", "UTMALDG"),
+                 "rwkv6_sm90": ("HMMA", "UTMALDG")}
+
+
 def sass_counts(path) -> dict:
-    """How many wgmma (``HGMMA``) and TMA-load (``UTMALDG``) instructions
-    ``cuobjdump -sass`` finds in one built library."""
+    """How many wgmma (``HGMMA``), mma.sync (``HMMA``) and TMA-load
+    (``UTMALDG``) instructions ``cuobjdump -sass`` finds in one built
+    library."""
     from repro_torch.kernels import common
 
     tool = Path(common.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    return {op: sass.count(op) for op in ("HGMMA", "HMMA", "UTMALDG")}
 
 
 def build_kernels():
@@ -314,8 +330,10 @@ def build_kernels():
     # the flash-attention libraries: f32 FMA kernels and the bf16 sm90 ones
     builders = {name: (lambda name=name: fa_kernel.build(name))
                 for name in fa_kernel.LIBRARIES}
-    builders.update({"ckpt_codec": codec_kernel.build,
-                     "rwkv6": rwkv_kernel.build, "rs": rs_kernel.build,
+    # K6: the sequential kernel and the chunked sm90 one
+    builders.update({name: (lambda name=name: rwkv_kernel.build(name))
+                     for name in rwkv_kernel.LIBRARIES})
+    builders.update({"ckpt_codec": codec_kernel.build, "rs": rs_kernel.build,
                      "rglru": rglru_kernel.build})
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(builders)) as pool:
@@ -327,12 +345,14 @@ def build_kernels():
     for name in builders:
         counts = sass_counts(common.library_paths[name])
         log(f"  {name}: nvcc {common.build_seconds.get(name, 0.0):.2f} s, "
-            f"HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}")
+            f"HGMMA {counts['HGMMA']}, HMMA {counts['HMMA']}, "
+            f"UTMALDG {counts['UTMALDG']}")
         for line in common.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
-        if name.endswith("_sm90") and not all(counts.values()):
-            raise AssertionError(f"{name} has no wgmma or no TMA load: "
+        missing = [op for op in SASS_REQUIRED.get(name, ()) if not counts[op]]
+        if missing:
+            raise AssertionError(f"{name} has no {missing} instruction: "
                                  f"{counts}")
 
 
@@ -874,80 +894,132 @@ def _rwkv_err(got, want, dtype, what) -> float:
     return err
 
 
-def check_rwkv6(path_cases, device) -> float:
+def check_rwkv6(path_cases, device) -> dict:
     """K6 against its plain chunked version on the card: the sweep and the
-    path's shapes from a carried state (T = 1 at decode), both dtypes,
-    extreme decay, and a state continuation; returns the max abs error at
-    the prefill shape in bf16."""
+    path's shapes from a carried state, the sequential kernel in f32 and
+    bf16 and the chunked sm90 one in bf16, extreme decay, and state
+    continuations; returns each kernel's max abs error at the shape where
+    the path runs it (prefill for sm90, decode for the sequential one)."""
     import torch
 
-    from repro_torch.kernels.rwkv6 import rwkv6_chunked
-    from repro_torch.kernels.rwkv6.kernel import rwkv6_cuda
+    from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_chunked
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_cuda, rwkv6_sm90_cuda
 
-    path_err = None
+    kernels = {"rwkv6": rwkv6_cuda, "rwkv6_sm90": rwkv6_sm90_cuda}
+    errs = {}
     for case in RWKV_SWEEP + list(path_cases.values()):
-        for dtype in ("float32", "bfloat16"):
+        for name, dtype in (("rwkv6", "float32"), ("rwkv6", "bfloat16"),
+                            ("rwkv6_sm90", "bfloat16")):
             inputs = _rwkv_inputs(3, case, dtype, device)
-            got = rwkv6_cuda(*inputs)
-            again = rwkv6_cuda(*inputs)
+            got = kernels[name](*inputs)
+            again = kernels[name](*inputs)
             want = rwkv6_chunked(*inputs)
             torch.cuda.synchronize()
-            err = _rwkv_err(got, want, dtype, f"{case} {dtype}")
+            what = f"{name} {case} {dtype}"
+            err = _rwkv_err(got, want, dtype, what)
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                raise AssertionError(f"rwkv6 {case} {dtype}: two runs differ")
-            log(f"  rwkv6 {case} {dtype}: max abs err {err:.3e}")
-            if case == path_cases["prefill"] and dtype == "bfloat16":
-                path_err = err
+                raise AssertionError(f"{what}: two runs differ")
+            log(f"  {what}: max abs err {err:.3e}")
+            path = "prefill" if name == "rwkv6_sm90" else "decode"
+            if case == path_cases[path] and dtype == "bfloat16":
+                errs[name] = err
     for scale in (10.0, 100.0):
-        inputs = _rwkv_inputs(4, (1, 2, 96, 32), "float32", device, scale)
-        if not bool((inputs[3] < -30).any()):
-            raise AssertionError("the extreme-decay case has no log_w < -30")
-        got = rwkv6_cuda(*inputs)
-        if not (torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()):
-            raise AssertionError(f"rwkv6 decay x{scale}: not finite")
-        err = _rwkv_err(got, rwkv6_chunked(*inputs, chunk=32), "float32",
-                        f"decay x{scale}")
-        log(f"  rwkv6 (1, 2, 96, 32) log_w x{scale} (below -30, clamped): "
-            f"max abs err {err:.3e}")
-    r, k, v, lw, u, s0 = _rwkv_inputs(5, path_cases["prefill"], "float32",
-                                      device)
-    o, s = rwkv6_cuda(r, k, v, lw, u, s0)
-    h = r.shape[2] // 2
-    o1, s1 = rwkv6_cuda(*(x[:, :, :h].contiguous() for x in (r, k, v, lw)),
-                        u, s0)
-    o2, s2 = rwkv6_cuda(*(x[:, :, h:].contiguous() for x in (r, k, v, lw)),
-                        u, s1)
-    err = max((torch.cat([o1, o2], 2) - o).abs().max().item(),
-              (s2 - s).abs().max().item())
-    if not err <= 1e-5:
-        raise AssertionError(f"rwkv6 continuation: max abs err {err}")
-    log(f"  rwkv6 [0, T/2) then [T/2, T) vs one shot at "
-        f"{path_cases['prefill']}: max abs err {err:.3e} (atol 1e-5)")
-    return path_err
+        for name, dtype in (("rwkv6", "float32"), ("rwkv6_sm90", "bfloat16")):
+            inputs = _rwkv_inputs(4, (1, 2, 96, 32), dtype, device, scale)
+            if not bool((inputs[3] < -30).any()):
+                raise AssertionError("the extreme-decay case has no log_w "
+                                     "< -30")
+            got = kernels[name](*inputs)
+            if not (torch.isfinite(got[0]).all()
+                    and torch.isfinite(got[1]).all()):
+                raise AssertionError(f"{name} decay x{scale}: not finite")
+            err = _rwkv_err(got, rwkv6_chunked(*inputs, chunk=32), dtype,
+                            f"{name} decay x{scale}")
+            log(f"  {name} (1, 2, 96, 32) {dtype} log_w x{scale} (below -30, "
+                f"clamped): max abs err {err:.3e}")
+    # continuations through the routed op: f32 runs the sequential kernel,
+    # bf16 the chunked one (each half has more than one token)
+    t = path_cases["prefill"][2]
+    for dtype, split, tol in (("float32", t // 2, None),
+                              ("bfloat16", t // 2, None),
+                              ("bfloat16", 200, RWKV_TOL["bfloat16"])):
+        r, k, v, lw, u, s0 = _rwkv_inputs(5, path_cases["prefill"], dtype,
+                                          device)
+        o, s = rwkv6(r, k, v, lw, u, s0)
+        o1, s1 = rwkv6(*(x[:, :, :split] for x in (r, k, v, lw)), u, s0)
+        o2, s2 = rwkv6(*(x[:, :, split:] for x in (r, k, v, lw)), u, s1)
+        got = (torch.cat([o1, o2], 2), s2)
+        if tol is None:      # the same chunks either way
+            err = max((got[0].float() - o.float()).abs().max().item(),
+                      (got[1] - s).abs().max().item())
+            if not err <= 1e-5:
+                raise AssertionError(f"rwkv6 {dtype} continuation at {split}"
+                                     f": max abs err {err}")
+            bound = "atol 1e-5"
+        else:
+            err = _rwkv_err(got, (o, s), dtype, f"continuation at {split}")
+            bound = f"atol {tol[0]}, rtol {tol[1]}"
+        log(f"  rwkv6 {dtype} [0, {split}) then [{split}, {t}) vs one shot "
+            f"at {path_cases['prefill']}: max abs err {err:.3e} ({bound})")
+    return errs
 
 
-def rwkv6_numbers(case, device) -> dict:
-    """K6 at one of the path's shapes (bf16 r/k/v): its device time and
-    its plain version's (``device_ms``), the CUDA-event time, and its
-    bound: each input read once and each output written once, or 5 f32
-    operations per state element per token (the decay's multiply-add,
-    k v's product, r S's multiply-add) at the f32 rate."""
+def rwkv6_numbers(case, device, name) -> dict:
+    """K6's kernel ``name`` at one of the path's shapes (bf16 r/k/v): its
+    device time and its plain version's (``device_ms``), the CUDA-event
+    time, and its bound: the larger of the bytes (each input read once and
+    each output written once) and the chunked form's four products a chunk
+    (r exp(Lx) S, the pairwise scores, A v, the state's k^T v) at the bf16
+    tensor rate.  ``sequential_bound_ms`` is the sequential design's: 5
+    f32 operations per state element per token (the decay's multiply-add,
+    k v's product, r S's multiply-add) at the f32 rate; it goes into the
+    serving phase's line only, not the ``kernels`` line, whose one bound
+    is ``bound_ms``."""
     from repro_torch.kernels.rwkv6 import rwkv6_chunked
-    from repro_torch.kernels.rwkv6.kernel import rwkv6_cuda
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_cuda, rwkv6_sm90_cuda
 
+    run = {"rwkv6": rwkv6_cuda, "rwkv6_sm90": rwkv6_sm90_cuda}[name]
     b, h, t, d = case
     inputs = _rwkv_inputs(3, case, "bfloat16", device)
-    ms = device_ms(lambda: rwkv6_cuda(*inputs))
-    event_ms = cuda_ms(lambda: rwkv6_cuda(*inputs))
+    ms = device_ms(lambda: run(*inputs))
+    event_ms = cuda_ms(lambda: run(*inputs))
     plain_ms = device_ms(lambda: rwkv6_chunked(*inputs), iters=3)
     nbytes = b * h * t * d * (3 * 2 + 4 + 2) + h * d * 4 \
         + 2 * b * h * d * d * 4
-    flops = 5 * b * h * t * d * d
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    chunk = 64
+    flops = 4 * 2 * chunk * d * d * -(-t // chunk) * b * h
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    seq_flops = 5 * b * h * t * d * d
     return {"ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops,
+            "sequential_bound_ms": max(seq_flops / PEAK_F32_FLOPS,
+                                       t_bytes) * 1e3}
+
+
+def rwkv6_route_ms(case, device, ts=(1, 16, 24, 32, 64)) -> dict:
+    """Both K6 kernels' ``device_ms`` at (B, H, T, D) = ``case`` with T
+    from ``ts``, bf16: the measurement behind ``ops.SM90_MIN_T``.  Fails
+    unless the sequential kernel is the faster below ``SM90_MIN_T`` tokens
+    and the chunked one from it, so a crossover that moves shows."""
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_cuda, rwkv6_sm90_cuda
+    from repro_torch.kernels.rwkv6.ops import SM90_MIN_T
+
+    b, h, _, d = case
+    out = {"sm90_min_t": SM90_MIN_T}
+    for t in ts:
+        inputs = _rwkv_inputs(3, (b, h, t, d), "bfloat16", device)
+        sm90 = device_ms(lambda: rwkv6_sm90_cuda(*inputs))
+        seq = device_ms(lambda: rwkv6_cuda(*inputs))
+        out[str(t)] = {"rwkv6_sm90": sm90, "rwkv6": seq}
+        log(f"  rwkv6 route at T = {t}: chunked {sm90:.5f} ms, sequential "
+            f"{seq:.5f} ms (ops.SM90_MIN_T = {SM90_MIN_T})")
+        if (sm90 < seq) != (t >= SM90_MIN_T):
+            raise AssertionError(
+                f"rwkv6 at T = {t}: chunked {sm90} ms, sequential {seq} ms; "
+                f"ops.SM90_MIN_T = {SM90_MIN_T} routes it to the slower")
+    return out
 
 
 def check_rs(device, payload) -> dict:
@@ -1167,6 +1239,7 @@ def reset_counts() -> None:
     for name in codec_kernel.launches:
         codec_kernel.launches[name] = 0
     rwkv_kernel.launches = 0
+    rwkv_kernel.sm90_launches = 0
     rs_kernel.launches = 0
     rglru_kernel.launches = 0
 
@@ -1180,7 +1253,9 @@ def read_counts() -> dict:
 
     return {"flash_fwd": fa_kernel.launches,
             "flash_bwd": fa_kernel.bwd_launches, **codec_kernel.launches,
-            "rwkv6": rwkv_kernel.launches, "rs_encode": rs_kernel.launches,
+            "rwkv6": rwkv_kernel.launches,
+            "rwkv6_sm90": rwkv_kernel.sm90_launches,
+            "rs_encode": rs_kernel.launches,
             "rglru": rglru_kernel.launches}
 
 
@@ -1585,7 +1660,7 @@ def main() -> int:
     check_empty_rows(device)
     bwd_err = check_bwd(train_case, device)
     codec_bad = check_codec(CODEC_NS + [w_gu], device)
-    rwkv_err = check_rwkv6(rwkv_cases, device)
+    rwkv_errs = check_rwkv6(rwkv_cases, device)
     rglru_err = check_rglru(rglru_cases, device)
     torch.cuda.empty_cache()
     log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
@@ -1612,13 +1687,22 @@ def main() -> int:
     n = rcfg.num_layers
     runs, rw_num = serve_model_phase(
         rcfg, device, card, "serve_rwkv6", 7_551_455_232,
-        lambda gen: {"generate": {"rwkv6": n * gen, "flash_fwd": 0},
-                     "prefill": {"rwkv6": n},
-                     "decode": {"rwkv6": n * (gen - 1)}},
+        # prefill through the chunked kernel, each one-token decode step
+        # through the sequential one
+        lambda gen: {"generate": {"rwkv6_sm90": n, "rwkv6": n * (gen - 1),
+                                  "flash_fwd": 0},
+                     "prefill": {"rwkv6_sm90": n, "rwkv6": 0},
+                     "decode": {"rwkv6": n * (gen - 1), "rwkv6_sm90": 0}},
         state_bytes=136_314_884,
-        numbers=lambda: {f"rwkv6_{name}_shape": rwkv6_numbers(
-            (BATCH, rh, t, rcfg.rwkv_head_dim), device)
-            for name, t in (("prefill", PROMPT), ("decode", 1))})
+        numbers=lambda: {
+            **{f"{kernel}_{name}_shape": rwkv6_numbers(
+                (BATCH, rh, t, rcfg.rwkv_head_dim), device, kernel)
+               for kernel, name, t in (
+                   ("rwkv6_sm90", "prefill", PROMPT),
+                   ("rwkv6", "prefill", PROMPT),   # the sequential yardstick
+                   ("rwkv6", "decode", 1))},
+            "rwkv6_route_ms": rwkv6_route_ms(
+                (BATCH, rh, 1, rcfg.rwkv_head_dim), device)})
     rw_launches = runs["serve"]["launches"]
     rw_payload = runs["serve"].pop("state_payload")
     del runs
@@ -1752,10 +1836,17 @@ def main() -> int:
             counts(name, "train_cut" if name == "dequantize" else "train"),
             float(codec_bad), codec[name]))
     kernels += [
+        # K6: the chunked tensor-core kernel runs rwkv6-7b's prefill, the
+        # sequential one its one-token decode steps (and every f32 call);
+        # the sequential kernel's prefill-shape time is the yardstick of
+        # the earlier design
+        row("rwkv6_sm90", "rwkv6/csrc/rwkv6_sm90.cu", "rwkv6/kernel.py:86",
+            counts("rwkv6_sm90", "serve_rwkv6"), rwkv_errs["rwkv6_sm90"],
+            rw_num["rwkv6_sm90_prefill_shape"]),
         row("rwkv6", "rwkv6/csrc/rwkv6.cu", "rwkv6/kernel.py:86",
-            counts("rwkv6", "serve_rwkv6"), rwkv_err,
-            rw_num["rwkv6_prefill_shape"],
-            decode_shape=rw_num["rwkv6_decode_shape"]),
+            counts("rwkv6", "serve_rwkv6"), rwkv_errs["rwkv6"],
+            rw_num["rwkv6_decode_shape"],
+            prefill_shape=rw_num["rwkv6_prefill_shape"]),
         # no serving or training path runs K5: its launches are its check's
         row("rs_encode", "ckpt_codec/csrc/rs.cu",
             "ckpt_codec/rs_kernel.py:87",

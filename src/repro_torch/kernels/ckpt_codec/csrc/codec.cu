@@ -5,11 +5,19 @@
 // Replaces quantize_pallas, quantize_delta_pallas and dequantize_pallas
 // (src/repro/kernels/ckpt_codec/kernel.py:54, :74, :98; bodies
 // _quantize_kernel :23, _quantize_delta_kernel :31, _dequantize_kernel :41).
-// The Pallas kernels walk (64, 256) tiles in VMEM, one grid step each; here
-// one warp owns one 256-value row: each lane loads 8 consecutive values
-// (16 or 32 bytes), the row's absmax is reduced over the warp with
-// shuffles, and each lane writes its 8 codes as one 8-byte store.  Warps
-// walk the rows in a grid-stride loop.
+// The Pallas kernels walk (64, 256) tiles in VMEM, one grid step each.
+// Here, in K1 and K2, one warp owns one 256-value row: each lane loads 8
+// consecutive values (16 or 32 bytes), the row's absmax is reduced over
+// the warp with shuffles, and each lane writes its 8 codes as one 8-byte
+// store.  Warps walk the rows in a grid-stride loop.  K3 needs no
+// reduction, so a warp takes RPT = 16 rows a trip and issues all their
+// loads (32 coalesced 4-byte code loads and 16 scales a lane: 4 KB of
+// codes a warp) before any store; each store is 4 values a lane, 512
+// contiguous bytes a warp in f32, streamed past the caches (st.global.cs:
+// the output is not read again here).  With one row a trip (8 code bytes
+// and a scale a lane, then 1 KB of stores) at most 16 KB of reads would
+// be in flight an SM, too few to cover HBM's latency at 3.35 TB/s.  K3's
+// grid is the CTAs that fit on the card at once.
 //
 // What bounds it.  One pass over device memory with O(1) work per byte: at
 // the training path's largest leaf (1.62 G f32 values) K1 moves 8.1 GB,
@@ -46,10 +54,6 @@ struct Vec8<float> {
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
   }
-  __device__ static void store(float* p, const float (&v)[VPL]) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  }
 };
 
 template <>
@@ -64,14 +68,6 @@ struct Vec8<__nv_bfloat16> {
       v[2 * i + 1] = f.y;
     }
   }
-  __device__ static void store(__nv_bfloat16* p, const float (&v)[VPL]) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
 };
 
 template <>
@@ -85,14 +81,6 @@ struct Vec8<__half> {
       v[2 * i] = f.x;
       v[2 * i + 1] = f.y;
     }
-  }
-  __device__ static void store(__half* p, const float (&v)[VPL]) {
-    uint4 raw;
-    __half2* h = reinterpret_cast<__half2*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      h[i] = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
   }
 };
 
@@ -160,23 +148,75 @@ quantize_delta_kernel(const T* __restrict__ x, const int8_t* __restrict__ prev,
   }
 }
 
+// four values of T from four f32 results: one 16-byte (f32) or 8-byte
+// streaming store (K3's; K1 and K2 load values with Vec8 and store codes)
+template <typename T>
+struct Store4;
+
+template <>
+struct Store4<float> {
+  __device__ static void st(float* p, const float (&v)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+
+template <>
+struct Store4<__nv_bfloat16> {
+  __device__ static void st(__nv_bfloat16* p, const float (&v)[4]) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                      *reinterpret_cast<const uint32_t*>(&b)));
+  }
+};
+
+template <>
+struct Store4<__half> {
+  __device__ static void st(__half* p, const float (&v)[4]) {
+    const __half2 a = __floats2half2_rn(v[0], v[1]);
+    const __half2 b = __floats2half2_rn(v[2], v[3]);
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                      *reinterpret_cast<const uint32_t*>(&b)));
+  }
+};
+
+constexpr int RPT = 16;           // rows a warp dequantizes per trip
+
+// Lane l's j-th word of a trip holds the codes at 128 j + 4 l .. + 3 of
+// the trip's RPT rows (row j / 2): a warp's load j is 128 contiguous
+// bytes, its store j 128 contiguous values.
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 dequantize_kernel(const int8_t* __restrict__ q,
                   const float* __restrict__ scales, T* __restrict__ out,
                   int64_t nb) {
   const int lane = threadIdx.x & 31;
-  const int64_t stride = int64_t(gridDim.x) * WARPS;
-  for (int64_t r = int64_t(blockIdx.x) * WARPS + (threadIdx.x >> 5); r < nb;
-       r += stride) {
-    const int64_t off = r * BLOCK + lane * VPL;
-    Codes8 c;
-    c.u = *reinterpret_cast<const uint2*>(q + off);
-    const float s = scales[r];
-    float v[VPL];
+  const int64_t stride = int64_t(gridDim.x) * WARPS * RPT;
+  for (int64_t r0 = (int64_t(blockIdx.x) * WARPS + (threadIdx.x >> 5)) * RPT;
+       r0 < nb; r0 += stride) {
+    const int64_t off = r0 * BLOCK + 4 * lane;
+    const int rows = nb - r0 < RPT ? int(nb - r0) : RPT;
+    uint32_t w[2 * RPT];
+    float s[RPT];
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) v[i] = __fmul_rn(float(c.c[i]), s);
-    Vec8<T>::store(out + off, v);
+    for (int j = 0; j < 2 * RPT; ++j)
+      if (j / 2 < rows)
+        w[j] = __ldg(reinterpret_cast<const uint32_t*>(q + off + 128 * j));
+#pragma unroll
+    for (int j = 0; j < RPT; ++j)
+      if (j < rows) s[j] = __ldg(scales + r0 + j);
+#pragma unroll
+    for (int j = 0; j < 2 * RPT; ++j)
+      if (j / 2 < rows) {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          v[i] = __fmul_rn(float(static_cast<int8_t>(w[j] >> (8 * i))),
+                           s[j / 2]);
+        Store4<T>::st(out + off + 128 * j, v);
+      }
   }
 }
 
@@ -204,10 +244,31 @@ cudaError_t run_quantize_delta(const void* x, const void* prev, void* d,
   return cudaGetLastError();
 }
 
+// the CTAs of one kernel that fit on the card at once
+template <typename K>
+int resident_ctas(K kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS,
+                                                    0) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
 template <typename T>
 cudaError_t run_dequantize(const void* q, const void* s, void* out,
                            int64_t nb, cudaStream_t st) {
-  dequantize_kernel<T><<<grid_for(nb), NTHREADS, 0, st>>>(
+  static int resident = 0;   // per output type, once
+  if (resident == 0) resident = resident_ctas(dequantize_kernel<T>);
+  if (resident == 0) {
+    const cudaError_t e = cudaGetLastError();
+    return e != cudaSuccess ? e : cudaErrorUnknown;
+  }
+  const int64_t need = (nb + WARPS * RPT - 1) / (WARPS * RPT);
+  dequantize_kernel<T><<<int(need < resident ? need : resident), NTHREADS, 0,
+                         st>>>(
       static_cast<const int8_t*>(q), static_cast<const float*>(s),
       static_cast<T*>(out), nb);
   return cudaGetLastError();

@@ -29,9 +29,10 @@
 // dependency chain.  Splitting a column over four threads (as many
 // shared-memory reads) or giving each thread a 16 x 4 tile of S (a
 // quarter of them) ran slower (PERF.md): with 256 blocks and 512
-// dependent steps each, the per-token latency then dominates.  The
-// chunked form on tensor cores, parallel over the tokens of a chunk, is
-// later work.
+// dependent steps each, the per-token latency then dominates.  bf16
+// calls of many tokens (prefill) run the chunked form on the tensor cores
+// instead (rwkv6_sm90.cu, routed by ops.py); this file takes f32 inputs
+// and short calls, a decode step's single token among them.
 //
 // Numerics: f32 throughout (expf, no fast math), as the reference; the
 // sums run in another order than the chunked plain version.

@@ -1,9 +1,16 @@
-"""Wrapper of the Hopper RWKV-6 recurrence kernel (``csrc/rwkv6.cu``), K6.
+"""Wrappers of the Hopper RWKV-6 recurrence kernels, K6:
 
-Replaces ``rwkv6_pallas`` (``src/repro/kernels/rwkv6/kernel.py:86``).  The
-CUDA source is compiled with ``nvcc`` for ``sm_90a`` at first use
-(``kernels/common.load_library``) and called through its plain C interface
-with ``ctypes`` on PyTorch's current stream.
+* ``rwkv6_sm90_cuda``: the chunked form on the tensor cores for bf16
+  r/k/v (``csrc/rwkv6_sm90.cu``: mma.sync with split-bf16 operands, fed
+  by TMA through the helpers of ``flash_attention/csrc/sm90.cuh``);
+* ``rwkv6_cuda``: the sequential recurrence on CUDA cores for f32 or bf16
+  (``csrc/rwkv6.cu``).
+
+``ops.rwkv6`` routes between them.  Both replace ``rwkv6_pallas``
+(``src/repro/kernels/rwkv6/kernel.py:86``).  Each CUDA source is compiled
+with ``nvcc`` for ``sm_90a`` at first use (``kernels/common.load_library``)
+and called through its plain C interface with ``ctypes`` on PyTorch's
+current stream.
 """
 from __future__ import annotations
 
@@ -15,63 +22,108 @@ import torch
 
 from ..common import check_tensor, load_library
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "rwkv6.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+# library name -> (its source, the headers it includes)
+LIBRARIES = {
+    "rwkv6": (_CSRC / "rwkv6.cu", ()),
+    "rwkv6_sm90": (_CSRC / "rwkv6_sm90.cu",
+                   (_CSRC.parent.parent / "flash_attention" / "csrc"
+                    / "sm90.cuh",))}
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches in this process; a run sets it to 0 and reads it to show that a
-# path went through the kernel
+# launches of the sequential and of the chunked kernel in this process; a
+# run sets them to 0 and reads them to show that a path went through them
 launches = 0
+sm90_launches = 0
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {"rwkv6": [_VP] * 8 + [_CI] * 5 + [_VP],
+             "rwkv6_sm90": [_VP] * 8 + [_CI] * 4 + [_VP]}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library("rwkv6", SOURCES)
-    fn = lib.rwkv6_fwd
+def _lib(name: str):
+    """The loaded library ``name`` and its C entry."""
+    source, headers = LIBRARIES[name]
+    lib = load_library(name, (source,), headers)
+    fn = getattr(lib, "rwkv6_fwd" if name == "rwkv6" else name)
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 8 + [ci] * 5 + [vp]
-        fn.restype = ci
-        lib.rwkv6_error_string.argtypes = [ci]
-        lib.rwkv6_error_string.restype = ctypes.c_char_p
-    return lib
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = _CI
+        err = getattr(lib, name + "_error_string")
+        err.argtypes = [_CI]
+        err.restype = ctypes.c_char_p
+    return lib, fn
 
 
-def build() -> None:
-    """Compile (if needed) and load the kernel's library."""
-    _lib()
+def _call(name: str, *args) -> None:
+    lib, fn = _lib(name)
+    status = fn(*args)
+    if status != 0:
+        msg = getattr(lib, name + "_error_string")(status).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({status})")
 
 
-def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               log_w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r/k/v: (B, H, T, D) of one dtype (f32 or bf16), log_w: (B, H, T, D)
-    f32, u: (H, D) f32, s0: (B, H, D, D) f32, all contiguous on one CUDA
-    device, D in {16, 32, 64}.  Returns ``(o in v.dtype, sT f32)``."""
-    global launches
+def build(name: str) -> None:
+    """Compile (if needed) and load library ``name`` of ``LIBRARIES``."""
+    _lib(name)
+
+
+def _check(r, k, v, log_w, u, s0, dtypes) -> Tuple[int, int, int, int]:
     if r.dim() != 4:
         raise ValueError(f"r must be (B, H, T, D), got {tuple(r.shape)}")
     b, h, t, d = r.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if r.dtype not in _DTYPES:
-        raise ValueError(f"dtype {r.dtype} not supported: f32 or bf16")
+    if r.dtype not in dtypes:
+        raise ValueError(f"dtype {r.dtype} not supported: "
+                         f"{sorted(map(str, dtypes))}")
     for name, x in (("r", r), ("k", k), ("v", v)):
         check_tensor(name, x, (b, h, t, d), (r.dtype,), r.device)
     check_tensor("log_w", log_w, (b, h, t, d), (torch.float32,), r.device)
     check_tensor("u", u, (h, d), (torch.float32,), r.device)
     check_tensor("s0", s0, (b, h, d, d), (torch.float32,), r.device)
+    return b, h, t, d
+
+
+def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               log_w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential kernel.  r/k/v: (B, H, T, D) of one dtype (f32 or
+    bf16), log_w: (B, H, T, D) f32, u: (H, D) f32, s0: (B, H, D, D) f32,
+    all contiguous on one CUDA device, D in {16, 32, 64}.  Returns ``(o in
+    v.dtype, sT f32)``."""
+    global launches
+    b, h, t, d = _check(r, k, v, log_w, u, s0, _DTYPES)
     o = torch.empty_like(v)
     if t == 0 or b * h == 0:
         return o, s0.clone()
     sT = torch.empty_like(s0)
-    lib = _lib()
-    stream = torch.cuda.current_stream(r.device).cuda_stream
-    status = lib.rwkv6_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           log_w.data_ptr(), u.data_ptr(), s0.data_ptr(),
-                           o.data_ptr(), sT.data_ptr(), b, h, t, d,
-                           _DTYPES[r.dtype], stream)
-    if status != 0:
-        msg = lib.rwkv6_error_string(status).decode()
-        raise RuntimeError(f"rwkv6 launch failed: {msg} ({status})")
+    _call("rwkv6", r.data_ptr(), k.data_ptr(), v.data_ptr(),
+          log_w.data_ptr(), u.data_ptr(), s0.data_ptr(), o.data_ptr(),
+          sT.data_ptr(), b, h, t, d, _DTYPES[r.dtype],
+          torch.cuda.current_stream(r.device).cuda_stream)
     launches += 1
+    return o, sT
+
+
+def rwkv6_sm90_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked tensor-core kernel: as ``rwkv6_cuda`` but r/k/v bf16
+    only, and r/k/v/log_w 16-byte aligned (TMA reads them)."""
+    global sm90_launches
+    b, h, t, d = _check(r, k, v, log_w, u, s0, (torch.bfloat16,))
+    for name, x in (("r", r), ("k", k), ("v", v), ("log_w", log_w)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (TMA)")
+    o = torch.empty_like(v)
+    if t == 0 or b * h == 0:
+        return o, s0.clone()
+    sT = torch.empty_like(s0)
+    _call("rwkv6_sm90", r.data_ptr(), k.data_ptr(), v.data_ptr(),
+          log_w.data_ptr(), u.data_ptr(), s0.data_ptr(), o.data_ptr(),
+          sT.data_ptr(), b, h, t, d,
+          torch.cuda.current_stream(r.device).cuda_stream)
+    sm90_launches += 1
     return o, sT

@@ -235,6 +235,21 @@ class ElasticTrainer:
         self._adapt_handles = None
         self._adapt_ctx = None
 
+    def wait_resize_streams(self, timeout: Optional[float] = None) -> bool:
+        """Block until every background stream of an open overlap resize
+        has landed (True) or ``timeout`` seconds pass (False); True at once
+        when no overlap window is open.  The resize itself completes at the
+        next step's ``maybe_adapt``."""
+        if self._adapt_handles is None:
+            return True
+        deadline = None if timeout is None else time.monotonic() + timeout
+        for h in self._adapt_handles.values():
+            left = None if deadline is None \
+                else max(0.0, deadline - time.monotonic())
+            if not h.wait(left):
+                return False
+        return True
+
     def maybe_adapt(self) -> bool:
         """MPI_Probe_adapt + adapt window (paper lines 17-23); two-phase
         with ``overlap_resize``."""

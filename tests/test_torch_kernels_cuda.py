@@ -18,11 +18,16 @@ Every test skips without a card.  Tolerances:
   with the same tolerances, at every head dim, ragged T and S at the new
   tile sizes, a window edge that crosses a tile, GQA groups 1 to 16 and
   rows with no allowed key; a misaligned bf16 input raises;
-* codec K1-K3: bit-equal to the plain version and to the numpy host codec;
+* codec K1-K3: bit-equal to the plain version and to the numpy host codec,
+  K3 also at row counts around its 16-row trips;
 * RWKV-6 (K6) against its plain chunked version: f32 atol 2e-3 (the
   reference's kernel tests), bf16 r/k/v the same plus rtol 2^-7 on o (one
-  bf16 rounding of an f32 value apart); two runs bit-equal; the carried
-  state continues a run within atol 1e-5;
+  bf16 rounding of an f32 value apart), for the sequential kernel and
+  the chunked tensor-core one (which takes bf16 prefill: ragged chunks
+  and sub-chunks, extreme decay, zero and carried states); two runs
+  bit-equal; the carried state continues a run within atol 1e-5 where
+  the split falls on a chunk boundary of both runs, within the tolerance
+  above where it does not;
 * Reed-Solomon encode (K5): bit-equal to the numpy host codec;
 * RG-LRU scan (K7) against its plain chunked version: h_final and an f32
   h within atol 2e-4 (the reference's kernel tests), a bf16 h within atol
@@ -409,16 +414,22 @@ def _rwkv_check(got, want, dtype):
     torch.testing.assert_close(got[1], want[1], atol=atol, rtol=0)
 
 
+def _rwkv_counts():
+    from repro_torch.kernels.rwkv6 import kernel
+
+    return kernel.launches, kernel.sm90_launches
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", RWKV_SWEEP)
 def test_rwkv6_kernel_matches_plain(card, case, dtype):
-    from repro_torch.kernels.rwkv6 import kernel, rwkv6, rwkv6_chunked
+    from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_chunked
 
     inputs = _rwkv_inputs(card, 3, *case, dtype)
-    n0 = kernel.launches
+    n0 = sum(_rwkv_counts())
     got = rwkv6(*inputs)
     torch.cuda.synchronize()
-    assert kernel.launches == n0 + 1
+    assert sum(_rwkv_counts()) == n0 + 1
     _rwkv_check(got, rwkv6_chunked(*inputs), dtype)
     again = rwkv6(*inputs)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
@@ -486,6 +497,125 @@ def test_rwkv6_kernel_rejects_what_it_does_not_take(card):
                    u, s0)
     with pytest.raises(ValueError, match="u must be"):
         rwkv6(r, k, v, lw, u[:1], s0)
+
+
+@pytest.mark.parametrize("t", [1, 7, 16, 63, 64, 65, 130, 512])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_rwkv6_sm90_matches_plain(card, d, t):
+    """The chunked tensor-core kernel on bf16 r/k/v: ragged chunks (T not
+    a multiple of 64) and sub-chunks (not of 16), from a carried and from
+    a zero state; two runs bit-equal."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_sm90_cuda
+
+    r, k, v, lw, u, s0 = _rwkv_inputs(card, 11, 2, 3, t, d, "bfloat16")
+    for state in (s0, torch.zeros_like(s0)):
+        got = rwkv6_sm90_cuda(r, k, v, lw, u, state)
+        again = rwkv6_sm90_cuda(r, k, v, lw, u, state)
+        torch.cuda.synchronize()
+        _rwkv_check(got, rwkv6_chunked(r, k, v, lw, u, state), "bfloat16")
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("decay_scale", [10.0, 100.0])
+@pytest.mark.parametrize("d", [32, 64])
+def test_rwkv6_sm90_extreme_decay(card, d, decay_scale):
+    """log_w far below -30: finite, clamped as the plain version clamps
+    (running products of exp(-30) underflow to 0, never overflow)."""
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_sm90_cuda
+
+    inputs = _rwkv_inputs(card, 4, 1, 2, 150, d, "bfloat16", decay_scale)
+    assert (inputs[3] < -30).any()
+    got = rwkv6_sm90_cuda(*inputs)
+    assert torch.isfinite(got[0].float()).all()
+    assert torch.isfinite(got[1]).all()
+    _rwkv_check(got, rwkv6_chunked(*inputs), "bfloat16")
+
+
+@pytest.mark.parametrize("split", [64, 100])
+def test_rwkv6_sm90_state_continuation(card, split):
+    """[0, split) then [split, T) from the carried state against one shot:
+    within atol 1e-5 at a chunk boundary (the same chunks either way),
+    within the bf16 tolerance off it (other chunks)."""
+    from repro_torch.kernels.rwkv6 import rwkv6
+
+    r, k, v, lw, u, s0 = _rwkv_inputs(card, 12, 2, 4, 256, 64, "bfloat16")
+    o, s = rwkv6(r, k, v, lw, u, s0)
+    parts = [(x[:, :, :split], x[:, :, split:]) for x in (r, k, v, lw)]
+    o1, s1 = rwkv6(*(a for a, _ in parts), u, s0)
+    o2, s2 = rwkv6(*(b for _, b in parts), u, s1)
+    got = (torch.cat([o1, o2], 2), s2)
+    if split % 64 == 0:
+        torch.testing.assert_close(got[0].float(), o.float(), atol=1e-5,
+                                   rtol=0)
+        torch.testing.assert_close(got[1], s, atol=1e-5, rtol=0)
+    else:
+        _rwkv_check(got, (o, s), "bfloat16")
+
+
+@pytest.mark.parametrize("dtype,t,route", [
+    ("bfloat16", 1, "sequential"), ("bfloat16", 31, "sequential"),
+    ("bfloat16", 32, "sm90"), ("bfloat16", 512, "sm90"),
+    ("float32", 1, "sequential"), ("float32", 512, "sequential")])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_rwkv6_routing(card, dtype, t, route, misaligned):
+    """``ops.rwkv6`` sends bf16 with at least SM90_MIN_T tokens to the
+    chunked kernel, everything else to the sequential one; contiguous
+    r/k/v/log_w at an odd storage offset take the same route and give the
+    same result."""
+    from repro_torch.kernels.rwkv6 import rwkv6
+    from repro_torch.kernels.rwkv6.ops import SM90_MIN_T
+
+    assert (route == "sm90") == (dtype == "bfloat16" and t >= SM90_MIN_T)
+    inputs = _rwkv_inputs(card, 13, 1, 2, t, 64, dtype)
+    args = list(inputs)
+    if misaligned:
+        for i in range(4):            # r, k, v, log_w one element in
+            buf = torch.empty(args[i].numel() + 1, dtype=args[i].dtype,
+                              device=card)
+            args[i] = buf[1:].view(args[i].shape)
+            args[i].copy_(inputs[i])
+            assert args[i].is_contiguous() and args[i].data_ptr() % 16
+    n0 = _rwkv_counts()
+    got = rwkv6(*args)
+    seq, sm90 = (a - b for a, b in zip(_rwkv_counts(), n0))
+    assert (seq, sm90) == ((0, 1) if route == "sm90" else (1, 0))
+    if misaligned:
+        want = rwkv6(*inputs)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_rwkv6_sm90_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_sm90_cuda
+
+    r, k, v, lw, u, s0 = _rwkv_inputs(card, 14, 1, 2, 8, 16, "bfloat16")
+    with pytest.raises(ValueError, match="dtype"):
+        rwkv6_sm90_cuda(r.float(), k.float(), v.float(), lw, u, s0)
+    buf = torch.empty(r.numel() + 1, dtype=r.dtype, device=card)
+    r_odd = buf[1:].view(r.shape)
+    r_odd.copy_(r)
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_sm90_cuda(r_odd, k, v, lw, u, s0)
+
+
+@pytest.mark.parametrize("dtype", CODEC_DTYPES)
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 15, 16, 17, 100_003])
+def test_dequantize_kernel_row_counts(card, rows, dtype):
+    """K3 takes 16 rows a warp-trip: whole trips, partial ones and one
+    row, bit-equal to the host codec in each output dtype."""
+    from repro_torch.kernels.ckpt_codec import kernel
+
+    rng = np.random.default_rng(rows)
+    q = rng.integers(-127, 128, (rows, 256)).astype(np.int8)
+    s = (rng.random((rows, 1)) * 0.1).astype(np.float32)
+    got = kernel.dequantize_cuda(torch.from_numpy(q).to(card),
+                                 torch.from_numpy(s).to(card),
+                                 getattr(torch, dtype))
+    want = dequantize_np(q, s, rows * 256, np.float32)
+    np.testing.assert_array_equal(
+        got.float().reshape(-1).cpu().numpy(),
+        torch.from_numpy(want).to(getattr(torch, dtype)).float().numpy())
 
 
 # --------------------------------------------------------------------------

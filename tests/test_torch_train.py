@@ -55,6 +55,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 ARCHS = ["qwen2.5-3b", "yi-6b"]
 CPU = torch.device("cpu")
+# an overlap resize's background streams must land within this wall time
+RESIZE_WAIT_S = 120
 SHAPE = ShapeConfig("t", "train", 32, 4)
 
 
@@ -369,7 +371,10 @@ def test_restart_from_l2_after_l1_loss():
 @pytest.mark.parametrize("overlap", [False, True])
 def test_resize_preserves_trajectory(overlap):
     """Expand 1 -> 2 logical ranks mid-run: the loss trajectory matches an
-    uninterrupted run."""
+    uninterrupted run.  With ``overlap_resize`` the resize completes at the
+    first step after its background streams have landed, so the test
+    waits for them (not for a number of steps, which a loaded host may
+    not finish them in) before the last 5 steps."""
     with ICheckCluster(n_icheck_nodes=2) as cluster:
         ref = _trainer(cluster, "ref", 5, arch="yi-6b", total_steps=12)
         ref.run(12)
@@ -380,7 +385,9 @@ def test_resize_preserves_trajectory(overlap):
                      overlap_resize=overlap)
         t.run(6)
         cluster.rm.schedule_resize("app", 2)
-        t.run(6)
+        t.run(1)       # opens the overlap window (or resizes at once)
+        assert t.wait_resize_streams(timeout=RESIZE_WAIT_S)
+        t.run(5)
         assert t.resizes == 1 and t.app.ranks == 2
         if overlap:
             assert t.steps_during_resize >= 1
