@@ -10,12 +10,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: every kernel library (flash-attention forward and backward in
    f32 on FMAs and in bf16 on wgmma fed by TMA, the checkpoint codec, the
    RWKV-6 recurrence, sequential and chunked on mma.sync fed by TMA, the
-   Reed-Solomon encode, the RG-LRU scan) compiled
+   Reed-Solomon encode, the RG-LRU scan with its loads in registers and by
+   TMA) compiled
    with ``nvcc`` for ``sm_90a`` from the sources in this checkout, all at
    once; each library's registers, spills and its ``HGMMA``, ``HMMA`` and
    ``UTMALDG`` instruction counts (``cuobjdump -sass``): wgmma and TMA
    loads must be there in the bf16 flash-attention libraries, mma.sync and
-   TMA loads in the chunked RWKV-6 one;
+   TMA loads in the chunked RWKV-6 one and in the TMA RG-LRU one;
 3. kernels against their plain PyTorch versions on the card:
    * the flash-attention forward over the reference's sweep plus the
      serving path's shape, and at head dim 256 (MQA, causal) with windows
@@ -44,12 +45,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      in f32 and bf16; [0, T/2) then [T/2, T) equal to one shot within atol
      1e-5 (T/2 a chunk boundary), and a split off a chunk boundary within
      the tolerance above;
-   * the RG-LRU scan K7 over the reference's sweep plus the serving path's
-     prefill (4, 512, 4096) and decode (4, 1, 4096) shapes, with h0 and
-     without, f32 and bf16 g, against the plain chunked version: h_final
-     and an f32 h within atol 2e-4 (the reference's kernel tests), a bf16
-     h within atol 2e-4 + rtol 2^-7; two runs bit-equal; [0, T/2) then
-     [T/2, T) equal to one shot;
+   * the RG-LRU scan K7, both kernels (loads in registers, and by TMA
+     through an mbarrier ring), over the reference's sweep, two ragged
+     cases and the serving path's prefill (4, 512, 4096), ring prefill (1,
+     2560, 4096) and decode (4, 1, 4096) shapes, with h0 and without, f32
+     and bf16 g, against the plain chunked version: h_final and an f32 h
+     within atol 2e-4 (the reference's kernel tests), a bf16 h within atol
+     2e-4 + rtol 2^-7; two runs bit-equal; the two kernels bit-equal to
+     each other everywhere; through ``ops.rglru``, [0, T/2) then [T/2, T),
+     and a prefill followed by one-token steps, equal to one shot;
 4. the serving path: yi-6b at full width (32 layers, bf16, random weights
    from a seeded generator) serves 4 requests of 512 prompt tokens and 32
    new tokens through ``ServeEngine.generate``, committing its KV cache to
@@ -79,7 +83,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    12 x (RG-LRU, RG-LRU, attention) + 2 RG-LRU tail layers, d_model 4096,
    16 heads of 256 over one KV head with window 2048, d_ff 12288, vocab
    256,000, bf16, 10,444,771,328 params): K7 must run 26 times in prefill
-   and 26 x 31 in the decode steps of ``generate``, K4 (head dim 256) 12
+   (the TMA kernel) and 26 x 31 in the decode steps of ``generate`` (the
+   register kernel), K4 (head dim 256) 12
    times in prefill and never in decode; the 30,998,532-byte state (ring
    caches and RG-LRU states) is restored bit-equal to a second prefill's
    and decoding from it gives the live tokens.  Then one 2560-token
@@ -167,9 +172,12 @@ CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
 RWKV_SWEEP = [(2, 3, 130, 64), (1, 2, 64, 32), (1, 1, 7, 16)]
 RWKV_TOL = {"float32": (2e-3, 0.0), "bfloat16": (2e-3, 2 ** -7)}
 RS_STRIDES = [1, 15, 33, 4097, 100_003]
-# the sweep of tests/test_kernels_rglru.py plus the serving path's prefill
-# and decode shapes; (b, t, d)
-RGLRU_SWEEP = [(2, 100, 256), (1, 64, 128), (1, 5, 512), (3, 33, 96)]
+# the sweep of tests/test_kernels_rglru.py, then ragged cases of the TMA
+# kernel: T not a multiple of its chunk (32 tokens where CTAs share SMs,
+# 128 where each has one) over several chunks, D a multiple of its
+# 32-channel strip and not; the serving path's shapes follow; (b, t, d)
+RGLRU_SWEEP = [(2, 100, 256), (1, 64, 128), (1, 5, 512), (3, 33, 96),
+               (3, 100, 96), (3, 100, 104), (5, 100, 1000), (1, 300, 104)]
 RGLRU_TOL = {"float32": (2e-4, 0.0), "bfloat16": (2e-4, 2 ** -7)}
 # recurrentgemma-9b's attention at head dim 256 (MQA, causal, window
 # 2048): a short window, the serving path's prefill, a window that hides
@@ -192,7 +200,7 @@ PEAK_F32_FLOPS = 67e12          # outside the tensor cores
 SPIN_CYCLES_PER_S = 2.0e9
 # the numbers of each kernel in the ``kernels`` line
 TIME_KEYS = ("ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")
+             "library_ms", "launch_floor_ms")
 
 
 def log(msg: str) -> None:
@@ -299,12 +307,13 @@ def profile_window(fn, top: int = 8) -> dict:
 # --------------------------------------------------------------------------
 # phase 2: build
 # --------------------------------------------------------------------------
-# the tensor-core and TMA instructions each tensor-core library must hold:
-# wgmma (``HGMMA``) in the flash-attention ones, mma.sync (``HMMA``) in the
+# the tensor-core and TMA instructions each sm90 library must hold: wgmma
+# (``HGMMA``) in the flash-attention ones, mma.sync (``HMMA``) in the
 # chunked RWKV-6 one, TMA loads (``UTMALDG``) in all
 SASS_REQUIRED = {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
                  "flash_bwd_sm90": ("HGMMA", "UTMALDG"),
-                 "rwkv6_sm90": ("HMMA", "UTMALDG")}
+                 "rwkv6_sm90": ("HMMA", "UTMALDG"),
+                 "rglru_sm90": ("UTMALDG",)}
 
 
 def sass_counts(path) -> dict:
@@ -330,11 +339,12 @@ def build_kernels():
     # the flash-attention libraries: f32 FMA kernels and the bf16 sm90 ones
     builders = {name: (lambda name=name: fa_kernel.build(name))
                 for name in fa_kernel.LIBRARIES}
-    # K6: the sequential kernel and the chunked sm90 one
-    builders.update({name: (lambda name=name: rwkv_kernel.build(name))
-                     for name in rwkv_kernel.LIBRARIES})
-    builders.update({"ckpt_codec": codec_kernel.build, "rs": rs_kernel.build,
-                     "rglru": rglru_kernel.build})
+    # K6: the sequential kernel and the chunked sm90 one; K7: the register
+    # kernel and the TMA one
+    for kernel in (rwkv_kernel, rglru_kernel):
+        builders.update({name: (lambda name=name, k=kernel: k.build(name))
+                         for name in kernel.LIBRARIES})
+    builders.update({"ckpt_codec": codec_kernel.build, "rs": rs_kernel.build})
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(builders)) as pool:
         futures = {n: pool.submit(b) for n, b in builders.items()}
@@ -1089,71 +1099,102 @@ def _rglru_inputs(seed, case, dtype, device):
             torch.from_numpy(h0).to(device))
 
 
-def check_rglru(path_cases, device) -> float:
-    """K7 against its plain chunked version on the card: the sweep and the
-    path's shapes (T = 1 at decode), with h0 and without, f32 and bf16 g;
-    two runs bit-equal; [0, T/2) then [T/2, T) equal to one shot.  Returns
-    the max abs error at the prefill shape, bf16 g, with h0."""
+def _rglru_err(got, want, dtype, what) -> float:
     import torch
 
-    from repro_torch.kernels.rglru import rglru_chunked
-    from repro_torch.kernels.rglru.kernel import rglru_cuda
+    atol, rtol = RGLRU_TOL[dtype]
+    dh = (got[0].float() - want[0].float()).abs()
+    dT = (got[1] - want[1]).abs()
+    if not (bool(torch.all(dh <= atol + rtol * want[0].float().abs()))
+            and dT.max().item() <= atol):
+        raise AssertionError(
+            f"{what}: max abs err h {dh.max().item()}, h_final "
+            f"{dT.max().item()} (atol {atol}, rtol {rtol} on h)")
+    return max(dh.max().item(), dT.max().item())
 
-    path_err = None
+
+def check_rglru(path_cases, device) -> dict:
+    """K7's two kernels against their plain chunked version on the card:
+    the sweep and the path's shapes (T = 1 at decode), with h0 and
+    without, f32 and bf16 g; each kernel's two runs bit-equal, and the TMA
+    kernel bit-equal to the register kernel at every case (the same f32
+    steps, below ``ops.SM90_MIN_T`` too).  Through ``ops.rglru``: [0, T/2)
+    then [T/2, T), and [0, T - 8) then 8 one-token steps (the prefill to
+    decode hand-off, across the two kernels), equal to one shot.  Returns
+    each kernel's max abs error at the shape where the path runs it (bf16
+    g, with h0): the prefill for ``rglru_sm90``, decode for ``rglru``."""
+    import torch
+
+    from repro_torch.kernels.rglru import rglru, rglru_chunked
+    from repro_torch.kernels.rglru.kernel import rglru_cuda, rglru_sm90_cuda
+
+    kernels = {"rglru": rglru_cuda, "rglru_sm90": rglru_sm90_cuda}
+    errs = {}
     for case in RGLRU_SWEEP + list(path_cases.values()):
         for dtype in ("float32", "bfloat16"):
-            atol, rtol = RGLRU_TOL[dtype]
             la, g, h0 = _rglru_inputs(3, case, dtype, device)
             for init in (h0, None):
-                got = rglru_cuda(la, g, init)
-                again = rglru_cuda(la, g, init)
                 want = rglru_chunked(la, g, init)
+                got = {name: fn(la, g, init) for name, fn in kernels.items()}
+                again = {name: fn(la, g, init)
+                         for name, fn in kernels.items()}
                 torch.cuda.synchronize()
-                dh = (got[0].float() - want[0].float()).abs()
-                dT = (got[1] - want[1]).abs()
-                what = f"rglru {case} {dtype} h0={init is not None}"
-                if not (bool(torch.all(dh <= atol + rtol
-                                       * want[0].float().abs()))
-                        and dT.max().item() <= atol):
-                    raise AssertionError(
-                        f"{what}: max abs err h {dh.max().item()}, h_final "
-                        f"{dT.max().item()} (atol {atol}, rtol {rtol} on h)")
-                if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                    raise AssertionError(f"{what}: two runs differ")
-                err = max(dh.max().item(), dT.max().item())
-                log(f"  {what}: max abs err {err:.3e}")
-                if case == path_cases["prefill"] and dtype == "bfloat16" \
-                        and init is not None:
-                    path_err = err
+                what = f"{case} {dtype} h0={init is not None}"
+                err = {name: _rglru_err(out, want, dtype, f"{name} {what}")
+                       for name, out in got.items()}
+                for name in kernels:
+                    if not all(torch.equal(x, y)
+                               for x, y in zip(got[name], again[name])):
+                        raise AssertionError(f"{name} {what}: two runs "
+                                             f"differ")
+                if not all(torch.equal(x, y) for x, y in
+                           zip(got["rglru_sm90"], got["rglru"])):
+                    raise AssertionError(f"rglru_sm90 {what} differs from "
+                                         f"rglru")
+                log(f"  rglru {what}: max abs err {err['rglru']:.3e}, "
+                    f"rglru_sm90 bit-equal to it")
+                if dtype == "bfloat16" and init is not None:
+                    if case == path_cases["prefill"]:
+                        errs["rglru_sm90"] = err["rglru_sm90"]
+                    if case == path_cases["decode"]:
+                        errs["rglru"] = err["rglru"]
     la, g, h0 = _rglru_inputs(5, path_cases["prefill"], "bfloat16", device)
-    h, hT = rglru_cuda(la, g, h0)
-    half = la.shape[1] // 2
-    h1, s1 = rglru_cuda(la[:, :half].contiguous(), g[:, :half].contiguous(),
-                        h0)
-    h2, s2 = rglru_cuda(la[:, half:].contiguous(), g[:, half:].contiguous(),
-                        s1)
-    torch.cuda.synchronize()
-    if not (torch.equal(torch.cat([h1, h2], 1), h) and torch.equal(s2, hT)):
-        raise AssertionError("rglru continuation differs from one shot")
-    log(f"  rglru [0, T/2) then [T/2, T) at {path_cases['prefill']} bf16: "
-        f"equal to one shot")
-    return path_err
+    t = la.shape[1]
+    h, hT = rglru(la, g, h0)
+    for pieces in ([(0, t // 2), (t // 2, t)],
+                   [(0, t - 8)] + [(i, i + 1) for i in range(t - 8, t)]):
+        parts, st = [], h0
+        for lo, hi in pieces:
+            out, st = rglru(la[:, lo:hi], g[:, lo:hi], st)
+            parts.append(out)
+        torch.cuda.synchronize()
+        if not (torch.equal(torch.cat(parts, 1), h) and torch.equal(st, hT)):
+            raise AssertionError(f"rglru in pieces {pieces[:2]}... differs "
+                                 f"from one shot")
+    log(f"  rglru [0, T/2) then [T/2, T), and [0, T - 8) then 8 one-token "
+        f"steps, at {path_cases['prefill']} bf16: equal to one shot")
+    return errs
 
 
-def rglru_numbers(case, device) -> dict:
-    """K7 at one of the path's shapes (bf16 g, f32 log_a and h0): its
-    device time and its plain version's (``device_ms``), the CUDA-event
-    time, and its bound: log_a (4 B), g and h (2 B each) per element, h0
-    and h_final (4 B) per channel, or an exp and an FMA per element (3 f32
-    operations) at the f32 rate."""
+def rglru_numbers(case, device, name) -> dict:
+    """K7's kernel ``name`` at one of the path's shapes (bf16 g, f32 log_a
+    and h0): its device time and its plain version's (``device_ms``), the
+    CUDA-event time, and its bound: log_a (4 B), g and h (2 B each) per
+    element, h0 and h_final (4 B) per channel, or an exp and an FMA per
+    element (3 f32 operations) at the f32 rate."""
     from repro_torch.kernels.rglru import rglru_chunked
-    from repro_torch.kernels.rglru.kernel import rglru_cuda
+    from repro_torch.kernels.rglru.kernel import rglru_cuda, rglru_sm90_cuda
 
+    run = {"rglru": rglru_cuda, "rglru_sm90": rglru_sm90_cuda}[name]
     b, t, d = case
     la, g, h0 = _rglru_inputs(3, case, "bfloat16", device)
-    ms = device_ms(lambda: rglru_cuda(la, g, h0))
-    event_ms = cuda_ms(lambda: rglru_cuda(la, g, h0))
-    plain_ms = device_ms(lambda: rglru_chunked(la, g, h0), iters=3)
+    ms = device_ms(lambda: run(la, g, h0))
+    event_ms = cuda_ms(lambda: run(la, g, h0))
+    # one call of the plain version at the ring's 2560 tokens queues ~600
+    # kernels: more calls than one would fill the launch queue behind the
+    # spin kernel
+    plain_ms = device_ms(lambda: rglru_chunked(la, g, h0),
+                         iters=3 if t <= PROMPT else 1)
     nbytes = b * t * d * (4 + 2 + 2) + 2 * b * d * 4
     flops = 3 * b * t * d
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
@@ -1161,6 +1202,59 @@ def rglru_numbers(case, device) -> dict:
             "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
+
+
+def launch_floor_ms(device) -> float:
+    """The ``device_ms`` of a launch-sized PyTorch op, an in-place add on
+    a one-element tensor: the least a launch takes on the card, a
+    yardstick the port never calls."""
+    import torch
+
+    x = torch.zeros(1, device=device)
+    return device_ms(lambda: x.add_(1.0))
+
+
+def rglru_stages_ms(case, device, stages=(2, 3, 4, 6)) -> dict:
+    """The TMA kernel's ``device_ms`` at (B, T, D) = ``case``, bf16 g, with
+    each ring depth of ``stages`` that fits, beside ``plan``'s choice:
+    the measurement behind ``kernel.plan``."""
+    from repro_torch.kernels.rglru.kernel import plan, rglru_sm90_cuda
+
+    la, g, h0 = _rglru_inputs(3, case, "bfloat16", device)
+    chosen = plan(*case).stages
+    out = {"plan": chosen}
+    for n in sorted({*stages, chosen}):
+        try:
+            plan(*case, stages=n)
+        except ValueError:          # more shared memory than a CTA has
+            continue
+        out[str(n)] = device_ms(lambda: rglru_sm90_cuda(la, g, h0, n))
+    log(f"  rglru_sm90 at {case} by ring depth: {json.dumps(out)}")
+    return out
+
+
+def rglru_route_ms(case, device, ts=(1, 64, 256, 384, 512)) -> dict:
+    """Both K7 kernels' ``device_ms`` at (B, T, D) = ``case`` with T from
+    ``ts``, bf16 g: the measurement behind ``ops.SM90_MIN_T``.  Fails
+    unless the register kernel is the faster below ``SM90_MIN_T`` tokens
+    and the TMA one from it, so a crossover that moves shows."""
+    from repro_torch.kernels.rglru.kernel import rglru_cuda, rglru_sm90_cuda
+    from repro_torch.kernels.rglru.ops import SM90_MIN_T
+
+    b, _, d = case
+    out = {"sm90_min_t": SM90_MIN_T}
+    for t in ts:
+        la, g, h0 = _rglru_inputs(3, (b, t, d), "bfloat16", device)
+        sm90 = device_ms(lambda: rglru_sm90_cuda(la, g, h0))
+        reg = device_ms(lambda: rglru_cuda(la, g, h0))
+        out[str(t)] = {"rglru_sm90": sm90, "rglru": reg}
+        log(f"  rglru route at T = {t}: TMA {sm90:.6f} ms, registers "
+            f"{reg:.6f} ms (ops.SM90_MIN_T = {SM90_MIN_T})")
+        if (sm90 < reg) != (t >= SM90_MIN_T):
+            raise AssertionError(
+                f"rglru at T = {t}: TMA {sm90} ms, registers {reg} ms; "
+                f"ops.SM90_MIN_T = {SM90_MIN_T} routes it to the slower")
+    return out
 
 
 def gate_product_ms(gcfg, device, tokens) -> float:
@@ -1177,7 +1271,8 @@ def gate_product_ms(gcfg, device, tokens) -> float:
 
 def serve_recurrentgemma_phase(gcfg, device, card):
     """recurrentgemma-9b through ``serve_model_phase``: K7's and K4's
-    launches asserted (26 and 12 a prefill, 26 a decode step), the
+    launches asserted (26 of the TMA kernel and 12 a prefill, 26 of the
+    register kernel a decode step), the
     committed state's size, the ring sub-phase (one prompt longer than the
     window), the 5-layer f32 cut (one super-layer and both tail layers)
     against the plain CPU path, and again with a cut window that the
@@ -1190,18 +1285,34 @@ def serve_recurrentgemma_phase(gcfg, device, card):
     n_rec, n_attn = kinds.count("rec"), kinds.count("attn")
     log(f"  {n_rec} RG-LRU and {n_attn} attention layers")
 
+    # prefill through the TMA kernel, each one-token decode step through
+    # the register one
     def want(gen):
-        return {"generate": {"rglru": n_rec * gen, "flash_fwd": n_attn},
-                "prefill": {"rglru": n_rec, "flash_fwd": n_attn},
-                "decode": {"rglru": n_rec * (gen - 1), "flash_fwd": 0}}
+        return {"generate": {"rglru_sm90": n_rec, "rglru": n_rec * (gen - 1),
+                             "flash_fwd": n_attn},
+                "prefill": {"rglru_sm90": n_rec, "rglru": 0,
+                            "flash_fwd": n_attn},
+                "decode": {"rglru": n_rec * (gen - 1), "rglru_sm90": 0,
+                           "flash_fwd": 0}}
 
     def numbers():
         w = gcfg.resolved_rnn_width
         gate_ms = gate_product_ms(gcfg, device, BATCH * PROMPT)
+        shapes = {"prefill": (BATCH, PROMPT, w), "ring": (1, RING_PROMPT, w),
+                  "decode": (BATCH, 1, w)}
+        # the TMA kernel where the path runs it; the register kernel at
+        # every shape (at prefill and ring, the earlier design's yardstick)
+        rg = {f"{kernel}_{name}_shape": rglru_numbers(case, device, kernel)
+              for name, case in shapes.items()
+              for kernel in ("rglru_sm90", "rglru")
+              if not (kernel == "rglru_sm90" and name == "decode")}
+        rg["rglru_decode_shape"]["launch_floor_ms"] = launch_floor_ms(device)
         return {"f32_gate_products_ms_per_layer": gate_ms,
-                "f32_gate_products_ms_per_prefill": gate_ms * n_rec,
-                **{f"rglru_{name}_shape": rglru_numbers((BATCH, t, w), device)
-                   for name, t in (("prefill", PROMPT), ("decode", 1))},
+                "f32_gate_products_ms_per_prefill": gate_ms * n_rec, **rg,
+                "rglru_sm90_stages_ms": {
+                    name: rglru_stages_ms(shapes[name], device)
+                    for name in ("prefill", "ring")},
+                "rglru_route_ms": rglru_route_ms(shapes["decode"], device),
                 "flash_fwd_d256_prefill_shape": attention_numbers(
                     (BATCH, gcfg.num_heads, gcfg.num_kv_heads, PROMPT, PROMPT,
                      gcfg.resolved_head_dim, True, gcfg.window), device)}
@@ -1242,6 +1353,7 @@ def reset_counts() -> None:
     rwkv_kernel.sm90_launches = 0
     rs_kernel.launches = 0
     rglru_kernel.launches = 0
+    rglru_kernel.sm90_launches = 0
 
 
 def read_counts() -> dict:
@@ -1256,7 +1368,8 @@ def read_counts() -> dict:
             "rwkv6": rwkv_kernel.launches,
             "rwkv6_sm90": rwkv_kernel.sm90_launches,
             "rs_encode": rs_kernel.launches,
-            "rglru": rglru_kernel.launches}
+            "rglru": rglru_kernel.launches,
+            "rglru_sm90": rglru_kernel.sm90_launches}
 
 
 def _float_leaves(tree):
@@ -1638,6 +1751,7 @@ def main() -> int:
     rwkv_cases = {"prefill": (BATCH, rh, PROMPT, rcfg.rwkv_head_dim),
                   "decode": (BATCH, rh, 1, rcfg.rwkv_head_dim)}
     rglru_cases = {"prefill": (BATCH, PROMPT, gcfg.resolved_rnn_width),
+                   "ring": (1, RING_PROMPT, gcfg.resolved_rnn_width),
                    "decode": (BATCH, 1, gcfg.resolved_rnn_width)}
     path_case = (BATCH, cfg.num_heads, cfg.num_kv_heads, PROMPT, PROMPT,
                  cfg.resolved_head_dim, True, cfg.window)
@@ -1661,7 +1775,7 @@ def main() -> int:
     bwd_err = check_bwd(train_case, device)
     codec_bad = check_codec(CODEC_NS + [w_gu], device)
     rwkv_errs = check_rwkv6(rwkv_cases, device)
-    rglru_err = check_rglru(rglru_cases, device)
+    rglru_errs = check_rglru(rglru_cases, device)
     torch.cuda.empty_cache()
     log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
 
@@ -1852,10 +1966,18 @@ def main() -> int:
             "ckpt_codec/rs_kernel.py:87",
             counts("rs_encode", "rs_encode_check"), float(rs["mismatches"]),
             rs["numbers"]),
+        # K7: the TMA kernel runs recurrentgemma-9b's prefill, the
+        # register one its one-token decode steps; the register kernel's
+        # prefill and ring times are the yardstick of the earlier design
+        row("rglru_sm90", "rglru/csrc/rglru_sm90.cu", "rglru/kernel.py:58",
+            counts("rglru_sm90", "serve_recurrentgemma"),
+            rglru_errs["rglru_sm90"], rg_num["rglru_sm90_prefill_shape"],
+            ring_shape=rg_num["rglru_sm90_ring_shape"]),
         row("rglru", "rglru/csrc/rglru.cu", "rglru/kernel.py:58",
-            counts("rglru", "serve_recurrentgemma"), rglru_err,
-            rg_num["rglru_prefill_shape"],
-            decode_shape=rg_num["rglru_decode_shape"])]
+            counts("rglru", "serve_recurrentgemma"), rglru_errs["rglru"],
+            rg_num["rglru_decode_shape"],
+            prefill_shape=rg_num["rglru_prefill_shape"],
+            ring_shape=rg_num["rglru_ring_shape"])]
     log(f"  total {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
-"""RG-LRU diagonal recurrence: the Hopper kernel K7 (``csrc/rglru.cu``)
-on CUDA tensors, the plain chunked version on CPU tensors."""
+"""RG-LRU diagonal recurrence: the Hopper kernels K7 on CUDA tensors
+(``csrc/rglru_sm90.cu``, loads by TMA, for prefill; ``csrc/rglru.cu`` for
+shorter calls), the plain chunked version on CPU tensors."""
 from .ops import rglru
 from .ref import rglru_chunked, rglru_ref
 

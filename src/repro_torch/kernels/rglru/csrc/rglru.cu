@@ -1,4 +1,7 @@
-// RG-LRU diagonal recurrence for Hopper (sm_90a): K7.
+// RG-LRU diagonal recurrence for Hopper (sm_90a): K7 for calls below
+// ops.SM90_MIN_T tokens (a decode step), and for widths TMA cannot
+// address; longer calls (prefill) go to rglru_sm90.cu, which takes the
+// same f32 steps.
 //
 // Replaces rglru_pallas (src/repro/kernels/rglru/kernel.py:58; body
 // _rglru_kernel :29).  Per channel, in f32:

@@ -1,13 +1,23 @@
-"""Wrapper of the Hopper RG-LRU scan kernel (``csrc/rglru.cu``), K7.
+"""Wrappers of the Hopper RG-LRU scan kernels, K7:
 
-Replaces ``rglru_pallas`` (``src/repro/kernels/rglru/kernel.py:58``).  The
-CUDA source is compiled with ``nvcc`` for ``sm_90a`` at first use
-(``kernels/common.load_library``) and called through its plain C interface
-with ``ctypes`` on PyTorch's current stream.
+* ``rglru_sm90_cuda``: the scan with its loads by TMA through an mbarrier
+  ring (``csrc/rglru_sm90.cu``, over the helpers of
+  ``flash_attention/csrc/sm90.cuh``), laid out by ``plan``;
+* ``rglru_cuda``: the scan with its loads in registers
+  (``csrc/rglru.cu``).
+
+Both take the same f32 steps, so they agree bit for bit; ``ops.rglru``
+routes between them by length.  Both replace ``rglru_pallas``
+(``src/repro/kernels/rglru/kernel.py:58``).  Each CUDA source is compiled
+with ``nvcc`` for ``sm_90a`` at first use (``kernels/common.load_library``)
+and called through its plain C interface with ``ctypes`` on PyTorch's
+current stream.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -15,38 +25,134 @@ import torch
 
 from ..common import check_tensor, load_library
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "rglru.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+# library name -> (its source, the headers it includes)
+LIBRARIES = {
+    "rglru": (_CSRC / "rglru.cu", ()),
+    "rglru_sm90": (_CSRC / "rglru_sm90.cu",
+                   (_CSRC.parent.parent / "flash_attention" / "csrc"
+                    / "sm90.cuh",))}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROW_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
 
-# launches in this process; a run sets it to 0 and reads it to show that a
-# path went through the kernel
+# launches of the register kernel and of the TMA one in this process; a
+# run sets them to 0 and reads them to show that a path went through them
 launches = 0
+sm90_launches = 0
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {"rglru": [_VP] * 5 + [_CI] * 4 + [_VP],
+             "rglru_sm90": [_VP] * 5 + [_CI] * 6 + [_VP]}
+
+# ``csrc/rglru_sm90.cu``'s geometry: a CTA of a chain warp and four helper
+# warps on a strip of STRIP channels of one batch row, walking its tokens
+# in chunks of 32 or 128 (the kernel's two instances); a ring stage holds a
+# chunk's log_a box (f32) and g box
+STRIP = 32
+CHUNKS = (32, 128)
+# three stages, two chunks in flight while the third is worked on: deeper
+# rings measured no faster (chip_smoke.py's ``rglru_stages_ms``)
+STAGES = 3
+MAX_STAGES = 32
+# an H100's shared memory: 227 KB at most a CTA
+SMEM_PER_CTA = 232_448
+H100_SMS = 132
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load_library("rglru", SOURCES)
-    fn = lib.rglru_fwd
+@dataclass(frozen=True)
+class Plan:
+    """The layout of one ``rglru_sm90`` launch: a grid of ``strips`` x
+    ``batch`` CTAs, ``resident`` of them an SM when all run at once; each
+    walks its tokens in chunks of ``tokens`` through a ring of ``stages``
+    stages, a stage the log_a and g TMA boxes of ``box_bytes`` (STRIP
+    channels by ``tokens`` rows each), ``smem`` bytes of shared memory in
+    all."""
+    strips: int
+    batch: int
+    tokens: int
+    stages: int
+    box_bytes: Tuple[int, int]
+    smem: int
+    resident: int
+
+    @property
+    def ctas(self) -> int:
+        return self.strips * self.batch
+
+
+def row_multiple(dtype: torch.dtype) -> int:
+    """The channel counts D the TMA kernel takes are multiples of this:
+    rows of log_a (f32) and g must be a multiple of 16 bytes (0 for a
+    dtype the kernels do not take)."""
+    return _ROW_MULTIPLE.get(dtype, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan(b: int, t: int, d: int, g_bytes: int = 2, sms: int = H100_SMS,
+         stages: Optional[int] = None) -> Plan:
+    """The launch of ``rglru_sm90`` for (B, T, D) with g of ``g_bytes``
+    (4: f32, 2: bf16) on a card of ``sms`` SMs.  Chunks of 128 tokens when
+    every CTA has an SM to itself (one batch row: the chain warp steps
+    more tokens a wait), of 32 when CTAs share SMs (more, smaller loads
+    at once); STAGES stages, fewer for a short T (at least 2 when there
+    is more than one chunk: the helpers refill a stage a chunk after the
+    chain steps it); ``stages`` overrides the depth."""
+    if min(b, t, d) <= 0 or g_bytes not in (2, 4):
+        raise ValueError(f"no plan for B {b}, T {t}, D {d}, g of {g_bytes} "
+                         f"bytes")
+    if (d * g_bytes) % 16:
+        raise ValueError(f"D = {d}: TMA needs rows of a multiple of 16 "
+                         f"bytes (D a multiple of {16 // g_bytes})")
+    strips = -(-d // STRIP)
+    resident = -(-(strips * b) // sms)
+    tokens = CHUNKS[resident == 1]
+    chunks = -(-t // tokens)
+    if stages is None:
+        stages = min(STAGES, chunks)
+    box_bytes = (STRIP * tokens * 4, STRIP * tokens * g_bytes)
+    # the ring, three barriers a stage, and room to align the ring to 128
+    # bytes (csrc/rglru_sm90.cu's launch)
+    smem = stages * (sum(box_bytes) + 24) + 128
+    if not (2 if chunks > 1 else 1) <= stages <= MAX_STAGES or \
+            smem > SMEM_PER_CTA:
+        raise ValueError(f"a ring of {stages} stages of {tokens} tokens "
+                         f"does not fit a CTA or T = {t}")
+    return Plan(strips=strips, batch=b, tokens=tokens, stages=stages,
+                box_bytes=box_bytes, smem=smem, resident=resident)
+
+
+def _lib(name: str):
+    """The loaded library ``name`` and its C entry."""
+    source, headers = LIBRARIES[name]
+    lib = load_library(name, (source,), headers)
+    fn = getattr(lib, "rglru_fwd" if name == "rglru" else name)
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 5 + [ci] * 4 + [vp]
-        fn.restype = ci
-        lib.rglru_error_string.argtypes = [ci]
-        lib.rglru_error_string.restype = ctypes.c_char_p
-    return lib
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = _CI
+        err = getattr(lib, name + "_error_string")
+        err.argtypes = [_CI]
+        err.restype = ctypes.c_char_p
+    return lib, fn
 
 
-def build() -> None:
-    """Compile (if needed) and load the kernel's library."""
-    _lib()
+def _call(name: str, *args) -> None:
+    lib, fn = _lib(name)
+    status = fn(*args)
+    if status != 0:
+        msg = getattr(lib, name + "_error_string")(status).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({status})")
 
 
-def rglru_cuda(log_a: torch.Tensor, g: torch.Tensor,
-               h0: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """log_a: (B, T, D) f32, g: (B, T, D) f32 or bf16, h0: (B, D) f32 or
-    None (zeros), all contiguous on one CUDA device.  Returns ``(h in
-    g.dtype, h_final f32)``."""
-    global launches
+def build(name: str) -> None:
+    """Compile (if needed) and load library ``name`` of ``LIBRARIES``."""
+    _lib(name)
+
+
+def _check(log_a, g, h0) -> Tuple[int, int, int]:
     if g.dim() != 3:
         raise ValueError(f"g must be (B, T, D), got {tuple(g.shape)}")
     b, t, d = g.shape
@@ -54,19 +160,58 @@ def rglru_cuda(log_a: torch.Tensor, g: torch.Tensor,
     check_tensor("log_a", log_a, (b, t, d), (torch.float32,), g.device)
     if h0 is not None:
         check_tensor("h0", h0, (b, d), (torch.float32,), g.device)
-    h = torch.empty_like(g)
+    return b, t, d
+
+
+def _empty(g, h0):
+    """The outputs of a call with no token or no channel."""
+    b, _, d = g.shape
+    return torch.empty_like(g), (
+        torch.zeros((b, d), dtype=torch.float32, device=g.device)
+        if h0 is None else h0.clone())
+
+
+def rglru_cuda(log_a: torch.Tensor, g: torch.Tensor,
+               h0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The register kernel.  log_a: (B, T, D) f32, g: (B, T, D) f32 or
+    bf16, h0: (B, D) f32 or None (zeros), all contiguous on one CUDA
+    device.  Returns ``(h in g.dtype, h_final f32)``."""
+    global launches
+    b, t, d = _check(log_a, g, h0)
     if t == 0 or b * d == 0:
-        return h, (torch.zeros((b, d), dtype=torch.float32, device=g.device)
-                   if h0 is None else h0.clone())
+        return _empty(g, h0)
+    h = torch.empty_like(g)
     h_final = torch.empty((b, d), dtype=torch.float32, device=g.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    status = lib.rglru_fwd(log_a.data_ptr(), g.data_ptr(),
-                           None if h0 is None else h0.data_ptr(),
-                           h.data_ptr(), h_final.data_ptr(), b, t, d,
-                           _DTYPES[g.dtype], stream)
-    if status != 0:
-        msg = lib.rglru_error_string(status).decode()
-        raise RuntimeError(f"rglru launch failed: {msg} ({status})")
+    _call("rglru", log_a.data_ptr(), g.data_ptr(),
+          None if h0 is None else h0.data_ptr(), h.data_ptr(),
+          h_final.data_ptr(), b, t, d, _DTYPES[g.dtype],
+          torch.cuda.current_stream(g.device).cuda_stream)
     launches += 1
+    return h, h_final
+
+
+def rglru_sm90_cuda(log_a: torch.Tensor, g: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None,
+                    stages: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The TMA kernel: as ``rglru_cuda``, but log_a and g 16-byte aligned
+    and D a multiple of ``row_multiple(g.dtype)`` (TMA reads them), else
+    ValueError.  ``stages`` sets the ring's depth (``plan``'s by
+    default)."""
+    global sm90_launches
+    b, t, d = _check(log_a, g, h0)
+    if t == 0 or b * d == 0:
+        return _empty(g, h0)
+    for name, x in (("log_a", log_a), ("g", g)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (TMA)")
+    p = plan(b, t, d, g.element_size(), _sms(g.device.index), stages)
+    h = torch.empty_like(g)      # 16-byte aligned: the kernel's stores
+    h_final = torch.empty((b, d), dtype=torch.float32, device=g.device)
+    _call("rglru_sm90", log_a.data_ptr(), g.data_ptr(),
+          None if h0 is None else h0.data_ptr(), h.data_ptr(),
+          h_final.data_ptr(), b, t, d, _DTYPES[g.dtype], p.tokens, p.stages,
+          torch.cuda.current_stream(g.device).cuda_stream)
+    sm90_launches += 1
     return h, h_final

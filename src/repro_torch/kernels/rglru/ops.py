@@ -1,4 +1,4 @@
-"""Public RG-LRU op: the Hopper kernel (K7) on CUDA tensors, the plain
+"""Public RG-LRU op: the Hopper kernels (K7) on CUDA tensors, the plain
 chunked version on CPU tensors.
 
 The twin of ``repro/kernels/rglru/ops.py::rglru``.  The forward only: the
@@ -6,6 +6,17 @@ reference's backward is the analytic reverse scan of ``ops._rglru_bwd``
 (``ops.py:54-86``), and the port's comes with hybrid training.  A CUDA
 call whose inputs require grad raises rather than fall back to autograd
 over the plain version.
+
+Routing on CUDA, by length and width (not a setting):
+
+* at least ``SM90_MIN_T`` tokens (prefill), D a multiple of
+  ``kernel.row_multiple(g.dtype)`` (TMA's 16-byte rows): the TMA kernel,
+  ``kernel.rglru_sm90_cuda``;
+* shorter calls (a decode step), and widths TMA cannot address: the
+  register kernel, ``kernel.rglru_cuda``.
+
+The two take the same f32 steps, so the route changes no bit of the
+result.
 """
 from __future__ import annotations
 
@@ -16,6 +27,16 @@ import torch
 from ..common import on_cuda
 from . import kernel
 from .ref import rglru_chunked
+
+# the fewest tokens the TMA kernel takes; below, the register kernel.
+# The TMA kernel waits out its ring's first loads however few tokens it
+# gets, and below about 300 tokens at recurrentgemma-9b's width the
+# inputs of back-to-back calls stay in the 50 MB L2, where the register
+# kernel's loads are quick.  Measured at (4, T, 4096), bf16 g, on an H100
+# (chip_smoke.py's ``rglru_route_ms``): the register kernel is the faster
+# up to T = 256, the TMA kernel from T = 320.  A decode step (T = 1) stays
+# on the register kernel; a prefill of 512 tokens goes to the TMA one.
+SM90_MIN_T = 320
 
 
 def rglru(log_a: torch.Tensor, g: torch.Tensor,
@@ -32,6 +53,21 @@ def rglru(log_a: torch.Tensor, g: torch.Tensor,
         raise NotImplementedError(
             "rglru on CUDA has no backward kernel yet (it comes with hybrid "
             "training); call it under torch.no_grad()")
-    return kernel.rglru_cuda(
-        log_a.float().contiguous(), g.contiguous(),
-        None if h0 is None else h0.float().contiguous())
+    log_a, g = log_a.float().contiguous(), g.contiguous()
+    h0 = None if h0 is None else h0.float().contiguous()
+    if route(g.shape[1], g.shape[2], g.dtype) == "rglru_sm90":
+        # TMA reads log_a and g from 16-byte aligned addresses: a view at
+        # another offset is copied to fresh (aligned) memory
+        log_a, g = (x if x.data_ptr() % 16 == 0 else x.clone()
+                    for x in (log_a, g))
+        return kernel.rglru_sm90_cuda(log_a, g, h0)
+    return kernel.rglru_cuda(log_a, g, h0)
+
+
+def route(t: int, d: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call of T tokens and D channels with g of
+    ``dtype`` launches: "rglru_sm90" or "rglru"."""
+    m = kernel.row_multiple(dtype)
+    if t >= SM90_MIN_T and m and d % m == 0:
+        return "rglru_sm90"
+    return "rglru"

@@ -29,11 +29,13 @@ Every test skips without a card.  Tolerances:
   the split falls on a chunk boundary of both runs, within the tolerance
   above where it does not;
 * Reed-Solomon encode (K5): bit-equal to the numpy host codec;
-* RG-LRU scan (K7) against its plain chunked version: h_final and an f32
-  h within atol 2e-4 (the reference's kernel tests), a bf16 h within atol
-  2e-4 + rtol 2^-7 (one bf16 rounding of an f32 value apart); two runs
-  bit-equal; [0, T/2) then [T/2, T) equal to one shot (the same f32
-  steps);
+* RG-LRU scan (K7), both kernels (loads in registers, ``rglru.cu``, and by
+  TMA, ``rglru_sm90.cu``) against their plain chunked version: h_final
+  and an f32 h within atol 2e-4 (the reference's kernel tests), a bf16 h
+  within atol 2e-4 + rtol 2^-7 (one bf16 rounding of an f32 value apart);
+  the TMA kernel bit-equal to the register kernel at every shape and ring
+  depth (the same f32 steps); two runs bit-equal; [0, T/2) then [T/2, T)
+  and one-token steps equal to one shot; ``ops.rglru`` routes by length;
 * the flash-attention forward at head dim 256 (recurrentgemma-9b's MQA
   layers): the forward's tolerances above.
 
@@ -667,9 +669,12 @@ def test_rs_encode_kernel_rejects_what_it_does_not_take(card):
 # K7: the RG-LRU scan, against its plain chunked version
 # --------------------------------------------------------------------------
 # the sweep of tests/test_kernels_rglru.py, plus recurrentgemma-9b's
-# prefill and decode shapes; (b, t, d)
+# prefill and decode shapes, its ring sub-phase's prefill and ragged cases
+# of the TMA kernel (T not a multiple of its chunk, over several chunks; D
+# a multiple of its 32-channel strip and not); (b, t, d)
 RGLRU_SWEEP = [(2, 100, 256), (1, 64, 128), (1, 5, 512), (3, 33, 96),
-               (4, 512, 4096), (4, 1, 4096)]
+               (4, 512, 4096), (4, 1, 4096), (1, 2560, 4096), (3, 100, 96),
+               (3, 100, 104), (5, 100, 1000), (1, 300, 104)]
 RGLRU_TOL = {"float32": (2e-4, 0.0), "bfloat16": (2e-4, 2 ** -7)}
 
 
@@ -692,21 +697,111 @@ def _rglru_check(got, want, dtype):
     torch.testing.assert_close(got[1], want[1], atol=2e-4, rtol=0)
 
 
+def _rglru_counts():
+    from repro_torch.kernels.rglru import kernel
+
+    return kernel.launches, kernel.sm90_launches
+
+
 @pytest.mark.parametrize("with_h0", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", RGLRU_SWEEP)
 def test_rglru_kernel_matches_plain(card, case, dtype, with_h0):
-    from repro_torch.kernels.rglru import kernel, rglru, rglru_chunked
+    """Through ``ops.rglru``, which launches one of the two kernels."""
+    from repro_torch.kernels.rglru import rglru, rglru_chunked
 
     la, g, h0 = _rglru_inputs(card, 3, *case, dtype)
     h0 = h0 if with_h0 else None
-    n0 = kernel.launches
+    n0 = sum(_rglru_counts())
     got = rglru(la, g, h0)
     torch.cuda.synchronize()
-    assert kernel.launches == n0 + 1
+    assert sum(_rglru_counts()) == n0 + 1
     _rglru_check(got, rglru_chunked(la, g, h0), dtype)
     again = rglru(la, g, h0)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_SWEEP)
+def test_rglru_sm90_kernel_matches_plain_and_register_kernel(
+        card, case, dtype, with_h0):
+    """The TMA kernel called directly, below ``SM90_MIN_T`` too: within the
+    tolerance of the plain version, bit-equal to the register kernel, two
+    runs bit-equal."""
+    from repro_torch.kernels.rglru import rglru_chunked
+    from repro_torch.kernels.rglru.kernel import rglru_cuda, rglru_sm90_cuda
+
+    la, g, h0 = _rglru_inputs(card, 3, *case, dtype)
+    h0 = h0 if with_h0 else None
+    n0 = _rglru_counts()
+    got = rglru_sm90_cuda(la, g, h0)
+    again = rglru_sm90_cuda(la, g, h0)
+    torch.cuda.synchronize()
+    assert _rglru_counts() == (n0[0], n0[1] + 2)
+    _rglru_check(got, rglru_chunked(la, g, h0), dtype)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert all(torch.equal(x, y) for x, y in zip(got, rglru_cuda(la, g, h0)))
+
+
+@pytest.mark.parametrize("stages", [2, 3, 5])
+@pytest.mark.parametrize("case", [(4, 512, 4096), (1, 2560, 4096),
+                                  (5, 100, 1000)])
+def test_rglru_sm90_ring_depths(card, case, stages):
+    """Every ring depth wraps its stages' barrier phases the same way:
+    bit-equal to the register kernel."""
+    from repro_torch.kernels.rglru.kernel import rglru_cuda, rglru_sm90_cuda
+
+    la, g, h0 = _rglru_inputs(card, 8, *case, "bfloat16")
+    got = rglru_sm90_cuda(la, g, h0, stages=stages)
+    assert all(torch.equal(x, y) for x, y in zip(got, rglru_cuda(la, g, h0)))
+
+
+@pytest.mark.parametrize("d", [4096, 100])
+@pytest.mark.parametrize("t", [1, 255, 320, 512])
+def test_rglru_routing(card, t, d):
+    """``ops.rglru`` sends calls of at least SM90_MIN_T tokens whose rows
+    TMA can address (D a multiple of 8 for bf16 g) to the TMA kernel,
+    everything else to the register kernel; a view at an odd offset takes
+    the same route and gives the same result."""
+    from repro_torch.kernels.rglru import rglru
+    from repro_torch.kernels.rglru.ops import SM90_MIN_T
+
+    sm90 = t >= SM90_MIN_T and d % 8 == 0
+    assert sm90 == (t in (320, 512) and d == 4096)
+    la, g, h0 = _rglru_inputs(card, 9, 1, t, d, "bfloat16")
+    n0 = _rglru_counts()
+    got = rglru(la, g, h0)
+    n1 = _rglru_counts()
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == ((0, 1) if sm90 else (1, 0))
+    buf = torch.empty(g.numel() + 1, dtype=g.dtype, device=card)
+    g_odd = buf[1:].view(g.shape)
+    g_odd.copy_(g)
+    assert g_odd.is_contiguous() and g_odd.data_ptr() % 16
+    n1 = _rglru_counts()
+    odd = rglru(la, g_odd, h0)
+    n2 = _rglru_counts()
+    assert (n2[0] - n1[0], n2[1] - n1[1]) == ((0, 1) if sm90 else (1, 0))
+    assert all(torch.equal(x, y) for x, y in zip(got, odd))
+
+
+def test_rglru_sm90_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.rglru.kernel import rglru_sm90_cuda
+
+    la, g, h0 = _rglru_inputs(card, 10, 1, 64, 104, "bfloat16")
+    with pytest.raises(ValueError, match="dtype"):
+        rglru_sm90_cuda(la, g.half(), h0)
+    buf = torch.empty(g.numel() + 1, dtype=g.dtype, device=card)
+    g_odd = buf[1:].view(g.shape)
+    g_odd.copy_(g)
+    with pytest.raises(ValueError, match="16-byte"):
+        rglru_sm90_cuda(la, g_odd, h0)
+    la, g, h0 = _rglru_inputs(card, 10, 1, 64, 100, "bfloat16")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rglru_sm90_cuda(la, g, h0)
+    la, g, h0 = _rglru_inputs(card, 10, 1, 640, 128, "bfloat16")
+    with pytest.raises(ValueError, match="ring of 1 stages"):
+        rglru_sm90_cuda(la, g, h0, stages=1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -726,6 +821,31 @@ def test_rglru_kernel_state_continuation(card, dtype):
                        g[:, t:t + 1].contiguous(), st)
         outs.append(ht)
     assert torch.equal(torch.cat(outs, 1), h2) and torch.equal(st, hT)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_sm90_state_continuation(card, dtype):
+    """The serving path's hand-off: a prefill on the TMA kernel, [0, T/2)
+    then [T/2, T) on it too, and one-token steps on the register kernel
+    from its carried state, all equal to one shot."""
+    from repro_torch.kernels.rglru import rglru
+    from repro_torch.kernels.rglru.ops import SM90_MIN_T
+
+    t = 2 * SM90_MIN_T
+    la, g, h0 = _rglru_inputs(card, 11, 4, t, 4096, dtype)
+    n0 = _rglru_counts()
+    h, hT = rglru(la, g, h0)
+    h1, s1 = rglru(la[:, :t // 2], g[:, :t // 2], h0)
+    h2, s2 = rglru(la[:, t // 2:], g[:, t // 2:], s1)
+    assert _rglru_counts() == (n0[0], n0[1] + 3)
+    assert torch.equal(torch.cat([h1, h2], 1), h) and torch.equal(s2, hT)
+    hp, st = rglru(la[:, :t - 8], g[:, :t - 8], h0)
+    outs = [hp]
+    for i in range(t - 8, t):
+        ht, st = rglru(la[:, i:i + 1], g[:, i:i + 1], st)
+        outs.append(ht)
+    assert _rglru_counts() == (n0[0] + 8, n0[1] + 4)
+    assert torch.equal(torch.cat(outs, 1), h) and torch.equal(st, hT)
 
 
 def test_rglru_cuda_call_with_grad_raises(card):
