@@ -175,10 +175,17 @@ RS_STRIDES = [1, 15, 33, 4097, 100_003]
 # the sweep of tests/test_kernels_rglru.py, then ragged cases of the TMA
 # kernel: T not a multiple of its chunk (32 tokens where CTAs share SMs,
 # 128 where each has one) over several chunks, D a multiple of its
-# 32-channel strip and not; the serving path's shapes follow; (b, t, d)
+# 32-channel strip and not, and for f32 g a multiple of 4 but not of 8
+# (a row that ends halfway into a helper's 8-channel store; bf16 rows of
+# that width go to the register kernel alone); the serving path's shapes
+# follow; (b, t, d)
 RGLRU_SWEEP = [(2, 100, 256), (1, 64, 128), (1, 5, 512), (3, 33, 96),
-               (3, 100, 96), (3, 100, 104), (5, 100, 1000), (1, 300, 104)]
+               (3, 100, 96), (3, 100, 104), (5, 100, 1000), (1, 300, 104),
+               (1, 320, 100), (3, 100, 100)]
 RGLRU_TOL = {"float32": (2e-4, 0.0), "bfloat16": (2e-4, 2 ** -7)}
+# how much slower than the other K7 kernel the routed one may be at
+# T = SM90_MIN_T - 32 and SM90_MIN_T, where the two nearly tie
+RGLRU_ROUTE_TIE = 0.05
 # recurrentgemma-9b's attention at head dim 256 (MQA, causal, window
 # 2048): a short window, the serving path's prefill, a window that hides
 # keys; (b, hq, hkv, t, s, d, causal, window)
@@ -1126,13 +1133,17 @@ def check_rglru(path_cases, device) -> dict:
     import torch
 
     from repro_torch.kernels.rglru import rglru, rglru_chunked
-    from repro_torch.kernels.rglru.kernel import rglru_cuda, rglru_sm90_cuda
+    from repro_torch.kernels.rglru.kernel import (rglru_cuda,
+                                                  rglru_sm90_cuda,
+                                                  row_multiple)
 
-    kernels = {"rglru": rglru_cuda, "rglru_sm90": rglru_sm90_cuda}
     errs = {}
     for case in RGLRU_SWEEP + list(path_cases.values()):
         for dtype in ("float32", "bfloat16"):
             la, g, h0 = _rglru_inputs(3, case, dtype, device)
+            kernels = {"rglru": rglru_cuda, "rglru_sm90": rglru_sm90_cuda}
+            if case[2] % row_multiple(g.dtype):     # rows TMA cannot read
+                del kernels["rglru_sm90"]
             for init in (h0, None):
                 want = rglru_chunked(la, g, init)
                 got = {name: fn(la, g, init) for name, fn in kernels.items()}
@@ -1147,6 +1158,10 @@ def check_rglru(path_cases, device) -> dict:
                                for x, y in zip(got[name], again[name])):
                         raise AssertionError(f"{name} {what}: two runs "
                                              f"differ")
+                if "rglru_sm90" not in got:
+                    log(f"  rglru {what}: max abs err {err['rglru']:.3e} "
+                        f"(rows TMA cannot read: no rglru_sm90)")
+                    continue
                 if not all(torch.equal(x, y) for x, y in
                            zip(got["rglru_sm90"], got["rglru"])):
                     raise AssertionError(f"rglru_sm90 {what} differs from "
@@ -1214,46 +1229,35 @@ def launch_floor_ms(device) -> float:
     return device_ms(lambda: x.add_(1.0))
 
 
-def rglru_stages_ms(case, device, stages=(2, 3, 4, 6)) -> dict:
-    """The TMA kernel's ``device_ms`` at (B, T, D) = ``case``, bf16 g, with
-    each ring depth of ``stages`` that fits, beside ``plan``'s choice:
-    the measurement behind ``kernel.plan``."""
-    from repro_torch.kernels.rglru.kernel import plan, rglru_sm90_cuda
-
-    la, g, h0 = _rglru_inputs(3, case, "bfloat16", device)
-    chosen = plan(*case).stages
-    out = {"plan": chosen}
-    for n in sorted({*stages, chosen}):
-        try:
-            plan(*case, stages=n)
-        except ValueError:          # more shared memory than a CTA has
-            continue
-        out[str(n)] = device_ms(lambda: rglru_sm90_cuda(la, g, h0, n))
-    log(f"  rglru_sm90 at {case} by ring depth: {json.dumps(out)}")
-    return out
-
-
 def rglru_route_ms(case, device, ts=(1, 64, 256, 384, 512)) -> dict:
     """Both K7 kernels' ``device_ms`` at (B, T, D) = ``case`` with T from
-    ``ts``, bf16 g: the measurement behind ``ops.SM90_MIN_T``.  Fails
-    unless the register kernel is the faster below ``SM90_MIN_T`` tokens
-    and the TMA one from it, so a crossover that moves shows."""
+    ``ts`` and at ``SM90_MIN_T`` - 32 and ``SM90_MIN_T``, bf16 g: the
+    measurement behind ``ops.SM90_MIN_T``.  Fails unless the register
+    kernel is the faster below ``SM90_MIN_T`` tokens and the TMA one from
+    it, so a crossover that moves off the threshold's side shows.  At
+    the two points that bracket the threshold the kernel ``ops.route``
+    picks may be up to RGLRU_ROUTE_TIE slower than the other: from T =
+    257 to about 300 the two are within a few per cent, and which one
+    leads there changes from call to call."""
     from repro_torch.kernels.rglru.kernel import rglru_cuda, rglru_sm90_cuda
     from repro_torch.kernels.rglru.ops import SM90_MIN_T
 
     b, _, d = case
     out = {"sm90_min_t": SM90_MIN_T}
-    for t in ts:
+    for t in sorted({*ts, SM90_MIN_T - 32, SM90_MIN_T}):
         la, g, h0 = _rglru_inputs(3, (b, t, d), "bfloat16", device)
         sm90 = device_ms(lambda: rglru_sm90_cuda(la, g, h0))
         reg = device_ms(lambda: rglru_cuda(la, g, h0))
         out[str(t)] = {"rglru_sm90": sm90, "rglru": reg}
         log(f"  rglru route at T = {t}: TMA {sm90:.6f} ms, registers "
             f"{reg:.6f} ms (ops.SM90_MIN_T = {SM90_MIN_T})")
-        if (sm90 < reg) != (t >= SM90_MIN_T):
+        routed, other = (sm90, reg) if t >= SM90_MIN_T else (reg, sm90)
+        tie = RGLRU_ROUTE_TIE if t in (SM90_MIN_T - 32, SM90_MIN_T) else 0.0
+        if routed >= other * (1 + tie):
             raise AssertionError(
                 f"rglru at T = {t}: TMA {sm90} ms, registers {reg} ms; "
-                f"ops.SM90_MIN_T = {SM90_MIN_T} routes it to the slower")
+                f"ops.SM90_MIN_T = {SM90_MIN_T} routes it to the slower "
+                f"(allowed at the threshold's bracket: {tie:.0%})")
     return out
 
 
@@ -1309,9 +1313,6 @@ def serve_recurrentgemma_phase(gcfg, device, card):
         rg["rglru_decode_shape"]["launch_floor_ms"] = launch_floor_ms(device)
         return {"f32_gate_products_ms_per_layer": gate_ms,
                 "f32_gate_products_ms_per_prefill": gate_ms * n_rec, **rg,
-                "rglru_sm90_stages_ms": {
-                    name: rglru_stages_ms(shapes[name], device)
-                    for name in ("prefill", "ring")},
                 "rglru_route_ms": rglru_route_ms(shapes["decode"], device),
                 "flash_fwd_d256_prefill_shape": attention_numbers(
                     (BATCH, gcfg.num_heads, gcfg.num_kv_heads, PROMPT, PROMPT,

@@ -44,6 +44,11 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
 __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
+// orders this thread's generic-proxy accesses to shared memory before
+// later async-proxy ones (a TMA write into the same bytes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
                :: "r"(smem_u32(bar)) : "memory");

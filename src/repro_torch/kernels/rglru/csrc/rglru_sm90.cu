@@ -30,15 +30,17 @@
 //   * helper warps: once a chunk lands, exp(log_a) in place (consecutive
 //     threads on consecutive words), then `ready`; once the chain is done
 //     with the chunk before, its h from shared memory into device memory
-//     in g's type, 8 channels of a token a thread with one 16-byte store;
-//     then, when every helper is done with that stage (a named barrier),
-//     one of them refills it with the chunk `stages` ahead;
+//     in g's type, 8 channels of a token a thread with 16-byte stores;
+//     then, when every helper is done with that stage (a proxy fence and a
+//     named barrier), one of them refills it with the chunk `stages` ahead;
 //   * the chain warp, one lane a channel: once a chunk is `ready`, its
 //     exps and g loaded 32 tokens at a time, the chain of FMAs, and h (f32)
-//     written over the exps; then `done`.
-// One arrival a warp on each barrier.  Three stages keep two chunks in
-// flight while the third is worked on; deeper rings measured no faster
-// (chip_smoke.py's rglru_stages_ms).
+//     written over the exps; then a proxy fence and `done`.
+// One arrival a warp on each barrier.  The stages are written through the
+// generic proxy before TMA (the async proxy) refills them, so every warp
+// that wrote or read one fences the proxies before it signals.  Three
+// stages keep two chunks in flight while the third is worked on; deeper
+// rings measured no faster (PERF.md, K7's ring-depth sweep).
 //
 // Numerics: the f32 steps of rglru.cu (fmaf(expf(log_a), h, g), no fast
 // math, h0 in f32, h rounded to nearest into g's type), so the two kernels
@@ -114,15 +116,17 @@ __device__ __forceinline__ void issue(const Smem<G, U>& sm,
   tma_load_3d(sm.a(s) + U * W, mg, sm.full(s), c0, k * U, b);
 }
 
-// 8 f32 values of h into device memory in g's type, one or two 16-byte
-// stores
+// 8 f32 values of h into device memory in g's type, of which the first
+// `room` lie inside the row: two 16-byte stores for f32 (the second only
+// when room >= 8: an f32 row may end 4 channels into the group), one for
+// bf16 (rows of a multiple of 8 channels)
 __device__ __forceinline__ void store8(float* dst, const float4& a,
-                                       const float4& b) {
+                                       const float4& b, int room) {
   reinterpret_cast<float4*>(dst)[0] = a;
-  reinterpret_cast<float4*>(dst)[1] = b;
+  if (room >= 8) reinterpret_cast<float4*>(dst)[1] = b;
 }
 __device__ __forceinline__ void store8(__nv_bfloat16* dst, const float4& a,
-                                       const float4& b) {
+                                       const float4& b, int) {
   const __nv_bfloat162 p[4] = {__floats2bfloat162_rn(a.x, a.y),
                                __floats2bfloat162_rn(a.z, a.w),
                                __floats2bfloat162_rn(b.x, b.y),
@@ -217,10 +221,13 @@ rglru_sm90_kernel(const __grid_constant__ CUtensorMap ma,
           const int t = kp * U + q / (W / 8), c = c0 + 8 * (q % (W / 8));
           if (t < n_tok && c < D) {
             const float4* src = reinterpret_cast<const float4*>(hs + 8 * q);
-            store8(h + (int64_t(b) * n_tok + t) * D + c, src[0], src[1]);
+            store8(h + (int64_t(b) * n_tok + t) * D + c, src[0], src[1],
+                   D - c);
           }
         }
-        // every helper has read the stage: refill it
+        // every helper has read the stage: its generic reads and writes
+        // ordered before the TMA write that refills it
+        fence_proxy_async();
         asm volatile("bar.sync 1, %0;\n" :: "n"(HT) : "memory");
         if (tid == 32 && kp + stages < n_chunks)
           issue(sm, &ma, &mg, kp + stages, c0, b);
@@ -243,6 +250,7 @@ rglru_sm90_kernel(const __grid_constant__ CUtensorMap ma,
       if (n >= SUB) hc = steps<G, true>(a, g, hc, SUB);
       else if (n > 0) hc = steps<G, false>(a, g, hc, n);
     }
+    fence_proxy_async();     // h's generic writes before a later TMA write
     __syncwarp();            // the warp's h, then one arrival
     if (tid == 0) mbar_arrive(sm.done(s));
   }

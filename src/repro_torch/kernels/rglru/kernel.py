@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -46,38 +45,14 @@ _ARGTYPES = {"rglru": [_VP] * 5 + [_CI] * 4 + [_VP],
 
 # ``csrc/rglru_sm90.cu``'s geometry: a CTA of a chain warp and four helper
 # warps on a strip of STRIP channels of one batch row, walking its tokens
-# in chunks of 32 or 128 (the kernel's two instances); a ring stage holds a
-# chunk's log_a box (f32) and g box
+# in chunks of 32 or 128 (the kernel's two instances) through a ring of
+# stages; the kernel checks its boxes and shared memory itself
 STRIP = 32
 CHUNKS = (32, 128)
 # three stages, two chunks in flight while the third is worked on: deeper
-# rings measured no faster (chip_smoke.py's ``rglru_stages_ms``)
+# rings measured no faster (PERF.md, K7's ring-depth sweep)
 STAGES = 3
-MAX_STAGES = 32
-# an H100's shared memory: 227 KB at most a CTA
-SMEM_PER_CTA = 232_448
 H100_SMS = 132
-
-
-@dataclass(frozen=True)
-class Plan:
-    """The layout of one ``rglru_sm90`` launch: a grid of ``strips`` x
-    ``batch`` CTAs, ``resident`` of them an SM when all run at once; each
-    walks its tokens in chunks of ``tokens`` through a ring of ``stages``
-    stages, a stage the log_a and g TMA boxes of ``box_bytes`` (STRIP
-    channels by ``tokens`` rows each), ``smem`` bytes of shared memory in
-    all."""
-    strips: int
-    batch: int
-    tokens: int
-    stages: int
-    box_bytes: Tuple[int, int]
-    smem: int
-    resident: int
-
-    @property
-    def ctas(self) -> int:
-        return self.strips * self.batch
 
 
 def row_multiple(dtype: torch.dtype) -> int:
@@ -92,37 +67,17 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan(b: int, t: int, d: int, g_bytes: int = 2, sms: int = H100_SMS,
-         stages: Optional[int] = None) -> Plan:
-    """The launch of ``rglru_sm90`` for (B, T, D) with g of ``g_bytes``
-    (4: f32, 2: bf16) on a card of ``sms`` SMs.  Chunks of 128 tokens when
-    every CTA has an SM to itself (one batch row: the chain warp steps
-    more tokens a wait), of 32 when CTAs share SMs (more, smaller loads
-    at once); STAGES stages, fewer for a short T (at least 2 when there
-    is more than one chunk: the helpers refill a stage a chunk after the
-    chain steps it); ``stages`` overrides the depth."""
-    if min(b, t, d) <= 0 or g_bytes not in (2, 4):
-        raise ValueError(f"no plan for B {b}, T {t}, D {d}, g of {g_bytes} "
-                         f"bytes")
-    if (d * g_bytes) % 16:
-        raise ValueError(f"D = {d}: TMA needs rows of a multiple of 16 "
-                         f"bytes (D a multiple of {16 // g_bytes})")
-    strips = -(-d // STRIP)
-    resident = -(-(strips * b) // sms)
-    tokens = CHUNKS[resident == 1]
-    chunks = -(-t // tokens)
-    if stages is None:
-        stages = min(STAGES, chunks)
-    box_bytes = (STRIP * tokens * 4, STRIP * tokens * g_bytes)
-    # the ring, three barriers a stage, and room to align the ring to 128
-    # bytes (csrc/rglru_sm90.cu's launch)
-    smem = stages * (sum(box_bytes) + 24) + 128
-    if not (2 if chunks > 1 else 1) <= stages <= MAX_STAGES or \
-            smem > SMEM_PER_CTA:
-        raise ValueError(f"a ring of {stages} stages of {tokens} tokens "
-                         f"does not fit a CTA or T = {t}")
-    return Plan(strips=strips, batch=b, tokens=tokens, stages=stages,
-                box_bytes=box_bytes, smem=smem, resident=resident)
+def plan(b: int, t: int, d: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """``(tokens, stages)`` of the ``rglru_sm90`` launch for (B, T, D) on a
+    card of ``sms`` SMs: chunks of 128 tokens when each of the grid's
+    ceil(D / STRIP) x B CTAs has an SM to itself (one batch row: the chain
+    warp steps more tokens a wait), of 32 when CTAs share SMs (more,
+    smaller loads at once); a ring of STAGES stages, or of as many as
+    there are chunks."""
+    if min(b, t, d) <= 0:
+        raise ValueError(f"no plan for B {b}, T {t}, D {d}")
+    tokens = CHUNKS[-(-d // STRIP) * b <= sms]
+    return tokens, min(STAGES, -(-t // tokens))
 
 
 def _lib(name: str):
@@ -192,13 +147,11 @@ def rglru_cuda(log_a: torch.Tensor, g: torch.Tensor,
 
 
 def rglru_sm90_cuda(log_a: torch.Tensor, g: torch.Tensor,
-                    h0: Optional[torch.Tensor] = None,
-                    stages: Optional[int] = None
+                    h0: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The TMA kernel: as ``rglru_cuda``, but log_a and g 16-byte aligned
     and D a multiple of ``row_multiple(g.dtype)`` (TMA reads them), else
-    ValueError.  ``stages`` sets the ring's depth (``plan``'s by
-    default)."""
+    ValueError."""
     global sm90_launches
     b, t, d = _check(log_a, g, h0)
     if t == 0 or b * d == 0:
@@ -206,12 +159,16 @@ def rglru_sm90_cuda(log_a: torch.Tensor, g: torch.Tensor,
     for name, x in (("log_a", log_a), ("g", g)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned (TMA)")
-    p = plan(b, t, d, g.element_size(), _sms(g.device.index), stages)
+    m = row_multiple(g.dtype)
+    if d % m:
+        raise ValueError(f"D = {d}: TMA needs rows of a multiple of 16 "
+                         f"bytes (D a multiple of {m} for {g.dtype} g)")
+    tokens, stages = plan(b, t, d, _sms(g.device.index))
     h = torch.empty_like(g)      # 16-byte aligned: the kernel's stores
     h_final = torch.empty((b, d), dtype=torch.float32, device=g.device)
     _call("rglru_sm90", log_a.data_ptr(), g.data_ptr(),
           None if h0 is None else h0.data_ptr(), h.data_ptr(),
-          h_final.data_ptr(), b, t, d, _DTYPES[g.dtype], p.tokens, p.stages,
+          h_final.data_ptr(), b, t, d, _DTYPES[g.dtype], tokens, stages,
           torch.cuda.current_stream(g.device).cuda_stream)
     sm90_launches += 1
     return h, h_final

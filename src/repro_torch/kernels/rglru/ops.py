@@ -34,9 +34,11 @@ from .ref import rglru_chunked
 # inputs of back-to-back calls stay in the 50 MB L2, where the register
 # kernel's loads are quick.  Measured at (4, T, 4096), bf16 g, on an H100
 # (chip_smoke.py's ``rglru_route_ms``): the register kernel is the faster
-# up to T = 256, the TMA kernel from T = 320.  A decode step (T = 1) stays
+# up to T = 256 (by about 20 %), the two are within a few per cent from
+# 257 to about 300 (either leads, call by call), and the TMA kernel is
+# the faster from T = 304 (by about 15 %).  A decode step (T = 1) stays
 # on the register kernel; a prefill of 512 tokens goes to the TMA one.
-SM90_MIN_T = 320
+SM90_MIN_T = 304
 
 
 def rglru(log_a: torch.Tensor, g: torch.Tensor,

@@ -133,10 +133,6 @@ __device__ __forceinline__ uint32_t swz(uint32_t off, uint32_t mask) {
   return off ^ (((off >> 7) & mask) << 4);
 }
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "

@@ -671,10 +671,13 @@ def test_rs_encode_kernel_rejects_what_it_does_not_take(card):
 # the sweep of tests/test_kernels_rglru.py, plus recurrentgemma-9b's
 # prefill and decode shapes, its ring sub-phase's prefill and ragged cases
 # of the TMA kernel (T not a multiple of its chunk, over several chunks; D
-# a multiple of its 32-channel strip and not); (b, t, d)
+# a multiple of its 32-channel strip and not, and for f32 g a multiple of
+# 4 but not of 8, which ends a row halfway into a helper's 8-channel
+# store); (b, t, d)
 RGLRU_SWEEP = [(2, 100, 256), (1, 64, 128), (1, 5, 512), (3, 33, 96),
                (4, 512, 4096), (4, 1, 4096), (1, 2560, 4096), (3, 100, 96),
-               (3, 100, 104), (5, 100, 1000), (1, 300, 104)]
+               (3, 100, 104), (5, 100, 1000), (1, 300, 104), (1, 320, 100),
+               (3, 100, 100)]
 RGLRU_TOL = {"float32": (2e-4, 0.0), "bfloat16": (2e-4, 2 ** -7)}
 
 
@@ -728,13 +731,21 @@ def test_rglru_sm90_kernel_matches_plain_and_register_kernel(
         card, case, dtype, with_h0):
     """The TMA kernel called directly, below ``SM90_MIN_T`` too: within the
     tolerance of the plain version, bit-equal to the register kernel, two
-    runs bit-equal."""
+    runs bit-equal; rows TMA cannot read (bf16 g, D not a multiple of 8)
+    raise."""
     from repro_torch.kernels.rglru import rglru_chunked
-    from repro_torch.kernels.rglru.kernel import rglru_cuda, rglru_sm90_cuda
+    from repro_torch.kernels.rglru.kernel import (rglru_cuda,
+                                                  rglru_sm90_cuda,
+                                                  row_multiple)
 
     la, g, h0 = _rglru_inputs(card, 3, *case, dtype)
     h0 = h0 if with_h0 else None
     n0 = _rglru_counts()
+    if case[2] % row_multiple(g.dtype):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            rglru_sm90_cuda(la, g, h0)
+        assert _rglru_counts() == n0
+        return
     got = rglru_sm90_cuda(la, g, h0)
     again = rglru_sm90_cuda(la, g, h0)
     torch.cuda.synchronize()
@@ -744,16 +755,20 @@ def test_rglru_sm90_kernel_matches_plain_and_register_kernel(
     assert all(torch.equal(x, y) for x, y in zip(got, rglru_cuda(la, g, h0)))
 
 
-@pytest.mark.parametrize("stages", [2, 3, 5])
-@pytest.mark.parametrize("case", [(4, 512, 4096), (1, 2560, 4096),
-                                  (5, 100, 1000)])
+@pytest.mark.parametrize("case,stages", [
+    ((4, 32, 4096), 1), ((4, 64, 4096), 2), ((4, 96, 4096), 3),
+    ((4, 512, 4096), 3), ((1, 128, 4096), 1), ((1, 256, 4096), 2),
+    ((1, 2560, 4096), 3), ((5, 100, 1000), 3)])
 def test_rglru_sm90_ring_depths(card, case, stages):
-    """Every ring depth wraps its stages' barrier phases the same way:
-    bit-equal to the register kernel."""
-    from repro_torch.kernels.rglru.kernel import rglru_cuda, rglru_sm90_cuda
+    """``plan``'s ring of one, two and three stages (by T), over one pass
+    of the ring and many (the barrier phases wrap): bit-equal to the
+    register kernel."""
+    from repro_torch.kernels.rglru.kernel import (plan, rglru_cuda,
+                                                  rglru_sm90_cuda)
 
+    assert plan(*case)[1] == stages
     la, g, h0 = _rglru_inputs(card, 8, *case, "bfloat16")
-    got = rglru_sm90_cuda(la, g, h0, stages=stages)
+    got = rglru_sm90_cuda(la, g, h0)
     assert all(torch.equal(x, y) for x, y in zip(got, rglru_cuda(la, g, h0)))
 
 
@@ -799,9 +814,9 @@ def test_rglru_sm90_rejects_what_it_does_not_take(card):
     la, g, h0 = _rglru_inputs(card, 10, 1, 64, 100, "bfloat16")
     with pytest.raises(ValueError, match="multiple of 8"):
         rglru_sm90_cuda(la, g, h0)
-    la, g, h0 = _rglru_inputs(card, 10, 1, 640, 128, "bfloat16")
-    with pytest.raises(ValueError, match="ring of 1 stages"):
-        rglru_sm90_cuda(la, g, h0, stages=1)
+    la, g, h0 = _rglru_inputs(card, 10, 1, 64, 98, "float32")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        rglru_sm90_cuda(la, g, h0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
