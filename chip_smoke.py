@@ -54,6 +54,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      2e-4 + rtol 2^-7; two runs bit-equal; the two kernels bit-equal to
      each other everywhere; through ``ops.rglru``, [0, T/2) then [T/2, T),
      and a prefill followed by one-token steps, equal to one shot;
+   * the backward kernels of the recurrent training paths against their
+     plain backwards, two runs bit-equal each: K6's (``rwkv6_bwd``) over
+     the RWKV sweep and rwkv6-7b's training shape (1, 64, 4096, 64), f32
+     and bf16, from s0 and from none, a nonzero dsT, atol 2e-3 + rtol
+     1e-5 (bf16 dr, dk, dv + rtol 2^-7), and log_w x10 and x100 below
+     -30, unclamped as in the reference; K7's (``rglru_bwd``) over the
+     RG-LRU sweep and recurrentgemma-9b's training shape (1, 4096, 4096),
+     with h0 and without, a nonzero dh_last, atol 2e-4 + rtol 1e-5 (a
+     bf16 dg + rtol 2^-7); K4's backward at head dim 256 (f32 FMAs), f32
+     within atol 1e-4 + rtol 1e-4 and bf16 bit-equal to the f32 instance
+     on f32 copies rounded once, at a window of 128 and at (1, 16, 1,
+     4096, 4096, 256) under the window of 2048;
 4. the serving path: yi-6b at full width (32 layers, bf16, random weights
    from a seeded generator) serves 4 requests of 512 prompt tokens and 32
    new tokens through ``ServeEngine.generate``, committing its KV cache to
@@ -97,18 +109,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    then the weights are freed;
 5. the training path: ``ElasticTrainer`` trains qwen2.5-3b at full width
    (36 layers, d_model 2048, bf16 compute, f32 master weights, full remat)
-   on 4096-token sequences, global batch 1 (cut from 256), 6 steps with a
-   q8-delta commit every 2 (keyframe, delta, delta) encoded on the card, 2
-   more steps as the uninterrupted reference; a fresh trainer restarts from
+   on 4096-token sequences, global batch 1 (cut from 256), 4 steps with a
+   q8-delta commit every 2 (keyframe, delta) encoded on the card, 2 more
+   steps as the uninterrupted reference; a fresh trainer restarts from
    the agents, step and data state restored and every float leaf equal to
    its committed codes (which lie within absmax/127 * 0.51 per block of
    the state at commit), and trains 2 steps.  Counts are set to 0 before
-   and read after the 6 steps and their commits;
+   and read after the 4 steps and their commits;
+5b. the same training path for rwkv6-7b at published widths cut to 8
+   layers (2,290,520,064 params), bf16 compute, 4 steps of 4096 tokens,
+   q8-delta commits at 2 and 4, no restart: K6's chunked forward 2 x 8 x
+   4 times (full remat runs each layer's forward twice), its backward 8 x
+   4; K1 and K2 in the commits; then a 2-layer f32 cut's loss and every
+   gradient on the card against the plain CPU path (one 64-token
+   sequence; each leaf within 1e-3 of its largest element, the loss
+   within rtol 1e-5);
+5c. the same for recurrentgemma-9b cut to one super-layer (rec, rec,
+   attn; 2,753,638,400 params): K7's TMA forward 2 x 2 x 4, its backward
+   2 x 4, K4 at head dim 256 forward 2 x 4 and backward 4; the f32 cut is
+   the 5-layer one of phase 4d (both tails) with its window cut to 16,
+   ``lam`` drawn from [-6, 0] (at init its gradient is roundoff);
 6. a second training phase at full width cut to 8 layers: int8 gradient
    compression (K1 + K3 in every step) and a 1 -> 2 logical-rank resize
    with ``overlap_resize``;
-7. numbers: the serving lines (yi-6b, rwkv6-7b, recurrentgemma-9b), step
-   ms, tokens/s,
+7. numbers: the serving lines (yi-6b, rwkv6-7b, recurrentgemma-9b), the
+   training lines (qwen2.5-3b, rwkv6-7b, recurrentgemma-9b), step ms,
+   tokens/s,
    ``mfu``, commit and restart wall seconds,
    bytes on the wire, peak device memory, host RSS, a ``torch.profiler``
    window over one training step, and the ``kernels`` line (each kernel's
@@ -130,6 +156,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import resource
 import shutil
@@ -163,7 +190,7 @@ ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
 LSE_ATOL = 1e-4
 BWD_TOL = {"float32": (1e-4, 1e-4)}
 # the training path: qwen2.5-3b, one 4096-token sequence a step
-TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 6, 2, 8
+TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 4, 2, 8
 # the cut phase's overlap resize must complete within this wall time
 RESIZE_WAIT_S = 300
 CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
@@ -183,9 +210,14 @@ RGLRU_SWEEP = [(2, 100, 256), (1, 64, 128), (1, 5, 512), (3, 33, 96),
                (3, 100, 96), (3, 100, 104), (5, 100, 1000), (1, 300, 104),
                (1, 320, 100), (3, 100, 100)]
 RGLRU_TOL = {"float32": (2e-4, 0.0), "bfloat16": (2e-4, 2 ** -7)}
-# how much slower than the other K7 kernel the routed one may be at
-# T = SM90_MIN_T - 32 and SM90_MIN_T, where the two nearly tie
+# how much slower than the other K7 kernel the routed one may be at the
+# two points that bracket ``ops.SM90_MIN_T``: SM90_MIN_T -
+# RGLRU_ROUTE_BELOW and SM90_MIN_T.  From T = 257 to about 300 the two
+# kernels tie: at T = 272 the register kernel has read 5.9 % faster and
+# 5.0 % slower than the TMA one in two calls, so the lower point lies
+# below that band, at 256 (the register kernel 8-20 % faster there)
 RGLRU_ROUTE_TIE = 0.05
+RGLRU_ROUTE_BELOW = 48
 # recurrentgemma-9b's attention at head dim 256 (MQA, causal, window
 # 2048): a short window, the serving path's prefill, a window that hides
 # keys; (b, hq, hkv, t, s, d, causal, window)
@@ -198,6 +230,20 @@ D256_SWEEP = [(1, 4, 1, 300, 300, 256, True, 128),
 RING_PROMPT, RING_GEN = 2560, 16
 RING_CUT = (16, 40, 20)
 CODEC_DTYPES = ("float32", "bfloat16", "float16")
+# the recurrent training phases (5b, 5c): TRAIN_SEQ tokens a step, steps
+# and q8-delta commit interval; rwkv6-7b cut to 8 layers, recurrentgemma-9b
+# to one super-layer (rec, rec, attn) without its two tail layers
+TRAIN_REC_STEPS, TRAIN_REC_COMMIT = 4, 2
+RWKV_TRAIN_LAYERS, HYBRID_TRAIN_LAYERS = 8, 3
+# their f32 cuts against the plain CPU path: one sequence of GRAD_SEQ
+# tokens; every gradient leaf within GRAD_TOL of its largest element (f32
+# sums in other orders on two devices, through recurrences that the
+# kernels step one token at a time and the plain versions by chunks), the
+# loss within LOSS_RTOL
+GRAD_SEQ, GRAD_TOL, LOSS_RTOL = 64, 1e-3, 1e-5
+# K4's backward at head dim 256 beside recurrentgemma-9b's training shape:
+# a window shorter than T; (b, hq, hkv, t, s, d, causal, window)
+D256_BWD_SWEEP = [(1, 4, 1, 300, 300, 256, True, 128)]
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -276,6 +322,15 @@ def device_ms(fn, iters: int = 20) -> float:
         spin_s *= 4
     raise AssertionError(f"the host took {enqueue_s} s to enqueue {iters} "
                          f"calls: the spin kernel cannot hide it")
+
+
+def plain_call_ms(fn) -> float:
+    """CUDA-event time of one warm call of a plain backward at a training
+    shape (``cuda_ms``, host included): its allocations of new memory wait
+    for the card, so the spin kernel of ``device_ms`` cannot hide its host
+    time.  The ``plain_ms`` of the three backward rows of PR 18's phases
+    (``rwkv6_bwd``, ``rglru_bwd``, ``flash_bwd_d256``)."""
+    return cuda_ms(fn, iters=1, warmup=1)
 
 
 def profile_window(fn, top: int = 8) -> dict:
@@ -802,6 +857,54 @@ def check_bwd_case(case, dtype, device, determinism=False) -> float:
     return err
 
 
+def check_bwd_d256(path_case, device) -> float:
+    """K4's backward at head dim 256 (``flash_bwd.cu`` on f32 FMAs): f32
+    against the plain backward within ``BWD_TOL``, and bf16 bit-equal to
+    the f32 instance run on f32 copies of its inputs and rounded to bf16
+    once (it widens its inputs and computes in f32); two bf16 runs
+    bit-equal; D256_BWD_SWEEP and the training path's shape.  Returns the
+    bf16 result's max abs error against the plain f32 backward at the
+    path's shape."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bwd_cuda
+
+    path_err = None
+    for case in D256_BWD_SWEEP + [path_case]:
+        check_bwd_case(case, "float32", device, determinism=True)
+        b, hq, hkv, t, s, d, causal, window = case
+        q, k, v = _inputs(7, b, hq, hkv, t, s, d, "bfloat16", device)
+        dout = _inputs(8, b, hq, hkv, t, s, d, "bfloat16", device)[0]
+        out, lse = attention_ref(q, k, v, causal=causal, window=window)
+        kw = dict(causal=causal, window=window, scale=d ** -0.5)
+        got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        f32 = flash_attention_bwd_cuda(q.float(), k.float(), v.float(),
+                                       out.float(), lse, dout.float(), **kw)
+        torch.cuda.synchronize()
+        for name, x, y, z in zip(("dq", "dk", "dv"), got, f32, again):
+            if not (torch.equal(x, y.bfloat16()) and torch.equal(x, z)):
+                raise AssertionError(f"flash_bwd {case} bf16 {name}: not the "
+                                     f"f32 instance's result rounded, or "
+                                     f"two runs differ")
+        del f32, again
+        want = attention_bwd_ref(q.float(), k.float(), v.float(),
+                                 out.float(), lse, dout.float(), **kw)
+        err = max((x.float() - w).abs().max().item()
+                  for x, w in zip(got, want))
+        log(f"  flash_bwd {case} bf16: the f32 instance's result rounded, "
+            f"bit for bit; max abs err against the plain f32 backward "
+            f"{err:.3e}")
+        if case == path_case:
+            path_err = err
+        del want, got
+        torch.cuda.empty_cache()
+    return path_err
+
+
 def check_bwd(path_case, device) -> float:
     """The sweep and the training path's shape, both dtypes; returns the
     max abs error at the path's shape in bf16."""
@@ -979,6 +1082,119 @@ def check_rwkv6(path_cases, device) -> dict:
         log(f"  rwkv6 {dtype} [0, {split}) then [{split}, {t}) vs one shot "
             f"at {path_cases['prefill']}: max abs err {err:.3e} ({bound})")
     return errs
+
+
+def _rwkv_bwd_inputs(seed, case, dtype, device, decay_scale=1.0):
+    """The forward's inputs (``_rwkv_inputs``) and the cotangents do (in
+    dtype) and dsT (f32) of (o, sT)."""
+    import numpy as np
+    import torch
+
+    b, h, t, d = case
+    rng = np.random.default_rng(seed + 100)
+    do = torch.from_numpy(rng.standard_normal(case).astype(np.float32)).to(
+        device, getattr(torch, dtype))
+    dsT = torch.from_numpy(rng.standard_normal((b, h, d, d)).astype(
+        np.float32)).to(device)
+    return _rwkv_inputs(seed, case, dtype, device, decay_scale), do, dsT
+
+
+def check_rwkv6_bwd(path_case, device) -> float:
+    """K6's backward against the plain backward (the vjp of the chunked
+    form, log_w unclamped) on the card: the sweep and the training path's
+    shape, f32 and bf16 r/k/v, from s0 and from none, with a nonzero dsT;
+    atol 2e-3 (the reference's kernel tests) + rtol 1e-5, bf16 dr, dk, dv
+    + rtol 2^-7; two runs bit-equal.  log_w x10 and x100 (below -30) in
+    f32, each gradient also within |L| 2^-23 of the call's largest (L the
+    largest cumulative log-decay over a chunk of the plain version: its
+    exponents' f32 resolution).  Returns the max abs error at the path's
+    shape in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_bwd_cuda
+    from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
+
+    def err_of(got, want, dtype, what, extra=0.0):
+        atol, rtol = RWKV_TOL[dtype]
+        err = 0.0
+        for name, x, w in zip(("dr", "dk", "dv", "dlog_w", "du", "ds0"),
+                              got, want):
+            if w is None:
+                continue
+            diff = (x.float() - w.float()).abs()
+            rt = 1e-5 + (rtol if name in ("dr", "dk", "dv") else 0.0)
+            if not bool(torch.all(diff <= atol + extra
+                                  + rt * w.float().abs())):
+                raise AssertionError(f"{what} {name}: max abs err "
+                                     f"{diff.max().item()}")
+            err = max(err, diff.max().item())
+        return err
+
+    path_err = None
+    for case in RWKV_SWEEP + [path_case]:
+        for dtype in ("float32", "bfloat16"):
+            (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(3, case, dtype,
+                                                             device)
+            for s0_ in (s0, None):
+                got = rwkv6_bwd_cuda(r, k, v, lw, u, s0_, do, dsT)
+                again = rwkv6_bwd_cuda(r, k, v, lw, u, s0_, do, dsT)
+                want = rwkv6_bwd_ref(r, k, v, lw, u, s0_, do, dsT)
+                torch.cuda.synchronize()
+                what = f"rwkv6_bwd {case} {dtype} s0={s0_ is not None}"
+                err = err_of(got, want, dtype, what)
+                if not all(x is None or torch.equal(x, y)
+                           for x, y in zip(got, again)):
+                    raise AssertionError(f"{what}: two runs differ")
+                log(f"  {what}: max abs err {err:.3e}")
+                if case == path_case and dtype == "bfloat16":
+                    path_err = max(path_err or 0.0, err)
+    for scale in (10.0, 100.0):
+        case = (1, 2, 96, 32)
+        (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(4, case, "float32",
+                                                         device, scale)
+        if not bool((lw < -30).any()):
+            raise AssertionError("the extreme-decay case has no log_w < -30")
+        got = rwkv6_bwd_cuda(r, k, v, lw, u, s0, do, dsT)
+        want = rwkv6_bwd_ref(r, k, v, lw, u, s0, do, dsT)
+        if not all(torch.isfinite(x).all() for x in got):
+            raise AssertionError(f"rwkv6_bwd decay x{scale}: not finite")
+        L = F.pad(lw, (0, 0, 0, 32)).reshape(1, 2, 2, 64, 32).cumsum(3) \
+            .abs().max().item()
+        top = max(w.abs().max().item() for w in want)
+        err = err_of(got, want, "float32", f"rwkv6_bwd decay x{scale}",
+                     L * 2.0 ** -23 * top)
+        log(f"  rwkv6_bwd {case} float32 log_w x{scale} (below -30, "
+            f"unclamped): max abs err {err:.3e} (|L| {L:.1f})")
+    return path_err
+
+
+def rwkv6_bwd_numbers(case, device) -> dict:
+    """K6's backward at rwkv6-7b's training shape (bf16 r/k/v/do, f32 log_w,
+    u, s0 and dsT): its ``device_ms`` and the plain backward's, and its
+    bound: the larger of the bytes (each input read once, each output
+    written once) and the six D x D products a token and head of the
+    sequential backward (recomputing S, dr, dk, dv, dlog_w, G: 12 D^2
+    FLOP) at the f32 rate."""
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_bwd_cuda
+    from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
+
+    b, h, t, d = case
+    args = _rwkv_bwd_inputs(3, case, "bfloat16", device)
+    (r, k, v, lw, u, s0), do, dsT = args
+    ms = device_ms(lambda: rwkv6_bwd_cuda(r, k, v, lw, u, s0, do, dsT),
+                   iters=5)
+    plain_ms = plain_call_ms(lambda: rwkv6_bwd_ref(r, k, v, lw, u, s0, do,
+                                                   dsT))
+    n = b * h * t * d
+    nbytes = n * (4 * 2 + 4 + 3 * 2 + 4) + 2 * h * d * 4 \
+        + 3 * b * h * d * d * 4
+    flops = 12 * b * h * t * d * d
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
 
 
 def rwkv6_numbers(case, device, name) -> dict:
@@ -1219,6 +1435,89 @@ def rglru_numbers(case, device, name) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
+def check_rglru_bwd(path_case, device) -> float:
+    """K7's backward against the plain backward on the card: the sweep and
+    the training path's shape, with h0 and without, f32 and bf16 g and dh,
+    a nonzero dh_last, from the plain forward's h; atol 2e-4 (the
+    reference's kernel tests) + rtol 1e-5 (lam grows with the memory 1 /
+    (1 - a)), a bf16 dg + rtol 2^-7; two runs bit-equal.  Returns the max
+    abs error at the path's shape in bf16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.rglru import rglru_chunked
+    from repro_torch.kernels.rglru.kernel import rglru_bwd_cuda
+    from repro_torch.kernels.rglru.ref import rglru_bwd_ref
+
+    path_err = None
+    for case in RGLRU_SWEEP + [path_case]:
+        for dtype in ("float32", "bfloat16"):
+            la, g, h0 = _rglru_inputs(3, case, dtype, device)
+            h = rglru_chunked(la, g, h0)[0].contiguous()
+            rng = np.random.default_rng(103)
+            dh = torch.from_numpy(rng.standard_normal(case).astype(
+                np.float32)).to(device, getattr(torch, dtype))
+            dh_last = torch.from_numpy(rng.standard_normal(
+                (case[0], case[2])).astype(np.float32)).to(device)
+            for h0_ in (h0, None):
+                got = rglru_bwd_cuda(la, h, h0_, dh, dh_last)
+                again = rglru_bwd_cuda(la, h, h0_, dh, dh_last)
+                want = rglru_bwd_ref(la, h, h0_, dh, dh_last)
+                torch.cuda.synchronize()
+                what = f"rglru_bwd {case} {dtype} h0={h0_ is not None}"
+                err = 0.0
+                for name, x, w in zip(("dlog_a", "dg", "dh0"), got, want):
+                    if w is None:
+                        continue
+                    diff = (x.float() - w.float()).abs()
+                    rtol = 1e-5 + (RGLRU_TOL[dtype][1] if name == "dg"
+                                   else 0.0)
+                    if not bool(torch.all(diff <= 2e-4 + rtol
+                                          * w.float().abs())):
+                        raise AssertionError(f"{what} {name}: max abs err "
+                                             f"{diff.max().item()}")
+                    err = max(err, diff.max().item())
+                if not all(x is None or torch.equal(x, y)
+                           for x, y in zip(got, again)):
+                    raise AssertionError(f"{what}: two runs differ")
+                log(f"  {what}: max abs err {err:.3e}")
+                if case == path_case and dtype == "bfloat16":
+                    path_err = max(path_err or 0.0, err)
+    return path_err
+
+
+def rglru_bwd_numbers(case, device) -> dict:
+    """K7's backward at recurrentgemma-9b's training shape (bf16 h and dh,
+    f32 log_a, h0 and dh_last): its ``device_ms`` and the plain
+    backward's, and its bound: log_a and dlog_a (4 B), h, dh and dg (2 B)
+    per element, h0, dh_last and dh0 (4 B) per channel, or an exp and
+    three multiplies per element at the f32 rate."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.rglru import rglru_chunked
+    from repro_torch.kernels.rglru.kernel import rglru_bwd_cuda
+    from repro_torch.kernels.rglru.ref import rglru_bwd_ref
+
+    b, t, d = case
+    la, g, h0 = _rglru_inputs(3, case, "bfloat16", device)
+    h = rglru_chunked(la, g, h0)[0].contiguous()
+    rng = np.random.default_rng(103)
+    dh = torch.from_numpy(rng.standard_normal(case).astype(np.float32)).to(
+        device, torch.bfloat16)
+    dh_last = torch.from_numpy(rng.standard_normal((b, d)).astype(
+        np.float32)).to(device)
+    ms = device_ms(lambda: rglru_bwd_cuda(la, h, h0, dh, dh_last))
+    plain_ms = plain_call_ms(lambda: rglru_bwd_ref(la, h, h0, dh, dh_last))
+    nbytes = b * t * d * (4 + 2 + 2 + 2 + 4) + 3 * b * d * 4
+    flops = 4 * b * t * d
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
 def launch_floor_ms(device) -> float:
     """The ``device_ms`` of a launch-sized PyTorch op, an in-place add on
     a one-element tensor: the least a launch takes on the card, a
@@ -1231,20 +1530,21 @@ def launch_floor_ms(device) -> float:
 
 def rglru_route_ms(case, device, ts=(1, 64, 256, 384, 512)) -> dict:
     """Both K7 kernels' ``device_ms`` at (B, T, D) = ``case`` with T from
-    ``ts`` and at ``SM90_MIN_T`` - 32 and ``SM90_MIN_T``, bf16 g: the
-    measurement behind ``ops.SM90_MIN_T``.  Fails unless the register
-    kernel is the faster below ``SM90_MIN_T`` tokens and the TMA one from
-    it, so a crossover that moves off the threshold's side shows.  At
-    the two points that bracket the threshold the kernel ``ops.route``
-    picks may be up to RGLRU_ROUTE_TIE slower than the other: from T =
-    257 to about 300 the two are within a few per cent, and which one
-    leads there changes from call to call."""
+    ``ts`` and at ``SM90_MIN_T`` - RGLRU_ROUTE_BELOW and ``SM90_MIN_T``,
+    bf16 g: the measurement behind ``ops.SM90_MIN_T``.  Fails unless the
+    register kernel is the faster below ``SM90_MIN_T`` tokens and the TMA
+    one from it, so a crossover that moves off the threshold's side
+    shows.  At the two points that bracket the threshold the kernel
+    ``ops.route`` picks may be up to RGLRU_ROUTE_TIE slower than the
+    other.  Between them, from T = 257 to about 300, the two are within a
+    few per cent, and which one leads changes from call to call."""
     from repro_torch.kernels.rglru.kernel import rglru_cuda, rglru_sm90_cuda
     from repro_torch.kernels.rglru.ops import SM90_MIN_T
 
     b, _, d = case
     out = {"sm90_min_t": SM90_MIN_T}
-    for t in sorted({*ts, SM90_MIN_T - 32, SM90_MIN_T}):
+    below = SM90_MIN_T - RGLRU_ROUTE_BELOW
+    for t in sorted({*ts, below, SM90_MIN_T}):
         la, g, h0 = _rglru_inputs(3, (b, t, d), "bfloat16", device)
         sm90 = device_ms(lambda: rglru_sm90_cuda(la, g, h0))
         reg = device_ms(lambda: rglru_cuda(la, g, h0))
@@ -1252,7 +1552,7 @@ def rglru_route_ms(case, device, ts=(1, 64, 256, 384, 512)) -> dict:
         log(f"  rglru route at T = {t}: TMA {sm90:.6f} ms, registers "
             f"{reg:.6f} ms (ops.SM90_MIN_T = {SM90_MIN_T})")
         routed, other = (sm90, reg) if t >= SM90_MIN_T else (reg, sm90)
-        tie = RGLRU_ROUTE_TIE if t in (SM90_MIN_T - 32, SM90_MIN_T) else 0.0
+        tie = RGLRU_ROUTE_TIE if t in (below, SM90_MIN_T) else 0.0
         if routed >= other * (1 + tie):
             raise AssertionError(
                 f"rglru at T = {t}: TMA {sm90} ms, registers {reg} ms; "
@@ -1352,9 +1652,11 @@ def reset_counts() -> None:
         codec_kernel.launches[name] = 0
     rwkv_kernel.launches = 0
     rwkv_kernel.sm90_launches = 0
+    rwkv_kernel.bwd_launches = 0
     rs_kernel.launches = 0
     rglru_kernel.launches = 0
     rglru_kernel.sm90_launches = 0
+    rglru_kernel.bwd_launches = 0
 
 
 def read_counts() -> dict:
@@ -1368,9 +1670,11 @@ def read_counts() -> dict:
             "flash_bwd": fa_kernel.bwd_launches, **codec_kernel.launches,
             "rwkv6": rwkv_kernel.launches,
             "rwkv6_sm90": rwkv_kernel.sm90_launches,
+            "rwkv6_bwd": rwkv_kernel.bwd_launches,
             "rs_encode": rs_kernel.launches,
             "rglru": rglru_kernel.launches,
-            "rglru_sm90": rglru_kernel.sm90_launches}
+            "rglru_sm90": rglru_kernel.sm90_launches,
+            "rglru_bwd": rglru_kernel.bwd_launches}
 
 
 def _float_leaves(tree):
@@ -1452,9 +1756,11 @@ def host_rss() -> dict:
 
 def train_main_path(cfg, device, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
                     commit_every=COMMIT_EVERY, node_memory=48 << 30,
-                    profile=False) -> dict:
-    """ElasticTrainer with q8-delta commits, then a restart from the agents.
-    Returns counts, losses, wall times and commit records."""
+                    profile=False, restart=True) -> dict:
+    """ElasticTrainer with q8-delta commits, two more steps (the first's
+    launches counted, the second profiled when ``profile``), then, when
+    ``restart``, a restart from the agents; else a clean exit.  Returns
+    counts, losses, wall times and commit records."""
     import numpy as np
     import torch
 
@@ -1522,6 +1828,12 @@ def train_main_path(cfg, device, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
                                        for m in t1.metrics_log[-2:]]
             res["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
                 if device.type == "cuda" else 0
+            if not restart:
+                del codes
+                t1.finalize()
+                t1.state = None
+                del t1
+                return res
             # a "crash": the trainer is dropped without finalize, and with
             # it goes its state on the card
             t1_ref = weakref.ref(t1)
@@ -1563,10 +1875,10 @@ def train_main_path(cfg, device, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
             del t2
     finally:
         shutil.rmtree(pfs, ignore_errors=True)
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-        res["allocated_after"] = torch.cuda.memory_allocated()
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            res["allocated_after"] = torch.cuda.memory_allocated()
     return res
 
 
@@ -1643,6 +1955,141 @@ def train_cut_phase(cfg, device, seq=TRAIN_SEQ, node_memory=48 << 30
     return res
 
 
+def _perturb_lam(params, seed=1) -> None:
+    """Every RG-LRU ``lam`` drawn from [-6, 0] in place, from a numpy
+    generator: at init a = exp(-8 softplus(lam) r) is about 3e-8, the
+    state forgets at once and lam's gradient is a cancellation of roundoff
+    (ROADMAP §3); the CPU tests move it the same way."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def walk(tree):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                walk(val)
+            elif key == "lam":
+                val.copy_(torch.from_numpy(rng.uniform(
+                    -6.0, 0.0, tuple(val.shape)).astype(np.float32)))
+    walk(params)
+
+
+def check_grads_against_plain(cfg, device, layers, window=None,
+                              seq=GRAD_SEQ) -> dict:
+    """A cut of ``cfg`` to its first ``layers`` layers at published widths
+    in f32 (``window``, if given, in place of the config's): the loss and
+    every gradient leaf of ``compute_grads`` on the card (the kernels,
+    forward and backward) against the plain CPU path's, from the same
+    seeded parameters (``lam`` moved by ``_perturb_lam``) and one
+    ``seq``-token sequence.  Each leaf within GRAD_TOL of its largest
+    element, the loss within LOSS_RTOL.  Returns the errors and the card
+    run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.train.step import compute_grads
+
+    small = dataclasses.replace(cfg, num_layers=layers, dtype="float32",
+                                window=window or cfg.window)
+    params = init_params(small, torch.Generator().manual_seed(0),
+                         device="cpu")
+    _perturb_lam(params)
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, seq)).astype(np.int64)
+    out = {}
+    for dev in (torch.device("cpu"), device):
+        p = _map(lambda t: t.to(dev), params)
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 "labels": torch.from_numpy(toks).to(dev)}
+        reset_counts()
+        loss, _, grads = compute_grads(small, p, batch)
+        _sync(dev)
+        out[dev.type] = (float(loss), {n: g.cpu() for n, g in
+                                       _float_leaves(grads)})
+        del p, grads
+    launches = read_counts()
+    (want_loss, want), (got_loss, got) = out["cpu"], out[device.type]
+    loss_err = abs(got_loss - want_loss) / abs(want_loss)
+    worst, worst_leaf = 0.0, None
+    for name, w in want.items():
+        ratio = (got[name] - w).abs().max().item() / max(
+            w.abs().max().item(), 1e-30)
+        if ratio > worst:
+            worst, worst_leaf = ratio, name
+    res = {"layers": layers, "window": small.window, "seq": seq,
+           "loss": want_loss, "loss_rel_err": loss_err,
+           "worst_leaf": worst_leaf, "worst_leaf_err_of_max": worst,
+           "launches": launches}
+    if not (loss_err <= LOSS_RTOL and worst <= GRAD_TOL):
+        raise AssertionError(f"{layers}-layer f32 cut: card vs plain CPU "
+                             f"grads {json.dumps(res)} (loss rtol "
+                             f"{LOSS_RTOL}, each leaf {GRAD_TOL} of its "
+                             f"largest)")
+    return res
+
+
+def train_recurrent_phase(line, cfg, device, card, n_params, want, reduced,
+                          plain) -> dict:
+    """``cfg`` (a cut of a recurrent model at published widths) through
+    ``train_main_path``: TRAIN_REC_STEPS steps of TRAIN_SEQ tokens, bf16
+    compute, q8-delta commits every TRAIN_REC_COMMIT steps, no restart
+    (phase 5 holds that); the launches of those steps and commits held to
+    ``want`` (K1 and K2 in the commits); then ``plain`` (keywords of
+    ``check_grads_against_plain``).  Prints the ``line`` JSON line and
+    its profile; returns its launches."""
+    import torch
+
+    from repro_torch.models import count_params
+
+    got = count_params(cfg)
+    if got != n_params:
+        raise AssertionError(f"{cfg.name} cut: {got} params, want {n_params}")
+    torch.cuda.reset_peak_memory_stats()
+    tr = train_main_path(cfg, device, steps=TRAIN_REC_STEPS,
+                         commit_every=TRAIN_REC_COMMIT, profile=True,
+                         restart=False)
+    _check_launches(tr["launches"], want, line)
+    if not (tr["launches"]["quantize"] and tr["launches"]["quantize_delta"]):
+        raise AssertionError(f"{line}: commits did not run K1 and K2: "
+                             f"{tr['launches']}")
+    frames = [(c["key_frames"], c["delta_frames"]) for c in tr["commits"]]
+    if not frames[0][0] or not any(d for _, d in frames[1:]):
+        raise AssertionError(f"{line}: commit frames {frames}")
+    losses = tr["losses"] + tr["reference_losses"]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{line}: losses {losses}")
+    step_ms = sorted(tr["step_ms"][1:])[len(tr["step_ms"][1:]) // 2]
+    log(f"  {line}: {json.dumps(tr['launches'])}")
+    grads = check_grads_against_plain(cfg, device, **plain)
+    log(f"  {line} f32 cut against the plain CPU path: {json.dumps(grads)}")
+    res = {
+        "card": card, "arch": cfg.name, "layers": cfg.num_layers,
+        "params": n_params, "reduced": reduced, "seq": TRAIN_SEQ,
+        "batch": 1, "steps": TRAIN_REC_STEPS,
+        "step_ms_median": step_ms, "step_ms": tr["step_ms"],
+        "tokens_per_s": TRAIN_SEQ / (step_ms / 1e3),
+        "mfu": 6 * n_params * TRAIN_SEQ / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+        "init_s": tr["init_s"],
+        "commit_wall_s": [c["wall_s"] for c in tr["commits"]],
+        "commit_encode_s": [c["encode_s"] for c in tr["commits"]],
+        "device_encode_ms": tr["encode_ms"],
+        "wire_bytes": [c["encoded_bytes"] for c in tr["commits"]],
+        "raw_bytes": [c["raw_bytes"] for c in tr["commits"]],
+        "frames_key_delta": frames,
+        "commit_bound_ratio": tr["commit_bound_ratio"],
+        "losses": losses, "launches": tr["launches"],
+        "launches_per_step": tr["launches_per_step"],
+        "max_memory_allocated": tr["max_memory_allocated"],
+        "plain_grads": grads, "host": host_rss(),
+    }
+    log(card)
+    log(json.dumps({line: res}))
+    log(json.dumps({f"profile_{line}_step": tr["profile_step"]}))
+    return tr["launches"]
+
+
 # --------------------------------------------------------------------------
 # phase 7: kernel numbers at the training path's shapes
 # --------------------------------------------------------------------------
@@ -1682,6 +2129,49 @@ def bwd_numbers(path_case, device) -> dict:
     return {"ms": device_ms(kernel, iters=5),
             "event_ms": cuda_ms(kernel, iters=5), "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "bytes": nbytes}
+
+
+def bwd_d256_numbers(path_case, device) -> dict:
+    """K4's backward at recurrentgemma-9b's training shape, head dim 256,
+    bf16: ``device_ms``, the plain backward's, and SDPA's backward with the
+    same causal window as a boolean mask over K and V expanded to the
+    query heads (a yardstick the port never calls); bound as
+    ``bwd_numbers``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_ref)
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.ref import allowed_mask
+
+    b, hq, hkv, t, s, d, causal, window = path_case
+    q, k, v = _inputs(7, b, hq, hkv, t, s, d, "bfloat16", device)
+    dout = _inputs(8, b, hq, hkv, t, s, d, "bfloat16", device)[0]
+    out, lse = attention_ref(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    ms = device_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                    **kw), iters=3)
+    plain_ms = plain_call_ms(lambda: attention_bwd_ref(q, k, v, out, lse,
+                                                       dout, **kw))
+    mask = allowed_mask(t, s, causal, window, s - t, device)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    g = hq // hkv
+    lib_out = F.scaled_dot_product_attention(
+        qg, kg.repeat_interleave(g, 1), vg.repeat_interleave(g, 1),
+        attn_mask=mask)
+    lib_ms = device_ms(lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), dout, retain_graph=True), iters=3)
+    pairs = int(mask.sum())
+    flops = 10 * b * hq * d * pairs     # five products, 2 FLOP per MAC
+    nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+              + 2 * out.numel()) * 2 + dout.numel() * 2 + 2 * lse.numel() * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "flops": flops, "bytes": nbytes}
 
@@ -1760,6 +2250,12 @@ def main() -> int:
                  gcfg.resolved_head_dim, True, gcfg.window)
     train_case = (1, tcfg.num_heads, tcfg.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
                   tcfg.resolved_head_dim, True, tcfg.window)
+    # the recurrent training phases' shapes: K6 and K7 at one 4096-token
+    # sequence, K4 at head dim 256 under the window of 2048
+    rwkv_train_case = (1, rh, TRAIN_SEQ, rcfg.rwkv_head_dim)
+    rglru_train_case = (1, TRAIN_SEQ, gcfg.resolved_rnn_width)
+    d256_train_case = (1, gcfg.num_heads, gcfg.num_kv_heads, TRAIN_SEQ,
+                       TRAIN_SEQ, gcfg.resolved_head_dim, True, gcfg.window)
     w_gu = tcfg.num_layers * 2 * tcfg.d_model * tcfg.d_ff
     t_start = time.monotonic()
 
@@ -1777,6 +2273,9 @@ def main() -> int:
     codec_bad = check_codec(CODEC_NS + [w_gu], device)
     rwkv_errs = check_rwkv6(rwkv_cases, device)
     rglru_errs = check_rglru(rglru_cases, device)
+    rwkv_bwd_err = check_rwkv6_bwd(rwkv_train_case, device)
+    rglru_bwd_err = check_rglru_bwd(rglru_train_case, device)
+    d256_bwd_err = check_bwd_d256(d256_train_case, device)
     torch.cuda.empty_cache()
     log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
 
@@ -1888,6 +2387,45 @@ def main() -> int:
     log(f"  phase 5 done at {time.monotonic() - t_start:.1f} s; "
         f"{tr['allocated_after']} bytes still allocated")
 
+    steps = TRAIN_REC_STEPS
+    n = RWKV_TRAIN_LAYERS
+    log(f"phase 5b: training, {rcfg.name} cut to {n} layers d_model "
+        f"{rcfg.d_model}, {TRAIN_SEQ} tokens a step, {steps} steps, q8-delta "
+        f"commit every {TRAIN_REC_COMMIT}")
+    # each layer's forward kernel twice a step (full remat recomputes it in
+    # the backward), its backward kernel once; one 4096-token bf16 call
+    # runs the chunked forward
+    rw_train = train_recurrent_phase(
+        "train_rwkv6", dataclasses.replace(rcfg, num_layers=n), device, card,
+        2_290_520_064,
+        {"rwkv6_sm90": 2 * n * steps, "rwkv6_bwd": n * steps, "rwkv6": 0,
+         "flash_fwd": 0, "flash_bwd": 0},
+        {"num_layers": f"{rcfg.num_layers} -> {n}: the whole model's f32 "
+         f"weights, AdamW moments, gradients and codes (about 23 B a "
+         f"parameter, 174 GB for {count_params(rcfg)}) do not fit the "
+         f"card's 80 GB", "global_batch": f"one sequence of {TRAIN_SEQ} "
+         f"tokens a step"},
+        dict(layers=2))
+    log(f"  phase 5b done at {time.monotonic() - t_start:.1f} s")
+
+    n = HYBRID_TRAIN_LAYERS
+    gcut = dataclasses.replace(gcfg, num_layers=n)
+    log(f"phase 5c: training, {gcfg.name} cut to one super-layer (rec, rec, "
+        f"attn) d_model {gcfg.d_model}, {TRAIN_SEQ} tokens a step (window "
+        f"{gcfg.window}), {steps} steps, q8-delta commit every "
+        f"{TRAIN_REC_COMMIT}")
+    rg_train = train_recurrent_phase(
+        "train_recurrentgemma", gcut, device, card, 2_753_638_400,
+        {"rglru_sm90": 2 * 2 * steps, "rglru_bwd": 2 * steps, "rglru": 0,
+         "flash_fwd": 2 * steps, "flash_bwd": steps},
+        {"num_layers": f"{gcfg.num_layers} -> {n}: one super-layer, the two "
+         f"RG-LRU tail layers dropped; with them (3,223,465,984 params) "
+         f"the state at about 23 B a parameter and the 256,000-word "
+         f"vocabulary's logits would reach the card's 80 GB",
+         "global_batch": f"one sequence of {TRAIN_SEQ} tokens a step"},
+        dict(layers=5, window=RING_CUT[0]))
+    log(f"  phase 5c done at {time.monotonic() - t_start:.1f} s")
+
     cut_cfg = dataclasses.replace(tcfg, num_layers=CUT_LAYERS)
     log(f"phase 6: {tcfg.name} cut to {CUT_LAYERS} layers, compressed "
         f"gradients, 1 -> 2 rank resize with overlap")
@@ -1899,15 +2437,23 @@ def main() -> int:
     bwd = bwd_numbers(train_case, device)
     fwd_train = attention_numbers(train_case, device)
     codec = codec_numbers(w_gu, device)
+    rwkv_bwd = rwkv6_bwd_numbers(rwkv_train_case, device)
+    rglru_bwd = rglru_bwd_numbers(rglru_train_case, device)
+    d256_bwd = bwd_d256_numbers(d256_train_case, device)
     torch.cuda.synchronize()
     log(json.dumps({"flash_fwd_train_shape": fwd_train,
-                    "flash_bwd_train_shape": bwd, "codec_w_gu": codec}))
+                    "flash_bwd_train_shape": bwd, "codec_w_gu": codec,
+                    "rwkv6_bwd_train_shape": rwkv_bwd,
+                    "rglru_bwd_train_shape": rglru_bwd,
+                    "flash_bwd_d256_train_shape": d256_bwd}))
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
     paths = {"serve": yi_launches, "serve_rwkv6": rw_launches,
              "serve_recurrentgemma": rg_launches["serve"],
              "serve_recurrentgemma_ring": rg_launches["ring"],
              "train": tr["launches"], "train_cut": cut["launches"],
+             "train_rwkv6": rw_train,
+             "train_recurrentgemma": rg_train,
              "rs_encode_check": rs["launches"]}
 
     def counts(name, path):
@@ -1978,7 +2524,19 @@ def main() -> int:
             counts("rglru", "serve_recurrentgemma"), rglru_errs["rglru"],
             rg_num["rglru_decode_shape"],
             prefill_shape=rg_num["rglru_prefill_shape"],
-            ring_shape=rg_num["rglru_ring_shape"])]
+            ring_shape=rg_num["rglru_ring_shape"]),
+        # the backwards of the recurrent training phases: K6's and K7's,
+        # which the reference runs as the vjp of its chunked form and as
+        # its analytic reverse scan, and K4's at head dim 256
+        row("rwkv6_bwd", "rwkv6/csrc/rwkv6_bwd.cu", "rwkv6/ops.py:90",
+            counts("rwkv6_bwd", "train_rwkv6"), rwkv_bwd_err, rwkv_bwd),
+        row("rglru_bwd", "rglru/csrc/rglru_bwd.cu", "rglru/ops.py:54",
+            counts("rglru_bwd", "train_recurrentgemma"), rglru_bwd_err,
+            rglru_bwd),
+        row("flash_bwd_d256", fa + "flash_bwd.cu",
+            "flash_attention/ops.py:94",
+            counts("flash_bwd", "train_recurrentgemma"), d256_bwd_err,
+            d256_bwd)]
     log(f"  total {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,9 @@
-// Flash-attention backward for f32 inputs (sm_90a): GQA, causal
+// Flash-attention backward on f32 FMAs (sm_90a): GQA, causal
 // (bottom-right) or sliding window; dq, dk, dv from q, k, v, out, the f32
-// log-sum-exp and the output's gradient.  bf16 inputs go to the tensor-core
-// kernels of flash_bwd_sm90.cu; f32 stays here, on f32 FMAs.
+// log-sum-exp and the output's gradient.  f32 inputs at every head dim, and
+// bf16 at head dim 256 (recurrentgemma-9b's attention layers), come here;
+// bf16 at head dims up to 128 goes to the tensor-core kernels of
+// flash_bwd_sm90.cu.
 //
 // Replaces the backward of K4 (flash_attention_pallas, src/repro/kernels/
 // flash_attention/kernel.py:95), which JAX runs as the XLA blockwise
@@ -25,9 +27,16 @@
 //   4. dq: one block per (b, q-head, tile of 64 queries), longest tiles
 //      first; it loops over the key tiles the mask allows, with its dq tile
 //      in registers.
-// Both main kernels recompute the 64x64 score tile and do.v^T in registers
-// (4x4 per thread), put p and ds in shared memory, and accumulate the
-// products over the tile from there.  Probabilities are masked to exact
+// Both main kernels recompute the BT x BT score tile and do.v^T in
+// registers (MT x MT per thread), put p and ds in shared memory, and
+// accumulate the products over the tile from there.  Tiles are 64 x 64 up
+// to head dim 128.  At head dim 256 the four (64, 257) f32 tiles of q, do,
+// k and v alone would take 263 KB of the 227 KB a block may use, and the
+// dk and dv accumulators of a 64-key tile 128 f32 registers a thread each:
+// the D 256 instance takes tiles of 32 x 32 (2 x 2 a thread), 137 KB of
+// shared memory and 64 accumulator registers.  bf16 inputs are widened to
+// f32 as they are staged, every product and sum runs in f32, and dq, dk and
+// dv are rounded to bf16 once, at the end.  Probabilities are masked to exact
 // zeros, so a row with no allowed key (lse = -inf) gives zero gradients,
 // never exp(-inf - -inf).
 //
@@ -41,28 +50,47 @@
 // mma/wgmma, TMA and pipelining come in later versions.
 #include <algorithm>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;          // queries per tile
-constexpr int BK = 64;          // keys per tile
-constexpr int NTHREADS = 256;   // 16 x 16 threads, 4x4 score micro-tile each
-constexpr int PP = BK + 1;      // padded row stride of the p / ds tiles
+constexpr int NTHREADS = 256;   // 16 x 16 threads, MT x MT micro-tile each
 
+// queries and keys per tile at head dim d; p and ds tiles have row stride
+// tile + 1
+__host__ __device__ constexpr int tile(int d) { return d > 128 ? 32 : 64; }
 
-// a (rows x D) tile of a (.., len, D) tensor into shared memory with row
-// stride D + 1 (conflict-free column reads); rows past `len` are zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// a (rows x D) tile of a (.., len, D) tensor into shared memory as f32 with
+// row stride D + 1 (conflict-free column reads); rows past `len` are zeros
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
                                           int len, float mul) {
   constexpr int DP = D + 1;
   for (int i = threadIdx.x; i < ROWS * D; i += NTHREADS) {
     const int r = i / D, c = i % D;
     float x = 0.f;
-    if (r0 + r < len) x = src[size_t(r0 + r) * D + c] * mul;
+    if (r0 + r < len) x = to_f32(src[size_t(r0 + r) * D + c]) * mul;
     dst[r * DP + c] = x;
   }
 }
@@ -75,66 +103,68 @@ __device__ __forceinline__ bool allowed(int qi, int kj, int Tq, int S,
          (!has_window || kj > qpos - window);
 }
 
-// s = (q scale) k^T and dp = do v^T over one 64x64 tile: rows ty*4+i of
-// Qs/dOs, rows tx+16j of Ks/Vs
-template <int D>
+// s = (q scale) k^T and dp = do v^T over one BT x BT tile (MT = BT / 16):
+// rows ty*MT+i of Qs/dOs, rows tx+16j of Ks/Vs
+template <int D, int MT>
 __device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
                                             const float* Ks, const float* Vs,
-                                            int ty, int tx, float (&s)[4][4],
-                                            float (&dp)[4][4]) {
+                                            int ty, int tx, float (&s)[MT][MT],
+                                            float (&dp)[MT][MT]) {
   constexpr int DP = D + 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < MT; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qv[4], ov[4], kv[4], vv[4];
+    float qv[MT], ov[MT], kv[MT], vv[MT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(ty * 4 + i) * DP + d];
-      ov[i] = dOs[(ty * 4 + i) * DP + d];
+    for (int i = 0; i < MT; ++i) {
+      qv[i] = Qs[(ty * MT + i) * DP + d];
+      ov[i] = dOs[(ty * MT + i) * DP + d];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < MT; ++j) {
       kv[j] = Ks[(tx + 16 * j) * DP + d];
       vv[j] = Vs[(tx + 16 * j) * DP + d];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < MT; ++j) {
         s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
         dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
       }
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-rowdot_kernel(const float* __restrict__ dout, const float* __restrict__ out,
+rowdot_kernel(const T* __restrict__ dout, const T* __restrict__ out,
               float* __restrict__ Dsum, int64_t rows, int D) {
   const int lane = threadIdx.x & 31;
   const int64_t r = int64_t(blockIdx.x) * (NTHREADS / 32) + (threadIdx.x >> 5);
   if (r >= rows) return;
   float acc = 0.f;
   for (int c = lane; c < D; c += 32)
-    acc = fmaf(dout[r * D + c], out[r * D + c], acc);
+    acc = fmaf(to_f32(dout[r * D + c]), to_f32(out[r * D + c]), acc);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
   if (lane == 0) Dsum[r] = acc;
 }
 
 // grid (Hq, key tiles, B); pdk / pdv are (B, Hq, S, D) f32
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
-dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ dout,
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ Dsum,
             float* __restrict__ pdk, float* __restrict__ pdv, int Hq,
             int Hkv, int Tq, int S, float scale, int causal, int has_window,
             int window) {
   constexpr int DP = D + 1;
   constexpr int NC = D / 16;
+  constexpr int BQ = tile(D), BK = tile(D), MT = BK / 16, PP = BK + 1;
   extern __shared__ float smem[];
   float* Ks = smem;               // BK x DP
   float* Vs = Ks + BK * DP;       // BK x DP
@@ -155,12 +185,12 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int offset = S - Tq;      // bottom-right alignment
 
   const size_t kvoff = (size_t(b) * Hkv + hk) * size_t(S) * D;
-  load_tile<D, BK>(Ks, k + kvoff, k0, S, 1.f);
-  load_tile<D, BK>(Vs, v + kvoff, k0, S, 1.f);
+  load_tile<T, D, BK>(Ks, k + kvoff, k0, S, 1.f);
+  load_tile<T, D, BK>(Vs, v + kvoff, k0, S, 1.f);
 
-  float adk[4][NC], adv[4][NC];   // keys ty*4+i, columns tx+16c
+  float adk[MT][NC], adv[MT][NC];   // keys ty*MT+i, columns tx+16c
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int c = 0; c < NC; ++c) adk[i][c] = adv[i][c] = 0.f;
 
@@ -172,8 +202,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t qoff = (size_t(b) * Hq + h) * size_t(Tq);
   for (int q0 = (q_lo / BQ) * BQ; q0 < q_hi; q0 += BQ) {
     __syncthreads();            // the last tile's reads are done
-    load_tile<D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
-    load_tile<D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
+    load_tile<T, D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
+    load_tile<T, D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
     for (int r = tid; r < BQ; r += NTHREADS) {
       const bool in = q0 + r < Tq;
       Ls[r] = in ? lse[qoff + q0 + r] : -INFINITY;
@@ -181,14 +211,14 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    float s[4][4], dp[4][4];
-    score_tiles<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    float s[MT][MT], dp[MT][MT];
+    score_tiles<D, MT>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < MT; ++i) {
+      const int r = ty * MT + i;
       const float L = Ls[r];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < MT; ++j) {
         const int c = tx + 16 * j;
         const bool ok = L > -INFINITY && allowed(q0 + r, k0 + c, Tq, S,
                                                  offset, causal,
@@ -202,11 +232,11 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll 4
     for (int qq = 0; qq < BQ; ++qq) {
-      float pv[4], sv[4], ov[NC], qv[NC];
+      float pv[MT], sv[MT], ov[NC], qv[NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[qq * PP + ty * 4 + i];
-        sv[i] = dSs[qq * PP + ty * 4 + i];
+      for (int i = 0; i < MT; ++i) {
+        pv[i] = Ps[qq * PP + ty * MT + i];
+        sv[i] = dSs[qq * PP + ty * MT + i];
       }
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
@@ -214,7 +244,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         qv[c] = Qs[qq * DP + tx + 16 * c];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
           adv[i][c] = fmaf(pv[i], ov[c], adv[i][c]);
@@ -225,8 +255,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const size_t poff = (size_t(b) * Hq + h) * size_t(S) * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty * 4 + i;
+  for (int i = 0; i < MT; ++i) {
+    const int r = k0 + ty * MT + i;
     if (r >= S) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -237,10 +267,11 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // dk[b, hk] = sum over gi of pdk[b, hk * g + gi], in order of gi; dv alike
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 dkdv_reduce_kernel(const float* __restrict__ pdk,
-                   const float* __restrict__ pdv, float* __restrict__ dk,
-                   float* __restrict__ dv, int64_t head_elems, int64_t n,
+                   const float* __restrict__ pdv, T* __restrict__ dk,
+                   T* __restrict__ dv, int64_t head_elems, int64_t n,
                    int g) {
   for (int64_t i = int64_t(blockIdx.x) * NTHREADS + threadIdx.x; i < n;
        i += int64_t(gridDim.x) * NTHREADS) {
@@ -252,20 +283,21 @@ dkdv_reduce_kernel(const float* __restrict__ pdk,
       sk += pdk[p0 + gi * head_elems];
       sv += pdv[p0 + gi * head_elems];
     }
-    dk[i] = sk;
-    dv[i] = sv;
+    dk[i] = from_f32<T>(sk);
+    dv[i] = from_f32<T>(sv);
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ dout,
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ Dsum,
-          float* __restrict__ dq, int Hq, int Hkv, int Tq, int S, float scale,
+          T* __restrict__ dq, int Hq, int Hkv, int Tq, int S, float scale,
           int causal, int has_window, int window) {
   constexpr int DP = D + 1;
   constexpr int NC = D / 16;
+  constexpr int BQ = tile(D), BK = tile(D), MT = BK / 16, PP = BK + 1;
   extern __shared__ float smem[];
   float* Qs = smem;               // BQ x DP, pre-scaled
   float* dOs = Qs + BQ * DP;      // BQ x DP
@@ -288,17 +320,17 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const size_t qoff = (size_t(b) * Hq + h) * size_t(Tq);
   const size_t kvoff = (size_t(b) * Hkv + hk) * size_t(S) * D;
-  load_tile<D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
-  load_tile<D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
+  load_tile<T, D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
+  load_tile<T, D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
   for (int r = tid; r < BQ; r += NTHREADS) {
     const bool in = q0 + r < Tq;
     Ls[r] = in ? lse[qoff + q0 + r] : -INFINITY;
     Dl[r] = in ? Dsum[qoff + q0 + r] : 0.f;
   }
 
-  float acc[4][NC];               // queries ty*4+i, columns tx+16c
+  float acc[MT][NC];              // queries ty*MT+i, columns tx+16c
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
 
@@ -312,18 +344,18 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
     __syncthreads();              // the last tile's reads are done
-    load_tile<D, BK>(Ks, k + kvoff, k0, S, 1.f);
-    load_tile<D, BK>(Vs, v + kvoff, k0, S, 1.f);
+    load_tile<T, D, BK>(Ks, k + kvoff, k0, S, 1.f);
+    load_tile<T, D, BK>(Vs, v + kvoff, k0, S, 1.f);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
-    score_tiles<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    float s[MT][MT], dp[MT][MT];
+    score_tiles<D, MT>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < MT; ++i) {
+      const int r = ty * MT + i;
       const float L = Ls[r];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < MT; ++j) {
         const int c = tx + 16 * j;
         const bool ok = L > -INFINITY && allowed(q0 + r, k0 + c, Tq, S,
                                                  offset, causal, has_window,
@@ -336,73 +368,74 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
-      float sv[4], kv[NC];
+      float sv[MT], kv[NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty * 4 + i) * PP + kk];
+      for (int i = 0; i < MT; ++i) sv[i] = dSs[(ty * MT + i) * PP + kk];
 #pragma unroll
       for (int c = 0; c < NC; ++c) kv[c] = Ks[kk * DP + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(sv[i], kv[c], acc[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < MT; ++i) {
+    const int r = q0 + ty * MT + i;
     if (r >= Tq) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      dq[(qoff + r) * D + tx + 16 * c] = acc[i][c] * scale;
+      dq[(qoff + r) * D + tx + 16 * c] = from_f32<T>(acc[i][c] * scale);
   }
 }
 
 constexpr size_t dkdv_smem(int d) {
-  return sizeof(float) * (size_t(4) * 64 * (d + 1) + size_t(2) * BQ * PP +
-                          2 * BQ);
+  return sizeof(float) * (size_t(4) * tile(d) * (d + 1) +
+                          size_t(2) * tile(d) * (tile(d) + 1) + 2 * tile(d));
 }
 constexpr size_t dq_smem(int d) {
-  return sizeof(float) * (size_t(4) * 64 * (d + 1) + size_t(BQ) * PP +
-                          2 * BQ);
+  return sizeof(float) * (size_t(4) * tile(d) * (d + 1) +
+                          size_t(tile(d)) * (tile(d) + 1) + 2 * tile(d));
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, const void* lse,
                    void* Dsum, void* part, void* dq, void* dk, void* dv,
                    int B, int Hq, int Hkv, int Tq, int S, float scale,
                    int causal, int has_window, int window, cudaStream_t st) {
+  constexpr int BT = tile(D);
   constexpr size_t smem_kv = dkdv_smem(D);
   constexpr size_t smem_q = dq_smem(D);
   static bool configured = false;   // the attributes are per kernel, once
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         int(smem_kv));
     if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(dq_kernel<D>,
+    e = cudaFuncSetAttribute(dq_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(smem_q));
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  const float* dop = static_cast<const float*>(dout);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* dop = static_cast<const T*>(dout);
   const float* lp = static_cast<const float*>(lse);
   float* Dp = static_cast<float*>(Dsum);
   const int64_t rows = int64_t(B) * Hq * Tq;
-  rowdot_kernel<<<unsigned((rows + 7) / 8), NTHREADS, 0, st>>>(
-      dop, static_cast<const float*>(out), Dp, rows, D);
+  rowdot_kernel<T><<<unsigned((rows + 7) / 8), NTHREADS, 0, st>>>(
+      dop, static_cast<const T*>(out), Dp, rows, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if (S > 0) {
     float* pdk = static_cast<float*>(part);
     float* pdv = pdk + size_t(B) * Hq * S * D;
-    dim3 gkv(Hq, (S + BK - 1) / BK, B);
-    dkdv_kernel<D><<<gkv, NTHREADS, smem_kv, st>>>(
+    dim3 gkv(Hq, (S + BT - 1) / BT, B);
+    dkdv_kernel<T, D><<<gkv, NTHREADS, smem_kv, st>>>(
         qp, kp, vp, dop, lp, Dp, pdk, pdv, Hq, Hkv, Tq, S, scale, causal,
         has_window, window);
     e = cudaGetLastError();
@@ -411,47 +444,49 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     const int64_t n = int64_t(B) * Hkv * S * D;
     const int64_t blocks = std::min<int64_t>((n + NTHREADS - 1) / NTHREADS,
                                              4096);
-    dkdv_reduce_kernel<<<unsigned(blocks), NTHREADS, 0, st>>>(
-        pdk, pdv, static_cast<float*>(dk), static_cast<float*>(dv),
+    dkdv_reduce_kernel<T><<<unsigned(blocks), NTHREADS, 0, st>>>(
+        pdk, pdv, static_cast<T*>(dk), static_cast<T*>(dv),
         int64_t(S) * D, n, Hq / Hkv);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  dim3 gq(Hq, (Tq + BQ - 1) / BQ, B);
-  dq_kernel<D><<<gq, NTHREADS, smem_q, st>>>(
-      qp, kp, vp, dop, lp, Dp, static_cast<float*>(dq), Hq, Hkv, Tq, S, scale,
+  dim3 gq(Hq, (Tq + BT - 1) / BT, B);
+  dq_kernel<T, D><<<gq, NTHREADS, smem_q, st>>>(
+      qp, kp, vp, dop, lp, Dp, static_cast<T*>(dq), Hq, Hkv, Tq, S, scale,
       causal, has_window, window);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const void* out, const void* dout, const void* lse,
-                       void* Dsum, void* part, void* dq, void* dk, void* dv,
-                       int B, int Hq, int Hkv, int Tq, int S, float scale,
-                       int causal, int has_window, int window,
-                       cudaStream_t st) {
-  switch (D) {
-    case 32:
-      return launch<32>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
-                           B, Hq, Hkv, Tq, S, scale, causal, has_window,
-                           window, st);
-    case 64:
-      return launch<64>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
-                           B, Hq, Hkv, Tq, S, scale, causal, has_window,
-                           window, st);
-    case 128:
-      return launch<128>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv,
-                            B, Hq, Hkv, Tq, S, scale, causal, has_window,
-                            window, st);
-    default:
-      return cudaErrorInvalidValue;
+// f32 at every head dim; bf16 at 256 only (lower head dims go to
+// flash_bwd_sm90.cu)
+cudaError_t dispatch(int D, int dtype, const void* q, const void* k,
+                     const void* v, const void* out, const void* dout,
+                     const void* lse, void* Dsum, void* part, void* dq,
+                     void* dk, void* dv, int B, int Hq, int Hkv, int Tq, int S,
+                     float scale, int causal, int has_window, int window,
+                     cudaStream_t st) {
+#define FLASH_BWD_LAUNCH(T, D)                                              \
+  launch<T, D>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv, B, Hq, Hkv, \
+               Tq, S, scale, causal, has_window, window, st)
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return FLASH_BWD_LAUNCH(float, 32);
+      case 64: return FLASH_BWD_LAUNCH(float, 64);
+      case 128: return FLASH_BWD_LAUNCH(float, 128);
+      case 256: return FLASH_BWD_LAUNCH(float, 256);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (dtype == 1 && D == 256) return FLASH_BWD_LAUNCH(__nv_bfloat16, 256);
+#undef FLASH_BWD_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (bf16 goes to flash_bwd_sm90.cu).  q, out, dout, dq
-// (B, Hq, T, D); k, v, dk, dv (B, Hkv, S, D); lse and the scratch Dsum
+// dtype: 0 = float32 (D in {32, 64, 128, 256}), 1 = bfloat16 (D = 256;
+// lower head dims go to flash_bwd_sm90.cu).  q, out, dout, dq (B, Hq, T,
+// D); k, v, dk, dv (B, Hkv, S, D); lse and the scratch Dsum
 // (B, Hq, T) f32; the scratch `part` (2, B, Hq, S, D) f32 (the
 // per-query-head dk and dv); all
 // contiguous.  Launches the four kernels on `stream` without
@@ -465,14 +500,9 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Tq <= 0 || S < 0 || Hq % Hkv != 0)
     return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = dispatch_d(D, q, k, v, out, dout, lse, Dsum, part, dq, dk, dv, B,
-                   Hq, Hkv, Tq, S, scale, causal, has_window, window, st);
-  else
-    e = cudaErrorInvalidValue;
-  return int(e);
+  return int(dispatch(D, dtype, q, k, v, out, dout, lse, Dsum, part, dq, dk,
+                      dv, B, Hq, Hkv, Tq, S, scale, causal, has_window,
+                      window, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* flash_bwd_error_string(int code) {

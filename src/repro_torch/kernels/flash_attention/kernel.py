@@ -1,7 +1,9 @@
 """Wrappers of the Hopper flash-attention kernels, routed by dtype:
 
 * bf16: the tensor-core kernels, wgmma fed by TMA (``csrc/flash_fwd_sm90.cu``
-  and ``csrc/flash_bwd_sm90.cu``, over ``csrc/sm90.cuh``);
+  and ``csrc/flash_bwd_sm90.cu``, over ``csrc/sm90.cuh``), but for the
+  backward at head dim 256 (recurrentgemma-9b's attention layers), which
+  runs ``csrc/flash_bwd.cu``'s bf16 instance on f32 FMAs;
 * f32: the f32-FMA kernels (``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``),
   which TF32 tensor cores could not replace within f32's tolerances.
 
@@ -28,11 +30,11 @@ LIBRARIES = {"flash_fwd": _CSRC / "flash_fwd.cu",
              "flash_fwd_sm90": _CSRC / "flash_fwd_sm90.cu",
              "flash_bwd_sm90": _CSRC / "flash_bwd_sm90.cu"}
 SM90_HEADERS = (_CSRC / "sm90.cuh",)
-# head dims each kernel is instantiated for: the forward also at 256
-# (recurrentgemma-9b's attention layers); no training path needs the
-# backward there
+# head dims each kernel is instantiated for, 256 for recurrentgemma-9b's
+# attention layers; the wgmma backward (bf16) stops at SM90_BWD_MAX_D
 FWD_HEAD_DIMS = (32, 64, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 128)
+BWD_HEAD_DIMS = (32, 64, 128, 256)
+SM90_BWD_MAX_D = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the forward and of the backward in this process; a run sets
@@ -76,8 +78,12 @@ def build(name: str) -> None:
     _lib(name)
 
 
-def _library(kind: str, dtype: torch.dtype) -> str:
-    return f"flash_{kind}_sm90" if dtype == torch.bfloat16 else f"flash_{kind}"
+def _library(kind: str, dtype: torch.dtype, d: int) -> str:
+    """The library a call of ``kind`` ("fwd" or "bwd") in ``dtype`` at head
+    dim ``d`` launches."""
+    if dtype == torch.bfloat16 and (kind == "fwd" or d <= SM90_BWD_MAX_D):
+        return f"flash_{kind}_sm90"
+    return f"flash_{kind}"
 
 
 def _check_qkv(q, k, v, head_dims, what, extra=()):
@@ -128,7 +134,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _call(_library("fwd", q.dtype),
+    _call(_library("fwd", q.dtype, d),
           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
           lse.data_ptr(), b, hq, hkv, t, s, d, float(scale), int(causal),
           int(window is not None), int(window or 0), _DTYPES[q.dtype], stream)
@@ -145,7 +151,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                         torch.Tensor]:
     """Gradients of the forward: q/out/dout (B, Hq, T, D), k/v (B, Hkv, S,
     D) of one dtype (bf16 16-byte aligned), lse (B, Hq, T) f32, all
-    contiguous CUDA tensors, D in {32, 64, 128}.  Returns ``(dq, dk,
+    contiguous CUDA tensors, D in {32, 64, 128, 256}.  Returns ``(dq, dk,
     dv)`` in the inputs' dtype; deterministic."""
     global bwd_launches
     b, hq, hkv, t, s, d = _check_qkv(q, k, v, BWD_HEAD_DIMS, "flash_bwd",
@@ -167,7 +173,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     part = torch.empty((2, b, hq, s, d), dtype=torch.float32,
                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _call(_library("bwd", q.dtype),
+    _call(_library("bwd", q.dtype, d),
           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
           dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), part.data_ptr(),
           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, t, s, d,

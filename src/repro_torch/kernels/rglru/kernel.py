@@ -8,7 +8,9 @@
 
 Both take the same f32 steps, so they agree bit for bit; ``ops.rglru``
 routes between them by length.  Both replace ``rglru_pallas``
-(``src/repro/kernels/rglru/kernel.py:58``).  Each CUDA source is compiled
+(``src/repro/kernels/rglru/kernel.py:58``).  ``rglru_bwd_cuda`` is their
+backward, the reverse scan (``csrc/rglru_bwd.cu``), which replaces the
+reference's ``ops._rglru_bwd`` (``ops.py:54-86``).  Each CUDA source is compiled
 with ``nvcc`` for ``sm_90a`` at first use (``kernels/common.load_library``)
 and called through its plain C interface with ``ctypes`` on PyTorch's
 current stream.
@@ -30,18 +32,22 @@ LIBRARIES = {
     "rglru": (_CSRC / "rglru.cu", ()),
     "rglru_sm90": (_CSRC / "rglru_sm90.cu",
                    (_CSRC.parent.parent / "flash_attention" / "csrc"
-                    / "sm90.cuh",))}
+                    / "sm90.cuh",)),
+    "rglru_bwd": (_CSRC / "rglru_bwd.cu", ())}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROW_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
 
-# launches of the register kernel and of the TMA one in this process; a
-# run sets them to 0 and reads them to show that a path went through them
+# launches of the register kernel, of the TMA one and of the backward in
+# this process; a run sets them to 0 and reads them to show that a path
+# went through them
 launches = 0
 sm90_launches = 0
+bwd_launches = 0
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"rglru": [_VP] * 5 + [_CI] * 4 + [_VP],
-             "rglru_sm90": [_VP] * 5 + [_CI] * 6 + [_VP]}
+             "rglru_sm90": [_VP] * 5 + [_CI] * 6 + [_VP],
+             "rglru_bwd": [_VP] * 8 + [_CI] * 4 + [_VP]}
 
 # ``csrc/rglru_sm90.cu``'s geometry: a CTA of a chain warp and four helper
 # warps on a strip of STRIP channels of one batch row, walking its tokens
@@ -172,3 +178,34 @@ def rglru_sm90_cuda(log_a: torch.Tensor, g: torch.Tensor,
           torch.cuda.current_stream(g.device).cuda_stream)
     sm90_launches += 1
     return h, h_final
+
+
+def rglru_bwd_cuda(log_a: torch.Tensor, h: torch.Tensor,
+                   h0: Optional[torch.Tensor], dh: torch.Tensor,
+                   dh_last: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Optional[torch.Tensor]]:
+    """The backward kernel: the gradients of ``(h, h_final)`` from their
+    cotangents.  log_a: (B, T, D) f32; h (the forward's output) and dh:
+    (B, T, D) of one dtype, f32 or bf16; h0, dh_last: (B, D) f32 or None
+    (zeros); all contiguous on one CUDA device.  Returns ``(dlog_a f32,
+    dg in h.dtype, dh0 f32, or None when h0 is None)``; deterministic."""
+    global bwd_launches
+    b, t, d = _check(log_a, h, h0)
+    check_tensor("dh", dh, (b, t, d), (h.dtype,), h.device)
+    if dh_last is not None:
+        check_tensor("dh_last", dh_last, (b, d), (torch.float32,), h.device)
+    if t == 0 or b * d == 0:
+        return torch.zeros_like(log_a), torch.zeros_like(h), \
+            None if h0 is None else (torch.zeros_like(h0) if dh_last is None
+                                     else dh_last.clone())
+    dlog_a = torch.empty_like(log_a)
+    dg = torch.empty_like(h)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    _call("rglru_bwd", log_a.data_ptr(), h.data_ptr(),
+          None if h0 is None else h0.data_ptr(), dh.data_ptr(),
+          None if dh_last is None else dh_last.data_ptr(), dlog_a.data_ptr(),
+          dg.data_ptr(), None if dh0 is None else dh0.data_ptr(), b, t, d,
+          _DTYPES[h.dtype], torch.cuda.current_stream(h.device).cuda_stream)
+    bwd_launches += 1
+    return dlog_a, dg, dh0

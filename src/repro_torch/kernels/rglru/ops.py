@@ -1,11 +1,13 @@
 """Public RG-LRU op: the Hopper kernels (K7) on CUDA tensors, the plain
 chunked version on CPU tensors.
 
-The twin of ``repro/kernels/rglru/ops.py::rglru``.  The forward only: the
-reference's backward is the analytic reverse scan of ``ops._rglru_bwd``
-(``ops.py:54-86``), and the port's comes with hybrid training.  A CUDA
-call whose inputs require grad raises rather than fall back to autograd
-over the plain version.
+The twin of ``repro/kernels/rglru/ops.py::rglru``.  A call whose inputs
+require grad goes through an ``autograd.Function`` that saves ``(log_a,
+h, h0)``, as the reference's ``custom_vjp`` does (``ops.py:47-51``), and
+whose backward is the analytic reverse scan of ``ops._rglru_bwd``
+(``ops.py:54-86``): the backward kernel (``kernel.rglru_bwd_cuda``) on
+CUDA, ``ref.rglru_bwd_ref`` on the CPU.  Nothing on CUDA runs autograd over
+the plain version.
 
 Routing on CUDA, by length and width (not a setting):
 
@@ -26,7 +28,7 @@ import torch
 
 from ..common import on_cuda
 from . import kernel
-from .ref import rglru_chunked
+from .ref import rglru_bwd_ref, rglru_chunked
 
 # the fewest tokens the TMA kernel takes; below, the register kernel.
 # The TMA kernel waits out its ring's first loads however few tokens it
@@ -46,15 +48,18 @@ def rglru(log_a: torch.Tensor, g: torch.Tensor,
     """RG-LRU core: h_t = exp(log_a_t) * h_{t-1} + g_t.  log_a, g:
     (B, T, D), log_a <= 0; h0: (B, D) or None (zeros).
 
-    Returns ``(h: (B, T, D) in g.dtype, h_final: (B, D) f32)``.
+    Returns ``(h: (B, T, D) in g.dtype, h_final: (B, D) f32)``,
+    differentiable in log_a, g and h0.
     """
     tensors = (log_a, g) + (() if h0 is None else (h0,))
-    if not on_cuda(*tensors):
-        return rglru_chunked(log_a, g, h0)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "rglru on CUDA has no backward kernel yet (it comes with hybrid "
-            "training); call it under torch.no_grad()")
+        return _RGLRU.apply(log_a, g, h0)
+    return _forward(log_a, g, h0)
+
+
+def _forward(log_a, g, h0):
+    if not on_cuda(*((log_a, g) + (() if h0 is None else (h0,)))):
+        return rglru_chunked(log_a, g, h0)
     log_a, g = log_a.float().contiguous(), g.contiguous()
     h0 = None if h0 is None else h0.float().contiguous()
     if route(g.shape[1], g.shape[2], g.dtype) == "rglru_sm90":
@@ -64,6 +69,30 @@ def rglru(log_a: torch.Tensor, g: torch.Tensor,
                     for x in (log_a, g))
         return kernel.rglru_sm90_cuda(log_a, g, h0)
     return kernel.rglru_cuda(log_a, g, h0)
+
+
+class _RGLRU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, log_a, g, h0):
+        h, h_final = _forward(log_a, g, h0)
+        ctx.save_for_backward(log_a, h, h0)
+        return h, h_final
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        log_a, h, h0 = ctx.saved_tensors
+        if on_cuda(log_a, h):
+            f32 = (None if x is None else x.float().contiguous()
+                   for x in (log_a, h0, dh_last))
+            la, h0f, dlf = f32
+            dlog_a, dg, dh0 = kernel.rglru_bwd_cuda(
+                la, h.contiguous(), h0f, dh.to(h.dtype).contiguous(), dlf)
+        else:
+            dlog_a, dg, dh0 = rglru_bwd_ref(log_a, h, h0, dh, dh_last)
+        need = ctx.needs_input_grad
+        return (dlog_a.to(log_a.dtype) if need[0] else None,
+                dg if need[1] else None,
+                dh0.to(h0.dtype) if need[2] else None)
 
 
 def route(t: int, d: int, dtype: torch.dtype) -> str:

@@ -12,12 +12,15 @@ diagonal recurrence, per channel:
   ``sum_{i<=t} exp(L_t - L_i) g_i``, every exponent a "later minus
   earlier" difference of a monotone cumsum, so <= 0.  The CPU path runs
   it.
+* ``rglru_bwd_ref``: the plain backward beside the Hopper backward kernel,
+  the twin of the reference's analytic reverse scan ``ops._rglru_bwd``
+  (``repro/kernels/rglru/ops.py:54-86``).
 
-Both take log_a, g (B, T, D) and h0 (B, D) or None (zeros), compute in
-f32 and return ``(h in g.dtype, h_final f32)``.  The initial state enters
-in f32 (as ``rglru_ref`` and the reference's XLA path ``ops._xla_assoc``
-take it), not folded into g's dtype as ``rglru_pallas`` folds it
-(ROADMAP §3).
+The forwards take log_a, g (B, T, D) and h0 (B, D) or None (zeros),
+compute in f32 and return ``(h in g.dtype, h_final f32)``.  The initial
+state enters in f32 (as ``rglru_ref`` and the reference's XLA path
+``ops._xla_assoc`` take it), not folded into g's dtype as
+``rglru_pallas`` folds it (ROADMAP §3).
 """
 from __future__ import annotations
 
@@ -74,3 +77,30 @@ def rglru_chunked(log_a, g, h0: Optional[torch.Tensor] = None,
     out = torch.cat(outs, dim=1)[:, :t]
     # the state after the last real token (padding keeps it: a = 1, g = 0)
     return out.to(g.dtype), h
+
+
+def rglru_bwd_ref(log_a, h, h0, dh, dh_last=None):
+    """The gradients of ``(h, h_final)`` from their cotangents ``dh`` (B,
+    T, D) and ``dh_last`` (B, D) or None (zeros), given the forward's
+    log_a, its output h (in g's dtype) and h0 (B, D) or None, in f32:
+
+        lam_t = dh_t + a_{t+1} lam_{t+1}     (dh_last added to dh_{T-1})
+        dg_t = lam_t,  dlog_a_t = lam_t h_{t-1} a_t,  dh0 = a_0 lam_0
+
+    with h_{t-1} read from the saved h, so rounded to g's dtype as in the
+    reference's residuals.  The reverse scan is ``rglru_chunked`` run
+    backwards in time: lam is the forward recurrence over the flipped
+    tokens with decay a_{t+1} (1 at the last token) and initial state
+    dh_last.  Returns ``(dlog_a f32, dg in h.dtype, dh0 f32 or None)``.
+    """
+    b, t, d = h.shape
+    la = log_a.float()
+    a_next = torch.cat([la[:, 1:], torch.zeros_like(la[:, :1])], dim=1)
+    lam, _ = rglru_chunked(a_next.flip(1), dh.float().flip(1),
+                           None if dh_last is None else dh_last.float())
+    lam = lam.flip(1)
+    h_prev = torch.cat([_h0(h, h0)[:, None], h[:, :-1].float()], dim=1)
+    a = torch.exp(la)
+    dlog_a = lam * h_prev * a
+    dh0 = None if h0 is None else lam[:, 0] * a[:, 0]
+    return dlog_a, lam.to(h.dtype), dh0

@@ -7,16 +7,18 @@
   (``csrc/rwkv6.cu``).
 
 ``ops.rwkv6`` routes between them.  Both replace ``rwkv6_pallas``
-(``src/repro/kernels/rwkv6/kernel.py:86``).  Each CUDA source is compiled
-with ``nvcc`` for ``sm_90a`` at first use (``kernels/common.load_library``)
-and called through its plain C interface with ``ctypes`` on PyTorch's
-current stream.
+(``src/repro/kernels/rwkv6/kernel.py:86``).  ``rwkv6_bwd_cuda`` is their
+backward (``csrc/rwkv6_bwd.cu``), which replaces the reference's
+``ops._rwkv6_bwd`` (``ops.py:90-96``), the vjp of its chunked form.
+Each CUDA source is compiled with ``nvcc`` for ``sm_90a`` at first use
+(``kernels/common.load_library``) and called through its plain C
+interface with ``ctypes`` on PyTorch's current stream.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,18 +30,24 @@ LIBRARIES = {
     "rwkv6": (_CSRC / "rwkv6.cu", ()),
     "rwkv6_sm90": (_CSRC / "rwkv6_sm90.cu",
                    (_CSRC.parent.parent / "flash_attention" / "csrc"
-                    / "sm90.cuh",))}
+                    / "sm90.cuh",)),
+    "rwkv6_bwd": (_CSRC / "rwkv6_bwd.cu", ())}
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the sequential and of the chunked kernel in this process; a
-# run sets them to 0 and reads them to show that a path went through them
+# launches of the sequential and of the chunked kernel, and of the
+# backward, in this process; a run sets them to 0 and reads them to show
+# that a path went through them
 launches = 0
 sm90_launches = 0
+bwd_launches = 0
+# ``csrc/rwkv6_bwd.cu`` keeps the state before every BWD_CHUNK tokens
+BWD_CHUNK = 64
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"rwkv6": [_VP] * 8 + [_CI] * 5 + [_VP],
-             "rwkv6_sm90": [_VP] * 8 + [_CI] * 4 + [_VP]}
+             "rwkv6_sm90": [_VP] * 8 + [_CI] * 4 + [_VP],
+             "rwkv6_bwd": [_VP] * 17 + [_CI] * 5 + [_VP]}
 
 
 def _lib(name: str):
@@ -82,7 +90,8 @@ def _check(r, k, v, log_w, u, s0, dtypes) -> Tuple[int, int, int, int]:
         check_tensor(name, x, (b, h, t, d), (r.dtype,), r.device)
     check_tensor("log_w", log_w, (b, h, t, d), (torch.float32,), r.device)
     check_tensor("u", u, (h, d), (torch.float32,), r.device)
-    check_tensor("s0", s0, (b, h, d, d), (torch.float32,), r.device)
+    if s0 is not None:
+        check_tensor("s0", s0, (b, h, d, d), (torch.float32,), r.device)
     return b, h, t, d
 
 
@@ -127,3 +136,51 @@ def rwkv6_sm90_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           torch.cuda.current_stream(r.device).cuda_stream)
     sm90_launches += 1
     return o, sT
+
+
+def rwkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   log_w: torch.Tensor, u: torch.Tensor,
+                   s0: Optional[torch.Tensor], do: torch.Tensor,
+                   dsT: Optional[torch.Tensor] = None):
+    """The backward kernel: the gradients of ``(o, sT)`` from their
+    cotangents, with log_w as given (not clamped: the reference's
+    backward).  r/k/v/do: (B, H, T, D) of one dtype (f32 or bf16), log_w:
+    (B, H, T, D) f32, u: (H, D) f32, s0 and dsT: (B, H, D, D) f32 or None
+    (zeros), all contiguous on one CUDA device, D in {16, 32, 64}.
+    Returns ``(dr, dk, dv in r.dtype, dlog_w f32, du f32, ds0 f32 or None
+    when s0 is None)``; deterministic (du sums over B in order, no
+    atomics)."""
+    global bwd_launches
+    b, h, t, d = _check(r, k, v, log_w, u, s0, _DTYPES)
+    check_tensor("do", do, (b, h, t, d), (r.dtype,), r.device)
+    if dsT is not None:
+        check_tensor("dsT", dsT, (b, h, d, d), (torch.float32,), r.device)
+    dr, dk, dv = (torch.empty_like(x) for x in (r, k, v))
+    dlog_w = torch.empty_like(log_w)
+    du = torch.empty_like(u)
+    ds0 = None if s0 is None else torch.empty_like(s0)
+    if t == 0 or b * h == 0:
+        for x in (dr, dk, dv, dlog_w, du):
+            x.zero_()
+        if ds0 is not None:
+            ds0.zero_() if dsT is None else ds0.copy_(dsT)
+        return dr, dk, dv, dlog_w, du, ds0
+    nc = -(-t // BWD_CHUNK)
+    # scratch: the state before each chunk, the window of a chunk's states,
+    # and each (b, h)'s part of du
+    bound = torch.empty((b, h, nc, d, d), dtype=torch.float32,
+                        device=r.device)
+    win = torch.empty((b, h, BWD_CHUNK, d, d), dtype=torch.float32,
+                      device=r.device)
+    du_part = torch.empty((b, h, d), dtype=torch.float32, device=r.device)
+    _call("rwkv6_bwd", r.data_ptr(), k.data_ptr(), v.data_ptr(),
+          log_w.data_ptr(), u.data_ptr(),
+          None if s0 is None else s0.data_ptr(), do.data_ptr(),
+          None if dsT is None else dsT.data_ptr(), dr.data_ptr(),
+          dk.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(),
+          du_part.data_ptr(), du.data_ptr(),
+          None if ds0 is None else ds0.data_ptr(), bound.data_ptr(),
+          win.data_ptr(), b, h, t, d, _DTYPES[r.dtype],
+          torch.cuda.current_stream(r.device).cuda_stream)
+    bwd_launches += 1
+    return dr, dk, dv, dlog_w, du, ds0

@@ -1,11 +1,16 @@
 """Public RWKV-6 op: the Hopper kernels (K6) on CUDA tensors, the plain
 chunked version on CPU tensors.
 
-The twin of ``repro/kernels/rwkv6/ops.py::rwkv6``.  The forward only: the
-reference's backward is the vjp of its chunked XLA path
-(``ops.py:90-96``), and the port's comes with RWKV training.  A CUDA call
-whose inputs require grad raises rather than fall back to autograd over
-the plain version.
+The twin of ``repro/kernels/rwkv6/ops.py::rwkv6``.  A call whose inputs
+require grad goes through an ``autograd.Function`` that saves its inputs,
+as the reference's ``custom_vjp`` does (``ops.py:84-87``), and whose
+backward is the reference's, the vjp of the chunked form
+(``ops.py:90-96``) with log_w unclamped: the backward kernel
+(``kernel.rwkv6_bwd_cuda``) on CUDA, ``ref.rwkv6_bwd_ref`` on the CPU.
+Nothing on CUDA runs autograd over the plain version.  The forward clamps
+log_w at ``LOG_W_MIN`` (as the Pallas kernel does); below it the decay is
+e^-30 or less either way, and the gradient is the unclamped one, the
+reference's answer.
 
 Routing on CUDA, by dtype and length (not a setting):
 
@@ -22,7 +27,7 @@ import torch
 
 from ..common import on_cuda
 from . import kernel
-from .ref import rwkv6_chunked
+from .ref import rwkv6_bwd_ref, rwkv6_chunked
 
 # the fewest tokens the chunked kernel takes; below, the sequential one.
 # The chunked kernel pays for a whole 64-token chunk and the state's
@@ -38,19 +43,21 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           log_w: torch.Tensor, u: torch.Tensor,
           s0: Optional[torch.Tensor] = None, *, chunk: int = 64):
     """RWKV-6 time-mix core. r/k/v/log_w: (B, H, T, D), log_w <= 0 (clamped
-    at -30); u: (H, D); s0: (B, H, D, D) or None (zeros).
+    at -30 in the forward); u: (H, D); s0: (B, H, D, D) or None (zeros).
 
-    Returns ``(o: (B, H, T, D) in v.dtype, s_final: (B, H, D, D) f32)``.
-    ``chunk`` is the plain version's chunk length; the kernels fix their
-    own.
+    Returns ``(o: (B, H, T, D) in v.dtype, s_final: (B, H, D, D) f32)``,
+    differentiable in every input.  ``chunk`` is the plain versions' chunk
+    length; the kernels fix their own.
     """
     tensors = (r, k, v, log_w, u) + (() if s0 is None else (s0,))
-    if not on_cuda(*tensors):
-        return rwkv6_chunked(r, k, v, log_w, u, s0, chunk=chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "rwkv6 on CUDA has no backward kernel yet (it comes with RWKV "
-            "training); call it under torch.no_grad()")
+        return _RWKV6.apply(r, k, v, log_w, u, s0, chunk)
+    return _forward(r, k, v, log_w, u, s0, chunk)
+
+
+def _forward(r, k, v, log_w, u, s0, chunk):
+    if not on_cuda(*(r, k, v, log_w, u) + (() if s0 is None else (s0,))):
+        return rwkv6_chunked(r, k, v, log_w, u, s0, chunk=chunk)
     b, h, t, d = r.shape
     if s0 is None:
         s0 = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
@@ -65,3 +72,30 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         run = kernel.rwkv6_cuda
     return run(r, k, v, log_w, u.float().contiguous(),
                s0.float().contiguous())
+
+
+class _RWKV6(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, s0, chunk):
+        o, sT = _forward(r, k, v, log_w, u, s0, chunk)
+        ctx.save_for_backward(r, k, v, log_w, u, s0)
+        ctx.chunk = chunk
+        return o, sT
+
+    @staticmethod
+    def backward(ctx, do, dsT):
+        r, k, v, log_w, u, s0 = ctx.saved_tensors
+        if on_cuda(r, k, v, log_w, u):
+            f32 = (None if x is None else x.float().contiguous()
+                   for x in (log_w, u, s0, dsT))
+            lw, uf, s0f, dsTf = f32
+            grads = kernel.rwkv6_bwd_cuda(
+                r.contiguous(), k.contiguous(), v.contiguous(), lw, uf, s0f,
+                do.to(r.dtype).contiguous(), dsTf)
+        else:
+            grads = rwkv6_bwd_ref(r, k, v, log_w, u, s0, do, dsT,
+                                  chunk=ctx.chunk)
+        return tuple(None if g is None or not need else g.to(x.dtype)
+                     for g, need, x in zip(grads, ctx.needs_input_grad,
+                                           (r, k, v, log_w, u, s0))) \
+            + (None,)

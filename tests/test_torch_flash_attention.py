@@ -13,7 +13,7 @@ Head dim 256 with a sliding window (recurrentgemma-9b's attention
 layers) takes the forward's tolerances.
 
 Gradients: dq/dk/dv against ``jax.grad`` of the reference's XLA backward,
-f32 atol 5e-4.
+f32 atol 5e-4, over the sweep and at head dim 256.
 
 f32 matmuls run in full precision: ``torch.backends.cuda.matmul.allow_tf32``
 is set False.  The kernel against its plain version on the card is in
@@ -158,6 +158,18 @@ def test_grads_match_jax(case):
     key are left out (no consistent answer in the reference); their
     upstream gradient is zero, so they add nothing to dk and dv on either
     side."""
+    _check_grads(case)
+
+
+@pytest.mark.parametrize("case", D256)
+def test_grads_match_jax_at_head_dim_256(case):
+    """As ``test_grads_match_jax``, at recurrentgemma-9b's head dim 256:
+    MQA, causal, a window shorter than T (the backward its training path
+    runs, ``_xla_flash_bwd`` in the reference), f32, atol 5e-4."""
+    _check_grads(case)
+
+
+def _check_grads(case):
     import jax
 
     b, hq, hkv, t, s, d, causal, window = case

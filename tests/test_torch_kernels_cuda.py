@@ -37,7 +37,22 @@ Every test skips without a card.  Tolerances:
   depth (the same f32 steps); two runs bit-equal; [0, T/2) then [T/2, T)
   and one-token steps equal to one shot; ``ops.rglru`` routes by length;
 * the flash-attention forward at head dim 256 (recurrentgemma-9b's MQA
-  layers): the forward's tolerances above.
+  layers): the forward's tolerances above; its backward there (MQA,
+  causal, a window shorter than T) on f32 FMAs: f32 within the f32
+  backward's tolerance, and bf16 bit-equal to the f32 instance run on f32
+  copies and rounded to bf16 once (it widens its inputs and computes in
+  f32); two runs bit-equal;
+* the backward kernels of K6 and K7 against their plain backwards, over
+  the sweeps above in f32 and bf16, with and without s0 / h0, with nonzero
+  cotangents of the final state (dsT / dh_last); two runs bit-equal;
+  ``ops`` takes inputs that require grad on CUDA through them.  RG-LRU:
+  atol 2e-4 (the reference's kernel tests) + rtol 1e-5 (lam grows with the
+  memory 1 / (1 - a)), a bf16 dg + rtol 2^-7.  RWKV-6: atol 2e-3 (the
+  reference's kernel tests) + rtol 1e-5, bf16 dr, dk, dv + rtol 2^-7; at
+  decays below -30 (unclamped in the backward, as in the reference) every
+  gradient also within |L| 2^-23 of the call's largest, L the largest
+  cumulative log-decay over a chunk of the plain version (its exponents'
+  f32 resolution).
 
 ``allow_tf32`` is False so the plain versions' f32 matmuls are full f32.
 """
@@ -151,16 +166,39 @@ def test_kernel_matches_plain_at_head_dim_256(card, case, dtype):
     test_kernel_matches_plain(card, case, dtype)
 
 
-def test_bwd_kernel_refuses_head_dim_256(card):
-    """The backward is built for the training paths' head dims only."""
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_bwd_cuda
+# recurrentgemma-9b's backward: MQA, causal, windows shorter than T, ragged
+# T and S at the 32-row tiles, T < S
+D256_BWD_CASES = [
+    (1, 4, 1, 300, 300, 256, True, 128),
+    (2, 8, 1, 200, 333, 256, True, 100),
+    (1, 16, 1, 1100, 1100, 256, True, 1024),
+]
 
-    q, k, v = _mk(card, 2, 1, 2, 1, 8, 8, 256, "float32")
-    lse = torch.zeros((1, 2, 8), device=card)
-    with pytest.raises(ValueError, match="flash_bwd: head dim 256"):
-        flash_attention_bwd_cuda(q, k, v, q, lse, q, causal=True,
-                                 window=None, scale=1 / 16)
+
+@pytest.mark.parametrize("case", D256_BWD_CASES)
+def test_bwd_kernel_at_head_dim_256(card, libraries, case):
+    """f32 against the plain backward; bf16 equal to the f32 instance on
+    f32 copies, rounded once; both through ``flash_bwd.cu``; two runs
+    bit-equal."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    got, run = _check_bwd(card, case, "float32")
+    for g, g2 in zip(got, run()):
+        assert torch.equal(g, g2)
+    b, hq, hkv, t, s, d, causal, window = case
+    q, k, v = _mk(card, 7, b, hq, hkv, t, s, d, "bfloat16")
+    dout = _mk(card, 8, b, hq, hkv, t, s, d, "bfloat16")[0]
+    out, lse = attention_ref(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window, scale=d ** -0.5)
+    bf = kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    f32 = kernel.flash_attention_bwd_cuda(q.float(), k.float(), v.float(),
+                                          out.float(), lse, dout.float(),
+                                          **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), bf, f32):
+        assert x.dtype == torch.bfloat16, name
+        assert torch.equal(x, y.bfloat16()), name
+    assert libraries == ["flash_bwd"] * 4
 
 
 BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4)}
@@ -471,15 +509,89 @@ def test_rwkv6_kernel_state_continuation(card):
     torch.testing.assert_close(st, s, atol=1e-5, rtol=0)
 
 
-def test_rwkv6_cuda_call_with_grad_raises(card):
-    from repro_torch.kernels.rwkv6 import rwkv6
+def _rwkv_bwd_inputs(card, seed, b, h, t, d, dtype, decay_scale=1.0):
+    """The forward's inputs and the cotangents (do, dsT) of (o, sT)."""
+    rng = np.random.default_rng(seed + 100)
+    inputs = _rwkv_inputs(card, seed, b, h, t, d, dtype, decay_scale)
+    do = torch.from_numpy(rng.standard_normal((b, h, t, d)).astype(
+        np.float32)).to(card, getattr(torch, dtype))
+    dsT = torch.from_numpy(rng.standard_normal((b, h, d, d)).astype(
+        np.float32)).to(card)
+    return inputs, do, dsT
 
-    r, k, v, lw, u, s0 = _rwkv_inputs(card, 6, 1, 2, 8, 16, "float32")
-    r.requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        rwkv6(r, k, v, lw, u, s0)
-    with torch.no_grad():
-        rwkv6(r, k, v, lw, u, s0)
+
+def _rwkv_bwd_check(got, want, dtype, extra_atol=0.0):
+    atol, rtol = RWKV_TOL[dtype]
+    for name, g, w in zip(("dr", "dk", "dv", "dlog_w", "du", "ds0"), got,
+                          want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        rt = rtol if name in ("dr", "dk", "dv") else 0.0
+        torch.testing.assert_close(
+            g.float(), w.float(), atol=atol + extra_atol, rtol=rt + 1e-5,
+            msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("with_s0", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RWKV_SWEEP)
+def test_rwkv6_bwd_kernel_matches_plain(card, case, dtype, with_s0):
+    from repro_torch.kernels.rwkv6 import kernel
+    from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
+
+    (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(card, 3, *case, dtype)
+    s0 = s0 if with_s0 else None
+    n0 = kernel.bwd_launches
+    got = kernel.rwkv6_bwd_cuda(r, k, v, lw, u, s0, do, dsT)
+    torch.cuda.synchronize()
+    assert kernel.bwd_launches == n0 + 1
+    _rwkv_bwd_check(got, rwkv6_bwd_ref(r, k, v, lw, u, s0, do, dsT), dtype)
+    again = kernel.rwkv6_bwd_cuda(r, k, v, lw, u, s0, do, dsT)
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.parametrize("decay_scale", [10.0, 100.0])
+def test_rwkv6_bwd_kernel_extreme_decay(card, decay_scale):
+    """log_w far below -30: the backward takes it unclamped, as the
+    reference's and the plain one do."""
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_bwd_cuda
+    from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
+
+    (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(
+        card, 4, 1, 2, 96, 32, "float32", decay_scale)
+    assert (lw < -30).any()
+    got = rwkv6_bwd_cuda(r, k, v, lw, u, s0, do, dsT)
+    want = rwkv6_bwd_ref(r, k, v, lw, u, s0, do, dsT)
+    assert all(torch.isfinite(g).all() for g in got)
+    lwp = torch.nn.functional.pad(lw, (0, 0, 0, 32)).reshape(1, 2, 2, 64, 32)
+    L = lwp.cumsum(3).abs().max().item()
+    top = max(w.abs().max().item() for w in want)
+    _rwkv_bwd_check(got, want, "float32", L * 2.0 ** -23 * top)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [7, 64, 130])
+def test_rwkv6_autograd_goes_through_the_backward_kernel(card, t, dtype):
+    """``ops.rwkv6`` on inputs that require grad: the forward kernel once,
+    the backward kernel once, never autograd over the plain version; the
+    gradients are the backward kernel's."""
+    from repro_torch.kernels.rwkv6 import kernel, rwkv6
+
+    (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(card, 6, 1, 2, t, 64,
+                                                     dtype)
+    leaves = [x.clone().requires_grad_() for x in (r, k, v, lw, u, s0)]
+    n0 = (sum(_rwkv_counts()), kernel.bwd_launches)
+    o, sT = rwkv6(*leaves)
+    grads = torch.autograd.grad((o, sT), leaves, (do, dsT))
+    torch.cuda.synchronize()
+    assert (sum(_rwkv_counts()), kernel.bwd_launches) == (n0[0] + 1,
+                                                          n0[1] + 1)
+    want = kernel.rwkv6_bwd_cuda(r, k, v, lw, u, s0, do, dsT)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
 
 
 def test_rwkv6_kernel_rejects_what_it_does_not_take(card):
@@ -863,15 +975,73 @@ def test_rglru_sm90_state_continuation(card, dtype):
     assert torch.equal(torch.cat(outs, 1), h) and torch.equal(st, hT)
 
 
-def test_rglru_cuda_call_with_grad_raises(card):
-    from repro_torch.kernels.rglru import rglru
+def _rglru_bwd_inputs(card, seed, b, t, d, dtype):
+    """log_a, the forward's h (plain), h0 and the cotangents (dh, dh_last)
+    of (h, h_final)."""
+    from repro_torch.kernels.rglru import rglru_chunked
 
-    la, g, h0 = _rglru_inputs(card, 6, 1, 8, 64, "float32")
-    g.requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        rglru(la, g, h0)
-    with torch.no_grad():
-        rglru(la, g, h0)
+    la, g, h0 = _rglru_inputs(card, seed, b, t, d, dtype)
+    h = rglru_chunked(la, g, h0)[0].contiguous()
+    rng = np.random.default_rng(seed + 100)
+    dh = torch.from_numpy(rng.standard_normal((b, t, d)).astype(
+        np.float32)).to(card, getattr(torch, dtype))
+    dh_last = torch.from_numpy(rng.standard_normal((b, d)).astype(
+        np.float32)).to(card)
+    return la, g, h, h0, dh, dh_last
+
+
+def _rglru_bwd_check(got, want, dtype):
+    atol, rtol = RGLRU_TOL[dtype]
+    for name, x, w in zip(("dlog_a", "dg", "dh0"), got, want):
+        if w is None:
+            assert x is None, name
+            continue
+        assert x.dtype == w.dtype and x.shape == w.shape, name
+        torch.testing.assert_close(
+            x.float(), w.float(), atol=atol,
+            rtol=(rtol if name == "dg" else 0.0) + 1e-5,
+            msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_SWEEP)
+def test_rglru_bwd_kernel_matches_plain(card, case, dtype, with_h0):
+    from repro_torch.kernels.rglru import kernel
+    from repro_torch.kernels.rglru.ref import rglru_bwd_ref
+
+    la, _, h, h0, dh, dh_last = _rglru_bwd_inputs(card, 3, *case, dtype)
+    h0 = h0 if with_h0 else None
+    n0 = kernel.bwd_launches
+    got = kernel.rglru_bwd_cuda(la, h, h0, dh, dh_last)
+    torch.cuda.synchronize()
+    assert kernel.bwd_launches == n0 + 1
+    _rglru_bwd_check(got, rglru_bwd_ref(la, h, h0, dh, dh_last), dtype)
+    again = kernel.rglru_bwd_cuda(la, h, h0, dh, dh_last)
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [5, 100, 512])
+def test_rglru_autograd_goes_through_the_backward_kernel(card, t, dtype):
+    """``ops.rglru`` on inputs that require grad: one forward kernel
+    launch, the backward kernel once, never autograd over the plain
+    version; the gradients are the backward kernel's from the forward's
+    own h."""
+    from repro_torch.kernels.rglru import kernel, rglru
+
+    la, g, _, h0, dh, dh_last = _rglru_bwd_inputs(card, 6, 2, t, 256, dtype)
+    leaves = [x.clone().requires_grad_() for x in (la, g, h0)]
+    n0 = (sum(_rglru_counts()), kernel.bwd_launches)
+    h, h_last = rglru(*leaves)
+    grads = torch.autograd.grad((h, h_last), leaves, (dh, dh_last))
+    torch.cuda.synchronize()
+    assert (sum(_rglru_counts()), kernel.bwd_launches) == (n0[0] + 1,
+                                                           n0[1] + 1)
+    want = kernel.rglru_bwd_cuda(la, h.detach(), h0, dh, dh_last)
+    for x, w in zip(grads, want):
+        assert torch.equal(x, w)
 
 
 def test_rglru_kernel_rejects_what_it_does_not_take(card):

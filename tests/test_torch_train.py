@@ -3,18 +3,25 @@
 Same numpy inputs through both frameworks:
 
 * rmsnorm's custom backward against ``jax.grad`` of the reference's;
-* ``loss_fn`` value and grads on tiny qwen2.5 and yi, from the reference's
-  parameters carried across by name: rtol 1e-5 (f32 sums in another
-  order), each leaf also allowed atol 1e-6 of its largest gradient, with
-  full remat and without;
+* ``loss_fn`` value and grads on tiny qwen2.5, yi, rwkv6 and
+  recurrentgemma, from the reference's parameters carried across by name:
+  rtol 1e-5 (f32 sums in another order), each leaf also allowed atol 1e-6
+  of its largest gradient (1e-5 for the recurrent models, whose
+  recurrences' backwards sum in other orders, over many terms), with full
+  remat and without.  recurrentgemma's ``lam`` is moved from its init
+  (``_perturb``): there a = exp(-8 softplus(lam) r) is about 3e-8, the
+  state forgets at once, and lam's gradient is a cancellation of roundoff
+  (ROADMAP §3);
 * AdamW twins of ``tests/test_optim.py``;
 * two train steps from one state (``train_state_from_numpy``): params and
-  moments rtol 1e-5 (each leaf atol 1e-6 of its largest value), but for
-  the elements the test names, held to the size of the steps taken;
+  moments rtol 1e-5 (each leaf atol 1e-6 of its largest value, 1e-5 for
+  the recurrent models), but for the elements the test names, held to the
+  size of the steps taken;
 * ``ElasticTrainer`` twins of ``tests/test_train_restart.py`` (port
   against port, raw codec: losses rtol 1e-6, params bit-equal) and
   ``tests/test_elastic.py`` (a 1 -> 2 resize, losses rtol 1e-5), and the
-  q8-delta roundtrip with a resize of ``tests/test_delta_codec.py``.
+  q8-delta roundtrip with a resize of ``tests/test_delta_codec.py``, also
+  on tiny rwkv6 and recurrentgemma.
 
 f32 matmuls run in full precision (``allow_tf32 = False``).
 """
@@ -53,7 +60,10 @@ from repro_torch.train.step import compute_grads  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
-ARCHS = ["qwen2.5-3b", "yi-6b"]
+ARCHS = ["qwen2.5-3b", "yi-6b", "rwkv6-7b", "recurrentgemma-9b"]
+# each leaf's atol, relative to its largest element
+REL_ATOL = {"qwen2.5-3b": 1e-6, "yi-6b": 1e-6, "rwkv6-7b": 1e-5,
+            "recurrentgemma-9b": 1e-5}
 CPU = torch.device("cpu")
 # an overlap resize's background streams must land within this wall time
 RESIZE_WAIT_S = 120
@@ -74,6 +84,25 @@ def _batch(cfg, seed=0, b=2, t=16):
     labels = toks.copy()
     labels[:, -3:] = -1                      # masked targets count as none
     return {"tokens": toks, "labels": labels}
+
+
+def _perturb(tree, seed=1):
+    """numpy params with every ``lam`` (the RG-LRU decay's logit) drawn
+    from [-6, 0], where the decay and its gradient show (see the module's
+    docstring); other leaves unchanged.  Trees without ``lam`` pass
+    through."""
+    tree = jax.tree.map(np.array, tree)
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            if "lam" in t:
+                t["lam"] = rng.uniform(-6.0, 0.0, t["lam"].shape) \
+                    .astype(np.float32)
+            for v in t.values():
+                walk(v)
+    walk(tree)
+    return tree
 
 
 def _port_batch(batch):
@@ -132,19 +161,19 @@ def test_loss_and_grads_match_jax(arch, remat):
     jcfg = dataclasses.replace(jax_get_config(arch, tiny=True),
                                remat_policy=remat)
     cfg = dataclasses.replace(get_config(arch, tiny=True), remat_policy=remat)
-    jparams, _ = jax_init_params(jcfg, jax.random.key(1))
+    jparams = _perturb(jax_init_params(jcfg, jax.random.key(1))[0])
     batch = _batch(cfg)
     (jloss, jm), jgrads = jax.value_and_grad(
         lambda p: jax_loss_fn(jcfg, p, {k: jnp.asarray(v)
                                         for k, v in batch.items()},
                               impl="xla"), has_aux=True)(jparams)
-    params = params_from_numpy(jax.tree.map(np.asarray, jparams), CPU)
+    params = params_from_numpy(jparams, CPU)
     loss, metrics, grads = compute_grads(cfg, params, _port_batch(batch))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(float(metrics["xent"]), float(jm["xent"]),
                                rtol=1e-5)
     _assert_tree_close(grads, jax.tree.map(np.asarray, jgrads), rtol=1e-5,
-                       rel_atol=1e-6)
+                       rel_atol=REL_ATOL[arch])
 
 
 def test_loss_fn_grads_through_autograd_equal_bound_leaves():
@@ -234,13 +263,22 @@ def test_train_step_matches_jax(arch, compress):
     * with ``compress_grads``, at most 1e-3 of each leaf's elements: the
       reference's XLA codec may round a code one step away
       (``tests/test_kernels_codec.py``'s tolerance), which moves that
-      gradient element by one quantization step.
+      gradient element by one quantization step;
+    * in the recurrent models, with or without compression, at most one
+      element a leaf or 1e-3 of its elements: AdamW divides each gradient
+      element by its own size (m / sqrt(v)), so an element whose gradient
+      lies near the roundoff of the recurrences' backwards (summed in
+      other orders, ``REL_ATOL``) takes a step whose size that roundoff
+      sets.
     """
     jcfg = jax_get_config(arch, tiny=True)
     cfg = get_config(arch, tiny=True)
+    recurrent = cfg.family != "dense"
     jopt = JaxAdamWConfig(lr=1e-3, compress_grads=compress)
     opt = AdamWConfig(lr=1e-3, compress_grads=compress)
     jstate = jax_make_train_state(jcfg, jax.random.key(2), jopt)
+    jstate = jstate._replace(params=jax.tree.map(
+        jnp.asarray, _perturb(jstate.params)))
     state = train_state_from_numpy(jax.tree.map(np.asarray, jstate), CPU)
     batch = _batch(cfg, seed=3, b=4)
     jstep = jax.jit(jax_make_train_step(
@@ -265,15 +303,19 @@ def test_train_step_matches_jax(arch, compress):
             np.testing.assert_allclose(
                 _np(got["stack/b0/attn/bkv"])[:, 0],
                 want["stack/b0/attn/bkv"][:, 0], atol=steps_lr)
-        if not compress:
-            _assert_tree_close(got, want, rtol=1e-5, rel_atol=1e-6,
-                               skip=kbias)
+        if not (compress or recurrent):
+            _assert_tree_close(got, want, rtol=1e-5,
+                               rel_atol=REL_ATOL[arch], skip=kbias)
             continue
         for name, w in want.items():
             g = _np(got[name])
             far = ~np.isclose(g, w, rtol=1e-5,
-                              atol=1e-6 * max(np.abs(w).max(), 1e-30))
-            assert far.mean() <= 1e-3 or name == "stack/b0/attn/bkv", name
+                              atol=REL_ATOL[arch]
+                              * max(np.abs(w).max(), 1e-30))
+            allowed = 1e-3 * far.size
+            if recurrent:
+                allowed = max(allowed, 1)
+            assert far.sum() <= allowed or name == "stack/b0/attn/bkv", name
             np.testing.assert_allclose(g, w, atol=steps_lr, err_msg=name)
 
 
@@ -397,8 +439,19 @@ def test_resize_preserves_trajectory(overlap):
 
 
 def test_elastic_trainer_q8_delta_roundtrip():
+    _q8_delta_roundtrip("yi-6b")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
+def test_elastic_trainer_q8_delta_roundtrip_recurrent(arch):
+    """The round trip above on the recurrent models, whose training runs
+    the ops' backwards (the plain ones on the CPU)."""
+    _q8_delta_roundtrip(arch)
+
+
+def _q8_delta_roundtrip(arch):
     with ICheckCluster(n_icheck_nodes=2) as cluster:
-        t = _trainer(cluster, "app", 5, arch="yi-6b", commit_every=2,
+        t = _trainer(cluster, "app", 5, arch=arch, commit_every=2,
                      total_steps=12, codec="q8-delta")
         t.run(4)
         cluster.rm.schedule_resize("app", 2)
