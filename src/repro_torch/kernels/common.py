@@ -26,6 +26,8 @@ from typing import Dict, Sequence
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# the f32 <-> bf16 helpers the sources that take both types include
+CONVERT_HEADER = Path(__file__).resolve().parent / "csrc" / "convert.cuh"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

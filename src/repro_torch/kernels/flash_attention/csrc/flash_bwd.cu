@@ -50,6 +50,8 @@
 // mma/wgmma, TMA and pipelining come in later versions.
 #include <algorithm>
 
+#include "../../csrc/convert.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,24 +64,6 @@ constexpr int NTHREADS = 256;   // 16 x 16 threads, MT x MT micro-tile each
 // queries and keys per tile at head dim d; p and ds tiles have row stride
 // tile + 1
 __host__ __device__ constexpr int tile(int d) { return d > 128 ? 32 : 64; }
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // a (rows x D) tile of a (.., len, D) tensor into shared memory as f32 with
 // row stride D + 1 (conflict-free column reads); rows past `len` are zeros

@@ -21,15 +21,17 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import load_library
+from ..common import CONVERT_HEADER, load_library
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-# library name -> its source; the sm90 ones include SM90_HEADERS
+# library name -> its source, and the headers a library includes
 LIBRARIES = {"flash_fwd": _CSRC / "flash_fwd.cu",
              "flash_bwd": _CSRC / "flash_bwd.cu",
              "flash_fwd_sm90": _CSRC / "flash_fwd_sm90.cu",
              "flash_bwd_sm90": _CSRC / "flash_bwd_sm90.cu"}
-SM90_HEADERS = (_CSRC / "sm90.cuh",)
+HEADERS = {"flash_bwd": (CONVERT_HEADER,),
+           "flash_fwd_sm90": (_CSRC / "sm90.cuh",),
+           "flash_bwd_sm90": (_CSRC / "sm90.cuh",)}
 # head dims each kernel is instantiated for, 256 for recurrentgemma-9b's
 # attention layers; the wgmma backward (bf16) stops at SM90_BWD_MAX_D
 FWD_HEAD_DIMS = (32, 64, 128, 256)
@@ -53,8 +55,7 @@ _ARGTYPES = {
 
 def _lib(name: str):
     """The loaded library ``name`` and its C entry (of the same name)."""
-    lib = load_library(name, (LIBRARIES[name],),
-                       SM90_HEADERS if name.endswith("_sm90") else ())
+    lib = load_library(name, (LIBRARIES[name],), HEADERS.get(name, ()))
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES["bwd" if "bwd" in name else "fwd"]

@@ -32,6 +32,8 @@
 // threads spread a small batch over more SMs.  No atomics: the result is
 // deterministic, and a run split at a batch boundary or anywhere else
 // takes the same f32 steps as one shot.
+#include "../../csrc/convert.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,24 +42,6 @@ namespace {
 
 constexpr int NTHREADS = 64;    // channels a block
 constexpr int U = 32;           // tokens a batch of loads
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // issue the loads of U tokens starting at `off` (channel-strided)
 template <typename T>

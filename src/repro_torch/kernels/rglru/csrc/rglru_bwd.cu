@@ -24,6 +24,8 @@
 // recurrentgemma-9b's training shape, B 1, T 4096, D 4096, bf16: 235 MB,
 // 0.070 ms at 3.35 TB/s); the work, one exp and three multiplies an
 // element, is far below.
+#include "../../csrc/convert.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,24 +34,6 @@ namespace {
 
 constexpr int NTHREADS = 64;    // channels a block
 constexpr int U = 16;           // tokens a batch of loads
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // the loads of the U tokens [t0, t0 + U) of one channel: log_a, dh and
 // h_{t-1} (h0v before token 0)

@@ -47,6 +47,7 @@
 // are bit-equal at every shape and a run split anywhere equals one shot
 // bit for bit.  No atomics.
 #include "../../flash_attention/csrc/sm90.cuh"
+#include "../../csrc/convert.cuh"
 
 #include <math.h>
 
@@ -62,15 +63,6 @@ constexpr int NTHREADS = 32 + HT;
 constexpr int MAX_STAGES = 32;
 constexpr int SMEM_MAX = 232448;  // 227 KB, the most a CTA may ask for
 constexpr int ALIGN = 128;        // TMA destinations
-
-template <typename G>
-__device__ __forceinline__ float to_f32(G x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // a stage: the log_a box (f32) and the g box, [U tokens][W channels]
 // each as TMA lays them.  The helpers turn log_a into exp(log_a) in

@@ -24,16 +24,16 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import check_tensor, load_library
+from ..common import CONVERT_HEADER, check_tensor, load_library
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # library name -> (its source, the headers it includes)
 LIBRARIES = {
-    "rglru": (_CSRC / "rglru.cu", ()),
+    "rglru": (_CSRC / "rglru.cu", (CONVERT_HEADER,)),
     "rglru_sm90": (_CSRC / "rglru_sm90.cu",
                    (_CSRC.parent.parent / "flash_attention" / "csrc"
-                    / "sm90.cuh",)),
-    "rglru_bwd": (_CSRC / "rglru_bwd.cu", ())}
+                    / "sm90.cuh", CONVERT_HEADER)),
+    "rglru_bwd": (_CSRC / "rglru_bwd.cu", (CONVERT_HEADER,))}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROW_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
 

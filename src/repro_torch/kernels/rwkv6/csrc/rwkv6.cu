@@ -36,6 +36,8 @@
 //
 // Numerics: f32 throughout (expf, no fast math), as the reference; the
 // sums run in another order than the chunked plain version.
+#include "../../csrc/convert.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,24 +46,6 @@ namespace {
 
 constexpr float LOG_W_MIN = -30.0f;   // kernel.py:35
 constexpr int CT = 16;                 // tokens staged per barrier
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(D)

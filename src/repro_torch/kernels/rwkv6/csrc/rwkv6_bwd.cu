@@ -40,6 +40,8 @@
 // 67 TFLOP/s: bound by operations.  This first design runs on CUDA cores
 // and writes and reads every S_{t-1} once (16 KB a token and head, 4.3 GB
 // each way at that shape), which bounds it far above both.
+#include "../../csrc/convert.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,24 +50,6 @@ namespace {
 
 constexpr int C = 64;     // tokens a chunk (boundary states, window)
 constexpr int NJ = 4;     // threads a state row
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // the n tokens from c0 of a (b, h) row of `src` into a (C, D) f32 tile
 template <typename T, int D>

@@ -22,16 +22,16 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import check_tensor, load_library
+from ..common import CONVERT_HEADER, check_tensor, load_library
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # library name -> (its source, the headers it includes)
 LIBRARIES = {
-    "rwkv6": (_CSRC / "rwkv6.cu", ()),
+    "rwkv6": (_CSRC / "rwkv6.cu", (CONVERT_HEADER,)),
     "rwkv6_sm90": (_CSRC / "rwkv6_sm90.cu",
                    (_CSRC.parent.parent / "flash_attention" / "csrc"
                     / "sm90.cuh",)),
-    "rwkv6_bwd": (_CSRC / "rwkv6_bwd.cu", ())}
+    "rwkv6_bwd": (_CSRC / "rwkv6_bwd.cu", (CONVERT_HEADER,))}
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
