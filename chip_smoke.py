@@ -9,14 +9,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA card means exit 1 with no result;
 2. build: every kernel library (flash-attention forward and backward in
    f32 on FMAs and in bf16 on wgmma fed by TMA, the checkpoint codec, the
-   RWKV-6 recurrence, sequential and chunked on mma.sync fed by TMA, the
-   Reed-Solomon encode, the RG-LRU scan with its loads in registers and by
-   TMA) compiled
+   RWKV-6 recurrence, sequential and chunked on mma.sync fed by TMA, its
+   backward, sequential and chunked on mma.sync, the Reed-Solomon encode,
+   the RG-LRU scan with its loads in registers and by TMA, its backward)
+   compiled
    with ``nvcc`` for ``sm_90a`` from the sources in this checkout, all at
    once; each library's registers, spills and its ``HGMMA``, ``HMMA`` and
    ``UTMALDG`` instruction counts (``cuobjdump -sass``): wgmma and TMA
-   loads must be there in the bf16 flash-attention libraries, mma.sync and
-   TMA loads in the chunked RWKV-6 one and in the TMA RG-LRU one;
+   loads must be there in the bf16 flash-attention libraries (wgmma in the
+   backward's head-dim-256 kernels too), mma.sync and TMA loads in the
+   chunked RWKV-6 forward, mma.sync in its backward, TMA loads in the TMA
+   RG-LRU one;
 3. kernels against their plain PyTorch versions on the card:
    * the flash-attention forward over the reference's sweep plus the
      serving path's shape, and at head dim 256 (MQA, causal) with windows
@@ -55,17 +58,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      each other everywhere; through ``ops.rglru``, [0, T/2) then [T/2, T),
      and a prefill followed by one-token steps, equal to one shot;
    * the backward kernels of the recurrent training paths against their
-     plain backwards, two runs bit-equal each: K6's (``rwkv6_bwd``) over
-     the RWKV sweep and rwkv6-7b's training shape (1, 64, 4096, 64), f32
-     and bf16, from s0 and from none, a nonzero dsT, atol 2e-3 + rtol
-     1e-5 (bf16 dr, dk, dv + rtol 2^-7), and log_w x10 and x100 below
-     -30, unclamped as in the reference; K7's (``rglru_bwd``) over the
-     RG-LRU sweep and recurrentgemma-9b's training shape (1, 4096, 4096),
-     with h0 and without, a nonzero dh_last, atol 2e-4 + rtol 1e-5 (a
-     bf16 dg + rtol 2^-7); K4's backward at head dim 256 (f32 FMAs), f32
-     within atol 1e-4 + rtol 1e-4 and bf16 bit-equal to the f32 instance
-     on f32 copies rounded once, at a window of 128 and at (1, 16, 1,
-     4096, 4096, 256) under the window of 2048;
+     plain backwards, two runs bit-equal each: K6's, the sequential
+     ``rwkv6_bwd`` over the RWKV sweep and rwkv6-7b's training shape (1,
+     64, 4096, 64), f32 and bf16, and the chunked tensor-core
+     ``rwkv6_bwd_sm90`` (bf16) over the sweep's cases of at least 32
+     tokens and the training shape, from s0 and from none, a nonzero dsT,
+     atol 2e-3 + rtol 1e-5 (bf16 dr, dk, dv + rtol 2^-7), and log_w x10
+     and x100 below -30, unclamped as in the reference (f32 for the
+     sequential kernel, bf16 for the chunked one); K7's (``rglru_bwd``)
+     over the RG-LRU sweep and recurrentgemma-9b's training shape (1,
+     4096, 4096), with h0 and without, a nonzero dh_last, atol 2e-4 +
+     rtol 1e-5 (a bf16 dg + rtol 2^-7); K4's backward at head dim 256, f32
+     (FMAs) within atol 1e-4 + rtol 1e-4 and bf16 (wgmma) within twice
+     SDPA's error as at the lower head dims (both printed), over three
+     windowed MQA cases and (1, 16, 1, 4096, 4096, 256) under the window
+     of 2048; then one call each of the two redesigned backwards (K6's
+     chunked, K4's at head dim 256) at their training shapes under
+     ``torch.profiler``: their device time by kernel (``backward_split``);
 4. the serving path: yi-6b at full width (32 layers, bf16, random weights
    from a seeded generator) serves 4 requests of 512 prompt tokens and 32
    new tokens through ``ServeEngine.generate``, committing its KV cache to
@@ -119,14 +128,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 5b. the same training path for rwkv6-7b at published widths cut to 8
    layers (2,290,520,064 params), bf16 compute, 4 steps of 4096 tokens,
    q8-delta commits at 2 and 4, no restart: K6's chunked forward 2 x 8 x
-   4 times (full remat runs each layer's forward twice), its backward 8 x
-   4; K1 and K2 in the commits; then a 2-layer f32 cut's loss and every
+   4 times (full remat runs each layer's forward twice), its chunked
+   backward 8 x 4, the sequential forward and backward never; K1 and K2
+   in the commits; then a 2-layer f32 cut's loss and every
    gradient on the card against the plain CPU path (one 64-token
    sequence; each leaf within 1e-3 of its largest element, the loss
    within rtol 1e-5);
 5c. the same for recurrentgemma-9b cut to one super-layer (rec, rec,
    attn; 2,753,638,400 params): K7's TMA forward 2 x 2 x 4, its backward
-   2 x 4, K4 at head dim 256 forward 2 x 4 and backward 4; the f32 cut is
+   2 x 4, K4 at head dim 256 forward 2 x 4 and backward 4 (all on the
+   bf16 wgmma library, none on the FMA one); the f32 cut is
    the 5-layer one of phase 4d (both tails) with its window cut to 16,
    ``lam`` drawn from [-6, 0] (at init its gradient is roundoff);
 6. a second training phase at full width cut to 8 layers: int8 gradient
@@ -190,10 +201,6 @@ BATCH, PROMPT, GEN = 4, 512, 32
 ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
 LSE_ATOL = 1e-4
 BWD_TOL = {"float32": (1e-4, 1e-4)}
-# K4's bf16 backward at head dim 256 against the plain f32 backward on f32
-# copies of its inputs: the f32 instance's atol, and one rounding to bf16
-# (within 2^-8 of the value) with room for the f32 error's relative part
-D256_BF16_BWD_TOL = (1e-4, 2 ** -7)
 # the training path: qwen2.5-3b, one 4096-token sequence a step
 TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 6, 2, 8
 # the cut phase's overlap resize must complete within this wall time
@@ -246,8 +253,11 @@ RWKV_TRAIN_LAYERS, HYBRID_TRAIN_LAYERS = 8, 3
 # loss within LOSS_RTOL
 GRAD_SEQ, GRAD_TOL, LOSS_RTOL = 64, 1e-3, 1e-5
 # K4's backward at head dim 256 beside recurrentgemma-9b's training shape:
-# a window shorter than T; (b, hq, hkv, t, s, d, causal, window)
-D256_BWD_SWEEP = [(1, 4, 1, 300, 300, 256, True, 128)]
+# windows shorter than T, T and S ragged at the key tiles, T < S (the
+# card tests' cases); (b, hq, hkv, t, s, d, causal, window)
+D256_BWD_SWEEP = [(1, 4, 1, 300, 300, 256, True, 128),
+                  (2, 8, 1, 200, 333, 256, True, 100),
+                  (1, 16, 1, 1100, 1100, 256, True, 1024)]
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -391,23 +401,34 @@ def profile_window(fn, top: int = 8) -> dict:
 # --------------------------------------------------------------------------
 # the tensor-core and TMA instructions each sm90 library must hold: wgmma
 # (``HGMMA``) in the flash-attention ones, mma.sync (``HMMA``) in the
-# chunked RWKV-6 one, TMA loads (``UTMALDG``) in all
+# chunked RWKV-6 ones, TMA loads (``UTMALDG``) in all but the chunked RWKV-6
+# backward (which loads its tiles with 16-byte loads)
 SASS_REQUIRED = {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
                  "flash_bwd_sm90": ("HGMMA", "UTMALDG"),
                  "rwkv6_sm90": ("HMMA", "UTMALDG"),
+                 "rwkv6_bwd_sm90": ("HMMA",),
                  "rglru_sm90": ("UTMALDG",)}
+# and in the kernels whose (mangled) names hold these: the head-dim-256
+# instances of the bf16 backward
+SASS_FUNCTION_REQUIRED = {"flash_bwd_sm90": {"dkdv_d256": "HGMMA",
+                                             "dq_sm90_kernelILi256E": "HGMMA"}}
 
 
 def sass_counts(path) -> dict:
     """How many wgmma (``HGMMA``), mma.sync (``HMMA``) and TMA-load
     (``UTMALDG``) instructions ``cuobjdump -sass`` finds in one built
-    library."""
+    library, and in each of its kernels (``functions``: name -> counts)."""
     from repro_torch.kernels import common
 
     tool = Path(common.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    return {op: sass.count(op) for op in ("HGMMA", "HMMA", "UTMALDG")}
+    ops = ("HGMMA", "HMMA", "UTMALDG")
+    functions = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        functions[name] = {op: part.count(op) for op in ops}
+    return {**{op: sass.count(op) for op in ops}, "functions": functions}
 
 
 def build_kernels():
@@ -443,7 +464,14 @@ def build_kernels():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
         missing = [op for op in SASS_REQUIRED.get(name, ()) if not counts[op]]
+        for part, op in SASS_FUNCTION_REQUIRED.get(name, {}).items():
+            found = [c[op] for f, c in counts["functions"].items()
+                     if part in f]
+            log(f"    {part}: {op} {found}")
+            if not found or not all(found):
+                missing.append(f"{op} in {part}")
         if missing:
+            counts.pop("functions")
             raise AssertionError(f"{name} has no {missing} instruction: "
                                  f"{counts}")
 
@@ -877,77 +905,19 @@ def check_bwd_case(case, dtype, device, determinism=False) -> float:
     return err
 
 
-def check_bwd_d256(path_case, device) -> float:
-    """K4's backward at head dim 256 (``flash_bwd.cu`` on f32 FMAs): f32
-    against the plain backward within ``BWD_TOL``; bf16 (the dtype the
-    training path runs) against the plain backward on f32 copies of the
-    same inputs, each element within ``D256_BF16_BWD_TOL``, and bit-equal
-    to the f32 instance run on those copies and rounded to bf16 once (it
-    widens its inputs and computes in f32); two bf16 runs bit-equal;
-    D256_BWD_SWEEP and the training path's shape.  Returns the bf16
-    result's max abs error against the plain f32 backward at the path's
-    shape."""
+def check_bwd(path_case, device, sweep=SWEEP) -> float:
+    """``sweep`` and the training path's shape, both dtypes, two runs
+    bit-equal each; returns the max abs error at the path's shape in
+    bf16."""
     import torch
 
-    from repro_torch.kernels.flash_attention import attention_bwd_ref
-    from repro_torch.kernels.flash_attention import attention_ref
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_bwd_cuda
-
-    path_err = None
-    for case in D256_BWD_SWEEP + [path_case]:
-        check_bwd_case(case, "float32", device, determinism=True)
-        b, hq, hkv, t, s, d, causal, window = case
-        q, k, v = _inputs(7, b, hq, hkv, t, s, d, "bfloat16", device)
-        dout = _inputs(8, b, hq, hkv, t, s, d, "bfloat16", device)[0]
-        out, lse = attention_ref(q, k, v, causal=causal, window=window)
-        kw = dict(causal=causal, window=window, scale=d ** -0.5)
-        got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
-        again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
-        f32 = flash_attention_bwd_cuda(q.float(), k.float(), v.float(),
-                                       out.float(), lse, dout.float(), **kw)
-        torch.cuda.synchronize()
-        for name, x, y, z in zip(("dq", "dk", "dv"), got, f32, again):
-            if not (torch.equal(x, y.bfloat16()) and torch.equal(x, z)):
-                raise AssertionError(f"flash_bwd {case} bf16 {name}: not the "
-                                     f"f32 instance's result rounded, or "
-                                     f"two runs differ")
-        del f32, again
-        want = attention_bwd_ref(q.float(), k.float(), v.float(),
-                                 out.float(), lse, dout.float(), **kw)
-        atol, rtol = D256_BF16_BWD_TOL
-        err = 0.0
-        for name, x, w in zip(("dq", "dk", "dv"), got, want):
-            diff = (x.float() - w).abs()
-            if not bool(torch.all(diff <= atol + rtol * w.abs())):
-                raise AssertionError(
-                    f"flash_bwd {case} bf16 {name}: max abs err "
-                    f"{diff.max().item()} against the plain f32 backward "
-                    f"(atol {atol} + rtol {rtol})")
-            err = max(err, diff.max().item())
-        log(f"  flash_bwd {case} bf16: within atol {atol} + rtol {rtol} of "
-            f"the plain f32 backward, max abs err {err:.3e}; the f32 "
-            f"instance's result rounded, bit for bit")
-        if case == path_case:
-            path_err = err
-        del want, got
-        torch.cuda.empty_cache()
-    return path_err
-
-
-def check_bwd(path_case, device) -> float:
-    """The sweep and the training path's shape, both dtypes; returns the
-    max abs error at the path's shape in bf16."""
-    path_err = None
-    for case in SWEEP + [path_case]:
+    for case in sweep + [path_case]:
         for dtype in ("float32", "bfloat16"):
-            err = check_bwd_case(case, dtype, device,
-                                 determinism=case == path_case)
-            log(f"  flash_bwd {case} {dtype}: max abs err {err:.3e}")
-            if case == path_case and dtype == "bfloat16":
-                path_err = err
-    log("  flash_bwd: two runs at the path's shape are bit-equal")
-    return path_err
+            err = check_bwd_case(case, dtype, device, determinism=True)
+            log(f"  flash_bwd {case} {dtype}: max abs err {err:.3e}; two "
+                f"runs bit-equal")
+        torch.cuda.empty_cache()
+    return err
 
 
 def _codec_input(n, dtype, device, seed):
@@ -1129,20 +1099,25 @@ def _rwkv_bwd_inputs(seed, case, dtype, device, decay_scale=1.0):
     return _rwkv_inputs(seed, case, dtype, device, decay_scale), do, dsT
 
 
-def check_rwkv6_bwd(path_case, device) -> float:
-    """K6's backward against the plain backward (the vjp of the chunked
-    form, log_w unclamped) on the card: the sweep and the training path's
-    shape, f32 and bf16 r/k/v, from s0 and from none, with a nonzero dsT;
-    atol 2e-3 (the reference's kernel tests) + rtol 1e-5, bf16 dr, dk, dv
-    + rtol 2^-7; two runs bit-equal.  log_w x10 and x100 (below -30) in
-    f32, each gradient also within |L| 2^-23 of the call's largest (L the
-    largest cumulative log-decay over a chunk of the plain version: its
-    exponents' f32 resolution).  Returns the max abs error at the path's
-    shape in bf16."""
+def check_rwkv6_bwd(path_case, device) -> dict:
+    """K6's two backward kernels against the plain backward (the vjp of
+    the chunked form, log_w unclamped) on the card: atol 2e-3 (the
+    reference's kernel tests) + rtol 1e-5, bf16 dr, dk, dv + rtol 2^-7;
+    from s0 and from none, with a nonzero dsT; two runs bit-equal; log_w
+    x10 and x100 (below -30), each gradient also within |L| 2^-23 of the
+    call's largest (L the largest cumulative log-decay over a chunk of the
+    plain version: its exponents' f32 resolution).  The sequential
+    ``rwkv6_bwd`` over the sweep and the training path's shape in f32 and
+    bf16, its extreme decays in f32; the chunked ``rwkv6_bwd_sm90`` (bf16)
+    over the sweep's cases of at least ``ops.SM90_MIN_T`` tokens and the
+    training path's shape, its extreme decays in bf16.  Returns each
+    kernel's max abs error at the path's shape in bf16."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.rwkv6.kernel import rwkv6_bwd_cuda
+    from repro_torch.kernels.rwkv6.kernel import (rwkv6_bwd_cuda,
+                                                  rwkv6_bwd_sm90_cuda)
+    from repro_torch.kernels.rwkv6.ops import SM90_MIN_T
     from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
 
     def err_of(got, want, dtype, what, extra=0.0):
@@ -1161,71 +1136,127 @@ def check_rwkv6_bwd(path_case, device) -> float:
             err = max(err, diff.max().item())
         return err
 
-    path_err = None
-    for case in RWKV_SWEEP + [path_case]:
-        for dtype in ("float32", "bfloat16"):
-            (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(3, case, dtype,
-                                                             device)
-            for s0_ in (s0, None):
-                got = rwkv6_bwd_cuda(r, k, v, lw, u, s0_, do, dsT)
-                again = rwkv6_bwd_cuda(r, k, v, lw, u, s0_, do, dsT)
-                want = rwkv6_bwd_ref(r, k, v, lw, u, s0_, do, dsT)
-                torch.cuda.synchronize()
-                what = f"rwkv6_bwd {case} {dtype} s0={s0_ is not None}"
-                err = err_of(got, want, dtype, what)
-                if not all(x is None or torch.equal(x, y)
-                           for x, y in zip(got, again)):
-                    raise AssertionError(f"{what}: two runs differ")
-                log(f"  {what}: max abs err {err:.3e}")
-                if case == path_case and dtype == "bfloat16":
-                    path_err = max(path_err or 0.0, err)
-    for scale in (10.0, 100.0):
-        case = (1, 2, 96, 32)
-        (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(4, case, "float32",
-                                                         device, scale)
-        if not bool((lw < -30).any()):
-            raise AssertionError("the extreme-decay case has no log_w < -30")
-        got = rwkv6_bwd_cuda(r, k, v, lw, u, s0, do, dsT)
-        want = rwkv6_bwd_ref(r, k, v, lw, u, s0, do, dsT)
-        if not all(torch.isfinite(x).all() for x in got):
-            raise AssertionError(f"rwkv6_bwd decay x{scale}: not finite")
-        L = F.pad(lw, (0, 0, 0, 32)).reshape(1, 2, 2, 64, 32).cumsum(3) \
-            .abs().max().item()
-        top = max(w.abs().max().item() for w in want)
-        err = err_of(got, want, "float32", f"rwkv6_bwd decay x{scale}",
-                     L * 2.0 ** -23 * top)
-        log(f"  rwkv6_bwd {case} float32 log_w x{scale} (below -30, "
-            f"unclamped): max abs err {err:.3e} (|L| {L:.1f})")
+    kernels = {"rwkv6_bwd": (rwkv6_bwd_cuda, ("float32", "bfloat16")),
+               "rwkv6_bwd_sm90": (rwkv6_bwd_sm90_cuda, ("bfloat16",))}
+    path_err = {}
+    for name, (run, dtypes) in kernels.items():
+        cases = [c for c in RWKV_SWEEP
+                 if name == "rwkv6_bwd" or c[2] >= SM90_MIN_T]
+        for case in cases + [path_case]:
+            for dtype in dtypes:
+                (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(
+                    3, case, dtype, device)
+                for s0_ in (s0, None):
+                    got = run(r, k, v, lw, u, s0_, do, dsT)
+                    again = run(r, k, v, lw, u, s0_, do, dsT)
+                    want = rwkv6_bwd_ref(r, k, v, lw, u, s0_, do, dsT)
+                    torch.cuda.synchronize()
+                    what = f"{name} {case} {dtype} s0={s0_ is not None}"
+                    err = err_of(got, want, dtype, what)
+                    if not all(x is None or torch.equal(x, y)
+                               for x, y in zip(got, again)):
+                        raise AssertionError(f"{what}: two runs differ")
+                    log(f"  {what}: max abs err {err:.3e}")
+                    if case == path_case and dtype == "bfloat16":
+                        path_err[name] = max(path_err.get(name, 0.0), err)
+        for scale in (10.0, 100.0):
+            case, dtype = (1, 2, 96, 32), dtypes[0]
+            (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(
+                4, case, dtype, device, scale)
+            if not bool((lw < -30).any()):
+                raise AssertionError("the extreme-decay case has no log_w "
+                                     "< -30")
+            got = run(r, k, v, lw, u, s0, do, dsT)
+            want = rwkv6_bwd_ref(r, k, v, lw, u, s0, do, dsT)
+            if not all(torch.isfinite(x.float()).all() for x in got):
+                raise AssertionError(f"{name} decay x{scale}: not finite")
+            L = F.pad(lw, (0, 0, 0, 32)).reshape(1, 2, 2, 64, 32) \
+                .cumsum(3).abs().max().item()
+            top = max(w.float().abs().max().item() for w in want)
+            err = err_of(got, want, dtype, f"{name} decay x{scale}",
+                         L * 2.0 ** -23 * top)
+            log(f"  {name} {case} {dtype} log_w x{scale} (below -30, "
+                f"unclamped): max abs err {err:.3e} (|L| {L:.1f})")
     return path_err
+
+
+def backward_split(rwkv_case, d256_case, device) -> dict:
+    """One call each of K6's chunked backward and K4's bf16 backward at head
+    dim 256, at the training paths' shapes, under ``torch.profiler``: the
+    device time of each of their kernels.  Taken in phase 3: late in a run
+    the profiler drops these launches (PERF.md §7)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bwd_cuda
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_bwd_sm90_cuda
+
+    (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(3, rwkv_case,
+                                                     "bfloat16", device)
+    b, hq, hkv, t, s, d, causal, window = d256_case
+    q, kk, vv = _inputs(7, b, hq, hkv, t, s, d, "bfloat16", device)
+    dout = _inputs(8, b, hq, hkv, t, s, d, "bfloat16", device)[0]
+    out, lse = attention_ref(q, kk, vv, causal=causal, window=window)
+    calls = {
+        "rwkv6_bwd_sm90": lambda: rwkv6_bwd_sm90_cuda(r, k, v, lw, u, s0,
+                                                      do, dsT),
+        "flash_bwd_d256": lambda: flash_attention_bwd_cuda(
+            q, kk, vv, out, lse, dout, causal=causal, window=window,
+            scale=d ** -0.5)}
+    res = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        p = profile_window(fn, top=6)
+        res[name] = {"device_busy_ms": p["device_busy_ms"],
+                     "kernels": p["kernels"]}
+    return res
 
 
 def rwkv6_bwd_numbers(case, device) -> dict:
     """K6's backward at rwkv6-7b's training shape (bf16 r/k/v/do, f32 log_w,
-    u, s0 and dsT): its ``device_ms`` and ``event_ms``, the plain
-    backward's ``graph_ms``, and its bound: the larger of the bytes (each input read once, each output
-    written once) and the six D x D products a token and head of the
-    sequential backward (recomputing S, dr, dk, dv, dlog_w, G: 12 D^2
-    FLOP) at the f32 rate."""
-    from repro_torch.kernels.rwkv6.kernel import rwkv6_bwd_cuda
+    u, s0 and dsT): the chunked kernel's ``device_ms`` and ``event_ms``,
+    the plain backward's ``graph_ms``, and its bound: the larger of the
+    bytes (each input read once, each output written once) and the chunked
+    form's products at the bf16 rate (a chunk of C = 64 tokens: U, V, do
+    S^T, v G'^T and Kd G', each 2 C D^2 FLOP, and dA, A and the three
+    intra-chunk products with dA and A, each C^2 D over the lower
+    triangle).  ``sequential_design``: the sequential kernel's
+    ``device_ms`` at the same inputs, with its bound, the six D x D
+    products a token of its recurrence (12 D^2 FLOP) at the f32 rate."""
+    from repro_torch.kernels.rwkv6.kernel import (BWD_CHUNK, rwkv6_bwd_cuda,
+                                                  rwkv6_bwd_sm90_cuda)
     from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
 
     b, h, t, d = case
-    args = _rwkv_bwd_inputs(3, case, "bfloat16", device)
-    (r, k, v, lw, u, s0), do, dsT = args
-    def kernel():
-        return rwkv6_bwd_cuda(r, k, v, lw, u, s0, do, dsT)
-
-    ms, event_ms = device_ms(kernel, iters=5), cuda_ms(kernel, iters=5)
-    plain_ms = graph_ms(lambda: rwkv6_bwd_ref(r, k, v, lw, u, s0, do, dsT))
+    (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(3, case, "bfloat16",
+                                                     device)
     n = b * h * t * d
     nbytes = n * (4 * 2 + 4 + 3 * 2 + 4) + 2 * h * d * 4 \
         + 3 * b * h * d * d * 4
-    flops = 12 * b * h * t * d * d
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return {"ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    out = {}
+    for name, run, flops, peak in (
+            ("chunked", rwkv6_bwd_sm90_cuda,
+             b * h * -(-t // BWD_CHUNK)
+             * (12 * BWD_CHUNK * d * d + 5 * BWD_CHUNK ** 2 * d),
+             PEAK_BF16_FLOPS),
+            ("sequential", rwkv6_bwd_cuda, 12 * b * h * t * d * d,
+             PEAK_F32_FLOPS)):
+        def kernel():
+            return run(r, k, v, lw, u, s0, do, dsT)
+
+        t_ops = flops / peak
+        out[name] = {"ms": device_ms(kernel, iters=5),
+                     "event_ms": cuda_ms(kernel, iters=5),
+                     "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "bytes": nbytes, "flops": flops}
+    plain_ms = graph_ms(lambda: rwkv6_bwd_ref(r, k, v, lw, u, s0, do, dsT))
+    return {**out["chunked"], "plain_ms": plain_ms, "library_ms": None,
+            "sequential_design": {**out["sequential"], "plain_ms": plain_ms,
+                                  "library_ms": None}}
 
 
 def rwkv6_numbers(case, device, name) -> dict:
@@ -1679,11 +1710,13 @@ def reset_counts() -> None:
 
     fa_kernel.launches = 0
     fa_kernel.bwd_launches = 0
+    fa_kernel.bwd_sm90_launches = 0
     for name in codec_kernel.launches:
         codec_kernel.launches[name] = 0
     rwkv_kernel.launches = 0
     rwkv_kernel.sm90_launches = 0
     rwkv_kernel.bwd_launches = 0
+    rwkv_kernel.bwd_sm90_launches = 0
     rs_kernel.launches = 0
     rglru_kernel.launches = 0
     rglru_kernel.sm90_launches = 0
@@ -1697,11 +1730,16 @@ def read_counts() -> dict:
     from repro_torch.kernels.rglru import kernel as rglru_kernel
     from repro_torch.kernels.rwkv6 import kernel as rwkv_kernel
 
+    # the flash-attention backward by library: the f32 FMA one and the
+    # bf16 wgmma one
     return {"flash_fwd": fa_kernel.launches,
-            "flash_bwd": fa_kernel.bwd_launches, **codec_kernel.launches,
+            "flash_bwd": fa_kernel.bwd_launches - fa_kernel.bwd_sm90_launches,
+            "flash_bwd_sm90": fa_kernel.bwd_sm90_launches,
+            **codec_kernel.launches,
             "rwkv6": rwkv_kernel.launches,
             "rwkv6_sm90": rwkv_kernel.sm90_launches,
             "rwkv6_bwd": rwkv_kernel.bwd_launches,
+            "rwkv6_bwd_sm90": rwkv_kernel.bwd_sm90_launches,
             "rs_encode": rs_kernel.launches,
             "rglru": rglru_kernel.launches,
             "rglru_sm90": rglru_kernel.sm90_launches,
@@ -2069,7 +2107,7 @@ def train_recurrent_phase(line, cfg, device, card, n_params, want, reduced,
     (phase 5 holds that); the launches of those steps and commits held to
     ``want`` (K1 and K2 in the commits); then ``plain`` (keywords of
     ``check_grads_against_plain``).  Prints the ``line`` JSON line and
-    its profile; returns its launches."""
+    its profile; returns its launches and the f32 cut's on the card."""
     import torch
 
     from repro_torch.models import count_params
@@ -2118,7 +2156,7 @@ def train_recurrent_phase(line, cfg, device, card, n_params, want, reduced,
     log(card)
     log(json.dumps({line: res}))
     log(json.dumps({f"profile_{line}_step": tr["profile_step"]}))
-    return tr["launches"]
+    return tr["launches"], grads["launches"]
 
 
 # --------------------------------------------------------------------------
@@ -2169,7 +2207,9 @@ def bwd_d256_numbers(path_case, device) -> dict:
     bf16: ``device_ms`` and ``event_ms``, the plain backward's
     ``device_ms``, and SDPA's backward with the same causal window as a
     boolean mask over K and V expanded to the query heads (a yardstick the
-    port never calls); bound as ``bwd_numbers``."""
+    port never calls); bound as ``bwd_numbers``.  ``f32_fma_design``: the FMA kernel (``flash_bwd.cu``, the earlier
+    design, which ran bf16 at head dim 256 until PR 19 on f32 widened from
+    the inputs) on f32 copies of the same inputs."""
     import torch
     import torch.nn.functional as F
 
@@ -2188,6 +2228,10 @@ def bwd_d256_numbers(path_case, device) -> dict:
         return flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
 
     ms, event_ms = device_ms(kernel, iters=3), cuda_ms(kernel, iters=3)
+    f32 = [x.float() for x in (q, k, v, out, dout)]
+    fma_ms = device_ms(lambda: flash_attention_bwd_cuda(
+        *f32[:4], lse, f32[4], **kw), iters=2)
+    del f32
     plain_ms = device_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout,
                                                    **kw), iters=2)
     mask = allowed_mask(t, s, causal, window, s - t, device)
@@ -2206,7 +2250,11 @@ def bwd_d256_numbers(path_case, device) -> dict:
     return {"ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "flops": flops, "bytes": nbytes}
+            "flops": flops, "bytes": nbytes,
+            "f32_fma_design": {"ms": fma_ms,
+                               "bound_ms": max(t_ops, t_bytes) * 1e3,
+                               "bound_by": "bytes" if t_bytes >= t_ops
+                               else "operations"}}
 
 
 def codec_numbers(n, device) -> dict:
@@ -2308,7 +2356,11 @@ def main() -> int:
     rglru_errs = check_rglru(rglru_cases, device)
     rwkv_bwd_err = check_rwkv6_bwd(rwkv_train_case, device)
     rglru_bwd_err = check_rglru_bwd(rglru_train_case, device)
-    d256_bwd_err = check_bwd_d256(d256_train_case, device)
+    # K4's backward at head dim 256, the f32 FMA and the bf16 wgmma
+    # libraries (the training path runs bf16)
+    d256_bwd_err = check_bwd(d256_train_case, device, D256_BWD_SWEEP)
+    log(json.dumps({"backward_split": backward_split(
+        rwkv_train_case, d256_train_case, device)}))
     torch.cuda.empty_cache()
     log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
 
@@ -2381,7 +2433,8 @@ def main() -> int:
     frames = [(c["key_frames"], c["delta_frames"]) for c in tr["commits"]]
     ratios = [c["raw_bytes"] / c["encoded_bytes"] for c in tr["commits"]]
     if tr["launches"]["flash_fwd"] != 2 * tcfg.num_layers * TRAIN_STEPS or \
-            tr["launches"]["flash_bwd"] != tcfg.num_layers * TRAIN_STEPS:
+            tr["launches"]["flash_bwd_sm90"] != \
+            tcfg.num_layers * TRAIN_STEPS or tr["launches"]["flash_bwd"]:
         raise AssertionError(f"training launches {tr['launches']}")
     if not (tr["launches"]["quantize"] and tr["launches"]["quantize_delta"]):
         raise AssertionError(f"commits did not run K1 and K2: "
@@ -2426,13 +2479,15 @@ def main() -> int:
         f"{rcfg.d_model}, {TRAIN_SEQ} tokens a step, {steps} steps, q8-delta "
         f"commit every {TRAIN_REC_COMMIT}")
     # each layer's forward kernel twice a step (full remat recomputes it in
-    # the backward), its backward kernel once; one 4096-token bf16 call
-    # runs the chunked forward
-    rw_train = train_recurrent_phase(
+    # the backward), its backward kernel once; a 4096-token bf16 call runs
+    # the chunked forward and the chunked backward, never the sequential
+    # ones
+    rw_train, rw_cut = train_recurrent_phase(
         "train_rwkv6", dataclasses.replace(rcfg, num_layers=n), device, card,
         2_290_520_064,
-        {"rwkv6_sm90": 2 * n * steps, "rwkv6_bwd": n * steps, "rwkv6": 0,
-         "flash_fwd": 0, "flash_bwd": 0},
+        {"rwkv6_sm90": 2 * n * steps, "rwkv6_bwd_sm90": n * steps,
+         "rwkv6_bwd": 0, "rwkv6": 0, "flash_fwd": 0, "flash_bwd": 0,
+         "flash_bwd_sm90": 0},
         {"num_layers": f"{rcfg.num_layers} -> {n}: the whole model's f32 "
          f"weights, AdamW moments, gradients and codes (about 23 B a "
          f"parameter, 174 GB for {count_params(rcfg)}) do not fit the "
@@ -2447,10 +2502,12 @@ def main() -> int:
         f"attn) d_model {gcfg.d_model}, {TRAIN_SEQ} tokens a step (window "
         f"{gcfg.window}), {steps} steps, q8-delta commit every "
         f"{TRAIN_REC_COMMIT}")
-    rg_train = train_recurrent_phase(
+    # K4's bf16 backward at head dim 256 runs the wgmma library, never the
+    # FMA one
+    rg_train, _ = train_recurrent_phase(
         "train_recurrentgemma", gcut, device, card, 2_753_638_400,
         {"rglru_sm90": 2 * 2 * steps, "rglru_bwd": 2 * steps, "rglru": 0,
-         "flash_fwd": 2 * steps, "flash_bwd": steps},
+         "flash_fwd": 2 * steps, "flash_bwd_sm90": steps, "flash_bwd": 0},
         {"num_layers": f"{gcfg.num_layers} -> {n}: one super-layer, the two "
          f"RG-LRU tail layers dropped; with them (3,223,465,984 params) "
          f"the state at about 23 B a parameter and the 256,000-word "
@@ -2485,7 +2542,7 @@ def main() -> int:
              "serve_recurrentgemma": rg_launches["serve"],
              "serve_recurrentgemma_ring": rg_launches["ring"],
              "train": tr["launches"], "train_cut": cut["launches"],
-             "train_rwkv6": rw_train,
+             "train_rwkv6": rw_train, "train_rwkv6_f32_cut": rw_cut,
              "train_recurrentgemma": rg_train,
              "rs_encode_check": rs["launches"]}
 
@@ -2520,7 +2577,7 @@ def main() -> int:
             rg_num["flash_fwd_d256_prefill_shape"]),
         row("flash_bwd", fa + "flash_bwd_sm90.cu",
             "flash_attention/ops.py:94",
-            counts("flash_bwd", "train"), bwd_err, bwd)]
+            counts("flash_bwd_sm90", "train"), bwd_err, bwd)]
     for name, line in (("quantize", 54), ("quantize_delta", 74),
                        ("dequantize", 98)):
         # K3 runs only where gradients are compressed: the cut phase
@@ -2560,16 +2617,23 @@ def main() -> int:
             ring_shape=rg_num["rglru_ring_shape"]),
         # the backwards of the recurrent training phases: K6's and K7's,
         # which the reference runs as the vjp of its chunked form and as
-        # its analytic reverse scan, and K4's at head dim 256
+        # its analytic reverse scan, and K4's at head dim 256.  K6's
+        # chunked kernel runs the bf16 training path; the sequential one
+        # (the earlier design, timed at the same shape) runs f32 and short
+        # calls: the f32 cut's
+        row("rwkv6_bwd_sm90", "rwkv6/csrc/rwkv6_bwd_sm90.cu",
+            "rwkv6/ops.py:90", counts("rwkv6_bwd_sm90", "train_rwkv6"),
+            rwkv_bwd_err["rwkv6_bwd_sm90"], rwkv_bwd),
         row("rwkv6_bwd", "rwkv6/csrc/rwkv6_bwd.cu", "rwkv6/ops.py:90",
-            counts("rwkv6_bwd", "train_rwkv6"), rwkv_bwd_err, rwkv_bwd),
+            counts("rwkv6_bwd", "train_rwkv6_f32_cut"),
+            rwkv_bwd_err["rwkv6_bwd"], rwkv_bwd["sequential_design"]),
         row("rglru_bwd", "rglru/csrc/rglru_bwd.cu", "rglru/ops.py:54",
             counts("rglru_bwd", "train_recurrentgemma"), rglru_bwd_err,
             rglru_bwd),
-        row("flash_bwd_d256", fa + "flash_bwd.cu",
+        row("flash_bwd_d256", fa + "flash_bwd_sm90.cu",
             "flash_attention/ops.py:94",
-            counts("flash_bwd", "train_recurrentgemma"), d256_bwd_err,
-            d256_bwd)]
+            counts("flash_bwd_sm90", "train_recurrentgemma"), d256_bwd_err,
+            d256_bwd, f32_fma_design=d256_bwd["f32_fma_design"])]
     log(f"  total {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,9 +1,7 @@
 // Flash-attention backward on f32 FMAs (sm_90a): GQA, causal
 // (bottom-right) or sliding window; dq, dk, dv from q, k, v, out, the f32
-// log-sum-exp and the output's gradient.  f32 inputs at every head dim, and
-// bf16 at head dim 256 (recurrentgemma-9b's attention layers), come here;
-// bf16 at head dims up to 128 goes to the tensor-core kernels of
-// flash_bwd_sm90.cu.
+// log-sum-exp and the output's gradient, for f32 inputs at every head dim;
+// bf16 inputs go to the tensor-core kernels of flash_bwd_sm90.cu.
 //
 // Replaces the backward of K4 (flash_attention_pallas, src/repro/kernels/
 // flash_attention/kernel.py:95), which JAX runs as the XLA blockwise
@@ -34,25 +32,20 @@
 // k and v alone would take 263 KB of the 227 KB a block may use, and the
 // dk and dv accumulators of a 64-key tile 128 f32 registers a thread each:
 // the D 256 instance takes tiles of 32 x 32 (2 x 2 a thread), 137 KB of
-// shared memory and 64 accumulator registers.  bf16 inputs are widened to
-// f32 as they are staged, every product and sum runs in f32, and dq, dk and
-// dv are rounded to bf16 once, at the end.  Probabilities are masked to exact
+// shared memory and 64 accumulator registers.  Probabilities are masked to exact
 // zeros, so a row with no allowed key (lse = -inf) gives zero gradients,
 // never exp(-inf - -inf).
 //
 // What bounds it.  At the training path's shape (B 1, Hq 16, Hkv 2,
-// T = S = 4096, D 128, causal, bf16) the work is five T x S x D products
-// halved by the mask, about 1.7e11 FLOP: 0.17 ms at the card's 989 TFLOP/s
-// bf16 tensor rate, while the bytes that must move (q, k, v, o, do, dq, dk,
-// dv) are about 76 MB, 0.023 ms: bound by operations.  This first version
-// runs on f32 FMAs fed from shared memory, not tensor cores, so it is
-// bound by FMA issue and shared-memory reads (67 TFLOP/s f32 peak at best);
-// mma/wgmma, TMA and pipelining come in later versions.
+// T = S = 4096, D 128, causal) the work is five T x S x D products halved
+// by the mask, about 1.7e11 FLOP: 2.6 ms at the card's 67 TFLOP/s f32
+// rate, while the bytes that must move (q, k, v, o, do, dq, dk, dv in f32)
+// are about 151 MB, 0.045 ms: bound by operations.  It runs on f32 FMAs fed
+// from shared memory (TF32 tensor cores would not hold f32's tolerance),
+// so it is bound by FMA issue and shared-memory reads.  The training paths
+// run bf16; f32 is the checks' and the f32 cuts' type.
 #include <algorithm>
 
-#include "../../csrc/convert.cuh"
-
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -67,14 +60,14 @@ __host__ __device__ constexpr int tile(int d) { return d > 128 ? 32 : 64; }
 
 // a (rows x D) tile of a (.., len, D) tensor into shared memory as f32 with
 // row stride D + 1 (conflict-free column reads); rows past `len` are zeros
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
                                           int len, float mul) {
   constexpr int DP = D + 1;
   for (int i = threadIdx.x; i < ROWS * D; i += NTHREADS) {
     const int r = i / D, c = i % D;
     float x = 0.f;
-    if (r0 + r < len) x = to_f32(src[size_t(r0 + r) * D + c]) * mul;
+    if (r0 + r < len) x = src[size_t(r0 + r) * D + c] * mul;
     dst[r * DP + c] = x;
   }
 }
@@ -122,26 +115,25 @@ __device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-rowdot_kernel(const T* __restrict__ dout, const T* __restrict__ out,
+rowdot_kernel(const float* __restrict__ dout, const float* __restrict__ out,
               float* __restrict__ Dsum, int64_t rows, int D) {
   const int lane = threadIdx.x & 31;
   const int64_t r = int64_t(blockIdx.x) * (NTHREADS / 32) + (threadIdx.x >> 5);
   if (r >= rows) return;
   float acc = 0.f;
   for (int c = lane; c < D; c += 32)
-    acc = fmaf(to_f32(dout[r * D + c]), to_f32(out[r * D + c]), acc);
+    acc = fmaf(dout[r * D + c], out[r * D + c], acc);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
   if (lane == 0) Dsum[r] = acc;
 }
 
 // grid (Hq, key tiles, B); pdk / pdv are (B, Hq, S, D) f32
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ Dsum,
             float* __restrict__ pdk, float* __restrict__ pdv, int Hq,
             int Hkv, int Tq, int S, float scale, int causal, int has_window,
@@ -169,8 +161,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int offset = S - Tq;      // bottom-right alignment
 
   const size_t kvoff = (size_t(b) * Hkv + hk) * size_t(S) * D;
-  load_tile<T, D, BK>(Ks, k + kvoff, k0, S, 1.f);
-  load_tile<T, D, BK>(Vs, v + kvoff, k0, S, 1.f);
+  load_tile<D, BK>(Ks, k + kvoff, k0, S, 1.f);
+  load_tile<D, BK>(Vs, v + kvoff, k0, S, 1.f);
 
   float adk[MT][NC], adv[MT][NC];   // keys ty*MT+i, columns tx+16c
 #pragma unroll
@@ -186,8 +178,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qoff = (size_t(b) * Hq + h) * size_t(Tq);
   for (int q0 = (q_lo / BQ) * BQ; q0 < q_hi; q0 += BQ) {
     __syncthreads();            // the last tile's reads are done
-    load_tile<T, D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
-    load_tile<T, D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
+    load_tile<D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
+    load_tile<D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
     for (int r = tid; r < BQ; r += NTHREADS) {
       const bool in = q0 + r < Tq;
       Ls[r] = in ? lse[qoff + q0 + r] : -INFINITY;
@@ -251,11 +243,10 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // dk[b, hk] = sum over gi of pdk[b, hk * g + gi], in order of gi; dv alike
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 dkdv_reduce_kernel(const float* __restrict__ pdk,
-                   const float* __restrict__ pdv, T* __restrict__ dk,
-                   T* __restrict__ dv, int64_t head_elems, int64_t n,
+                   const float* __restrict__ pdv, float* __restrict__ dk,
+                   float* __restrict__ dv, int64_t head_elems, int64_t n,
                    int g) {
   for (int64_t i = int64_t(blockIdx.x) * NTHREADS + threadIdx.x; i < n;
        i += int64_t(gridDim.x) * NTHREADS) {
@@ -267,17 +258,17 @@ dkdv_reduce_kernel(const float* __restrict__ pdk,
       sk += pdk[p0 + gi * head_elems];
       sv += pdv[p0 + gi * head_elems];
     }
-    dk[i] = from_f32<T>(sk);
-    dv[i] = from_f32<T>(sv);
+    dk[i] = sk;
+    dv[i] = sv;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ Dsum,
-          T* __restrict__ dq, int Hq, int Hkv, int Tq, int S, float scale,
+          float* __restrict__ dq, int Hq, int Hkv, int Tq, int S, float scale,
           int causal, int has_window, int window) {
   constexpr int DP = D + 1;
   constexpr int NC = D / 16;
@@ -304,8 +295,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t qoff = (size_t(b) * Hq + h) * size_t(Tq);
   const size_t kvoff = (size_t(b) * Hkv + hk) * size_t(S) * D;
-  load_tile<T, D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
-  load_tile<T, D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
+  load_tile<D, BQ>(Qs, q + qoff * D, q0, Tq, scale);
+  load_tile<D, BQ>(dOs, dout + qoff * D, q0, Tq, 1.f);
   for (int r = tid; r < BQ; r += NTHREADS) {
     const bool in = q0 + r < Tq;
     Ls[r] = in ? lse[qoff + q0 + r] : -INFINITY;
@@ -328,8 +319,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = (k_begin / BK) * BK; k0 < k_end; k0 += BK) {
     __syncthreads();              // the last tile's reads are done
-    load_tile<T, D, BK>(Ks, k + kvoff, k0, S, 1.f);
-    load_tile<T, D, BK>(Vs, v + kvoff, k0, S, 1.f);
+    load_tile<D, BK>(Ks, k + kvoff, k0, S, 1.f);
+    load_tile<D, BK>(Vs, v + kvoff, k0, S, 1.f);
     __syncthreads();
 
     float s[MT][MT], dp[MT][MT];
@@ -370,7 +361,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= Tq) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      dq[(qoff + r) * D + tx + 16 * c] = from_f32<T>(acc[i][c] * scale);
+      dq[(qoff + r) * D + tx + 16 * c] = acc[i][c] * scale;
   }
 }
 
@@ -383,7 +374,7 @@ constexpr size_t dq_smem(int d) {
                           size_t(tile(d)) * (tile(d) + 1) + 2 * tile(d));
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, const void* lse,
                    void* Dsum, void* part, void* dq, void* dk, void* dv,
@@ -395,31 +386,31 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   static bool configured = false;   // the attributes are per kernel, once
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         int(smem_kv));
     if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(dq_kernel<T, D>,
+    e = cudaFuncSetAttribute(dq_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(smem_q));
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
   const float* lp = static_cast<const float*>(lse);
   float* Dp = static_cast<float*>(Dsum);
   const int64_t rows = int64_t(B) * Hq * Tq;
-  rowdot_kernel<T><<<unsigned((rows + 7) / 8), NTHREADS, 0, st>>>(
-      dop, static_cast<const T*>(out), Dp, rows, D);
+  rowdot_kernel<<<unsigned((rows + 7) / 8), NTHREADS, 0, st>>>(
+      dop, static_cast<const float*>(out), Dp, rows, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if (S > 0) {
     float* pdk = static_cast<float*>(part);
     float* pdv = pdk + size_t(B) * Hq * S * D;
     dim3 gkv(Hq, (S + BT - 1) / BT, B);
-    dkdv_kernel<T, D><<<gkv, NTHREADS, smem_kv, st>>>(
+    dkdv_kernel<D><<<gkv, NTHREADS, smem_kv, st>>>(
         qp, kp, vp, dop, lp, Dp, pdk, pdv, Hq, Hkv, Tq, S, scale, causal,
         has_window, window);
     e = cudaGetLastError();
@@ -428,65 +419,48 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     const int64_t n = int64_t(B) * Hkv * S * D;
     const int64_t blocks = std::min<int64_t>((n + NTHREADS - 1) / NTHREADS,
                                              4096);
-    dkdv_reduce_kernel<T><<<unsigned(blocks), NTHREADS, 0, st>>>(
-        pdk, pdv, static_cast<T*>(dk), static_cast<T*>(dv),
+    dkdv_reduce_kernel<<<unsigned(blocks), NTHREADS, 0, st>>>(
+        pdk, pdv, static_cast<float*>(dk), static_cast<float*>(dv),
         int64_t(S) * D, n, Hq / Hkv);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   dim3 gq(Hq, (Tq + BT - 1) / BT, B);
-  dq_kernel<T, D><<<gq, NTHREADS, smem_q, st>>>(
-      qp, kp, vp, dop, lp, Dp, static_cast<T*>(dq), Hq, Hkv, Tq, S, scale,
+  dq_kernel<D><<<gq, NTHREADS, smem_q, st>>>(
+      qp, kp, vp, dop, lp, Dp, static_cast<float*>(dq), Hq, Hkv, Tq, S, scale,
       causal, has_window, window);
   return cudaGetLastError();
 }
 
-// f32 at every head dim; bf16 at 256 only (lower head dims go to
-// flash_bwd_sm90.cu)
-cudaError_t dispatch(int D, int dtype, const void* q, const void* k,
-                     const void* v, const void* out, const void* dout,
-                     const void* lse, void* Dsum, void* part, void* dq,
-                     void* dk, void* dv, int B, int Hq, int Hkv, int Tq, int S,
-                     float scale, int causal, int has_window, int window,
-                     cudaStream_t st) {
-#define FLASH_BWD_LAUNCH(T, D)                                              \
-  launch<T, D>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv, B, Hq, Hkv, \
-               Tq, S, scale, causal, has_window, window, st)
-  if (dtype == 0) {
-    switch (D) {
-      case 32: return FLASH_BWD_LAUNCH(float, 32);
-      case 64: return FLASH_BWD_LAUNCH(float, 64);
-      case 128: return FLASH_BWD_LAUNCH(float, 128);
-      case 256: return FLASH_BWD_LAUNCH(float, 256);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (dtype == 1 && D == 256) return FLASH_BWD_LAUNCH(__nv_bfloat16, 256);
-#undef FLASH_BWD_LAUNCH
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// dtype: 0 = float32 (D in {32, 64, 128, 256}), 1 = bfloat16 (D = 256;
-// lower head dims go to flash_bwd_sm90.cu).  q, out, dout, dq (B, Hq, T,
-// D); k, v, dk, dv (B, Hkv, S, D); lse and the scratch Dsum
-// (B, Hq, T) f32; the scratch `part` (2, B, Hq, S, D) f32 (the
-// per-query-head dk and dv); all
-// contiguous.  Launches the four kernels on `stream` without
-// synchronising and returns the first error.
+// f32 only (dtype 0; bf16 goes to flash_bwd_sm90.cu, whose interface this
+// shares).  q, out, dout, dq (B, Hq, T, D); k, v, dk, dv (B, Hkv, S, D);
+// lse and the scratch Dsum (B, Hq, T) f32; the scratch `part` (2, B, Hq,
+// S, D) f32 (the per-query-head dk and dv: hg, the query heads a part
+// sums, is 1); all contiguous; D in {32, 64, 128, 256}.  Launches the four
+// kernels on `stream` without synchronising and returns the first error.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* out, const void* dout, const void* lse,
                          void* Dsum, void* part, void* dq, void* dk, void* dv,
-                         int B,
-                         int Hq, int Hkv, int Tq, int S, int D, float scale,
-                         int causal, int has_window, int window, int dtype,
-                         void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Tq <= 0 || S < 0 || Hq % Hkv != 0)
+                         int B, int Hq, int Hkv, int Tq, int S, int D,
+                         float scale, int causal, int has_window, int window,
+                         int dtype, int hg, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Tq <= 0 || S < 0 || Hq % Hkv != 0 ||
+      dtype != 0 || hg != 1)
     return int(cudaErrorInvalidValue);
-  return int(dispatch(D, dtype, q, k, v, out, dout, lse, Dsum, part, dq, dk,
-                      dv, B, Hq, Hkv, Tq, S, scale, causal, has_window,
-                      window, static_cast<cudaStream_t>(stream)));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FLASH_BWD_LAUNCH(DIM)                                               \
+  int(launch<DIM>(q, k, v, out, dout, lse, Dsum, part, dq, dk, dv, B, Hq,  \
+                  Hkv, Tq, S, scale, causal, has_window, window, st))
+  switch (D) {
+    case 32: return FLASH_BWD_LAUNCH(32);
+    case 64: return FLASH_BWD_LAUNCH(64);
+    case 128: return FLASH_BWD_LAUNCH(128);
+    case 256: return FLASH_BWD_LAUNCH(256);
+    default: return int(cudaErrorInvalidValue);
+  }
+#undef FLASH_BWD_LAUNCH
 }
 
 extern "C" const char* flash_bwd_error_string(int code) {

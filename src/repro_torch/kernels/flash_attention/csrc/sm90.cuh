@@ -97,18 +97,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
-// an R-row tile of head `bh` from row `row0`, in the layout above
-template <int D, int R>
+// an R-row tile of head `bh` from row `row0`, in the layout above, as
+// boxes of BR rows (the map's box height)
+template <int D, int R, int BR = Geo<D>::BOXR>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
                                           uint64_t* bar, int row0, int bh) {
   using G = Geo<D>;
-  static_assert(R % G::BOXR == 0, "tile rows");
+  static_assert(R % BR == 0 && BR % 8 == 0, "tile rows");
 #pragma unroll
   for (int c = 0; c < G::NBOX; ++c)
 #pragma unroll
-    for (int r = 0; r < R / G::BOXR; ++r)
-      tma_load_3d(dst + (c * R + r * G::BOXR) * G::SW, map, bar, c * G::BOXC,
-                  row0 + r * G::BOXR, bh);
+    for (int r = 0; r < R / BR; ++r)
+      tma_load_3d(dst + (c * R + r * BR) * G::SW, map, bar, c * G::BOXC,
+                  row0 + r * BR, bh);
 }
 
 // ------------------------------------------------- wgmma smem descriptors
@@ -131,12 +132,15 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
                    16, 8 * G::SW, G::SW);
 }
 // MN-major B operand: rows [16 kk, 16 kk + 16) of an R-row tile are the
-// reduction, all D columns the N dimension.  SBO = 8 SW steps 8 rows; LBO
-// = R SW steps from one column box (BOXC columns of N) to the next.
+// reduction, the columns from column box `box0` on the N dimension.  SBO =
+// 8 SW steps 8 rows; LBO = R SW steps from one column box (BOXC columns of
+// N) to the next.
 template <int D, int R>
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk,
+                                            int box0 = 0) {
   using G = Geo<D>;
-  return make_desc(tile + kk * 16 * G::SW, R * G::SW, 8 * G::SW, G::SW);
+  return make_desc(tile + (box0 * R + kk * 16) * G::SW, R * G::SW,
+                   8 * G::SW, G::SW);
 }
 
 // ------------------------------------------------------- wgmma sequencing
@@ -156,6 +160,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// a barrier among `nthreads` threads (a multiple of 32) only, by id (1..15;
+// 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(nthreads) : "memory");
 }
 
 template <int N>
@@ -193,6 +203,22 @@ __device__ __forceinline__ void to_a_frag(const float (&d)[NA], int kk,
 // register, so the operand lists are written out in full; `accumulate` 0
 // overwrites d.
 
+// m64n32k16, A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // m64n64k16, A and B from shared memory, both K-major
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
@@ -226,6 +252,35 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
       "%60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// m64n128k16, A from shared memory K-major, B from shared memory MN-major
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -387,12 +442,13 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The 3-d map of a contiguous (BH, rows, D) bf16 tensor, boxes of 64 rows
-// by Geo<D>::BOXC columns of one head.  Three dimensions, not a 2-d view
-// of (BH rows, D): a box that runs past a head's last row reads zeros, not
-// the next head's rows.
+// The 3-d map of a contiguous (BH, rows, D) bf16 tensor, boxes of
+// `box_rows` rows (64 unless given) by Geo<D>::BOXC columns of one head.
+// Three dimensions, not a 2-d view of (BH rows, D): a box that runs past a
+// head's last row reads zeros, not the next head's rows.
 template <int D>
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int bh) {
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int bh,
+                     int box_rows = Geo<D>::BOXR) {
   using G = Geo<D>;
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
@@ -400,7 +456,7 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int bh) {
                               cuuint64_t(bh)};
   const cuuint64_t strides[2] = {cuuint64_t(D) * 2,
                                  cuuint64_t(rows) * D * 2};
-  const cuuint32_t box[3] = {cuuint32_t(G::BOXC), cuuint32_t(G::BOXR), 1};
+  const cuuint32_t box[3] = {cuuint32_t(G::BOXC), cuuint32_t(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,

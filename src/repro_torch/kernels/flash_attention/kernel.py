@@ -1,9 +1,8 @@
 """Wrappers of the Hopper flash-attention kernels, routed by dtype:
 
 * bf16: the tensor-core kernels, wgmma fed by TMA (``csrc/flash_fwd_sm90.cu``
-  and ``csrc/flash_bwd_sm90.cu``, over ``csrc/sm90.cuh``), but for the
-  backward at head dim 256 (recurrentgemma-9b's attention layers), which
-  runs ``csrc/flash_bwd.cu``'s bf16 instance on f32 FMAs;
+  and ``csrc/flash_bwd_sm90.cu``, over ``csrc/sm90.cuh``), at every head
+  dim, 256 (recurrentgemma-9b's attention layers) included;
 * f32: the f32-FMA kernels (``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``),
   which TF32 tensor cores could not replace within f32's tolerances.
 
@@ -21,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import CONVERT_HEADER, load_library
+from ..common import load_library
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # library name -> its source, and the headers a library includes
@@ -29,20 +28,20 @@ LIBRARIES = {"flash_fwd": _CSRC / "flash_fwd.cu",
              "flash_bwd": _CSRC / "flash_bwd.cu",
              "flash_fwd_sm90": _CSRC / "flash_fwd_sm90.cu",
              "flash_bwd_sm90": _CSRC / "flash_bwd_sm90.cu"}
-HEADERS = {"flash_bwd": (CONVERT_HEADER,),
-           "flash_fwd_sm90": (_CSRC / "sm90.cuh",),
+HEADERS = {"flash_fwd_sm90": (_CSRC / "sm90.cuh",),
            "flash_bwd_sm90": (_CSRC / "sm90.cuh",)}
 # head dims each kernel is instantiated for, 256 for recurrentgemma-9b's
-# attention layers; the wgmma backward (bf16) stops at SM90_BWD_MAX_D
+# attention layers
 FWD_HEAD_DIMS = (32, 64, 128, 256)
 BWD_HEAD_DIMS = (32, 64, 128, 256)
-SM90_BWD_MAX_D = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the forward and of the backward in this process; a run sets
-# them to 0 and reads them to show that a path went through the kernels
+# launches of the forward and of the backward in this process, and of the
+# backward the bf16 (wgmma) library among them; a run sets them to 0 and
+# reads them to show that a path went through the kernels
 launches = 0
 bwd_launches = 0
+bwd_sm90_launches = 0
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
@@ -50,7 +49,7 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # for both dtypes' libraries
 _ARGTYPES = {
     "fwd": [_VP] * 5 + [_CI] * 6 + [ctypes.c_float] + [_CI] * 4 + [_VP],
-    "bwd": [_VP] * 11 + [_CI] * 6 + [ctypes.c_float] + [_CI] * 4 + [_VP]}
+    "bwd": [_VP] * 11 + [_CI] * 6 + [ctypes.c_float] + [_CI] * 5 + [_VP]}
 
 
 def _lib(name: str):
@@ -79,12 +78,36 @@ def build(name: str) -> None:
     _lib(name)
 
 
-def _library(kind: str, dtype: torch.dtype, d: int) -> str:
-    """The library a call of ``kind`` ("fwd" or "bwd") in ``dtype`` at head
-    dim ``d`` launches."""
-    if dtype == torch.bfloat16 and (kind == "fwd" or d <= SM90_BWD_MAX_D):
-        return f"flash_{kind}_sm90"
-    return f"flash_{kind}"
+def _library(kind: str, dtype: torch.dtype) -> str:
+    """The library a call of ``kind`` ("fwd" or "bwd") in ``dtype``
+    launches."""
+    return f"flash_{kind}_sm90" if dtype == torch.bfloat16 else f"flash_{kind}"
+
+
+# keys a block of the bf16 backward's dk/dv kernel takes at head dim 256
+D256_BWD_KEYS = 64
+
+
+def heads_per_part(b: int, hq: int, hkv: int, s: int, d: int,
+                   sms: int) -> int:
+    """How many query heads of one KV head a dk/dv block of the bf16
+    backward walks and sums into one part.  At head dim 256 the most (a
+    divisor of the group size Hq / Hkv) that still leave at least a block
+    for each of the card's ``sms`` SMs: fewer parts to write and sum
+    (recurrentgemma-9b's MQA training shape, Hq 16 over one KV head, S 4096:
+    4 heads, 256 blocks, 67 MB of parts instead of 268 MB).  Below 256 the
+    kernels keep one part per query head."""
+    if d != 256:
+        return 1
+    g = hq // hkv
+    key_tiles = -(-s // D256_BWD_KEYS)
+    return max([hg for hg in range(1, g + 1)
+                if g % hg == 0 and b * (hq // hg) * key_tiles >= sms],
+               default=1)
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_qkv(q, k, v, head_dims, what, extra=()):
@@ -135,7 +158,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _call(_library("fwd", q.dtype, d),
+    _call(_library("fwd", q.dtype),
           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
           lse.data_ptr(), b, hq, hkv, t, s, d, float(scale), int(causal),
           int(window is not None), int(window or 0), _DTYPES[q.dtype], stream)
@@ -154,7 +177,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     D) of one dtype (bf16 16-byte aligned), lse (B, Hq, T) f32, all
     contiguous CUDA tensors, D in {32, 64, 128, 256}.  Returns ``(dq, dk,
     dv)`` in the inputs' dtype; deterministic."""
-    global bwd_launches
+    global bwd_launches, bwd_sm90_launches
     b, hq, hkv, t, s, d = _check_qkv(q, k, v, BWD_HEAD_DIMS, "flash_bwd",
                                      (("out", out), ("dout", dout)))
     if out.shape != q.shape or dout.shape != q.shape:
@@ -169,16 +192,20 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     dsum = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
-    # each query head's part of its KV head's dk and dv, summed in head
-    # order by the last kernel (no atomics)
-    part = torch.empty((2, b, hq, s, d), dtype=torch.float32,
+    # each group of query heads' part of its KV head's dk and dv, summed in
+    # head order by the last kernel (no atomics)
+    name = _library("bwd", q.dtype)
+    hg = 1 if name == "flash_bwd" else \
+        heads_per_part(b, hq, hkv, s, d, _sm_count(q.device))
+    part = torch.empty((2, b, hq // hg, s, d), dtype=torch.float32,
                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _call(_library("bwd", q.dtype, d),
-          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    _call(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
           dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), part.data_ptr(),
           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, t, s, d,
           float(scale), int(causal), int(window is not None),
-          int(window or 0), _DTYPES[q.dtype], stream)
+          int(window or 0), _DTYPES[q.dtype], hg, stream)
     bwd_launches += 1
+    if name == "flash_bwd_sm90":
+        bwd_sm90_launches += 1
     return dq, dk, dv

@@ -7,9 +7,17 @@
   (``csrc/rwkv6.cu``).
 
 ``ops.rwkv6`` routes between them.  Both replace ``rwkv6_pallas``
-(``src/repro/kernels/rwkv6/kernel.py:86``).  ``rwkv6_bwd_cuda`` is their
-backward (``csrc/rwkv6_bwd.cu``), which replaces the reference's
-``ops._rwkv6_bwd`` (``ops.py:90-96``), the vjp of its chunked form.
+(``src/repro/kernels/rwkv6/kernel.py:86``).  Their backward, which
+replaces the reference's ``ops._rwkv6_bwd`` (``ops.py:90-96``), the vjp
+of its chunked form, has the same two designs, which ``ops`` routes by the
+same rule:
+
+* ``rwkv6_bwd_sm90_cuda``: the chunked form on the tensor cores for bf16
+  (``csrc/rwkv6_bwd_sm90.cu``: three passes over chunks, mma.sync with
+  split-bf16 operands);
+* ``rwkv6_bwd_cuda``: the sequential backward on CUDA cores for f32 or
+  bf16 (``csrc/rwkv6_bwd.cu``).
+
 Each CUDA source is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/common.load_library``) and called through its plain C
 interface with ``ctypes`` on PyTorch's current stream.
@@ -25,29 +33,32 @@ import torch
 from ..common import CONVERT_HEADER, check_tensor, load_library
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
+_SM90 = (_CSRC.parent.parent / "flash_attention" / "csrc" / "sm90.cuh",
+         _CSRC / "chunk.cuh")
 # library name -> (its source, the headers it includes)
 LIBRARIES = {
     "rwkv6": (_CSRC / "rwkv6.cu", (CONVERT_HEADER,)),
-    "rwkv6_sm90": (_CSRC / "rwkv6_sm90.cu",
-                   (_CSRC.parent.parent / "flash_attention" / "csrc"
-                    / "sm90.cuh",)),
-    "rwkv6_bwd": (_CSRC / "rwkv6_bwd.cu", (CONVERT_HEADER,))}
+    "rwkv6_sm90": (_CSRC / "rwkv6_sm90.cu", _SM90),
+    "rwkv6_bwd": (_CSRC / "rwkv6_bwd.cu", (CONVERT_HEADER,)),
+    "rwkv6_bwd_sm90": (_CSRC / "rwkv6_bwd_sm90.cu", _SM90)}
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the sequential and of the chunked kernel, and of the
-# backward, in this process; a run sets them to 0 and reads them to show
+# launches of the sequential and of the chunked kernel, and of their
+# backwards, in this process; a run sets them to 0 and reads them to show
 # that a path went through them
 launches = 0
 sm90_launches = 0
 bwd_launches = 0
-# ``csrc/rwkv6_bwd.cu`` keeps the state before every BWD_CHUNK tokens
+bwd_sm90_launches = 0
+# both backwards keep the state before every BWD_CHUNK tokens
 BWD_CHUNK = 64
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"rwkv6": [_VP] * 8 + [_CI] * 5 + [_VP],
              "rwkv6_sm90": [_VP] * 8 + [_CI] * 4 + [_VP],
-             "rwkv6_bwd": [_VP] * 17 + [_CI] * 5 + [_VP]}
+             "rwkv6_bwd": [_VP] * 17 + [_CI] * 5 + [_VP],
+             "rwkv6_bwd_sm90": [_VP] * 18 + [_CI] * 4 + [_VP]}
 
 
 def _lib(name: str):
@@ -183,4 +194,50 @@ def rwkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           win.data_ptr(), b, h, t, d, _DTYPES[r.dtype],
           torch.cuda.current_stream(r.device).cuda_stream)
     bwd_launches += 1
+    return dr, dk, dv, dlog_w, du, ds0
+
+
+def rwkv6_bwd_sm90_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        log_w: torch.Tensor, u: torch.Tensor,
+                        s0: Optional[torch.Tensor], do: torch.Tensor,
+                        dsT: Optional[torch.Tensor] = None):
+    """The chunked tensor-core backward: as ``rwkv6_bwd_cuda`` but r/k/v/do
+    bf16 only and 16-byte aligned (read 16 bytes at a time); deterministic
+    (du sums over B and chunks in order, no atomics)."""
+    global bwd_sm90_launches
+    b, h, t, d = _check(r, k, v, log_w, u, s0, (torch.bfloat16,))
+    check_tensor("do", do, (b, h, t, d), (r.dtype,), r.device)
+    for name, x in (("r", r), ("k", k), ("v", v), ("do", do)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    if dsT is not None:
+        check_tensor("dsT", dsT, (b, h, d, d), (torch.float32,), r.device)
+    dr, dk, dv = (torch.empty_like(x) for x in (r, k, v))
+    dlog_w = torch.empty_like(log_w)
+    du = torch.empty_like(u)
+    ds0 = None if s0 is None else torch.empty_like(s0)
+    if t == 0 or b * h == 0:
+        for x in (dr, dk, dv, dlog_w, du):
+            x.zero_()
+        if ds0 is not None:
+            ds0.zero_() if dsT is None else ds0.copy_(dsT)
+        return dr, dk, dv, dlog_w, du, ds0
+    nc = -(-t // BWD_CHUNK)
+    # scratch: each chunk's decay; its state update, then (in place) the
+    # state before it and after the last; its cotangent update, then the
+    # cotangent after it; its part of du
+    f32 = dict(dtype=torch.float32, device=r.device)
+    decay = torch.empty((b, h, nc, d), **f32)
+    states = torch.empty((b, h, nc + 1, d, d), **f32)
+    cotangents = torch.empty((b, h, nc, d, d), **f32)
+    du_part = torch.empty((b, h, nc, d), **f32)
+    _call("rwkv6_bwd_sm90", r.data_ptr(), k.data_ptr(), v.data_ptr(),
+          log_w.data_ptr(), u.data_ptr(),
+          None if s0 is None else s0.data_ptr(), do.data_ptr(),
+          None if dsT is None else dsT.data_ptr(), dr.data_ptr(),
+          dk.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(), du.data_ptr(),
+          None if ds0 is None else ds0.data_ptr(), decay.data_ptr(),
+          states.data_ptr(), cotangents.data_ptr(), du_part.data_ptr(), b, h,
+          t, d, torch.cuda.current_stream(r.device).cuda_stream)
+    bwd_sm90_launches += 1
     return dr, dk, dv, dlog_w, du, ds0

@@ -5,8 +5,8 @@ The twin of ``repro/kernels/rwkv6/ops.py::rwkv6``.  A call whose inputs
 require grad goes through an ``autograd.Function`` that saves its inputs,
 as the reference's ``custom_vjp`` does (``ops.py:84-87``), and whose
 backward is the reference's, the vjp of the chunked form
-(``ops.py:90-96``) with log_w unclamped: the backward kernel
-(``kernel.rwkv6_bwd_cuda``) on CUDA, ``ref.rwkv6_bwd_ref`` on the CPU.
+(``ops.py:90-96``) with log_w unclamped: a backward kernel on CUDA,
+``ref.rwkv6_bwd_ref`` on the CPU.
 Nothing on CUDA runs autograd over the plain version.  The forward clamps
 log_w at ``LOG_W_MIN`` (as the Pallas kernel does); below it the decay is
 e^-30 or less either way, and the gradient is the unclamped one, the
@@ -18,6 +18,11 @@ Routing on CUDA, by dtype and length (not a setting):
   tensor-core kernel, ``kernel.rwkv6_sm90_cuda``;
 * f32 r/k/v (the chunked kernel takes bf16 r/k/v only), and bf16 below
   ``SM90_MIN_T`` tokens: the sequential kernel, ``kernel.rwkv6_cuda``.
+
+The backward follows the same rule: bf16 with at least ``SM90_MIN_T``
+tokens to the chunked tensor-core backward
+(``kernel.rwkv6_bwd_sm90_cuda``), the rest to the sequential one
+(``kernel.rwkv6_bwd_cuda``).
 """
 from __future__ import annotations
 
@@ -55,6 +60,13 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(r, k, v, log_w, u, s0, chunk)
 
 
+def _aligned(*xs):
+    """The chunked kernels read their inputs 16 bytes at a time (TMA in the
+    forward) from 16-byte aligned addresses: a contiguous view at another
+    offset is copied to fresh (aligned) memory."""
+    return tuple(x if x.data_ptr() % 16 == 0 else x.clone() for x in xs)
+
+
 def _forward(r, k, v, log_w, u, s0, chunk):
     if not on_cuda(*(r, k, v, log_w, u) + (() if s0 is None else (s0,))):
         return rwkv6_chunked(r, k, v, log_w, u, s0, chunk=chunk)
@@ -63,10 +75,7 @@ def _forward(r, k, v, log_w, u, s0, chunk):
         s0 = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
     r, k, v, log_w = (x.contiguous() for x in (r, k, v, log_w.float()))
     if r.dtype == torch.bfloat16 and t >= SM90_MIN_T:
-        # TMA reads r/k/v/log_w from 16-byte aligned addresses: a view at
-        # another offset is copied to fresh (aligned) memory
-        r, k, v, log_w = (x if x.data_ptr() % 16 == 0 else x.clone()
-                          for x in (r, k, v, log_w))
+        r, k, v, log_w = _aligned(r, k, v, log_w)
         run = kernel.rwkv6_sm90_cuda
     else:
         run = kernel.rwkv6_cuda
@@ -89,9 +98,13 @@ class _RWKV6(torch.autograd.Function):
             f32 = (None if x is None else x.float().contiguous()
                    for x in (log_w, u, s0, dsT))
             lw, uf, s0f, dsTf = f32
-            grads = kernel.rwkv6_bwd_cuda(
-                r.contiguous(), k.contiguous(), v.contiguous(), lw, uf, s0f,
-                do.to(r.dtype).contiguous(), dsTf)
+            r, k, v, do = (x.contiguous() for x in (r, k, v, do.to(r.dtype)))
+            if r.dtype == torch.bfloat16 and r.shape[2] >= SM90_MIN_T:
+                r, k, v, do = _aligned(r, k, v, do)
+                run = kernel.rwkv6_bwd_sm90_cuda
+            else:
+                run = kernel.rwkv6_bwd_cuda
+            grads = run(r, k, v, lw, uf, s0f, do, dsTf)
         else:
             grads = rwkv6_bwd_ref(r, k, v, log_w, u, s0, do, dsT,
                                   chunk=ctx.chunk)

@@ -204,6 +204,22 @@ def test_dispatch_follows_input_device():
         on_cuda(q, k.to("meta"))
 
 
+@pytest.mark.parametrize("b,hq,hkv,s,d,want", [
+    (1, 16, 1, 4096, 256, 4),     # recurrentgemma-9b's training shape
+    (1, 16, 1, 300, 256, 1),      # too few key tiles to share a block
+    (1, 16, 2, 4096, 256, 4),
+    (4, 16, 1, 512, 256, 2),
+    (1, 16, 16, 4096, 256, 1),    # no group to sum
+    (1, 16, 1, 4096, 128, 1)])    # below 256: a part per query head
+def test_bwd_heads_per_part(b, hq, hkv, s, d, want):
+    """The bf16 backward's dk/dv blocks at head dim 256 sum the most query
+    heads of a KV head's group that still leave a block for each of an
+    H100's 132 SMs."""
+    from repro_torch.kernels.flash_attention.kernel import heads_per_part
+
+    assert heads_per_part(b, hq, hkv, s, d, 132) == want
+
+
 # a fault in the last rows of one gradient: (gradient, rows counted from
 # the end, factor); None is the right answer
 FAULTS = [None, ("dv", 64, 0.0), ("dk", 40, 1.03), ("dq", 64, 0.0),

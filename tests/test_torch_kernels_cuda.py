@@ -38,10 +38,9 @@ Every test skips without a card.  Tolerances:
   and one-token steps equal to one shot; ``ops.rglru`` routes by length;
 * the flash-attention forward at head dim 256 (recurrentgemma-9b's MQA
   layers): the forward's tolerances above; its backward there (MQA,
-  causal, a window shorter than T) on f32 FMAs: f32 within the f32
-  backward's tolerance, and bf16 bit-equal to the f32 instance run on f32
-  copies and rounded to bf16 once (it widens its inputs and computes in
-  f32); two runs bit-equal;
+  causal, a window shorter than T): f32 on the FMA kernel within the f32
+  backward's tolerance, bf16 on the wgmma kernel within twice SDPA's error
+  as at the lower head dims; two runs bit-equal;
 * the backward kernels of K6 and K7 against their plain backwards, over
   the sweeps above in f32 and bf16, with and without s0 / h0, with nonzero
   cotangents of the final state (dsT / dh_last); two runs bit-equal;
@@ -52,7 +51,9 @@ Every test skips without a card.  Tolerances:
   decays below -30 (unclamped in the backward, as in the reference) every
   gradient also within |L| 2^-23 of the call's largest, L the largest
   cumulative log-decay over a chunk of the plain version (its exponents'
-  f32 resolution).
+  f32 resolution).  K6's backward has two kernels, routed as the forward
+  (bf16 of at least ``SM90_MIN_T`` tokens to the chunked tensor-core one,
+  ``rwkv6_bwd_sm90.cu``), each held to the same tolerances.
 
 ``allow_tf32`` is False so the plain versions' f32 matmuls are full f32.
 """
@@ -167,7 +168,7 @@ def test_kernel_matches_plain_at_head_dim_256(card, case, dtype):
 
 
 # recurrentgemma-9b's backward: MQA, causal, windows shorter than T, ragged
-# T and S at the 32-row tiles, T < S
+# T and S at the tiles of 64 keys and 32-key ring tiles, T < S
 D256_BWD_CASES = [
     (1, 4, 1, 300, 300, 256, True, 128),
     (2, 8, 1, 200, 333, 256, True, 100),
@@ -177,28 +178,15 @@ D256_BWD_CASES = [
 
 @pytest.mark.parametrize("case", D256_BWD_CASES)
 def test_bwd_kernel_at_head_dim_256(card, libraries, case):
-    """f32 against the plain backward; bf16 equal to the f32 instance on
-    f32 copies, rounded once; both through ``flash_bwd.cu``; two runs
-    bit-equal."""
-    from repro_torch.kernels.flash_attention import kernel
-
-    got, run = _check_bwd(card, case, "float32")
-    for g, g2 in zip(got, run()):
-        assert torch.equal(g, g2)
-    b, hq, hkv, t, s, d, causal, window = case
-    q, k, v = _mk(card, 7, b, hq, hkv, t, s, d, "bfloat16")
-    dout = _mk(card, 8, b, hq, hkv, t, s, d, "bfloat16")[0]
-    out, lse = attention_ref(q, k, v, causal=causal, window=window)
-    kw = dict(causal=causal, window=window, scale=d ** -0.5)
-    bf = kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
-    f32 = kernel.flash_attention_bwd_cuda(q.float(), k.float(), v.float(),
-                                          out.float(), lse, dout.float(),
-                                          **kw)
-    torch.cuda.synchronize()
-    for name, x, y in zip(("dq", "dk", "dv"), bf, f32):
-        assert x.dtype == torch.bfloat16, name
-        assert torch.equal(x, y.bfloat16()), name
-    assert libraries == ["flash_bwd"] * 4
+    """f32 through ``flash_bwd.cu`` against the plain backward; bf16
+    through ``flash_bwd_sm90.cu`` (wgmma) within twice SDPA's error of the
+    plain backward on f32 copies, as at the lower head dims; two runs of
+    each bit-equal."""
+    for dtype in ("float32", "bfloat16"):
+        got, run = _check_bwd(card, case, dtype)
+        for g, g2 in zip(got, run()):
+            assert torch.equal(g, g2)
+    assert libraries == ["flash_bwd"] * 2 + ["flash_bwd_sm90"] * 2
 
 
 BWD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4)}
@@ -321,7 +309,7 @@ def test_sm90_fwd_matches_plain(card, libraries, d, case):
 
 
 @pytest.mark.parametrize("case", SM90_CASES)
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_sm90_bwd_matches_plain(card, libraries, d, case):
     b, hq, hkv, t, s, causal, window = case
     (dq, _, _), _ = _check_bwd(card, (b, hq, hkv, t, s, d, causal, window),
@@ -572,26 +560,134 @@ def test_rwkv6_bwd_kernel_extreme_decay(card, decay_scale):
     _rwkv_bwd_check(got, want, "float32", L * 2.0 ** -23 * top)
 
 
+def _rwkv_bwd_counts():
+    from repro_torch.kernels.rwkv6 import kernel
+
+    return kernel.bwd_launches, kernel.bwd_sm90_launches
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("t", [7, 64, 130])
 def test_rwkv6_autograd_goes_through_the_backward_kernel(card, t, dtype):
     """``ops.rwkv6`` on inputs that require grad: the forward kernel once,
-    the backward kernel once, never autograd over the plain version; the
-    gradients are the backward kernel's."""
+    a backward kernel once (the chunked one for bf16 of at least
+    SM90_MIN_T tokens, else the sequential one), never autograd over the
+    plain version; the gradients are that kernel's."""
     from repro_torch.kernels.rwkv6 import kernel, rwkv6
+    from repro_torch.kernels.rwkv6.ops import SM90_MIN_T
 
     (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(card, 6, 1, 2, t, 64,
                                                      dtype)
     leaves = [x.clone().requires_grad_() for x in (r, k, v, lw, u, s0)]
-    n0 = (sum(_rwkv_counts()), kernel.bwd_launches)
+    n0 = (sum(_rwkv_counts()), _rwkv_bwd_counts())
     o, sT = rwkv6(*leaves)
     grads = torch.autograd.grad((o, sT), leaves, (do, dsT))
     torch.cuda.synchronize()
-    assert (sum(_rwkv_counts()), kernel.bwd_launches) == (n0[0] + 1,
-                                                          n0[1] + 1)
-    want = kernel.rwkv6_bwd_cuda(r, k, v, lw, u, s0, do, dsT)
-    for g, w in zip(grads, want):
+    chunked = dtype == "bfloat16" and t >= SM90_MIN_T
+    seq, sm90 = (a - b for a, b in zip(_rwkv_bwd_counts(), n0[1]))
+    assert (sum(_rwkv_counts()) - n0[0], seq, sm90) == \
+        ((1, 0, 1) if chunked else (1, 1, 0))
+    run = kernel.rwkv6_bwd_sm90_cuda if chunked else kernel.rwkv6_bwd_cuda
+    for g, w in zip(grads, run(r, k, v, lw, u, s0, do, dsT)):
         assert torch.equal(g, w)
+
+
+# the chunked backward: the sweep's cases of at least 32 tokens, ragged T
+# and rwkv6-7b's training width over 512 tokens; (b, h, t, d)
+RWKV_BWD_SM90_CASES = [(2, 3, 130, 64), (1, 2, 64, 32), (1, 2, 100, 32),
+                       (2, 2, 40, 16), (1, 16, 512, 64)]
+
+
+@pytest.mark.parametrize("with_s0", [True, False])
+@pytest.mark.parametrize("case", RWKV_BWD_SM90_CASES)
+def test_rwkv6_bwd_sm90_matches_plain(card, case, with_s0):
+    """The chunked tensor-core backward on bf16 against the plain one, from
+    s0 and from none, a nonzero dsT: atol 2e-3 + rtol 1e-5, bf16 dr, dk,
+    dv + rtol 2^-7; two runs bit-equal."""
+    from repro_torch.kernels.rwkv6 import kernel
+    from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
+
+    (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(card, 3, *case,
+                                                     "bfloat16")
+    s0 = s0 if with_s0 else None
+    n0 = _rwkv_bwd_counts()
+    got = kernel.rwkv6_bwd_sm90_cuda(r, k, v, lw, u, s0, do, dsT)
+    torch.cuda.synchronize()
+    assert _rwkv_bwd_counts() == (n0[0], n0[1] + 1)
+    _rwkv_bwd_check(got, rwkv6_bwd_ref(r, k, v, lw, u, s0, do, dsT),
+                    "bfloat16")
+    again = kernel.rwkv6_bwd_sm90_cuda(r, k, v, lw, u, s0, do, dsT)
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.parametrize("decay_scale", [10.0, 100.0])
+def test_rwkv6_bwd_sm90_extreme_decay(card, decay_scale):
+    """log_w far below -30, unclamped: finite (products of w underflow to
+    0, never overflow) and the plain backward's within the tolerance plus
+    |L| 2^-23 of the largest gradient (the plain version's exponents)."""
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_bwd_sm90_cuda
+    from repro_torch.kernels.rwkv6.ref import rwkv6_bwd_ref
+
+    (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(
+        card, 4, 1, 2, 96, 32, "bfloat16", decay_scale)
+    assert (lw < -30).any()
+    got = rwkv6_bwd_sm90_cuda(r, k, v, lw, u, s0, do, dsT)
+    want = rwkv6_bwd_ref(r, k, v, lw, u, s0, do, dsT)
+    assert all(torch.isfinite(g.float()).all() for g in got)
+    lwp = torch.nn.functional.pad(lw, (0, 0, 0, 32)).reshape(1, 2, 2, 64, 32)
+    L = lwp.cumsum(3).abs().max().item()
+    top = max(w.float().abs().max().item() for w in want)
+    _rwkv_bwd_check(got, want, "bfloat16", L * 2.0 ** -23 * top)
+
+
+@pytest.mark.parametrize("dtype,t,route", [
+    ("bfloat16", 31, "sequential"), ("bfloat16", 32, "sm90"),
+    ("bfloat16", 130, "sm90"), ("float32", 130, "sequential")])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_rwkv6_bwd_routing(card, dtype, t, route, misaligned):
+    """The backward of ``ops.rwkv6`` follows the forward's rule; r/k/v at
+    an odd storage offset take the same route and give the same
+    gradients."""
+    from repro_torch.kernels.rwkv6 import rwkv6
+
+    (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(card, 15, 1, 2, t, 32,
+                                                     dtype)
+    leaves = [r, k, v, lw, u, s0]
+    if misaligned:
+        for i in range(3):
+            buf = torch.empty(leaves[i].numel() + 1, dtype=leaves[i].dtype,
+                              device=card)
+            leaves[i] = buf[1:].view(leaves[i].shape)
+            leaves[i].copy_((r, k, v)[i])
+            assert leaves[i].data_ptr() % 16
+    leaves = [x.detach().requires_grad_() for x in leaves]
+    n0 = _rwkv_bwd_counts()
+    o, sT = rwkv6(*leaves)
+    grads = torch.autograd.grad((o, sT), leaves, (do, dsT))
+    seq, sm90 = (a - b for a, b in zip(_rwkv_bwd_counts(), n0))
+    assert (seq, sm90) == ((0, 1) if route == "sm90" else (1, 0))
+    if misaligned:
+        plain = [x.detach().clone().requires_grad_()
+                 for x in (r, k, v, lw, u, s0)]
+        o, sT = rwkv6(*plain)
+        want = torch.autograd.grad((o, sT), plain, (do, dsT))
+        assert all(torch.equal(x, y) for x, y in zip(grads, want))
+
+
+def test_rwkv6_bwd_sm90_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_bwd_sm90_cuda
+
+    (r, k, v, lw, u, s0), do, dsT = _rwkv_bwd_inputs(card, 16, 1, 2, 64, 32,
+                                                     "bfloat16")
+    with pytest.raises(ValueError, match="dtype"):
+        rwkv6_bwd_sm90_cuda(r.float(), k.float(), v.float(), lw, u, s0,
+                            do.float(), dsT)
+    buf = torch.empty(do.numel() + 1, dtype=do.dtype, device=card)
+    do_odd = buf[1:].view(do.shape)
+    do_odd.copy_(do)
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_bwd_sm90_cuda(r, k, v, lw, u, s0, do_odd, dsT)
 
 
 def test_rwkv6_kernel_rejects_what_it_does_not_take(card):
