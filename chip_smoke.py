@@ -11,15 +11,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    f32 on FMAs and in bf16 on wgmma fed by TMA, the checkpoint codec, the
    RWKV-6 recurrence, sequential and chunked on mma.sync fed by TMA, its
    backward, sequential and chunked on mma.sync, the Reed-Solomon encode,
-   the RG-LRU scan with its loads in registers and by TMA, its backward)
-   compiled
+   the RG-LRU scan and its backward, each with its loads in registers
+   and by TMA) compiled
    with ``nvcc`` for ``sm_90a`` from the sources in this checkout, all at
    once; each library's registers, spills and its ``HGMMA``, ``HMMA`` and
    ``UTMALDG`` instruction counts (``cuobjdump -sass``): wgmma and TMA
    loads must be there in the bf16 flash-attention libraries (wgmma in the
    backward's head-dim-256 kernels too), mma.sync and TMA loads in the
    chunked RWKV-6 forward, mma.sync in its backward, TMA loads in the TMA
-   RG-LRU one;
+   RG-LRU scan and its TMA backward;
 3. kernels against their plain PyTorch versions on the card:
    * the flash-attention forward over the reference's sweep plus the
      serving path's shape, and at head dim 256 (MQA, causal) with windows
@@ -65,10 +65,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      tokens and the training shape, from s0 and from none, a nonzero dsT,
      atol 2e-3 + rtol 1e-5 (bf16 dr, dk, dv + rtol 2^-7), and log_w x10
      and x100 below -30, unclamped as in the reference (f32 for the
-     sequential kernel, bf16 for the chunked one); K7's (``rglru_bwd``)
-     over the RG-LRU sweep and recurrentgemma-9b's training shape (1,
-     4096, 4096), with h0 and without, a nonzero dh_last, atol 2e-4 +
-     rtol 1e-5 (a bf16 dg + rtol 2^-7); K4's backward at head dim 256, f32
+     sequential kernel, bf16 for the chunked one); K7's two, the TMA
+     ``rglru_bwd_sm90`` and the register ``rglru_bwd``, over the RG-LRU
+     sweep and recurrentgemma-9b's training shape (1, 4096, 4096), with h0
+     and without, with a nonzero dh_last and without, atol 2e-4 + rtol
+     1e-5 (a bf16 dg + rtol 2^-7), and bit-equal to each other wherever
+     TMA can read the rows; K4's backward at head dim 256, f32
      (FMAs) within atol 1e-4 + rtol 1e-4 and bf16 (wgmma) within twice
      SDPA's error as at the lower head dims (both printed), over three
      windowed MQA cases and (1, 16, 1, 4096, 4096, 256) under the window
@@ -135,11 +137,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    sequence; each leaf within 1e-3 of its largest element, the loss
    within rtol 1e-5);
 5c. the same for recurrentgemma-9b cut to one super-layer (rec, rec,
-   attn; 2,753,638,400 params): K7's TMA forward 2 x 2 x 4, its backward
-   2 x 4, K4 at head dim 256 forward 2 x 4 and backward 4 (all on the
-   bf16 wgmma library, none on the FMA one); the f32 cut is
-   the 5-layer one of phase 4d (both tails) with its window cut to 16,
-   ``lam`` drawn from [-6, 0] (at init its gradient is roundoff);
+   attn; 2,753,638,400 params): K7's TMA forward 2 x 2 x 4, its TMA
+   backward 2 x 4 (the register backward never), K4 at head dim 256
+   forward 2 x 4 and backward 4 (all on the bf16 wgmma library, none on
+   the FMA one); the f32 cut is the 5-layer one of phase 4d (both tails)
+   with its window cut to 16 over the ring cut's 40 tokens, ``lam`` drawn
+   from [-6, 0] (at init its gradient is roundoff): its four RG-LRU
+   backwards below ``ops.SM90_BWD_MIN_T``, on the register kernel;
 6. a second training phase at full width cut to 8 layers: int8 gradient
    compression (K1 + K3 in every step) and a 1 -> 2 logical-rank resize
    with ``overlap_resize``;
@@ -148,7 +152,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens/s,
    ``mfu``, commit and restart wall seconds,
    bytes on the wire, peak device memory, host RSS, a ``torch.profiler``
-   window over one training step, and the ``kernels`` line (each kernel's
+   window over one training step, K7's two backwards timed in turns and
+   over T at one and four batch rows (``rglru_bwd_route_ms``: fails
+   unless the kernel ``ops.SM90_BWD_MIN_T`` routes to is the faster), and
+   the ``kernels`` line (each kernel's
    launches on the path named in ``launches_path``, its time, its plain
    version's, the bound, a library yardstick where one
    PyTorch call computes the same function).
@@ -229,6 +236,15 @@ RGLRU_TOL = {"float32": (2e-4, 0.0), "bfloat16": (2e-4, 2 ** -7)}
 # points lie outside that band: at 256 the register kernel has led by
 # 8-20 %, at 304 the TMA one by 12-15 %
 RGLRU_ROUTE_BELOW = 48
+# the lengths at which the K7 backward route check times both backward
+# kernels, at one batch row and at four (recurrentgemma-9b's width); the
+# lower point that brackets ``ops.SM90_BWD_MIN_T`` lies
+# RGLRU_BWD_ROUTE_BELOW tokens below it.  From T = 32 to 48 the two
+# kernels are within 3-8 % (the lead changes hands there), so the points
+# lie outside that band: at 16 the register kernel has led by 23-30 %, at
+# 64 the TMA one by 13-34 %
+RGLRU_BWD_ROUTE_TS = (1, 128, 512, 4096)
+RGLRU_BWD_ROUTE_BELOW = 48
 # recurrentgemma-9b's attention at head dim 256 (MQA, causal, window
 # 2048): a short window, the serving path's prefill, a window that hides
 # keys; (b, hq, hkv, t, s, d, causal, window)
@@ -407,7 +423,8 @@ SASS_REQUIRED = {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
                  "flash_bwd_sm90": ("HGMMA", "UTMALDG"),
                  "rwkv6_sm90": ("HMMA", "UTMALDG"),
                  "rwkv6_bwd_sm90": ("HMMA",),
-                 "rglru_sm90": ("UTMALDG",)}
+                 "rglru_sm90": ("UTMALDG",),
+                 "rglru_bwd_sm90": ("UTMALDG",)}
 # and in the kernels whose (mangled) names hold these: the head-dim-256
 # instances of the bf16 backward
 SASS_FUNCTION_REQUIRED = {"flash_bwd_sm90": {"dkdv_d256": "HGMMA",
@@ -1497,90 +1514,128 @@ def rglru_numbers(case, device, name) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def check_rglru_bwd(path_case, device) -> float:
-    """K7's backward against the plain backward on the card: the sweep and
-    the training path's shape, with h0 and without, f32 and bf16 g and dh,
-    a nonzero dh_last, from the plain forward's h; atol 2e-4 (the
-    reference's kernel tests) + rtol 1e-5 (lam grows with the memory 1 /
-    (1 - a)), a bf16 dg + rtol 2^-7; two runs bit-equal.  Returns the max
-    abs error at the path's shape in bf16."""
+def _rglru_bwd_inputs(case, dtype, device):
+    """log_a, the plain forward's h, h0 and the cotangents (dh, dh_last)
+    for one (b, t, d) case, made with numpy from fixed seeds."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.rglru import rglru_chunked
-    from repro_torch.kernels.rglru.kernel import rglru_bwd_cuda
+
+    la, g, h0 = _rglru_inputs(3, case, dtype, device)
+    h = rglru_chunked(la, g, h0)[0].contiguous()
+    rng = np.random.default_rng(103)
+    dh = torch.from_numpy(rng.standard_normal(case).astype(np.float32)).to(
+        device, getattr(torch, dtype))
+    dh_last = torch.from_numpy(rng.standard_normal(
+        (case[0], case[2])).astype(np.float32)).to(device)
+    return la, h, h0, dh, dh_last
+
+
+def check_rglru_bwd(path_case, device) -> dict:
+    """K7's two backward kernels against the plain backward on the card:
+    the sweep and the training path's shape, with h0 and without, with a
+    nonzero dh_last and without, f32 and bf16 h and dh, from the plain
+    forward's h; atol 2e-4 (the reference's kernel tests) + rtol 1e-5 (lam
+    grows with the memory 1 / (1 - a)), a bf16 dg + rtol 2^-7; each
+    kernel's two runs bit-equal, and the TMA kernel (``rglru_bwd_sm90``)
+    bit-equal to the register one (``rglru_bwd``) wherever TMA can read
+    the rows.  Returns each kernel's max abs error at the path's shape in
+    bf16."""
+    import torch
+
+    from repro_torch.kernels.rglru.kernel import (rglru_bwd_cuda,
+                                                  rglru_bwd_sm90_cuda,
+                                                  row_multiple)
     from repro_torch.kernels.rglru.ref import rglru_bwd_ref
 
-    path_err = None
+    path_err = {}
     for case in RGLRU_SWEEP + [path_case]:
         for dtype in ("float32", "bfloat16"):
-            la, g, h0 = _rglru_inputs(3, case, dtype, device)
-            h = rglru_chunked(la, g, h0)[0].contiguous()
-            rng = np.random.default_rng(103)
-            dh = torch.from_numpy(rng.standard_normal(case).astype(
-                np.float32)).to(device, getattr(torch, dtype))
-            dh_last = torch.from_numpy(rng.standard_normal(
-                (case[0], case[2])).astype(np.float32)).to(device)
-            for h0_ in (h0, None):
-                got = rglru_bwd_cuda(la, h, h0_, dh, dh_last)
-                again = rglru_bwd_cuda(la, h, h0_, dh, dh_last)
-                want = rglru_bwd_ref(la, h, h0_, dh, dh_last)
+            la, h, h0, dh, dh_last = _rglru_bwd_inputs(case, dtype, device)
+            kernels = {"rglru_bwd": rglru_bwd_cuda,
+                       "rglru_bwd_sm90": rglru_bwd_sm90_cuda}
+            if case[2] % row_multiple(h.dtype):     # rows TMA cannot read
+                del kernels["rglru_bwd_sm90"]
+            for h0_, dl in ((h0, dh_last), (None, dh_last), (h0, None)):
+                args = (la, h, h0_, dh, dl)
+                got = {name: fn(*args) for name, fn in kernels.items()}
+                again = {name: fn(*args) for name, fn in kernels.items()}
+                want = rglru_bwd_ref(*args)
                 torch.cuda.synchronize()
-                what = f"rglru_bwd {case} {dtype} h0={h0_ is not None}"
-                err = 0.0
-                for name, x, w in zip(("dlog_a", "dg", "dh0"), got, want):
-                    if w is None:
-                        continue
-                    diff = (x.float() - w.float()).abs()
-                    rtol = 1e-5 + (RGLRU_TOL[dtype][1] if name == "dg"
-                                   else 0.0)
-                    if not bool(torch.all(diff <= 2e-4 + rtol
-                                          * w.float().abs())):
-                        raise AssertionError(f"{what} {name}: max abs err "
-                                             f"{diff.max().item()}")
-                    err = max(err, diff.max().item())
-                if not all(x is None or torch.equal(x, y)
-                           for x, y in zip(got, again)):
-                    raise AssertionError(f"{what}: two runs differ")
-                log(f"  {what}: max abs err {err:.3e}")
+                what = (f"{case} {dtype} h0={h0_ is not None} "
+                        f"dh_last={dl is not None}")
+                err = dict.fromkeys(kernels, 0.0)
+                for name in kernels:
+                    for part, x, w in zip(("dlog_a", "dg", "dh0"),
+                                          got[name], want):
+                        if w is None:
+                            if x is not None:
+                                raise AssertionError(f"{name} {what}: "
+                                                     f"{part} not None")
+                            continue
+                        diff = (x.float() - w.float()).abs()
+                        rtol = 1e-5 + (RGLRU_TOL[dtype][1] if part == "dg"
+                                       else 0.0)
+                        if not bool(torch.all(diff <= 2e-4 + rtol
+                                              * w.float().abs())):
+                            raise AssertionError(
+                                f"{name} {what} {part}: max abs err "
+                                f"{diff.max().item()}")
+                        err[name] = max(err[name], diff.max().item())
+                    if not all(x is None or torch.equal(x, y)
+                               for x, y in zip(got[name], again[name])):
+                        raise AssertionError(f"{name} {what}: two runs "
+                                             f"differ")
+                if "rglru_bwd_sm90" in got:
+                    if not all(x is None or torch.equal(x, y) for x, y in
+                               zip(got["rglru_bwd_sm90"], got["rglru_bwd"])):
+                        raise AssertionError(f"rglru_bwd_sm90 {what} differs "
+                                             f"from rglru_bwd")
+                    note = "rglru_bwd_sm90 bit-equal to it"
+                else:
+                    note = "rows TMA cannot read: no rglru_bwd_sm90"
+                log(f"  rglru_bwd {what}: max abs err "
+                    f"{err['rglru_bwd']:.3e}, {note}")
                 if case == path_case and dtype == "bfloat16":
-                    path_err = max(path_err or 0.0, err)
+                    for name in kernels:
+                        path_err[name] = max(path_err.get(name, 0.0),
+                                             err[name])
     return path_err
 
 
 def rglru_bwd_numbers(case, device) -> dict:
     """K7's backward at recurrentgemma-9b's training shape (bf16 h and dh,
-    f32 log_a, h0 and dh_last): its ``device_ms`` and ``event_ms``, the
-    plain backward's ``graph_ms``, and its bound: log_a and dlog_a (4 B), h, dh and dg (2 B)
-    per element, h0, dh_last and dh0 (4 B) per channel, or an exp and
-    three multiplies per element at the f32 rate."""
-    import numpy as np
-    import torch
-
-    from repro_torch.kernels.rglru import rglru_chunked
-    from repro_torch.kernels.rglru.kernel import rglru_bwd_cuda
+    f32 log_a, h0 and dh_last): the TMA kernel's ``device_ms`` and
+    ``event_ms``, the plain backward's ``graph_ms``, and the bound: log_a
+    and dlog_a (4 B), h, dh and dg (2 B) per element, h0, dh_last and dh0
+    (4 B) per channel, or an exp and three multiplies per element at the
+    f32 rate.  ``register_design``: the register kernel (the earlier
+    design, ``rglru_bwd.cu``) at the same inputs in the same run, timed in
+    turns with the TMA one."""
+    from repro_torch.kernels.rglru.kernel import (rglru_bwd_cuda,
+                                                  rglru_bwd_sm90_cuda)
     from repro_torch.kernels.rglru.ref import rglru_bwd_ref
 
     b, t, d = case
-    la, g, h0 = _rglru_inputs(3, case, "bfloat16", device)
-    h = rglru_chunked(la, g, h0)[0].contiguous()
-    rng = np.random.default_rng(103)
-    dh = torch.from_numpy(rng.standard_normal(case).astype(np.float32)).to(
-        device, torch.bfloat16)
-    dh_last = torch.from_numpy(rng.standard_normal((b, d)).astype(
-        np.float32)).to(device)
-    def kernel():
-        return rglru_bwd_cuda(la, h, h0, dh, dh_last)
-
-    ms, event_ms = device_ms(kernel), cuda_ms(kernel)
-    plain_ms = graph_ms(lambda: rglru_bwd_ref(la, h, h0, dh, dh_last))
+    args = _rglru_bwd_inputs(case, "bfloat16", device)
     nbytes = b * t * d * (4 + 2 + 2 + 2 + 4) + 3 * b * d * 4
     flops = 4 * b * t * d
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return {"ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+    bound = {"bound_ms": max(t_ops, t_bytes) * 1e3,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bytes": nbytes, "flops": flops}
+    runs = {"sm90": rglru_bwd_sm90_cuda, "register": rglru_bwd_cuda}
+    ms = {name: [] for name in runs}
+    for name in ("sm90", "register", "register", "sm90"):
+        ms[name].append(device_ms(lambda: runs[name](*args)))
+    out = {name: {"ms": sum(v) / len(v), "ms_runs": v,
+                  "event_ms": cuda_ms(lambda: runs[name](*args)), **bound}
+           for name, v in ms.items()}
+    plain_ms = graph_ms(lambda: rglru_bwd_ref(*args))
+    return {**out["sm90"], "plain_ms": plain_ms, "library_ms": None,
+            "register_design": {**out["register"], "plain_ms": plain_ms,
+                                "library_ms": None}}
 
 
 def launch_floor_ms(device) -> float:
@@ -1620,6 +1675,40 @@ def rglru_route_ms(case, device, ts=(1, 64, 256, 384, 512)) -> dict:
             raise AssertionError(
                 f"rglru at T = {t}: TMA {sm90} ms, registers {reg} ms; "
                 f"ops.SM90_MIN_T = {SM90_MIN_T} routes it to the slower")
+    return out
+
+
+def rglru_bwd_route_ms(d, device, batches=(1, 4),
+                       ts=RGLRU_BWD_ROUTE_TS) -> dict:
+    """Both K7 backward kernels' ``device_ms`` at (B, T, D) for B in
+    ``batches`` and T from ``ts`` and at ``SM90_BWD_MIN_T`` -
+    RGLRU_BWD_ROUTE_BELOW and ``SM90_BWD_MIN_T``, bf16 h and dh: the
+    measurement behind ``ops.SM90_BWD_MIN_T``.  Fails, once every point is
+    measured and printed, unless the register kernel is the faster below
+    ``SM90_BWD_MIN_T`` tokens and the TMA one from it at every point."""
+    from repro_torch.kernels.rglru.kernel import (rglru_bwd_cuda,
+                                                  rglru_bwd_sm90_cuda)
+    from repro_torch.kernels.rglru.ops import SM90_BWD_MIN_T
+
+    out = {"sm90_bwd_min_t": SM90_BWD_MIN_T}
+    wrong = []
+    below = SM90_BWD_MIN_T - RGLRU_BWD_ROUTE_BELOW
+    for b in batches:
+        for t in sorted({*ts, below, SM90_BWD_MIN_T}):
+            args = _rglru_bwd_inputs((b, t, d), "bfloat16", device)
+            sm90 = device_ms(lambda: rglru_bwd_sm90_cuda(*args))
+            reg = device_ms(lambda: rglru_bwd_cuda(*args))
+            out[f"{b}x{t}"] = {"rglru_bwd_sm90": sm90, "rglru_bwd": reg}
+            log(f"  rglru_bwd route at (B, T) = ({b}, {t}): TMA {sm90:.6f} "
+                f"ms, registers {reg:.6f} ms (ops.SM90_BWD_MIN_T = "
+                f"{SM90_BWD_MIN_T})")
+            routed, other = (sm90, reg) if t >= SM90_BWD_MIN_T else (reg, sm90)
+            if routed >= other:
+                wrong.append((b, t, sm90, reg))
+    if wrong:
+        raise AssertionError(
+            f"rglru_bwd (B, T, TMA ms, registers ms) {wrong}: ops."
+            f"SM90_BWD_MIN_T = {SM90_BWD_MIN_T} routes them to the slower")
     return out
 
 
@@ -1721,6 +1810,7 @@ def reset_counts() -> None:
     rglru_kernel.launches = 0
     rglru_kernel.sm90_launches = 0
     rglru_kernel.bwd_launches = 0
+    rglru_kernel.bwd_sm90_launches = 0
 
 
 def read_counts() -> dict:
@@ -1743,7 +1833,8 @@ def read_counts() -> dict:
             "rs_encode": rs_kernel.launches,
             "rglru": rglru_kernel.launches,
             "rglru_sm90": rglru_kernel.sm90_launches,
-            "rglru_bwd": rglru_kernel.bwd_launches}
+            "rglru_bwd": rglru_kernel.bwd_launches,
+            "rglru_bwd_sm90": rglru_kernel.bwd_sm90_launches}
 
 
 def _float_leaves(tree):
@@ -2313,6 +2404,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru.ops import route_bwd
     from repro_torch.models import count_params
 
     cfg = get_config("yi-6b")
@@ -2355,7 +2447,7 @@ def main() -> int:
     rwkv_errs = check_rwkv6(rwkv_cases, device)
     rglru_errs = check_rglru(rglru_cases, device)
     rwkv_bwd_err = check_rwkv6_bwd(rwkv_train_case, device)
-    rglru_bwd_err = check_rglru_bwd(rglru_train_case, device)
+    rglru_bwd_errs = check_rglru_bwd(rglru_train_case, device)
     # K4's backward at head dim 256, the f32 FMA and the bf16 wgmma
     # libraries (the training path runs bf16)
     d256_bwd_err = check_bwd(d256_train_case, device, D256_BWD_SWEEP)
@@ -2503,17 +2595,27 @@ def main() -> int:
         f"{gcfg.window}), {steps} steps, q8-delta commit every "
         f"{TRAIN_REC_COMMIT}")
     # K4's bf16 backward at head dim 256 runs the wgmma library, never the
-    # FMA one
-    rg_train, _ = train_recurrent_phase(
+    # FMA one; K7's 4096-token backward the TMA kernel, never the register
+    # one
+    rg_train, rg_cut = train_recurrent_phase(
         "train_recurrentgemma", gcut, device, card, 2_753_638_400,
-        {"rglru_sm90": 2 * 2 * steps, "rglru_bwd": 2 * steps, "rglru": 0,
-         "flash_fwd": 2 * steps, "flash_bwd_sm90": steps, "flash_bwd": 0},
+        {"rglru_sm90": 2 * 2 * steps, "rglru_bwd_sm90": 2 * steps,
+         "rglru_bwd": 0, "rglru": 0, "flash_fwd": 2 * steps,
+         "flash_bwd_sm90": steps, "flash_bwd": 0},
         {"num_layers": f"{gcfg.num_layers} -> {n}: one super-layer, the two "
          f"RG-LRU tail layers dropped; with them (3,223,465,984 params) "
          f"the state at about 23 B a parameter and the 256,000-word "
          f"vocabulary's logits would reach the card's 80 GB",
          "global_batch": f"one sequence of {TRAIN_SEQ} tokens a step"},
-        dict(layers=5, window=RING_CUT[0]))
+        dict(layers=5, window=RING_CUT[0], seq=RING_CUT[1]))
+    # the f32 cut's four RG-LRU layers (one super-layer, both tails) take
+    # the ring cut's 40 tokens (the window of 16 rolls): their backwards go
+    # where ``ops.route_bwd`` sends them, once each, the register kernel
+    # below SM90_BWD_MIN_T
+    cut_bwd = route_bwd(RING_CUT[1], gcfg.resolved_rnn_width, torch.float32)
+    other = "rglru_bwd" if cut_bwd == "rglru_bwd_sm90" else "rglru_bwd_sm90"
+    _check_launches(rg_cut, {cut_bwd: 4, other: 0},
+                    "train_recurrentgemma f32 cut")
     log(f"  phase 5c done at {time.monotonic() - t_start:.1f} s")
 
     cut_cfg = dataclasses.replace(tcfg, num_layers=CUT_LAYERS)
@@ -2529,12 +2631,14 @@ def main() -> int:
     codec = codec_numbers(w_gu, device)
     rwkv_bwd = rwkv6_bwd_numbers(rwkv_train_case, device)
     rglru_bwd = rglru_bwd_numbers(rglru_train_case, device)
+    rglru_bwd_route = rglru_bwd_route_ms(gcfg.resolved_rnn_width, device)
     d256_bwd = bwd_d256_numbers(d256_train_case, device)
     torch.cuda.synchronize()
     log(json.dumps({"flash_fwd_train_shape": fwd_train,
                     "flash_bwd_train_shape": bwd, "codec_w_gu": codec,
                     "rwkv6_bwd_train_shape": rwkv_bwd,
                     "rglru_bwd_train_shape": rglru_bwd,
+                    "rglru_bwd_route_ms": rglru_bwd_route,
                     "flash_bwd_d256_train_shape": d256_bwd}))
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
@@ -2544,6 +2648,7 @@ def main() -> int:
              "train": tr["launches"], "train_cut": cut["launches"],
              "train_rwkv6": rw_train, "train_rwkv6_f32_cut": rw_cut,
              "train_recurrentgemma": rg_train,
+             "train_recurrentgemma_f32_cut": rg_cut,
              "rs_encode_check": rs["launches"]}
 
     def counts(name, path):
@@ -2627,9 +2732,15 @@ def main() -> int:
         row("rwkv6_bwd", "rwkv6/csrc/rwkv6_bwd.cu", "rwkv6/ops.py:90",
             counts("rwkv6_bwd", "train_rwkv6_f32_cut"),
             rwkv_bwd_err["rwkv6_bwd"], rwkv_bwd["sequential_design"]),
+        # K7's: the TMA kernel runs the bf16 training path, the register
+        # one (the earlier design, timed at the same shape) short calls:
+        # the f32 cut's
+        row("rglru_bwd_sm90", "rglru/csrc/rglru_bwd_sm90.cu",
+            "rglru/ops.py:54", counts("rglru_bwd_sm90", "train_recurrentgemma"),
+            rglru_bwd_errs["rglru_bwd_sm90"], rglru_bwd),
         row("rglru_bwd", "rglru/csrc/rglru_bwd.cu", "rglru/ops.py:54",
-            counts("rglru_bwd", "train_recurrentgemma"), rglru_bwd_err,
-            rglru_bwd),
+            counts("rglru_bwd", "train_recurrentgemma_f32_cut"),
+            rglru_bwd_errs["rglru_bwd"], rglru_bwd["register_design"]),
         row("flash_bwd_d256", fa + "flash_bwd_sm90.cu",
             "flash_attention/ops.py:94",
             counts("flash_bwd_sm90", "train_recurrentgemma"), d256_bwd_err,

@@ -16,19 +16,17 @@
 // on neighbouring channels, so every load and store of a warp is one
 // coalesced row.  The loads do not depend on the chain: each thread keeps
 // two register buffers of U tokens of log_a, dh and h_{t-1}, and issues the
-// next (earlier) batch's loads before it steps through this one.  No
-// atomics: the result is deterministic.
+// next (earlier) batch's loads before it steps through this one.  The steps
+// are rglru.cuh's, each operation rounded on its own, so rglru_bwd_sm90.cu
+// (the TMA design, which ops.py routes long calls to) gives the same bits.
+// No atomics: the result is deterministic.
 //
 // What bounds it.  Bytes: log_a f32, h and dh in g's type read once, dg
 // written in g's type, dlog_a in f32, h0, dh_last and dh0 f32 (at
 // recurrentgemma-9b's training shape, B 1, T 4096, D 4096, bf16: 235 MB,
 // 0.070 ms at 3.35 TB/s); the work, one exp and three multiplies an
 // element, is far below.
-#include "../../csrc/convert.cuh"
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rglru.cuh"
 
 namespace {
 
@@ -65,11 +63,11 @@ __device__ __forceinline__ float step(const float (&la)[U],
 #pragma unroll
   for (int u = U - 1; u >= 0; --u) {
     const int64_t off = base + int64_t(t0 + u) * D;
-    const float lam = dd[u] + carry;
+    const float lam = bwd_lam(dd[u], carry);
     const float a = expf(la[u]);
     dg[off] = from_f32<T>(lam);
-    dla[off] = lam * hp[u] * a;
-    carry = a * lam;
+    dla[off] = bwd_dlog_a(lam, hp[u], a);
+    carry = bwd_carry(a, lam);
   }
   return carry;
 }
@@ -106,12 +104,12 @@ rglru_bwd_kernel(const float* __restrict__ log_a, const T* __restrict__ h,
   }
   for (int t = head - 1; t >= 0; --t) {
     const int64_t off = base + int64_t(t) * dd;
-    const float lam = to_f32(dh[off]) + carry;
+    const float lam = bwd_lam(to_f32(dh[off]), carry);
     const float a = expf(log_a[off]);
     const float hp = t > 0 ? to_f32(h[off - dd]) : h0v;
     dg[off] = from_f32<T>(lam);
-    dla[off] = lam * hp * a;
-    carry = a * lam;
+    dla[off] = bwd_dlog_a(lam, hp, a);
+    carry = bwd_carry(a, lam);
   }
   if (dh0 != nullptr) dh0[int64_t(b) * D + c] = carry;
 }

@@ -46,8 +46,7 @@
 // math, h0 in f32, h rounded to nearest into g's type), so the two kernels
 // are bit-equal at every shape and a run split anywhere equals one shot
 // bit for bit.  No atomics.
-#include "../../flash_attention/csrc/sm90.cuh"
-#include "../../csrc/convert.cuh"
+#include "rglru.cuh"
 
 #include <math.h>
 
@@ -106,24 +105,6 @@ __device__ __forceinline__ void issue(const Smem<G, U>& sm,
   mbar_arrive_expect_tx(sm.full(s), Stage<G, U>::BYTES);
   tma_load_3d(sm.a(s), ma, sm.full(s), c0, k * U, b);
   tma_load_3d(sm.a(s) + U * W, mg, sm.full(s), c0, k * U, b);
-}
-
-// 8 f32 values of h into device memory in g's type, of which the first
-// `room` lie inside the row: two 16-byte stores for f32 (the second only
-// when room >= 8: an f32 row may end 4 channels into the group), one for
-// bf16 (rows of a multiple of 8 channels)
-__device__ __forceinline__ void store8(float* dst, const float4& a,
-                                       const float4& b, int room) {
-  reinterpret_cast<float4*>(dst)[0] = a;
-  if (room >= 8) reinterpret_cast<float4*>(dst)[1] = b;
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float4& a,
-                                       const float4& b, int) {
-  const __nv_bfloat162 p[4] = {__floats2bfloat162_rn(a.x, a.y),
-                               __floats2bfloat162_rn(a.z, a.w),
-                               __floats2bfloat162_rn(b.x, b.y),
-                               __floats2bfloat162_rn(b.z, b.w)};
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(p);
 }
 
 // the chain's `n` steps of SUB tokens (all SUB when FULL) of one lane's
@@ -249,27 +230,6 @@ rglru_sm90_kernel(const __grid_constant__ CUtensorMap ma,
   if (c < D) h_final[int64_t(b) * D + c] = hc;
 }
 
-// the 3-d map (D, T, B) of a contiguous (B, T, D) tensor, boxes of W
-// channels by U tokens of one batch row, unswizzled: a stage's box is
-// row-major, token by token
-cudaError_t make_rglru_map(CUtensorMap* map, const void* ptr,
-                           CUtensorMapDataType type, int elem, int D, int T,
-                           int B, int U) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(T), cuuint64_t(B)};
-  const cuuint64_t strides[2] = {cuuint64_t(D) * elem,
-                                 cuuint64_t(T) * D * elem};
-  const cuuint32_t box[3] = {cuuint32_t(W), cuuint32_t(U), 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  const CUresult r = fn(map, type, 3, const_cast<void*>(ptr), dims, strides,
-                        box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_NONE,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <typename G, int U>
 cudaError_t launch(const void* log_a, const void* g, const void* h0,
                    void* h, void* h_final, int B, int T, int D, int stages,
@@ -292,12 +252,12 @@ cudaError_t launch(const void* log_a, const void* g, const void* h0,
   }
   CUtensorMap ma, mg;
   cudaError_t e = make_rglru_map(&ma, log_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                                 4, D, T, B, U);
+                                 4, D, T, B, W, U);
   if (e == cudaSuccess)
     e = make_rglru_map(&mg, g,
                        sizeof(G) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                       int(sizeof(G)), D, T, B, U);
+                       int(sizeof(G)), D, T, B, W, U);
   if (e != cudaSuccess) return e;
   dim3 grid((D + W - 1) / W, B);
   rglru_sm90_kernel<G, U><<<grid, NTHREADS, smem, stream>>>(

@@ -8,9 +8,16 @@
 
 Both take the same f32 steps, so they agree bit for bit; ``ops.rglru``
 routes between them by length.  Both replace ``rglru_pallas``
-(``src/repro/kernels/rglru/kernel.py:58``).  ``rglru_bwd_cuda`` is their
-backward, the reverse scan (``csrc/rglru_bwd.cu``), which replaces the
-reference's ``ops._rglru_bwd`` (``ops.py:54-86``).  Each CUDA source is compiled
+(``src/repro/kernels/rglru/kernel.py:58``).  Their backward, the reverse
+scan, replaces the reference's ``ops._rglru_bwd`` (``ops.py:54-86``) in
+two kernels of the same two designs, bit-equal to each other:
+
+* ``rglru_bwd_sm90_cuda``: log_a, dh and h (one token earlier) by TMA
+  through an mbarrier ring, walked from the last chunk to the first
+  (``csrc/rglru_bwd_sm90.cu``), laid out by ``plan`` too;
+* ``rglru_bwd_cuda``: the loads in registers (``csrc/rglru_bwd.cu``).
+
+Each CUDA source is compiled
 with ``nvcc`` for ``sm_90a`` at first use (``kernels/common.load_library``)
 and called through its plain C interface with ``ctypes`` on PyTorch's
 current stream.
@@ -27,32 +34,38 @@ import torch
 from ..common import CONVERT_HEADER, check_tensor, load_library
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
+# the headers of the sources that include csrc/rglru.cuh
+_RGLRU_HEADERS = (_CSRC / "rglru.cuh", _CSRC.parent.parent
+                  / "flash_attention" / "csrc" / "sm90.cuh", CONVERT_HEADER)
 # library name -> (its source, the headers it includes)
 LIBRARIES = {
     "rglru": (_CSRC / "rglru.cu", (CONVERT_HEADER,)),
-    "rglru_sm90": (_CSRC / "rglru_sm90.cu",
-                   (_CSRC.parent.parent / "flash_attention" / "csrc"
-                    / "sm90.cuh", CONVERT_HEADER)),
-    "rglru_bwd": (_CSRC / "rglru_bwd.cu", (CONVERT_HEADER,))}
+    "rglru_sm90": (_CSRC / "rglru_sm90.cu", _RGLRU_HEADERS),
+    "rglru_bwd": (_CSRC / "rglru_bwd.cu", _RGLRU_HEADERS),
+    "rglru_bwd_sm90": (_CSRC / "rglru_bwd_sm90.cu", _RGLRU_HEADERS)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROW_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
 
-# launches of the register kernel, of the TMA one and of the backward in
-# this process; a run sets them to 0 and reads them to show that a path
-# went through them
+# launches of the register kernel, of the TMA one and of their backwards
+# (``bwd_launches`` the register backward's, ``bwd_sm90_launches`` the TMA
+# one's) in this process; a run sets them to 0 and reads them to show that
+# a path went through them
 launches = 0
 sm90_launches = 0
 bwd_launches = 0
+bwd_sm90_launches = 0
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"rglru": [_VP] * 5 + [_CI] * 4 + [_VP],
              "rglru_sm90": [_VP] * 5 + [_CI] * 6 + [_VP],
-             "rglru_bwd": [_VP] * 8 + [_CI] * 4 + [_VP]}
+             "rglru_bwd": [_VP] * 8 + [_CI] * 4 + [_VP],
+             "rglru_bwd_sm90": [_VP] * 8 + [_CI] * 6 + [_VP]}
 
-# ``csrc/rglru_sm90.cu``'s geometry: a CTA of a chain warp and four helper
-# warps on a strip of STRIP channels of one batch row, walking its tokens
-# in chunks of 32 or 128 (the kernel's two instances) through a ring of
-# stages; the kernel checks its boxes and shared memory itself
+# the TMA kernels' geometry (``csrc/rglru_sm90.cu`` and
+# ``csrc/rglru_bwd_sm90.cu``): a CTA of a chain warp and four helper warps
+# on a strip of STRIP channels of one batch row, walking its tokens in
+# chunks of 32 or 128 (each kernel's two instances) through a ring of
+# stages; the kernels check their boxes and shared memory themselves
 STRIP = 32
 CHUNKS = (32, 128)
 # three stages, two chunks in flight while the third is worked on: deeper
@@ -74,8 +87,9 @@ def _sms(index: int) -> int:
 
 
 def plan(b: int, t: int, d: int, sms: int = H100_SMS) -> Tuple[int, int]:
-    """``(tokens, stages)`` of the ``rglru_sm90`` launch for (B, T, D) on a
-    card of ``sms`` SMs: chunks of 128 tokens when each of the grid's
+    """``(tokens, stages)`` of the ``rglru_sm90`` and ``rglru_bwd_sm90``
+    launches for (B, T, D) on a card of ``sms`` SMs (the same grid, so the
+    same choice): chunks of 128 tokens when each of the grid's
     ceil(D / STRIP) x B CTAs has an SM to itself (one batch row: the chain
     warp steps more tokens a wait), of 32 when CTAs share SMs (more,
     smaller loads at once); a ring of STAGES stages, or of as many as
@@ -124,6 +138,19 @@ def _check(log_a, g, h0) -> Tuple[int, int, int]:
     return b, t, d
 
 
+def _check_tma(d: int, what: str, dtype: torch.dtype, **tensors) -> None:
+    """Raise ValueError unless ``tensors`` (which TMA reads) are 16-byte
+    aligned and D is a multiple of ``row_multiple(dtype)`` (rows of a
+    multiple of 16 bytes); ``what`` names the tensor of ``dtype``."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (TMA)")
+    m = row_multiple(dtype)
+    if d % m:
+        raise ValueError(f"D = {d}: TMA needs rows of a multiple of 16 "
+                         f"bytes (D a multiple of {m} for {dtype} {what})")
+
+
 def _empty(g, h0):
     """The outputs of a call with no token or no channel."""
     b, _, d = g.shape
@@ -162,13 +189,7 @@ def rglru_sm90_cuda(log_a: torch.Tensor, g: torch.Tensor,
     b, t, d = _check(log_a, g, h0)
     if t == 0 or b * d == 0:
         return _empty(g, h0)
-    for name, x in (("log_a", log_a), ("g", g)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned (TMA)")
-    m = row_multiple(g.dtype)
-    if d % m:
-        raise ValueError(f"D = {d}: TMA needs rows of a multiple of 16 "
-                         f"bytes (D a multiple of {m} for {g.dtype} g)")
+    _check_tma(d, "g", g.dtype, log_a=log_a, g=g)
     tokens, stages = plan(b, t, d, _sms(g.device.index))
     h = torch.empty_like(g)      # 16-byte aligned: the kernel's stores
     h_final = torch.empty((b, d), dtype=torch.float32, device=g.device)
@@ -180,32 +201,71 @@ def rglru_sm90_cuda(log_a: torch.Tensor, g: torch.Tensor,
     return h, h_final
 
 
+def _check_bwd(log_a, h, h0, dh, dh_last) -> Tuple[int, int, int]:
+    b, t, d = _check(log_a, h, h0)
+    check_tensor("dh", dh, (b, t, d), (h.dtype,), h.device)
+    if dh_last is not None:
+        check_tensor("dh_last", dh_last, (b, d), (torch.float32,), h.device)
+    return b, t, d
+
+
+def _empty_bwd(log_a, h, h0, dh_last):
+    """The gradients of a call with no token or no channel."""
+    return torch.zeros_like(log_a), torch.zeros_like(h), \
+        None if h0 is None else (torch.zeros_like(h0) if dh_last is None
+                                 else dh_last.clone())
+
+
+def _bwd(name, log_a, h, h0, dh, dh_last, *layout):
+    """Launch backward library ``name`` (``layout``: the TMA kernel's
+    chunk and ring depth) on checked inputs; returns its outputs."""
+    b, t, d = h.shape
+    dlog_a = torch.empty_like(log_a)   # 16-byte aligned: the TMA kernel's
+    dg = torch.empty_like(h)           # stores
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    _call(name, log_a.data_ptr(), h.data_ptr(),
+          None if h0 is None else h0.data_ptr(), dh.data_ptr(),
+          None if dh_last is None else dh_last.data_ptr(), dlog_a.data_ptr(),
+          dg.data_ptr(), None if dh0 is None else dh0.data_ptr(), b, t, d,
+          _DTYPES[h.dtype], *layout,
+          torch.cuda.current_stream(h.device).cuda_stream)
+    return dlog_a, dg, dh0
+
+
 def rglru_bwd_cuda(log_a: torch.Tensor, h: torch.Tensor,
                    h0: Optional[torch.Tensor], dh: torch.Tensor,
                    dh_last: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor,
                               Optional[torch.Tensor]]:
-    """The backward kernel: the gradients of ``(h, h_final)`` from their
-    cotangents.  log_a: (B, T, D) f32; h (the forward's output) and dh:
-    (B, T, D) of one dtype, f32 or bf16; h0, dh_last: (B, D) f32 or None
-    (zeros); all contiguous on one CUDA device.  Returns ``(dlog_a f32,
-    dg in h.dtype, dh0 f32, or None when h0 is None)``; deterministic."""
+    """The register backward kernel: the gradients of ``(h, h_final)``
+    from their cotangents.  log_a: (B, T, D) f32; h (the forward's output)
+    and dh: (B, T, D) of one dtype, f32 or bf16; h0, dh_last: (B, D) f32 or
+    None (zeros); all contiguous on one CUDA device.  Returns ``(dlog_a
+    f32, dg in h.dtype, dh0 f32, or None when h0 is None)``;
+    deterministic."""
     global bwd_launches
-    b, t, d = _check(log_a, h, h0)
-    check_tensor("dh", dh, (b, t, d), (h.dtype,), h.device)
-    if dh_last is not None:
-        check_tensor("dh_last", dh_last, (b, d), (torch.float32,), h.device)
+    b, t, d = _check_bwd(log_a, h, h0, dh, dh_last)
     if t == 0 or b * d == 0:
-        return torch.zeros_like(log_a), torch.zeros_like(h), \
-            None if h0 is None else (torch.zeros_like(h0) if dh_last is None
-                                     else dh_last.clone())
-    dlog_a = torch.empty_like(log_a)
-    dg = torch.empty_like(h)
-    dh0 = None if h0 is None else torch.empty_like(h0)
-    _call("rglru_bwd", log_a.data_ptr(), h.data_ptr(),
-          None if h0 is None else h0.data_ptr(), dh.data_ptr(),
-          None if dh_last is None else dh_last.data_ptr(), dlog_a.data_ptr(),
-          dg.data_ptr(), None if dh0 is None else dh0.data_ptr(), b, t, d,
-          _DTYPES[h.dtype], torch.cuda.current_stream(h.device).cuda_stream)
+        return _empty_bwd(log_a, h, h0, dh_last)
+    out = _bwd("rglru_bwd", log_a, h, h0, dh, dh_last)
     bwd_launches += 1
-    return dlog_a, dg, dh0
+    return out
+
+
+def rglru_bwd_sm90_cuda(log_a: torch.Tensor, h: torch.Tensor,
+                        h0: Optional[torch.Tensor], dh: torch.Tensor,
+                        dh_last: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   Optional[torch.Tensor]]:
+    """The TMA backward kernel: as ``rglru_bwd_cuda``, and bit-equal to it,
+    but log_a, h and dh 16-byte aligned and D a multiple of
+    ``row_multiple(h.dtype)`` (TMA reads them), else ValueError."""
+    global bwd_sm90_launches
+    b, t, d = _check_bwd(log_a, h, h0, dh, dh_last)
+    if t == 0 or b * d == 0:
+        return _empty_bwd(log_a, h, h0, dh_last)
+    _check_tma(d, "h", h.dtype, log_a=log_a, h=h, dh=dh)
+    out = _bwd("rglru_bwd_sm90", log_a, h, h0, dh, dh_last,
+               *plan(b, t, d, _sms(h.device.index)))
+    bwd_sm90_launches += 1
+    return out

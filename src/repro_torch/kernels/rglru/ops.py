@@ -18,7 +18,10 @@ Routing on CUDA, by length and width (not a setting):
   register kernel, ``kernel.rglru_cuda``.
 
 The two take the same f32 steps, so the route changes no bit of the
-result.
+result.  The backward routes the same way (``route_bwd``): at least
+``SM90_BWD_MIN_T`` tokens whose D TMA can address to the TMA backward,
+``kernel.rglru_bwd_sm90_cuda``, the rest to the register one,
+``kernel.rglru_bwd_cuda``; the two are bit-equal too.
 """
 from __future__ import annotations
 
@@ -41,6 +44,16 @@ from .ref import rglru_bwd_ref, rglru_chunked
 # the faster from T = 304 (by about 15 %).  A decode step (T = 1) stays
 # on the register kernel; a prefill of 512 tokens goes to the TMA one.
 SM90_MIN_T = 304
+# the fewest tokens the TMA backward takes; below, the register backward.
+# The TMA kernel waits out its ring's first loads however few tokens it
+# gets; the register kernel's one round of loads is quicker for a few
+# tokens.  Measured at (1, T, 4096) and (4, T, 4096), bf16 h and dh, on an
+# H100 (chip_smoke.py's ``rglru_bwd_route_ms``): the register kernel is
+# the faster up to T = 16 (by 23-48 %), the two are within 3-8 % from
+# T = 32 (the register kernel ahead) to T = 48 (the TMA one ahead), and the
+# TMA kernel is the faster from T = 64 (by 13-34 %; at a 4096-token
+# training step 6.5x at one batch row, 1.9x at four).
+SM90_BWD_MIN_T = 64
 
 
 def rglru(log_a: torch.Tensor, g: torch.Tensor,
@@ -63,12 +76,14 @@ def _forward(log_a, g, h0):
     log_a, g = log_a.float().contiguous(), g.contiguous()
     h0 = None if h0 is None else h0.float().contiguous()
     if route(g.shape[1], g.shape[2], g.dtype) == "rglru_sm90":
-        # TMA reads log_a and g from 16-byte aligned addresses: a view at
-        # another offset is copied to fresh (aligned) memory
-        log_a, g = (x if x.data_ptr() % 16 == 0 else x.clone()
-                    for x in (log_a, g))
-        return kernel.rglru_sm90_cuda(log_a, g, h0)
+        return kernel.rglru_sm90_cuda(*_aligned(log_a, g), h0)
     return kernel.rglru_cuda(log_a, g, h0)
+
+
+def _aligned(*tensors):
+    """TMA reads from 16-byte aligned addresses: a view at another offset
+    is copied to fresh (aligned) memory."""
+    return tuple(x if x.data_ptr() % 16 == 0 else x.clone() for x in tensors)
 
 
 class _RGLRU(torch.autograd.Function):
@@ -85,8 +100,13 @@ class _RGLRU(torch.autograd.Function):
             f32 = (None if x is None else x.float().contiguous()
                    for x in (log_a, h0, dh_last))
             la, h0f, dlf = f32
-            dlog_a, dg, dh0 = kernel.rglru_bwd_cuda(
-                la, h.contiguous(), h0f, dh.to(h.dtype).contiguous(), dlf)
+            h, dh = h.contiguous(), dh.to(h.dtype).contiguous()
+            if route_bwd(h.shape[1], h.shape[2], h.dtype) == "rglru_bwd_sm90":
+                la, h, dh = _aligned(la, h, dh)
+                run = kernel.rglru_bwd_sm90_cuda
+            else:
+                run = kernel.rglru_bwd_cuda
+            dlog_a, dg, dh0 = run(la, h, h0f, dh, dlf)
         else:
             dlog_a, dg, dh0 = rglru_bwd_ref(log_a, h, h0, dh, dh_last)
         need = ctx.needs_input_grad
@@ -98,7 +118,17 @@ class _RGLRU(torch.autograd.Function):
 def route(t: int, d: int, dtype: torch.dtype) -> str:
     """The kernel a CUDA call of T tokens and D channels with g of
     ``dtype`` launches: "rglru_sm90" or "rglru"."""
+    return "rglru_sm90" if _tma(t, d, dtype, SM90_MIN_T) else "rglru"
+
+
+def route_bwd(t: int, d: int, dtype: torch.dtype) -> str:
+    """The backward kernel a CUDA call of T tokens and D channels with h of
+    ``dtype`` launches: "rglru_bwd_sm90" or "rglru_bwd"."""
+    return "rglru_bwd_sm90" if _tma(t, d, dtype, SM90_BWD_MIN_T) \
+        else "rglru_bwd"
+
+
+def _tma(t: int, d: int, dtype: torch.dtype, min_t: int) -> bool:
+    """At least ``min_t`` tokens, and rows TMA can address."""
     m = kernel.row_multiple(dtype)
-    if t >= SM90_MIN_T and m and d % m == 0:
-        return "rglru_sm90"
-    return "rglru"
+    return t >= min_t and m > 0 and d % m == 0

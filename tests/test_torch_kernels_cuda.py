@@ -46,7 +46,12 @@ Every test skips without a card.  Tolerances:
   cotangents of the final state (dsT / dh_last); two runs bit-equal;
   ``ops`` takes inputs that require grad on CUDA through them.  RG-LRU:
   atol 2e-4 (the reference's kernel tests) + rtol 1e-5 (lam grows with the
-  memory 1 / (1 - a)), a bf16 dg + rtol 2^-7.  RWKV-6: atol 2e-3 (the
+  memory 1 / (1 - a)), a bf16 dg + rtol 2^-7.  K7's backward has two
+  kernels, routed as the forward by length and width (at least
+  ``SM90_BWD_MIN_T`` tokens whose rows TMA can read to the TMA one,
+  ``rglru_bwd_sm90.cu``), bit-equal to each other at every shape and ring
+  depth and each held to the same tolerances, with dh_last and without.
+  RWKV-6: atol 2e-3 (the
   reference's kernel tests) + rtol 1e-5, bf16 dr, dk, dv + rtol 2^-7; at
   decays below -30 (unclamped in the backward, as in the reference) every
   gradient also within |L| 2^-23 of the call's largest, L the largest
@@ -1122,22 +1127,156 @@ def test_rglru_bwd_kernel_matches_plain(card, case, dtype, with_h0):
 @pytest.mark.parametrize("t", [5, 100, 512])
 def test_rglru_autograd_goes_through_the_backward_kernel(card, t, dtype):
     """``ops.rglru`` on inputs that require grad: one forward kernel
-    launch, the backward kernel once, never autograd over the plain
-    version; the gradients are the backward kernel's from the forward's
-    own h."""
+    launch, one backward kernel launch (the TMA one from SM90_BWD_MIN_T
+    tokens, else the register one), never autograd over the plain
+    version; the gradients are that kernel's from the forward's own h."""
     from repro_torch.kernels.rglru import kernel, rglru
+    from repro_torch.kernels.rglru.ops import SM90_BWD_MIN_T
 
     la, g, _, h0, dh, dh_last = _rglru_bwd_inputs(card, 6, 2, t, 256, dtype)
     leaves = [x.clone().requires_grad_() for x in (la, g, h0)]
-    n0 = (sum(_rglru_counts()), kernel.bwd_launches)
+    n0 = (sum(_rglru_counts()), _rglru_bwd_counts())
     h, h_last = rglru(*leaves)
     grads = torch.autograd.grad((h, h_last), leaves, (dh, dh_last))
     torch.cuda.synchronize()
-    assert (sum(_rglru_counts()), kernel.bwd_launches) == (n0[0] + 1,
-                                                           n0[1] + 1)
-    want = kernel.rglru_bwd_cuda(la, h.detach(), h0, dh, dh_last)
+    sm90 = t >= SM90_BWD_MIN_T
+    reg, tma = (a - b for a, b in zip(_rglru_bwd_counts(), n0[1]))
+    assert (sum(_rglru_counts()) - n0[0], reg, tma) == \
+        ((1, 0, 1) if sm90 else (1, 1, 0))
+    run = kernel.rglru_bwd_sm90_cuda if sm90 else kernel.rglru_bwd_cuda
+    want = run(la, h.detach(), h0, dh, dh_last)
     for x, w in zip(grads, want):
         assert torch.equal(x, w)
+
+
+def _rglru_bwd_counts():
+    from repro_torch.kernels.rglru import kernel
+
+    return kernel.bwd_launches, kernel.bwd_sm90_launches
+
+
+# recurrentgemma-9b's training shape: one 4096-token sequence
+RGLRU_TRAIN = (1, 4096, 4096)
+
+
+@pytest.mark.parametrize("with_dh_last", [True, False])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_SWEEP + [RGLRU_TRAIN])
+def test_rglru_bwd_sm90_matches_plain_and_register_kernel(
+        card, case, dtype, with_h0, with_dh_last):
+    """The TMA backward called directly, below ``SM90_BWD_MIN_T`` too (T
+    below one chunk, T not a multiple of it, D a multiple of 8 but not of
+    32): within the tolerance of the plain backward, bit-equal to the
+    register kernel, two runs bit-equal; rows TMA cannot read (bf16, D not
+    a multiple of 8) raise."""
+    from repro_torch.kernels.rglru import kernel
+    from repro_torch.kernels.rglru.ref import rglru_bwd_ref
+
+    la, _, h, h0, dh, dh_last = _rglru_bwd_inputs(card, 3, *case, dtype)
+    args = (la, h, h0 if with_h0 else None, dh,
+            dh_last if with_dh_last else None)
+    n0 = _rglru_bwd_counts()
+    if case[2] % kernel.row_multiple(h.dtype):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            kernel.rglru_bwd_sm90_cuda(*args)
+        assert _rglru_bwd_counts() == n0
+        return
+    got = kernel.rglru_bwd_sm90_cuda(*args)
+    again = kernel.rglru_bwd_sm90_cuda(*args)
+    torch.cuda.synchronize()
+    assert _rglru_bwd_counts() == (n0[0], n0[1] + 2)
+    _rglru_bwd_check(got, rglru_bwd_ref(*args), dtype)
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+    for x, y in zip(got, kernel.rglru_bwd_cuda(*args)):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case,stages", [
+    ((4, 32, 4096), 1), ((4, 64, 4096), 2), ((4, 96, 4096), 3),
+    ((4, 512, 4096), 3), ((1, 128, 4096), 1), ((1, 256, 4096), 2),
+    ((1, 4096, 4096), 3), ((5, 100, 1000), 3)])
+def test_rglru_bwd_sm90_ring_depths(card, case, stages):
+    """``plan``'s ring of one, two and three stages (by T), over one pass
+    of the ring and many (the barrier phases wrap), walked backwards:
+    bit-equal to the register kernel."""
+    from repro_torch.kernels.rglru.kernel import (plan, rglru_bwd_cuda,
+                                                  rglru_bwd_sm90_cuda)
+
+    assert plan(*case)[1] == stages
+    la, _, h, h0, dh, dh_last = _rglru_bwd_inputs(card, 8, *case, "bfloat16")
+    got = rglru_bwd_sm90_cuda(la, h, h0, dh, dh_last)
+    want = rglru_bwd_cuda(la, h, h0, dh, dh_last)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("d", [4096, 100])
+@pytest.mark.parametrize("below", [True, False])
+def test_rglru_bwd_routing(card, below, d):
+    """``ops.rglru``'s backward sends calls of at least SM90_BWD_MIN_T
+    tokens whose rows TMA can address (D a multiple of 8 for bf16 h) to the
+    TMA backward, everything else to the register one; a cotangent that
+    is a view at an odd offset takes the same route and gives the same
+    gradients."""
+    from repro_torch.kernels.rglru import rglru
+    from repro_torch.kernels.rglru.ops import SM90_BWD_MIN_T
+
+    t = SM90_BWD_MIN_T - 1 if below else SM90_BWD_MIN_T
+    sm90 = not below and d == 4096
+    la, g, _, h0, dh, dh_last = _rglru_bwd_inputs(card, 9, 1, t, d,
+                                                  "bfloat16")
+    buf = torch.empty(dh.numel() + 1, dtype=dh.dtype, device=card)
+    dh_odd = buf[1:].view(dh.shape)
+    dh_odd.copy_(dh)
+    assert dh_odd.is_contiguous() and dh_odd.data_ptr() % 16
+    grads = []
+    for cot in (dh, dh_odd):
+        leaves = [x.clone().requires_grad_() for x in (la, g, h0)]
+        h, h_last = rglru(*leaves)
+        n0 = _rglru_bwd_counts()
+        grads.append(torch.autograd.grad((h, h_last), leaves,
+                                         (cot, dh_last)))
+        n1 = _rglru_bwd_counts()
+        assert (n1[0] - n0[0], n1[1] - n0[1]) == ((0, 1) if sm90 else (1, 0))
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
+
+
+def test_rglru_bwd_sm90_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.rglru.kernel import rglru_bwd_sm90_cuda
+
+    la, _, h, h0, dh, dh_last = _rglru_bwd_inputs(card, 10, 1, 64, 104,
+                                                  "bfloat16")
+    with pytest.raises(ValueError, match="dtype"):
+        rglru_bwd_sm90_cuda(la, h.half(), h0, dh.half(), dh_last)
+    with pytest.raises(ValueError, match="dh has dtype"):
+        rglru_bwd_sm90_cuda(la, h, h0, dh.float(), dh_last)
+    with pytest.raises(ValueError, match="dh_last"):
+        rglru_bwd_sm90_cuda(la, h, h0, dh, dh_last[:, :8].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_bwd_sm90_cuda(la, h, h0,
+                            dh.transpose(1, 2).contiguous().transpose(1, 2),
+                            dh_last)
+    for name in ("log_a", "h", "dh"):
+        x = {"log_a": la, "h": h, "dh": dh}[name]
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
+        odd = buf[1:].view(x.shape)
+        odd.copy_(x)
+        args = {"log_a": la, "h": h, "dh": dh, name: odd}
+        with pytest.raises(ValueError, match=f"{name} is not 16-byte"):
+            rglru_bwd_sm90_cuda(args["log_a"], args["h"], h0, args["dh"],
+                                dh_last)
+    la, _, h, h0, dh, dh_last = _rglru_bwd_inputs(card, 10, 1, 64, 100,
+                                                  "bfloat16")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rglru_bwd_sm90_cuda(la, h, h0, dh, dh_last)
+    la, _, h, h0, dh, dh_last = _rglru_bwd_inputs(card, 10, 1, 64, 98,
+                                                  "float32")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        rglru_bwd_sm90_cuda(la, h, h0, dh, dh_last)
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_bwd_sm90_cuda(la.cpu(), h.cpu(), h0.cpu(), dh.cpu(),
+                            dh_last.cpu())
 
 
 def test_rglru_kernel_rejects_what_it_does_not_take(card):
