@@ -86,7 +86,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    from it must give the live run's tokens.  A 2-layer cut of the same
    model in f32 is held against the plain CPU path on a short prompt
    (atol 1e-3); then the weights are freed and the serving numbers
-   printed.  4b and 4d run the same phase (``serve_model_phase``);
+   printed.  4b, 4d, 4e and 4f run the same phase
+   (``serve_model_phase``);
 4b. the same serving path for rwkv6-7b at full width (32 layers, d_model
    4096, 64 heads of 64, d_ff 14336, vocab 65536, bf16, 7,551,455,232
    params): K6 must run 32 times in prefill and 32 x 31 times in the
@@ -118,6 +119,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    40-token prompt (the ring rolls in prefill) and 20 decode steps (their
    writes wrap the ring), prefill and every step's logits within 1e-4;
    then the weights are freed;
+4e. the same serving path for deepseek-7b at full width (30 layers,
+   d_model 4096, 32 heads of 128 over 32 KV heads (MHA), d_ff 11008,
+   vocab 102,400, bf16, 6,910,365,696 params): K4 30 times a prefill and
+   never in decode; the 1,069,547,524-byte KV cache restored bit-equal.
+   Then the same requests with the int8 KV cache (``kv_quant``: int8
+   codes and one f16 scale per 4 head dims, 1.5 bytes a value): its
+   802,160,644-byte cache restored bit-equal, decode from it giving the
+   live tokens; a 2-layer f32 cut against the plain CPU path, and the
+   same cut with the int8 cache over 8 decode steps: the card's codes at
+   most one step from the CPU's on at most 1e-3 of them, every argmax
+   the CPU's, the logits within 1e-3 plus the CPU's own int8-against-
+   exact difference (``check_against_plain``);
+4f. the same serving path for phi3-medium-14b at full width (40 layers,
+   d_model 5120, 40 heads of 128 over 10 KV heads, d_ff 17920, vocab
+   100,352, bf16, 14,659,507,200 params): its f32 weights (58.6 GB) and a
+   bf16 copy would not fit the card together, so the drawn weights are
+   cast leaf by leaf, each f32 leaf freed as its copy is made, and the
+   engine serves the bf16 tree as it is; K4 40 times a prefill; the
+   445,644,804-byte KV cache restored bit-equal; a 2-layer f32 cut (the
+   bf16 weights widened) against the plain CPU path; the peak memory of
+   the cast and of serving in its line;
 5. the training path: ``ElasticTrainer`` trains qwen2.5-3b at full width
    (36 layers, d_model 2048, bf16 compute, f32 master weights, full remat)
    on 4096-token sequences, global batch 1 (cut from 256), 6 steps with a
@@ -147,7 +169,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. a second training phase at full width cut to 8 layers: int8 gradient
    compression (K1 + K3 in every step) and a 1 -> 2 logical-rank resize
    with ``overlap_resize``;
-7. numbers: the serving lines (yi-6b, rwkv6-7b, recurrentgemma-9b), the
+7. numbers: the serving lines (yi-6b, rwkv6-7b, recurrentgemma-9b,
+   deepseek-7b with its int8 subrun, phi3-medium-14b), the
    training lines (qwen2.5-3b, rwkv6-7b, recurrentgemma-9b), step ms,
    tokens/s,
    ``mfu``, commit and restart wall seconds,
@@ -256,6 +279,9 @@ D256_SWEEP = [(1, 4, 1, 300, 300, 256, True, 128),
 # decode steps)
 RING_PROMPT, RING_GEN = 2560, 16
 RING_CUT = (16, 40, 20)
+# deepseek-7b's f32 cut with the int8 KV cache: decode steps after its
+# prefill, each held to the plain CPU path
+INT8_CUT_STEPS = 8
 CODEC_DTYPES = ("float32", "bfloat16", "float16")
 # the recurrent training phases (5b, 5c): TRAIN_SEQ tokens a step, steps
 # and q8-delta commit interval; rwkv6-7b cut to 8 layers, recurrentgemma-9b
@@ -582,6 +608,23 @@ def _check_launches(got: dict, want, what: str) -> None:
                                  f"{what}, want {n}")
 
 
+def serve_case(cfg):
+    """K4's forward case in a dense model's prefill: (b, hq, hkv, t, s, d,
+    causal, window)."""
+    return (BATCH, cfg.num_heads, cfg.num_kv_heads, PROMPT, PROMPT,
+            cfg.resolved_head_dim, True, cfg.window)
+
+
+def dense_want(cfg):
+    """A dense attention model's launches: K4's forward once a layer in
+    prefill, never in a one-token decode step (the cache's plain f32
+    softmax)."""
+    n = cfg.num_layers
+    return lambda gen: {"generate": {"flash_fwd": n},
+                        "prefill": {"flash_fwd": n},
+                        "decode": {"flash_fwd": 0}}
+
+
 def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
                     gen=GEN, want=None):
     """Serve one batch with iCheck checkpointing and check the restore.
@@ -695,14 +738,17 @@ def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
 
 def serve_model_phase(cfg, device, card, line, n_params, want, *,
                       state_bytes=None, subruns=(), plain=None,
-                      numbers=dict):
+                      numbers=dict, bf16_weights=False):
     """``cfg`` at full width through ``serve_main_path``: its parameter
     count held to ``n_params``; random f32 weights from a seeded
-    generator; BATCH x PROMPT prompt tokens and GEN new ones, then each of
-    ``subruns`` ((name, batch, prompt, gen, state bytes)), each run's
-    launches held to ``want(gen)`` and its committed state's size to its
-    bytes (None: not held).  Then each cut of ``plain`` (name ->
-    ``check_against_plain`` keywords; by default 2 layers, atol 1e-3)
+    generator (with ``bf16_weights``, cast to bf16 leaf by leaf as
+    ``cast_params`` casts them, each f32 leaf freed as its copy is made:
+    the engine then keeps the same tensors and makes no copy); BATCH x
+    PROMPT prompt tokens and GEN new ones, then each of ``subruns``
+    ((name, batch, prompt, gen, state bytes, config or None for ``cfg``)),
+    each run's launches held to ``want(gen)`` and its committed state's
+    size to its bytes (None: not held).  Then each cut of ``plain`` (name
+    -> ``check_against_plain`` keywords; by default 2 layers, atol 1e-3)
     against the plain CPU path.  The weights are freed, and ``numbers()``
     (kernel numbers at the path's shapes) goes into the ``line`` JSON line
     beside the serving numbers; the profile windows follow.  Returns the
@@ -715,20 +761,36 @@ def serve_model_phase(cfg, device, card, line, n_params, want, *,
     if got != n_params:
         raise AssertionError(f"{cfg.name}: {got} params, want {n_params}")
     t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device=device)
     torch.cuda.synchronize()
     log(f"  params: {n_params} f32 in {time.monotonic() - t0:.1f} s")
+    init_peak = torch.cuda.max_memory_allocated()
+    if bf16_weights:
+        cast_leaves_(params, getattr(torch, cfg.dtype))
+        torch.cuda.synchronize()
+        log(f"  cast to {cfg.dtype} leaf by leaf: peak "
+            f"{torch.cuda.max_memory_allocated()} bytes, "
+            f"{torch.cuda.memory_allocated()} allocated")
+    cast_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     runs = {}
-    for name, batch, prompt, gen, nbytes in (
+    for name, batch, prompt, gen, nbytes, *sub in (
             ("serve", BATCH, PROMPT, GEN, state_bytes), *subruns):
-        res = serve_main_path(cfg, params, device, batch_size=batch,
+        rcfg = (sub and sub[0]) or cfg
+        res = serve_main_path(rcfg, params, device, batch_size=batch,
                               prompt=prompt, gen=gen, want=want(gen))
+        # the run's engine and its bf16 copy of the weights are gone:
+        # release their memory before the next engine is built
+        gc.collect()
+        torch.cuda.empty_cache()
         if nbytes is not None and res["state_bytes"] != nbytes:
             raise AssertionError(f"{name}: state of {res['state_bytes']} "
                                  f"bytes, want {nbytes}")
-        log(f"  {name}: {batch} x {prompt} prompt tokens, {gen} new: "
+        res["batch"], res["gen"] = batch, gen
+        log(f"  {name}: {batch} x {prompt} prompt tokens, {gen} new"
+            f"{', int8 KV cache' if rcfg.kv_quant else ''}: "
             f"launches {res['launches']}; state {res['state_bytes']} bytes "
             f"{json.dumps(res['state_leaves'])} restored bit-equal to a "
             f"second prefill; {gen - 1} decode steps from it give the live "
@@ -738,10 +800,11 @@ def serve_model_phase(cfg, device, card, line, n_params, want, *,
     peak = torch.cuda.max_memory_allocated()
     errs = {}
     for name, kw in (plain or {"plain_cut": {}}).items():
-        err = check_against_plain(cfg, params, device, **kw)
-        errs[f"{name}_max_abs_err"] = err
+        got = check_against_plain(cfg, params, device, **kw)
+        errs[f"{name}_max_abs_err"] = got.pop("max_abs_err")
+        errs.update({f"{name}_{k}": v for k, v in got.items()})
         log(f"  {name} {kw}: card vs plain CPU logits max abs err "
-            f"{err:.3e}")
+            f"{errs[f'{name}_max_abs_err']:.3e} {json.dumps(got)}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -759,10 +822,13 @@ def serve_model_phase(cfg, device, card, line, n_params, want, *,
         "commit_wait_s": res["commit_wait_s"],
         "restore_wall_s": res["restore_s"],
         "state_bytes": res["state_bytes"],
-        "max_memory_allocated": peak, **errs,
-        **{name: {k: r[k] for k in (
+        "max_memory_allocated": peak, "init_max_memory_allocated": init_peak,
+        **({"cast_max_memory_allocated": cast_peak} if bf16_weights
+           else {}), **errs,
+        **{name: {**{k: r[k] for k in (
             "prefill_ms", "decode_ms_per_token", "generate_s", "commit_s",
-            "restore_s", "state_bytes")}
+            "restore_s", "state_bytes")},
+            "output_tokens_per_s": r["batch"] * r["gen"] / r["generate_s"]}
            for name, r in runs.items() if name != "serve"},
         **nums,
     }
@@ -772,16 +838,41 @@ def serve_model_phase(cfg, device, card, line, n_params, want, *,
     return runs, nums
 
 
+def cast_leaves_(tree, dtype) -> None:
+    """Cast ``tree``'s leaves in place in their dicts, one at a time, as
+    ``cast_params`` casts them (the leaves it keeps in f32 stay): each f32
+    leaf is freed once its copy is made, so the card never holds a second
+    copy of the weights."""
+    from repro_torch.models import cast_params
+
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            cast_leaves_(leaf, dtype)
+        else:
+            tree[key] = cast_params({key: leaf}, dtype)[key]
+        del leaf
+
+
 def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
-                        window=None, prompt=64, steps=0):
+                        window=None, prompt=64, steps=0, kv_quant=False):
     """A cut of the model to its first ``layers`` layers (whole super-layers
-    plus the tail layers) in f32, ``window`` (if given) in place of the
-    config's: the card's logits (the kernels) against the plain CPU path's
-    after a ``prompt``-token prefill and after each of ``steps`` decode
-    steps, which both devices take with the CPU's greedy tokens.  A
-    prompt longer than the window rolls the ring cache in prefill; decode
-    steps past it write across the ring's wrap.  Returns the max abs
-    error."""
+    plus the tail layers) in f32 (weights drawn in bf16 are widened),
+    ``window`` (if given) in place of the config's: the card's logits (the
+    kernels) against the plain CPU path's after a ``prompt``-token prefill
+    and after each of ``steps`` decode steps, which both devices take with
+    the CPU's greedy tokens.  A prompt longer than the window rolls the
+    ring cache in prefill; decode steps past it write across the ring's
+    wrap.
+
+    With ``kv_quant`` both run the int8 cache.  Its codes on the card may
+    lie a step from the CPU's where the f32 K or V of the two devices fall
+    on either side of a rounding edge; every code of the CPU's own cache
+    already lies up to half a step from its value, and those half steps
+    move the CPU's logits from the exact cache's by ``int8_vs_exact``
+    (measured here).  So the card's first-layer codes are held to one step
+    of the CPU's on at most 1e-3 of them, its logits to ``atol`` +
+    ``int8_vs_exact`` of the CPU's, and every argmax to the CPU's.
+    Returns ``max_abs_err`` and, with ``kv_quant``, those numbers."""
     import numpy as np
     import torch
 
@@ -789,36 +880,66 @@ def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
         stack_plan
 
     small = dataclasses.replace(cfg, num_layers=layers, dtype="float32",
-                                window=window or cfg.window)
+                                window=window or cfg.window,
+                                kv_quant=kv_quant)
     n = stack_plan(small)["scan_len"]
     cut = {k: v for k, v in params.items() if k != "stack"}
     cut["stack"] = {b: _map(lambda t: t[:n], sub)
                     for b, sub in params["stack"].items()}
     toks = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, prompt)).astype(np.int32)
-    logits = {}
-    for dev in (torch.device("cpu"), device):
-        p = _map(lambda t: t.to(dev), cut)
-        cache = init_cache(small, 2, prompt + steps, device=dev)
+    runs = [("cpu", small, torch.device("cpu")), ("card", small, device)]
+    if kv_quant:
+        runs.insert(1, ("exact", dataclasses.replace(small, kv_quant=False),
+                        torch.device("cpu")))
+    logits, codes = {}, {}
+    for name, c, dev in runs:
+        p = _map(lambda t: t.to(dev).float(), cut)
+        cache = init_cache(c, 2, prompt + steps, device=dev)
         with torch.no_grad():
-            lg, cache = prefill(small, p, {"tokens": torch.from_numpy(toks)
-                                           .to(dev)}, cache)
+            lg, cache = prefill(c, p, {"tokens": torch.from_numpy(toks)
+                                       .to(dev)}, cache)
+            if kv_quant:
+                # a copy: the decode steps below write into the cache
+                kv = cache["stack"]["b0"]["self"]
+                codes[name] = tuple(t[0].to("cpu", copy=True)
+                                    for t in (kv.k, kv.v))
             out = [lg.float().cpu()]
-            greedy = logits.get("cpu", out)     # the CPU's tokens drive both
+            greedy = logits.get("cpu", out)     # the CPU's tokens drive all
             for i in range(steps):
                 nxt = greedy[i].argmax(-1)[:, None].to(dev)
-                lg, cache = decode_step(small, p, cache, nxt)
+                lg, cache = decode_step(c, p, cache, nxt)
                 out.append(lg.float().cpu())
-        logits[dev.type] = out
+        logits[name] = out
         del p, cache
-    err = max((a - b).abs().max().item()
-              for a, b in zip(logits[device.type], logits["cpu"]))
-    if not err <= atol:
+
+    def max_err(a, b):
+        return max((x - y).abs().max().item()
+                   for x, y in zip(logits[a], logits[b]))
+    err = max_err("card", "cpu")
+    res = {"max_abs_err": err}
+    tol = atol
+    if kv_quant:
+        e_q = max_err("cpu", "exact")
+        tol = atol + e_q
+        step = torch.cat([(g.int() - w.int()).abs().reshape(-1) for g, w in
+                          zip(codes["card"], codes["cpu"])])
+        res.update(int8_vs_exact=e_q, atol=tol,
+                   codes_one_step_apart=int((step > 0).sum()),
+                   codes=step.numel(), codes_max_step=int(step.max()))
+        if res["codes_max_step"] > 1 or \
+                res["codes_one_step_apart"] > 1e-3 * step.numel():
+            raise AssertionError(f"int8 cut: card codes against the CPU's "
+                                 f"{res}")
+        for i, (g, w) in enumerate(zip(logits["card"], logits["cpu"])):
+            if not torch.equal(g.argmax(-1), w.argmax(-1)):
+                raise AssertionError(f"int8 cut: argmax differs at step {i}")
+    if not err <= tol:
         raise AssertionError(
             f"{layers}-layer f32 cut (window {small.window}, {prompt} prompt "
-            f"tokens, {steps} decode steps): card vs plain CPU logits max "
-            f"abs err {err} (atol {atol})")
-    return err
+            f"tokens, {steps} decode steps, kv_quant {kv_quant}): card vs "
+            f"plain CPU logits max abs err {err} (atol {tol})")
+    return res
 
 
 def _map(fn, tree):
@@ -2410,6 +2531,8 @@ def main() -> int:
     cfg = get_config("yi-6b")
     rcfg = get_config("rwkv6-7b")
     gcfg = get_config("recurrentgemma-9b")
+    dcfg = get_config("deepseek-7b")
+    pcfg = get_config("phi3-medium-14b")
     tcfg = get_config("qwen2.5-3b")
     rh = rcfg.d_model // rcfg.rwkv_head_dim
     rwkv_cases = {"prefill": (BATCH, rh, PROMPT, rcfg.rwkv_head_dim),
@@ -2417,8 +2540,7 @@ def main() -> int:
     rglru_cases = {"prefill": (BATCH, PROMPT, gcfg.resolved_rnn_width),
                    "ring": (1, RING_PROMPT, gcfg.resolved_rnn_width),
                    "decode": (BATCH, 1, gcfg.resolved_rnn_width)}
-    path_case = (BATCH, cfg.num_heads, cfg.num_kv_heads, PROMPT, PROMPT,
-                 cfg.resolved_head_dim, True, cfg.window)
+    path_case = serve_case(cfg)
     d256_case = (BATCH, gcfg.num_heads, gcfg.num_kv_heads, PROMPT, PROMPT,
                  gcfg.resolved_head_dim, True, gcfg.window)
     train_case = (1, tcfg.num_heads, tcfg.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
@@ -2459,11 +2581,8 @@ def main() -> int:
     log(f"phase 4: serving, {cfg.name} {cfg.num_layers} layers "
         f"d_model {cfg.d_model} {cfg.dtype}, {BATCH} x {PROMPT} prompt "
         f"tokens, {GEN} new tokens")
-    n = cfg.num_layers
     runs, num = serve_model_phase(
-        cfg, device, card, "serve", 6_061_035_520,
-        lambda gen: {"generate": {"flash_fwd": n},
-                     "prefill": {"flash_fwd": n}},
+        cfg, device, card, "serve", 6_061_035_520, dense_want(cfg),
         numbers=lambda: {"flash_fwd_serve_shape": attention_numbers(
             path_case, device)})
     yi_launches = runs["serve"]["launches"]
@@ -2513,6 +2632,36 @@ def main() -> int:
     rg_launches = {name: r["launches"] for name, r in runs.items()}
     del runs
     log(f"  phase 4d done at {time.monotonic() - t_start:.1f} s; weights "
+        f"freed, {torch.cuda.memory_allocated()} bytes allocated")
+
+    log(f"phase 4e: serving, {dcfg.name} {dcfg.num_layers} layers d_model "
+        f"{dcfg.d_model} {dcfg.dtype}, {BATCH} x {PROMPT} prompt tokens, "
+        f"{GEN} new tokens; then the same with the int8 KV cache")
+    runs, ds_num = serve_model_phase(
+        dcfg, device, card, "serve_deepseek", 6_910_365_696,
+        dense_want(dcfg), state_bytes=1_069_547_524,
+        subruns=[("int8", BATCH, PROMPT, GEN, 802_160_644,
+                  dataclasses.replace(dcfg, kv_quant=True))],
+        plain={"plain_cut": {},
+               "plain_int8_cut": dict(kv_quant=True, steps=INT8_CUT_STEPS)},
+        numbers=lambda: {"flash_fwd_serve_shape": attention_numbers(
+            serve_case(dcfg), device)})
+    ds_launches = {name: r["launches"] for name, r in runs.items()}
+    del runs
+    log(f"  phase 4e done at {time.monotonic() - t_start:.1f} s; weights "
+        f"freed, {torch.cuda.memory_allocated()} bytes allocated")
+
+    log(f"phase 4f: serving, {pcfg.name} {pcfg.num_layers} layers d_model "
+        f"{pcfg.d_model} {pcfg.dtype} (weights cast to bf16 leaf by leaf), "
+        f"{BATCH} x {PROMPT} prompt tokens, {GEN} new tokens")
+    runs, ph_num = serve_model_phase(
+        pcfg, device, card, "serve_phi3", 14_659_507_200, dense_want(pcfg),
+        state_bytes=445_644_804, bf16_weights=True,
+        numbers=lambda: {"flash_fwd_serve_shape": attention_numbers(
+            serve_case(pcfg), device)})
+    ph_launches = runs["serve"]["launches"]
+    del runs
+    log(f"  phase 4f done at {time.monotonic() - t_start:.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
     n_params = count_params(tcfg)
@@ -2645,6 +2794,9 @@ def main() -> int:
     paths = {"serve": yi_launches, "serve_rwkv6": rw_launches,
              "serve_recurrentgemma": rg_launches["serve"],
              "serve_recurrentgemma_ring": rg_launches["ring"],
+             "serve_deepseek": ds_launches["serve"],
+             "serve_deepseek_int8": ds_launches["int8"],
+             "serve_phi3": ph_launches,
              "train": tr["launches"], "train_cut": cut["launches"],
              "train_rwkv6": rw_train, "train_rwkv6_f32_cut": rw_cut,
              "train_recurrentgemma": rg_train,
@@ -2673,7 +2825,9 @@ def main() -> int:
         row("flash_fwd", fa + "flash_fwd_sm90.cu",
             "flash_attention/kernel.py:95",
             counts("flash_fwd", "serve"), path_err, num,
-            train_shape=fwd_train),
+            train_shape=fwd_train,
+            deepseek_serve_shape=ds_num["flash_fwd_serve_shape"],
+            phi3_serve_shape=ph_num["flash_fwd_serve_shape"]),
         # the same kernel's head-dim-256 instance, on recurrentgemma-9b's
         # path (its windowed MQA layers)
         row("flash_fwd_d256", fa + "flash_fwd_sm90.cu",

@@ -1,14 +1,19 @@
 """GQA attention block: prefill (flash kernel) + decode over the KV cache.
 
-The twin of ``repro/models/attention.py`` for the non-quantized,
-self-attention case.  Prefill attention runs the flash-attention op, which
-launches the Hopper kernel on CUDA tensors.  Decode keeps the reference's
-plain f32 softmax over the whole cache (``attention.py:222-246``): with one
-query per step it is bound by reading the cache, and the reference leaves
-it to XLA as this leaves it to ``torch.matmul``.  A sliding-window layer's
-cache is a ring of ``min(max_len, window)`` slots (``attention.py:
-170-246``): position p lives in slot p % S, and keys are RoPE'd with their
-absolute positions at insert, so an overwritten slot needs no re-rotation.
+The twin of ``repro/models/attention.py`` for the self-attention case.
+Prefill attention runs the flash-attention op, which launches the Hopper
+kernel on CUDA tensors.  Decode keeps the reference's plain f32 softmax
+over the whole cache (``attention.py:222-246``): with one query per step
+it is bound by reading the cache, and the reference leaves it to XLA as
+this leaves it to ``torch.matmul``.  A sliding-window layer's cache is a
+ring of ``min(max_len, window)`` slots (``attention.py:170-246``): position
+p lives in slot p % S, and keys are RoPE'd with their absolute positions
+at insert, so an overwritten slot needs no re-rotation.
+
+The int8 cache (``cfg.kv_quant``) holds int8 codes with one f16 scale per
+``_Q8_SCALE_BLOCK`` head dims (``_q8``); decode dequantizes the whole cache
+to f32 (``_dq``) before its products, as the reference does.  Quantizing
+and dequantizing are elementwise tensor ops, XLA in the reference too.
 """
 from __future__ import annotations
 
@@ -25,8 +30,50 @@ NEG_INF = -1e30
 class KVCache(NamedTuple):
     k: torch.Tensor                        # (B, Hkv, S, D)
     v: torch.Tensor
-    ks: Optional[torch.Tensor] = None      # int8 mode scales: a later slice
-    vs: Optional[torch.Tensor] = None
+    ks: Optional[torch.Tensor] = None      # int8 mode: (B, Hkv, S, D/blk)
+    vs: Optional[torch.Tensor] = None      # f16 scales (see _q8)
+
+
+# one f16 scale per head, per position, per ``_Q8_SCALE_BLOCK`` contiguous
+# head dims (``repro/models/attention.py:31-40``)
+_Q8_SCALE_BLOCK = 4
+# 1/127 in f32.  The reference writes ``absmax / 127.0``; it serves under
+# ``jax.jit``, where XLA turns that division into a multiply by the f32
+# reciprocal, and its eager answer differs in some scales by an ulp
+# (ROADMAP.md, section 3).  The served model is the reference here, so the
+# port multiplies, and its codes and scales are bit-equal to the jitted
+# ``_q8``'s.
+_INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
+
+
+def _q8_block(head_dim: int) -> int:
+    """Scale-block size for a head dim (the whole head when not
+    divisible)."""
+    return _Q8_SCALE_BLOCK if head_dim % _Q8_SCALE_BLOCK == 0 else head_dim
+
+
+def _q8(x: torch.Tensor):
+    """Blockwise symmetric int8 quantization along the head dim
+    (``repro/models/attention.py:48-59``): x (..., D) -> (codes int8
+    (..., D), scales f16 (..., D/blk)).  The codes are rounded (half to
+    even, as ``jnp.round``) with the f32 scale, which is stored as f16
+    only afterwards; a zero block has scale 1."""
+    d = x.shape[-1]
+    blk = _q8_block(d)
+    xf = x.float().reshape(*x.shape[:-1], d // blk, blk)
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(absmax > 0, absmax * _INV_127,
+                        torch.ones_like(absmax))
+    codes = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return codes.reshape(x.shape), scale[..., 0].to(torch.float16)
+
+
+def _dq(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``_q8``'s output back to f32 (codes (..., D), scales (...,
+    D/blk))."""
+    d, nb = codes.shape[-1], scales.shape[-1]
+    xf = codes.float().reshape(*codes.shape[:-1], nb, d // nb)
+    return (xf * scales.float()[..., None]).reshape(codes.shape)
 
 
 def attn_init(generator, d_model: int, num_heads: int, num_kv_heads: int,
@@ -99,9 +146,17 @@ def attn_apply(params, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
 def init_kv_cache(batch: int, num_kv_heads: int, max_len: int, head_dim: int,
                   dtype, quant: bool = False, *, lead: Sequence[int] = (),
                   device=None) -> KVCache:
-    if quant:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
+    """A zero cache; with ``quant`` int8 codes and f16 scales of one.  The
+    cache is written in place, so its leaves are distinct tensors (the
+    reference shares one array between ``k`` and ``v``)."""
     shape = (*lead, batch, num_kv_heads, max_len, head_dim)
+    if quant:
+        sshape = (*shape[:-1], head_dim // _q8_block(head_dim))
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            ks=torch.ones(sshape, dtype=torch.float16, device=device),
+            vs=torch.ones(sshape, dtype=torch.float16, device=device))
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -111,12 +166,13 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
                 rope_theta: float = 10000.0, use_rope: bool = True,
                 window: Optional[int] = None,
                 scale: Optional[float] = None):
-    """One-token self-attention decode over a (not int8) cache.
-    x: (B, 1, d_model); idx: 0-d int32 position.
+    """One-token self-attention decode. x: (B, 1, d_model); idx: 0-d
+    int32 position.
 
-    The new K/V are written into ``cache`` in place at slot ``idx``, or
-    ``idx % S`` for a sliding-window layer's ring (the reference returns
-    an updated copy; the same tensors come back here).
+    The new K/V (int8 codes and scales for an int8 cache) are written into
+    ``cache`` in place at slot ``idx``, or ``idx % S`` for a
+    sliding-window layer's ring (the reference returns an updated copy;
+    the same tensors come back here).
     """
     b = x.shape[0]
     s = cache.k.shape[2]
@@ -137,12 +193,20 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
     slot = idx.reshape(1).long()
     if window is not None:
         slot = slot % s
-    cache.k.index_copy_(2, slot, k_new.to(cache.k.dtype))
-    cache.v.index_copy_(2, slot, v_new.to(cache.v.dtype))
+    if cache.ks is not None:                       # int8 cache
+        for buf, sbuf, new in ((cache.k, cache.ks, k_new),
+                               (cache.v, cache.vs, v_new)):
+            codes, scales = _q8(new)
+            buf.index_copy_(2, slot, codes)
+            sbuf.index_copy_(2, slot, scales)
+        kf, vf = _dq(cache.k, cache.ks), _dq(cache.v, cache.vs)
+    else:
+        cache.k.index_copy_(2, slot, k_new.to(cache.k.dtype))
+        cache.v.index_copy_(2, slot, v_new.to(cache.v.dtype))
+        kf, vf = cache.k.float(), cache.v.float()
 
     g = num_heads // num_kv_heads
     qg = q.reshape(b, num_kv_heads, g, head_dim).float() * scale
-    kf, vf = cache.k.float(), cache.v.float()
     scores = torch.matmul(qg, kf.transpose(-1, -2))          # (B,Hkv,G,S)
     kpos = torch.arange(s, device=x.device)
     if window is not None:

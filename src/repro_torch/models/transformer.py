@@ -15,10 +15,11 @@ without MoE), RWKV-6 (``mixer="rwkv6"``) and the RG-LRU hybrid
   cache has the reference's layout, ``{"stack": {"b0": ...}, "tails":
   [...], "idx": int32 0-d}``: a ``{"self": KVCache(k, v)}`` of k/v
   (L, B, Hkv, S, D) for an attention layer (S = min(max_len, window), a
-  ring, for a sliding-window layer), an ``RWKVState`` (shift_tm, shift_cm
-  (L, B, D), wkv (L, B, H, Dh, Dh) f32) for RWKV-6 and an ``RGLRUState``
-  (conv (L, B, W-1, N), h (L, B, N) f32) for an RG-LRU layer; tail layers
-  have no leading L.  It is written in place.
+  ring, for a sliding-window layer; with ``cfg.kv_quant`` int8 k/v and
+  f16 scales ks/vs (L, B, Hkv, S, D/blk), ``attention._q8``), an
+  ``RWKVState`` (shift_tm, shift_cm (L, B, D), wkv (L, B, H, Dh, Dh) f32)
+  for RWKV-6 and an ``RGLRUState`` (conv (L, B, W-1, N), h (L, B, N) f32)
+  for an RG-LRU layer; tail layers have no leading L.  It is written in place.
 
 A Python loop over the stacked layers takes the place of ``lax.scan``;
 on one device the reference's sharding constraints are no-ops and are
@@ -196,18 +197,24 @@ def _write_prefill_cache(cache: attn.KVCache, kvc: attn.KVCache, window):
     sliding-window ring shorter than the prompt the last S positions,
     rotated so that absolute position p lives in slot p % S as decode's
     ring writes expect (the reference's ``_write_prefill_cache``,
-    ``repro/models/transformer.py:193-222``)."""
+    ``repro/models/transformer.py:193-222``).  An int8 cache takes the
+    K/V's codes and scales (``attn._q8``), rolled alike."""
     s, t = cache.k.shape[2], kvc.k.shape[2]
+    pairs = [(cache.k, kvc.k), (cache.v, kvc.v)]
+    if cache.ks is not None:                       # int8 cache
+        (kq, ks), (vq, vs) = attn._q8(kvc.k), attn._q8(kvc.v)
+        pairs = [(cache.k, kq), (cache.v, vq), (cache.ks, ks),
+                 (cache.vs, vs)]
     if t <= s:
-        cache.k[:, :, :t].copy_(kvc.k)
-        cache.v[:, :, :t].copy_(kvc.v)
+        for buf, val in pairs:
+            buf[:, :, :t].copy_(val)
         return cache
     if window is None:
         raise ValueError(f"prompt of {t} tokens exceeds the cache's {s} "
                          f"slots")
     shift = (t - s) % s
-    cache.k.copy_(torch.roll(kvc.k[:, :, t - s:], shift, dims=2))
-    cache.v.copy_(torch.roll(kvc.v[:, :, t - s:], shift, dims=2))
+    for buf, val in pairs:
+        buf.copy_(torch.roll(val[:, :, t - s:], shift, dims=2))
     return cache
 
 
@@ -352,10 +359,16 @@ def _kind_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     if kind == "attn":
         window = _layer_window(cfg, kind)
         s = min(max_len, window) if window else max_len
-        return {"self": attn.init_kv_cache(batch, cfg.num_kv_heads, s,
-                                           cfg.resolved_head_dim, dtype,
-                                           quant=cfg.kv_quant, lead=lead,
-                                           device=device)}
+        kv = attn.init_kv_cache(batch, cfg.num_kv_heads, s,
+                                cfg.resolved_head_dim, dtype,
+                                quant=cfg.kv_quant, lead=lead, device=device)
+        if lead and kv.ks is not None:
+            # the reference stacks a cache as zeros of each leaf's shape
+            # (``repro/models/transformer.py:489-490``), scales included;
+            # the slots not yet written are masked in decode either way
+            kv.ks.zero_()
+            kv.vs.zero_()
+        return {"self": kv}
     if kind == "rwkv":
         return rwkv.init_state(batch, cfg.d_model, cfg.rwkv_head_dim, dtype,
                                lead=lead, device=device)

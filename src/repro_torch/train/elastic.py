@@ -73,7 +73,9 @@ class ElasticTrainer:
                  ranks: int = 1, seed: int = 0,
                  opt_cfg: Optional[AdamWConfig] = None,
                  commit_every: int = 10, probe_every: int = 100,
-                 codec: str = "raw", total_steps: int = 1000,
+                 global_batch: Optional[int] = None, codec: str = "raw",
+                 replication: int = 1, total_steps: int = 1000,
+                 adaptive_interval: bool = False, step_sim_s: float = 0.0,
                  overlap_resize: bool = False, device="cuda"):
         self.cfg = cfg
         self.shape = shape
@@ -81,10 +83,11 @@ class ElasticTrainer:
         self.app = MalleableApp(app_id, cluster.rm, ranks)
         self.proc_type = self.app.init_adapt()
         self.client = ICheckClient(app_id, cluster.controller, ranks=ranks,
-                                   codec=codec)
+                                   codec=codec, replication=replication)
         self.mesh = LogicalMesh(ranks)
         self.commit_every = commit_every
         self.probe_every = probe_every
+        self.global_batch = global_batch or shape.global_batch
         self.opt_cfg = opt_cfg or AdamWConfig()
         self.schedule = warmup_cosine(self.opt_cfg.lr, warmup=20,
                                       total=total_steps)
@@ -98,6 +101,22 @@ class ElasticTrainer:
         self._adapt_handles: Optional[Dict[str, object]] = None
         self._adapt_ctx: Optional[dict] = None
         self.steps_during_resize = 0
+        # adaptive checkpoint pacing: commits follow the client's solved
+        # ``ckpt_interval_s`` (re-announced by INTERVAL_CHANGED events) on
+        # the cluster's sim clock instead of ``commit_every``; each step
+        # advances that clock by ``step_sim_s``
+        self.adaptive_interval = adaptive_interval
+        self.step_sim_s = float(step_sim_s)
+        self._clock = cluster.controller.clock
+        if adaptive_interval and self.step_sim_s <= 0 \
+                and self._clock.time_scale == 0:
+            # nothing would advance the cadence clock between commits: the
+            # trainer would never checkpoint
+            raise ValueError(
+                "adaptive_interval=True needs step_sim_s > 0 (or a cluster "
+                "with time_scale > 0) so sim time advances between steps")
+        self._last_commit_t = self._clock.now()
+        self.interval_changes = 0
         self.ckpt_events: list = []
         # the bus holds the trainer weakly: a trainer dropped without
         # ``finalize`` (a crash) releases its state, and its subscription
@@ -115,7 +134,8 @@ class ElasticTrainer:
                 events=(icheck_events.CKPT_IN_L1, icheck_events.CKPT_IN_L2,
                         icheck_events.DRAIN_FAILED,
                         icheck_events.CODEC_DEGRADED,
-                        icheck_events.RESIZE_FOREWARNED)))
+                        icheck_events.RESIZE_FOREWARNED,
+                        icheck_events.INTERVAL_CHANGED)))
 
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.state = make_train_state(cfg, gen, self.opt_cfg, self.device)
@@ -130,6 +150,16 @@ class ElasticTrainer:
 
     def _on_ckpt_event(self, ev) -> None:
         self.ckpt_events.append(ev.as_record())
+        if ev.name == icheck_events.INTERVAL_CHANGED \
+                and ev.payload.get("app") == self.client.app_id:
+            # the client has already taken the new ``ckpt_interval_s``
+            self.interval_changes += 1
+
+    def _commit_due(self, step: int) -> bool:
+        if self.adaptive_interval:
+            return (self._clock.now() - self._last_commit_t
+                    >= self.client.ckpt_interval_s)
+        return self.commit_every > 0 and step % self.commit_every == 0
 
     def _register_regions(self):
         self.client.add_adapt_snapshot(
@@ -162,6 +192,7 @@ class ElasticTrainer:
         self._pending_commits = [c for c in self._pending_commits
                                  if not c.done()]
         self._pending_commits.append(h)
+        self._last_commit_t = self._clock.now()
         return h
 
     def restart_if_available(self) -> bool:
@@ -273,7 +304,7 @@ class ElasticTrainer:
 
     # ------------------------------------------------------------------ run
     def _device_batch(self) -> Dict[str, torch.Tensor]:
-        batch = self.data.next_batch()
+        batch = self.data.next_batch(self.global_batch)
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in batch.items()}
 
@@ -288,14 +319,18 @@ class ElasticTrainer:
                 self.steps_during_resize += 1
             self.metrics_log.append(
                 {"step": step, "loss": float(metrics["loss"])})
-            if self.commit_every and step % self.commit_every == 0:
+            if self.step_sim_s > 0:
+                self._clock.sleep(self.step_sim_s)
+            if self._commit_due(step):
                 self.commit()
             if self.probe_every and step % self.probe_every == 0:
                 self.client.probe_agents()
         return {"steps": steps, "wall_s": time.monotonic() - t0,
                 "final_loss": self.metrics_log[-1]["loss"],
                 "resizes": self.resizes,
-                "steps_during_resize": self.steps_during_resize}
+                "steps_during_resize": self.steps_during_resize,
+                "interval_changes": self.interval_changes,
+                "ckpt_interval_s": self.client.ckpt_interval_s}
 
     def finalize(self):
         if self._adapt_handles is not None:

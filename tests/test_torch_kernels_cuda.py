@@ -58,7 +58,12 @@ Every test skips without a card.  Tolerances:
   cumulative log-decay over a chunk of the plain version (its exponents'
   f32 resolution).  K6's backward has two kernels, routed as the forward
   (bf16 of at least ``SM90_MIN_T`` tokens to the chunked tensor-core one,
-  ``rwkv6_bwd_sm90.cu``), each held to the same tolerances.
+  ``rwkv6_bwd_sm90.cu``), each held to the same tolerances;
+* the int8 KV cache (tensor ops, no kernel of its own): ``_q8`` and
+  ``_dq`` on the card bit-equal to the CPU's; a tiny int8 prefill (K4)
+  and 8 decode steps against the CPU, codes at most one step apart on at
+  most 1e-3 of them, logits within the CPU's own int8-against-exact
+  difference plus 1e-4 and argmax-equal.
 
 ``allow_tf32`` is False so the plain versions' f32 matmuls are full f32.
 """
@@ -1293,3 +1298,89 @@ def test_rglru_kernel_rejects_what_it_does_not_take(card):
         rglru_cuda(la, g.transpose(1, 2).contiguous().transpose(1, 2), h0)
     with pytest.raises(ValueError, match="CUDA"):
         rglru_cuda(la.cpu(), g.cpu(), h0.cpu())
+
+
+# --------------------------------------------------------------------------
+# the int8 KV cache: tensor ops, no kernel of its own, on the card
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(4, 32, 544, 128), (2, 4, 33, 256),
+                                   (2, 3, 7, 6), (1 << 16, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_q8_on_the_card_bit_equal_to_cpu(card, shape, dtype):
+    from repro_torch.models.attention import _dq, _q8
+
+    rng = np.random.default_rng(sum(shape))
+    x = rng.standard_normal(shape).astype(np.float32)
+    x *= np.exp(rng.uniform(-8, 8, shape[:-1] + (1,))).astype(np.float32)
+    x[..., :min(4, shape[-1])] = 0.0
+    x = torch.from_numpy(x).to(getattr(torch, dtype))
+    q, s = _q8(x)
+    gq, gs = _q8(x.to(card))
+    assert gq.is_cuda and gs.is_cuda
+    assert torch.equal(gq.cpu(), q)
+    assert torch.equal(gs.cpu().view(torch.int16), s.view(torch.int16))
+    d = _dq(gq, gs)
+    assert d.is_cuda
+    assert torch.equal(d.cpu().view(torch.int32), _dq(q, s).view(torch.int32))
+
+
+def test_int8_prefill_and_decode_on_the_card(card):
+    """Tiny deepseek-7b widened to head dim 32 (a dim K4 takes), f32, an
+    int8 cache: prefill through K4 and 8 greedy decode steps on the card
+    against the CPU, both fed the CPU's tokens.  The codes on the card lie
+    at most one step from the CPU's (f32 sums in another order can cross
+    a rounding edge), on at most 1e-3 of them; the logits within the CPU's
+    own int8-against-exact difference (every code rounded by up to half a
+    step) plus 1e-4, and argmax-equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.models import decode_step, init_cache, init_params, \
+        prefill
+
+    exact = dataclasses.replace(get_config("deepseek-7b", tiny=True),
+                                d_model=128)
+    cfg = dataclasses.replace(exact, kv_quant=True)
+    assert cfg.resolved_head_dim == 32
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    steps = 8
+    out = {}
+    for name, c, dev in (("cpu", cfg, torch.device("cpu")),
+                         ("exact", exact, torch.device("cpu")),
+                         ("card", cfg, card)):
+        p = _to(params, dev)
+        cache = init_cache(c, 2, 64 + steps, device=dev)
+        n0 = kernel.launches
+        with torch.no_grad():
+            lg, cache = prefill(c, p, {"tokens": toks.to(dev)}, cache)
+            if dev.type == "cuda":
+                assert kernel.launches - n0 == c.num_layers
+            # a copy: the decode steps below write into the cache
+            codes = cache["stack"]["b0"]["self"].k.to("cpu", copy=True)
+            logits = [lg.cpu()]
+            for i in range(steps):
+                nxt = out["cpu"][1][i].argmax(-1)[:, None] if "cpu" in out \
+                    else logits[i].argmax(-1)[:, None]
+                lg, cache = decode_step(c, p, cache,
+                                        nxt.to(torch.int32).to(dev))
+                logits.append(lg.cpu())
+        out[name] = (codes, logits)
+    step = (out["card"][0].int() - out["cpu"][0].int()).abs()
+    assert int(step.max()) <= 1
+    assert int((step > 0).sum()) <= 1e-3 * step.numel()
+    e_q = max((a - b).abs().max().item()
+              for a, b in zip(out["cpu"][1], out["exact"][1]))
+    err = max((a - b).abs().max().item()
+              for a, b in zip(out["card"][1], out["cpu"][1]))
+    assert err <= e_q + 1e-4, (err, e_q)
+    for a, b in zip(out["card"][1], out["cpu"][1]):
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

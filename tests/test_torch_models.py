@@ -1,8 +1,9 @@
 """The port's dense backbone held against the JAX reference.
 
-Tiny ``yi-6b`` and ``qwen2.5-3b`` (f32), with the reference's parameters
-carried across by name (``params_from_numpy``), so both frameworks run the
-same weights on the same numpy tokens.  Prefill logits and cache, and each
+Tiny ``yi-6b``, ``qwen2.5-3b``, ``deepseek-7b`` and ``phi3-medium-14b``
+(f32, head dim 16), with the reference's parameters carried across by
+name (``params_from_numpy``), so both frameworks run the same weights on
+the same numpy tokens.  Prefill logits and cache, and each
 decode step's logits, agree to atol 1e-5 (f32 sums in another order).
 f32 matmuls run in full precision (``allow_tf32 = False``).
 """
@@ -30,7 +31,7 @@ from repro_torch.serve import ServeEngine, serve_max_len  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
-ARCHS = ["yi-6b", "qwen2.5-3b"]
+ARCHS = ["yi-6b", "qwen2.5-3b", "deepseek-7b", "phi3-medium-14b"]
 B, T, GEN = 2, 12, 4
 ATOL = 1e-5
 
