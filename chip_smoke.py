@@ -27,7 +27,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      1, 512, 512) and T = 2560 (the window hides keys), f32 (atol 3e-5)
      and bf16 (atol 3e-2, and an error norm at most 2^-7 of the plain
      output's), lse atol 1e-4 on rows with an allowed key, and exact zeros
-     on rows with none; the bf16 forward at the training path's shape too;
+     on rows with none; the bf16 forward at the training path's shape and
+     at deepseek-7b's and phi3-medium-14b's serving shapes too;
    * the flash-attention backward over the same sweep plus the training
      path's shape, from the same (q, k, v, out, lse, do): f32 dq, dk, dv
      within atol 1e-4 + rtol 1e-4; bf16 dq, dk, dv each within twice
@@ -127,19 +128,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    codes and one f16 scale per 4 head dims, 1.5 bytes a value): its
    802,160,644-byte cache restored bit-equal, decode from it giving the
    live tokens; a 2-layer f32 cut against the plain CPU path, and the
-   same cut with the int8 cache over 8 decode steps: the card's codes at
-   most one step from the CPU's on at most 1e-3 of them, every argmax
-   the CPU's, the logits within 1e-3 plus the CPU's own int8-against-
-   exact difference (``check_against_plain``);
+   same cut with the int8 cache over 8 decode steps: after them, the
+   card's codes of every layer at most one step from the CPU's on at
+   most 1e-3 of them, its f16 scales at most one f16 step from the
+   CPU's on at most 1.6e-2 of them (an f16 step of a scale is 1/16 to
+   1/8 of a code's), every argmax the CPU's, the logits within 1e-3 plus
+   0.164 of the CPU's own int8-against-exact difference
+   (``check_against_plain``);
 4f. the same serving path for phi3-medium-14b at full width (40 layers,
    d_model 5120, 40 heads of 128 over 10 KV heads, d_ff 17920, vocab
    100,352, bf16, 14,659,507,200 params): its f32 weights (58.6 GB) and a
-   bf16 copy would not fit the card together, so the drawn weights are
-   cast leaf by leaf, each f32 leaf freed as its copy is made, and the
-   engine serves the bf16 tree as it is; K4 40 times a prefill; the
-   445,644,804-byte KV cache restored bit-equal; a 2-layer f32 cut (the
-   bf16 weights widened) against the plain CPU path; the peak memory of
-   the cast and of serving in its line;
+   bf16 copy would not fit the card together, which is why every serving
+   phase casts its drawn weights leaf by leaf (``cast_leaves_``); K4 40
+   times a prefill; the 445,644,804-byte KV cache restored bit-equal; a
+   2-layer f32 cut against the plain CPU path; the peak memory of the
+   cast and of serving in its line;
 5. the training path: ``ElasticTrainer`` trains qwen2.5-3b at full width
    (36 layers, d_model 2048, bf16 compute, f32 master weights, full remat)
    on 4096-token sequences, global batch 1 (cut from 256), 6 steps with a
@@ -282,6 +285,15 @@ RING_CUT = (16, 40, 20)
 # deepseek-7b's f32 cut with the int8 KV cache: decode steps after its
 # prefill, each held to the plain CPU path
 INT8_CUT_STEPS = 8
+# the share of its codes on which the card's int8 cache may lie one step
+# from the CPU's in that cut.  A scale's f16 step is 2^-11 to 2^-10 of
+# the scale, 1/16 to 1/8 of a code's step (1/127 of the block's absmax):
+# the same f32 difference crosses an f16 edge of a scale up to 2^11/127
+# times as often as a code's rounding edge, and each such scale moves its
+# values by at most 127 * 2^-10 of a code's step
+Q8_SHARE = 1e-3
+Q8_SCALE_SHARE = Q8_SHARE * 2 ** 11 / 127
+Q8_SCALE_STEP = 127 * 2 ** -10
 CODEC_DTYPES = ("float32", "bfloat16", "float16")
 # the recurrent training phases (5b, 5c): TRAIN_SEQ tokens a step, steps
 # and q8-delta commit interval; rwkv6-7b cut to 8 layers, recurrentgemma-9b
@@ -665,6 +677,9 @@ def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
         t0 = time.monotonic()
         engine.last_commit.wait(timeout=600)
         res["commit_wait_s"] = time.monotonic() - t0
+        # the commit's drains to the lower tiers end before anything below
+        # is timed, so that no time read here is that of their threads
+        res["drain_wait_s"] = settle(cluster)
 
         t0 = time.monotonic()
         restored = engine.restore_serving_state(client, batch_size)
@@ -711,6 +726,7 @@ def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
         client.commit(1, {n: r.parts for n, r in snap.regions.items()}
                       ).wait(timeout=600)
         res["commit_s"] = time.monotonic() - t0
+        res["drain_wait_s"] += settle(cluster)
         # the committed bytes, region after region, for K5's check
         res["state_payload"] = np.concatenate(
             [r.parts[0].reshape(-1).view(np.uint8)
@@ -736,14 +752,25 @@ def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
     return res
 
 
+def settle(cluster) -> float:
+    """Wait until ``cluster``'s drains and uploads to the lower tiers have
+    ended; returns the seconds waited."""
+    t0 = time.monotonic()
+    for report in (cluster.controller.wait_for_drains(timeout=600),
+                   cluster.controller.wait_for_uploads(timeout=600)):
+        if not report["ok"]:
+            raise AssertionError(f"the cluster did not settle: {report}")
+    return time.monotonic() - t0
+
+
 def serve_model_phase(cfg, device, card, line, n_params, want, *,
                       state_bytes=None, subruns=(), plain=None,
-                      numbers=dict, bf16_weights=False):
+                      numbers=dict):
     """``cfg`` at full width through ``serve_main_path``: its parameter
     count held to ``n_params``; random f32 weights from a seeded
-    generator (with ``bf16_weights``, cast to bf16 leaf by leaf as
-    ``cast_params`` casts them, each f32 leaf freed as its copy is made:
-    the engine then keeps the same tensors and makes no copy); BATCH x
+    generator, cast to the compute dtype leaf by leaf as ``cast_params``
+    casts them (``cast_leaves_``: the engine then keeps the same tensors
+    and makes no copy, and the card never holds both); BATCH x
     PROMPT prompt tokens and GEN new ones, then each of ``subruns``
     ((name, batch, prompt, gen, state bytes, config or None for ``cfg``)),
     each run's launches held to ``want(gen)`` and its committed state's
@@ -767,12 +794,11 @@ def serve_model_phase(cfg, device, card, line, n_params, want, *,
     torch.cuda.synchronize()
     log(f"  params: {n_params} f32 in {time.monotonic() - t0:.1f} s")
     init_peak = torch.cuda.max_memory_allocated()
-    if bf16_weights:
-        cast_leaves_(params, getattr(torch, cfg.dtype))
-        torch.cuda.synchronize()
-        log(f"  cast to {cfg.dtype} leaf by leaf: peak "
-            f"{torch.cuda.max_memory_allocated()} bytes, "
-            f"{torch.cuda.memory_allocated()} allocated")
+    cast_leaves_(params, getattr(torch, cfg.dtype))
+    torch.cuda.synchronize()
+    log(f"  cast to {cfg.dtype} leaf by leaf: peak "
+        f"{torch.cuda.max_memory_allocated()} bytes, "
+        f"{torch.cuda.memory_allocated()} allocated")
     cast_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     runs = {}
@@ -781,8 +807,8 @@ def serve_model_phase(cfg, device, card, line, n_params, want, *,
         rcfg = (sub and sub[0]) or cfg
         res = serve_main_path(rcfg, params, device, batch_size=batch,
                               prompt=prompt, gen=gen, want=want(gen))
-        # the run's engine and its bf16 copy of the weights are gone:
-        # release their memory before the next engine is built
+        # the run's engine and its cache are gone: release their memory
+        # before the next engine is built
         gc.collect()
         torch.cuda.empty_cache()
         if nbytes is not None and res["state_bytes"] != nbytes:
@@ -820,11 +846,11 @@ def serve_model_phase(cfg, device, card, line, n_params, want, *,
         "generate_wall_s": res["generate_s"],
         "commit_wall_s": res["commit_s"],
         "commit_wait_s": res["commit_wait_s"],
+        "drain_wait_s": res["drain_wait_s"],
         "restore_wall_s": res["restore_s"],
         "state_bytes": res["state_bytes"],
         "max_memory_allocated": peak, "init_max_memory_allocated": init_peak,
-        **({"cast_max_memory_allocated": cast_peak} if bf16_weights
-           else {}), **errs,
+        "cast_max_memory_allocated": cast_peak, **errs,
         **{name: {**{k: r[k] for k in (
             "prefill_ms", "decode_ms_per_token", "generate_s", "commit_s",
             "restore_s", "state_bytes")},
@@ -866,13 +892,21 @@ def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
 
     With ``kv_quant`` both run the int8 cache.  Its codes on the card may
     lie a step from the CPU's where the f32 K or V of the two devices fall
-    on either side of a rounding edge; every code of the CPU's own cache
-    already lies up to half a step from its value, and those half steps
-    move the CPU's logits from the exact cache's by ``int8_vs_exact``
-    (measured here).  So the card's first-layer codes are held to one step
-    of the CPU's on at most 1e-3 of them, its logits to ``atol`` +
-    ``int8_vs_exact`` of the CPU's, and every argmax to the CPU's.
-    Returns ``max_abs_err`` and, with ``kv_quant``, those numbers."""
+    on either side of a rounding edge, and its f16 scales an f16 step
+    where the f32 absmax does.  So after the decode steps the card's
+    codes and scales of every layer (the prefill's and the decode steps')
+    are held to one step of the CPU's, codes on at most ``Q8_SHARE`` of
+    them and scales on at most ``Q8_SCALE_SHARE``.  Every code of the
+    CPU's own cache lies up to half a step from its value, and those half
+    steps (rms 1/sqrt(12) of a step) move the CPU's logits from the exact
+    cache's by ``int8_vs_exact`` (measured here); a flipped code is off
+    by a whole step, and errors of independent codes add in quadrature,
+    so flips on a share p of the codes move the logits by about
+    sqrt(12 p) times that, and scales a step apart on a share q by at
+    most sqrt(12 q) ``Q8_SCALE_STEP`` times that.  The card's logits are
+    held to ``atol`` plus the sum of the two at the shares' bounds, and
+    every argmax to the CPU's.  Returns ``max_abs_err`` and, with
+    ``kv_quant``, those numbers."""
     import numpy as np
     import torch
 
@@ -892,24 +926,21 @@ def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
     if kv_quant:
         runs.insert(1, ("exact", dataclasses.replace(small, kv_quant=False),
                         torch.device("cpu")))
-    logits, codes = {}, {}
+    logits, q8 = {}, {}
     for name, c, dev in runs:
         p = _map(lambda t: t.to(dev).float(), cut)
         cache = init_cache(c, 2, prompt + steps, device=dev)
         with torch.no_grad():
             lg, cache = prefill(c, p, {"tokens": torch.from_numpy(toks)
                                        .to(dev)}, cache)
-            if kv_quant:
-                # a copy: the decode steps below write into the cache
-                kv = cache["stack"]["b0"]["self"]
-                codes[name] = tuple(t[0].to("cpu", copy=True)
-                                    for t in (kv.k, kv.v))
             out = [lg.float().cpu()]
             greedy = logits.get("cpu", out)     # the CPU's tokens drive all
             for i in range(steps):
                 nxt = greedy[i].argmax(-1)[:, None].to(dev)
                 lg, cache = decode_step(c, p, cache, nxt)
                 out.append(lg.float().cpu())
+        if c.kv_quant:
+            q8[name] = _int8_leaves(cache)
         logits[name] = out
         del p, cache
 
@@ -921,16 +952,24 @@ def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
     tol = atol
     if kv_quant:
         e_q = max_err("cpu", "exact")
-        tol = atol + e_q
-        step = torch.cat([(g.int() - w.int()).abs().reshape(-1) for g, w in
-                          zip(codes["card"], codes["cpu"])])
-        res.update(int8_vs_exact=e_q, atol=tol,
-                   codes_one_step_apart=int((step > 0).sum()),
-                   codes=step.numel(), codes_max_step=int(step.max()))
-        if res["codes_max_step"] > 1 or \
-                res["codes_one_step_apart"] > 1e-3 * step.numel():
-            raise AssertionError(f"int8 cut: card codes against the CPU's "
-                                 f"{res}")
+        tol = atol + (math.sqrt(12 * Q8_SHARE) + Q8_SCALE_STEP
+                      * math.sqrt(12 * Q8_SCALE_SHARE)) * e_q
+        res.update(int8_vs_exact=e_q, atol=tol)
+        for what, share in (("codes", Q8_SHARE), ("scales", Q8_SCALE_SHARE)):
+            # positive f16 scales order as their bits do: one f16 step
+            # is one apart as int16
+            step = torch.cat([
+                (g.view(torch.int16).int() - w.view(torch.int16).int())
+                .abs().reshape(-1) if what == "scales" else
+                (g.int() - w.int()).abs().reshape(-1)
+                for g, w in zip(q8["card"][what], q8["cpu"][what])])
+            res.update({what: step.numel(),
+                        f"{what}_one_step_apart": int((step > 0).sum()),
+                        f"{what}_max_step": int(step.max())})
+            if res[f"{what}_max_step"] > 1 or \
+                    res[f"{what}_one_step_apart"] > share * step.numel():
+                raise AssertionError(f"int8 cut: card {what} against the "
+                                     f"CPU's {res}")
         for i, (g, w) in enumerate(zip(logits["card"], logits["cpu"])):
             if not torch.equal(g.argmax(-1), w.argmax(-1)):
                 raise AssertionError(f"int8 cut: argmax differs at step {i}")
@@ -940,6 +979,27 @@ def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
             f"tokens, {steps} decode steps, kv_quant {kv_quant}): card vs "
             f"plain CPU logits max abs err {err} (atol {tol})")
     return res
+
+
+def _int8_leaves(cache) -> dict:
+    """The int8 codes (``k``, ``v``) and f16 scales (``ks``, ``vs``) of
+    every layer of ``cache``, on the CPU."""
+    from repro_torch.models.attention import KVCache
+
+    out = {"codes": [], "scales": []}
+
+    def walk(x):
+        if isinstance(x, KVCache):
+            out["codes"] += [x.k.cpu(), x.v.cpu()]
+            out["scales"] += [x.ks.cpu(), x.vs.cpu()]
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+    walk(cache)
+    return out
 
 
 def _map(fn, tree):
@@ -2562,6 +2622,14 @@ def main() -> int:
     path_err = check_kernels(path_case, device)
     train_err = check_attention_case(train_case, "bfloat16", device)
     log(f"  flash_fwd {train_case} bfloat16: max abs err {train_err:.3e}")
+    # the bf16 forward at the two dense serving paths' shapes of phases
+    # 4e and 4f (MHA 32/32, GQA 40/10)
+    dense_errs = {}
+    for name, c in (("deepseek", dcfg), ("phi3", pcfg)):
+        dense_errs[name] = check_attention_case(serve_case(c), "bfloat16",
+                                                device)
+        log(f"  flash_fwd {serve_case(c)} bfloat16: max abs err "
+            f"{dense_errs[name]:.3e}")
     d256_err = check_kernels(d256_case, device, D256_SWEEP)
     check_empty_rows(device)
     bwd_err = check_bwd(train_case, device)
@@ -2652,11 +2720,11 @@ def main() -> int:
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
     log(f"phase 4f: serving, {pcfg.name} {pcfg.num_layers} layers d_model "
-        f"{pcfg.d_model} {pcfg.dtype} (weights cast to bf16 leaf by leaf), "
+        f"{pcfg.d_model} {pcfg.dtype}, "
         f"{BATCH} x {PROMPT} prompt tokens, {GEN} new tokens")
     runs, ph_num = serve_model_phase(
         pcfg, device, card, "serve_phi3", 14_659_507_200, dense_want(pcfg),
-        state_bytes=445_644_804, bf16_weights=True,
+        state_bytes=445_644_804,
         numbers=lambda: {"flash_fwd_serve_shape": attention_numbers(
             serve_case(pcfg), device)})
     ph_launches = runs["serve"]["launches"]
@@ -2810,9 +2878,10 @@ def main() -> int:
 
     def row(name, source, replaces, launches, err, n, **shapes):
         """One kernel's entry: every time is ``device_ms`` (``event_ms``
-        beside it); ``shapes`` are its numbers at other shapes."""
+        beside it); ``shapes`` are its numbers at other shapes, with
+        their max abs error where the script checks them there."""
         def times(x):
-            return {k: x[k] for k in TIME_KEYS if k in x}
+            return {k: x[k] for k in TIME_KEYS + ("max_abs_err",) if k in x}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/{source}",
                 "replaces": f"src/repro/kernels/{replaces}", **launches,
@@ -2826,8 +2895,10 @@ def main() -> int:
             "flash_attention/kernel.py:95",
             counts("flash_fwd", "serve"), path_err, num,
             train_shape=fwd_train,
-            deepseek_serve_shape=ds_num["flash_fwd_serve_shape"],
-            phi3_serve_shape=ph_num["flash_fwd_serve_shape"]),
+            deepseek_serve_shape={**ds_num["flash_fwd_serve_shape"],
+                                  "max_abs_err": dense_errs["deepseek"]},
+            phi3_serve_shape={**ph_num["flash_fwd_serve_shape"],
+                              "max_abs_err": dense_errs["phi3"]}),
         # the same kernel's head-dim-256 instance, on recurrentgemma-9b's
         # path (its windowed MQA layers)
         row("flash_fwd_d256", fa + "flash_fwd_sm90.cu",
