@@ -28,7 +28,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      and bf16 (atol 3e-2, and an error norm at most 2^-7 of the plain
      output's), lse atol 1e-4 on rows with an allowed key, and exact zeros
      on rows with none; the bf16 forward at the training path's shape and
-     at deepseek-7b's and phi3-medium-14b's serving shapes too;
+     at deepseek-7b's, phi3-medium-14b's, dbrx-132b's (4, 48, 8, 512,
+     512, 128) and qwen3-moe-235b-a22b's (4, 64, 4, 512, 512, 64) serving
+     shapes too, and forward and backward (two runs bit-equal) at
+     qwen3-moe-235b-a22b's training shape (1, 64, 4, 4096, 4096, 64);
    * the flash-attention backward over the same sweep plus the training
      path's shape, from the same (q, k, v, out, lse, do): f32 dq, dk, dv
      within atol 1e-4 + rtol 1e-4; bf16 dq, dk, dv each within twice
@@ -143,6 +146,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    times a prefill; the 445,644,804-byte KV cache restored bit-equal; a
    2-layer f32 cut against the plain CPU path; the peak memory of the
    cast and of serving in its line;
+4g. the same serving path for dbrx-132b (Mixture-of-Experts: 16 experts,
+   top 4, d_ff 10752 each; d_model 6144, 48 heads of 128 over 8 KV heads,
+   vocab 100,352) at published widths cut to 4 of its 40 layers
+   (14,269,470,720 params; the f32 draw and the cast's bf16 copy of the
+   stacked expert weights fill the card, ``reduced`` in its line): K4 4
+   times a prefill and never in decode, which runs the experts at one
+   slot each (the reference's dense dispatch: every expert's weights read
+   a token); the KV cache restored bit-equal; a 1-layer f32 cut (a
+   64-token prompt, 8 decode steps) against the plain CPU path within
+   1e-3, every argmax and every layer's expert ids after prefill and each
+   decode step equal to the CPU's (a flipped id is reported with the
+   CPU's probability gap at the k-th place, and fails); one profile
+   window, over a prefill;
+4h. the same for qwen3-moe-235b-a22b (128 experts, top 8, d_ff 1536
+   each; d_model 4096, 64 heads of 64 over 4 KV heads) cut to 4 of its 94
+   layers (11,054,125,056 params), no profile window;
 5. the training path: ``ElasticTrainer`` trains qwen2.5-3b at full width
    (36 layers, d_model 2048, bf16 compute, f32 master weights, full remat)
    on 4096-token sequences, global batch 1 (cut from 256), 6 steps with a
@@ -169,12 +188,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    with its window cut to 16 over the ring cut's 40 tokens, ``lam`` drawn
    from [-6, 0] (at init its gradient is roundoff): its four RG-LRU
    backwards below ``ops.SM90_BWD_MIN_T``, on the register kernel;
+5d. qwen3-moe-235b-a22b cut to one layer (3,697,815,552 params): the
+   training path's loss and gradients (``compute_grads``, bf16 compute,
+   f32 master weights, full remat) on one 4096-token sequence, 3 calls,
+   without the optimizer (the trainer's ~23 B a parameter would not fit
+   even this layer); K4 forward 2 and backward 1 a call, on the wgmma
+   library; then a 1-layer f32 cut's loss and gradients on the card
+   against the plain CPU path, as in 5b;
 6. a second training phase at full width cut to 8 layers: int8 gradient
    compression (K1 + K3 in every step) and a 1 -> 2 logical-rank resize
    with ``overlap_resize``;
 7. numbers: the serving lines (yi-6b, rwkv6-7b, recurrentgemma-9b,
-   deepseek-7b with its int8 subrun, phi3-medium-14b), the
-   training lines (qwen2.5-3b, rwkv6-7b, recurrentgemma-9b), step ms,
+   deepseek-7b with its int8 subrun, phi3-medium-14b, dbrx-132b,
+   qwen3-moe-235b-a22b), the
+   training lines (qwen2.5-3b, rwkv6-7b, recurrentgemma-9b; qwen3-moe's
+   loss-and-gradient line), step ms,
    tokens/s,
    ``mfu``, commit and restart wall seconds,
    bytes on the wire, peak device memory, host RSS, a ``torch.profiler``
@@ -198,6 +226,7 @@ busy times come from ``torch.profiler``, which can drop kernel records
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -300,6 +329,13 @@ CODEC_DTYPES = ("float32", "bfloat16", "float16")
 # to one super-layer (rec, rec, attn) without its two tail layers
 TRAIN_REC_STEPS, TRAIN_REC_COMMIT = 4, 2
 RWKV_TRAIN_LAYERS, HYBRID_TRAIN_LAYERS = 8, 3
+# the MoE phases: dbrx-132b and qwen3-moe-235b-a22b served cut to 4
+# layers, their f32 cuts (1 layer, a 64-token prompt, 8 decode steps)
+# against the plain CPU path; qwen3-moe's training loss and gradients cut
+# to 1 layer, timed over 3 calls
+MOE_SERVE_LAYERS = 4
+MOE_PLAIN = dict(layers=1, prompt=64, steps=8)
+MOE_GRAD_CALLS = 3
 # their f32 cuts against the plain CPU path: one sequence of GRAD_SEQ
 # tokens; every gradient leaf within GRAD_TOL of its largest element (f32
 # sums in other orders on two devices, through recurrences that the
@@ -638,11 +674,13 @@ def dense_want(cfg):
 
 
 def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
-                    gen=GEN, want=None):
+                    gen=GEN, want=None, profile=("prefill", "decode_8")):
     """Serve one batch with iCheck checkpointing and check the restore.
     ``want`` maps "generate", "prefill" and "decode" (the gen - 1 steps
     from the restored state) to the launches each must count, by kernel.
-    Returns a dict of counts and wall times."""
+    ``profile`` names the ``torch.profiler`` windows taken on the card:
+    one prefill, 8 decode steps.  Returns a dict of counts and wall
+    times."""
     import numpy as np
     import torch
 
@@ -732,11 +770,12 @@ def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
             [r.parts[0].reshape(-1).view(np.uint8)
              for r in snap.regions.values()])
         del snap
-        if device.type == "cuda":
+        if device.type == "cuda" and "prefill" in profile:
             # where the time goes, with the cluster's threads alive as in
             # the timed run: one prefill, then 8 decode steps
             res["profile_prefill"] = profile_window(
                 lambda: engine.prefill(batch))
+        if device.type == "cuda" and "decode_8" in profile:
             _, cache = engine.prefill(batch)
             res["profile_decode_8"] = profile_window(
                 lambda: engine.decode_greedy(cache, out[:, :1], 8))
@@ -765,7 +804,8 @@ def settle(cluster) -> float:
 
 def serve_model_phase(cfg, device, card, line, n_params, want, *,
                       state_bytes=None, subruns=(), plain=None,
-                      numbers=dict):
+                      numbers=dict, profile=("prefill", "decode_8"),
+                      reduced=None):
     """``cfg`` at full width through ``serve_main_path``: its parameter
     count held to ``n_params``; random f32 weights from a seeded
     generator, cast to the compute dtype leaf by leaf as ``cast_params``
@@ -778,8 +818,9 @@ def serve_model_phase(cfg, device, card, line, n_params, want, *,
     -> ``check_against_plain`` keywords; by default 2 layers, atol 1e-3)
     against the plain CPU path.  The weights are freed, and ``numbers()``
     (kernel numbers at the path's shapes) goes into the ``line`` JSON line
-    beside the serving numbers; the profile windows follow.  Returns the
-    runs' results by name ("serve" first) and the numbers."""
+    beside the serving numbers and ``reduced`` (what was cut, and why);
+    the ``profile`` windows of the first run follow.  Returns the runs'
+    results by name ("serve" first) and the numbers."""
     import torch
 
     from repro_torch.models import count_params, init_params
@@ -806,7 +847,8 @@ def serve_model_phase(cfg, device, card, line, n_params, want, *,
             ("serve", BATCH, PROMPT, GEN, state_bytes), *subruns):
         rcfg = (sub and sub[0]) or cfg
         res = serve_main_path(rcfg, params, device, batch_size=batch,
-                              prompt=prompt, gen=gen, want=want(gen))
+                              prompt=prompt, gen=gen, want=want(gen),
+                              profile=profile if name == "serve" else ())
         # the run's engine and its cache are gone: release their memory
         # before the next engine is built
         gc.collect()
@@ -838,6 +880,7 @@ def serve_model_phase(cfg, device, card, line, n_params, want, *,
     res = runs["serve"]
     serve = {
         "card": card, "params": n_params,
+        **({"reduced": reduced} if reduced else {}),
         "prefill_ms": res["prefill_ms"],
         "decode_ms_per_token": res["decode_ms_per_token"],
         "decode_ms_per_token_no_cluster":
@@ -859,8 +902,8 @@ def serve_model_phase(cfg, device, card, line, n_params, want, *,
         **nums,
     }
     log(json.dumps({line: serve}))
-    for name in ("profile_prefill", "profile_decode_8"):
-        log(json.dumps({f"{line}_{name}": res[name]}))
+    for name in profile:
+        log(json.dumps({f"{line}_profile_{name}": res[f"profile_{name}"]}))
     return runs, nums
 
 
@@ -905,8 +948,15 @@ def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
     sqrt(12 p) times that, and scales a step apart on a share q by at
     most sqrt(12 q) ``Q8_SCALE_STEP`` times that.  The card's logits are
     held to ``atol`` plus the sum of the two at the shares' bounds, and
-    every argmax to the CPU's.  Returns ``max_abs_err`` and, with
-    ``kv_quant``, those numbers."""
+    every argmax to the CPU's.
+
+    A MoE model's routing is recorded in every layer of every call on both
+    devices (``recording_routes``): the card's expert ids must equal the
+    CPU's after prefill and after each decode step, and every argmax the
+    CPU's.  A flipped id is reported with the CPU's probability gap
+    between the k-th and the (k+1)-th expert of that token, and fails the
+    check.  Returns ``max_abs_err`` and, with ``kv_quant`` or a MoE
+    model, those numbers."""
     import numpy as np
     import torch
 
@@ -926,11 +976,11 @@ def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
     if kv_quant:
         runs.insert(1, ("exact", dataclasses.replace(small, kv_quant=False),
                         torch.device("cpu")))
-    logits, q8 = {}, {}
+    logits, q8, routes = {}, {}, {}
     for name, c, dev in runs:
         p = _map(lambda t: t.to(dev).float(), cut)
         cache = init_cache(c, 2, prompt + steps, device=dev)
-        with torch.no_grad():
+        with torch.no_grad(), recording_routes(routes.setdefault(name, [])):
             lg, cache = prefill(c, p, {"tokens": torch.from_numpy(toks)
                                        .to(dev)}, cache)
             out = [lg.float().cpu()]
@@ -949,6 +999,12 @@ def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
                    for x, y in zip(logits[a], logits[b]))
     err = max_err("card", "cpu")
     res = {"max_abs_err": err}
+    if cfg.ffn == "moe":
+        res.update(_compare_routes(routes["card"], routes["cpu"],
+                                   cfg.experts_per_token))
+        for i, (g, w) in enumerate(zip(logits["card"], logits["cpu"])):
+            if not torch.equal(g.argmax(-1), w.argmax(-1)):
+                raise AssertionError(f"MoE cut: argmax differs at step {i}")
     tol = atol
     if kv_quant:
         e_q = max_err("cpu", "exact")
@@ -978,6 +1034,51 @@ def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
             f"{layers}-layer f32 cut (window {small.window}, {prompt} prompt "
             f"tokens, {steps} decode steps, kv_quant {kv_quant}): card vs "
             f"plain CPU logits max abs err {err} (atol {tol})")
+    return res
+
+
+@contextlib.contextmanager
+def recording_routes(out: list):
+    """Within the block, every ``moe.route`` call (a MoE layer's router,
+    in layer order, prefill then each decode step) appends its f32
+    probabilities and expert ids, on the CPU, to ``out``."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def recorded(params, x, k):
+        probs, top_p, ids = route(params, x, k)
+        out.append((probs.detach().float().cpu(), ids.cpu()))
+        return probs, top_p, ids
+    moe.route = recorded
+    try:
+        yield out
+    finally:
+        moe.route = route
+
+
+def _compare_routes(card, cpu, k) -> dict:
+    """The card's expert ids against the CPU's, call by call; a token whose
+    ids differ is reported with the CPU's gap between its k-th and
+    (k+1)-th probabilities, and fails."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"MoE cut: {len(card)} router calls on the "
+                             f"card, {len(cpu)} on the CPU")
+    n, flips = 0, []
+    for call, ((_, g), (probs, w)) in enumerate(zip(card, cpu)):
+        n += w.numel()
+        bad = (g != w).any(-1)
+        if bad.any():
+            top = probs.sort(-1, descending=True).values[bad]
+            flips += [{"call": call, "token": list(map(int, idx)),
+                       "kth_gap": float(gap)}
+                      for idx, gap in zip(bad.nonzero().tolist(),
+                                          top[:, k - 1] - top[:, k])]
+    res = {"expert_ids": n, "router_calls": len(cpu),
+           "expert_id_flips": len(flips), "first_flips": flips[:20]}
+    if flips:
+        raise AssertionError(f"MoE cut: the card's expert ids differ from "
+                             f"the CPU's: {json.dumps(res)}")
     return res
 
 
@@ -2324,8 +2425,10 @@ def check_grads_against_plain(cfg, device, layers, window=None,
     forward and backward) against the plain CPU path's, from the same
     seeded parameters (``lam`` moved by ``_perturb_lam``) and one
     ``seq``-token sequence.  Each leaf within GRAD_TOL of its largest
-    element, the loss within LOSS_RTOL.  Returns the errors and the card
-    run's launches."""
+    element, the loss within LOSS_RTOL.  The parameters are drawn on the
+    card (its generator draws billions of values in milliseconds, the
+    CPU's in tens of seconds) and copied to the CPU.  Returns the errors,
+    the card run's launches and each device's wall seconds."""
     import numpy as np
     import torch
 
@@ -2334,13 +2437,16 @@ def check_grads_against_plain(cfg, device, layers, window=None,
 
     small = dataclasses.replace(cfg, num_layers=layers, dtype="float32",
                                 window=window or cfg.window)
-    params = init_params(small, torch.Generator().manual_seed(0),
-                         device="cpu")
+    t0 = time.monotonic()
+    params = _map(lambda t: t.cpu(), init_params(
+        small, torch.Generator(device=device).manual_seed(0),
+        device=device))
     _perturb_lam(params)
     toks = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (1, seq)).astype(np.int64)
-    out = {}
+    out, wall = {}, {"draw_s": time.monotonic() - t0}
     for dev in (torch.device("cpu"), device):
+        t0 = time.monotonic()
         p = _map(lambda t: t.to(dev), params)
         batch = {"tokens": torch.from_numpy(toks).to(dev),
                  "labels": torch.from_numpy(toks).to(dev)}
@@ -2350,6 +2456,7 @@ def check_grads_against_plain(cfg, device, layers, window=None,
         out[dev.type] = (float(loss), {n: g.cpu() for n, g in
                                        _float_leaves(grads)})
         del p, grads
+        wall[f"{dev.type}_s"] = time.monotonic() - t0
     launches = read_counts()
     (want_loss, want), (got_loss, got) = out["cpu"], out[device.type]
     loss_err = abs(got_loss - want_loss) / abs(want_loss)
@@ -2362,7 +2469,7 @@ def check_grads_against_plain(cfg, device, layers, window=None,
     res = {"layers": layers, "window": small.window, "seq": seq,
            "loss": want_loss, "loss_rel_err": loss_err,
            "worst_leaf": worst_leaf, "worst_leaf_err_of_max": worst,
-           "launches": launches}
+           "launches": launches, **wall}
     if not (loss_err <= LOSS_RTOL and worst <= GRAD_TOL):
         raise AssertionError(f"{layers}-layer f32 cut: card vs plain CPU "
                              f"grads {json.dumps(res)} (loss rtol "
@@ -2429,6 +2536,118 @@ def train_recurrent_phase(line, cfg, device, card, n_params, want, reduced,
     log(json.dumps({line: res}))
     log(json.dumps({f"profile_{line}_step": tr["profile_step"]}))
     return tr["launches"], grads["launches"]
+
+
+def serve_moe_phase(cfg, device, card, line, n_params, profile=()):
+    """A MoE model at published widths cut to MOE_SERVE_LAYERS layers
+    through ``serve_model_phase``: K4's forward once a layer in prefill
+    and never in decode (which runs MoE at one slot an expert, reading
+    every expert's weights a token, as the reference does); the 1-layer
+    f32 cut of ``MOE_PLAIN`` against the plain CPU path with the expert
+    ids compared; the ``profile`` windows of ``serve_main_path``.  Returns
+    the serving run's launches and K4's numbers at its prefill shape."""
+    cut = dataclasses.replace(cfg, num_layers=MOE_SERVE_LAYERS)
+    w_gu = cut.num_layers * 2 * cfg.num_experts * cfg.d_model \
+        * cfg.resolved_moe_d_ff
+    draw, layer = 4 * n_params, 4 * n_params // MOE_SERVE_LAYERS
+    reduced = {"num_layers": (
+        f"{cfg.num_layers} -> {cut.num_layers}: the weights are drawn in "
+        f"f32 ({draw / 1e9:.1f} GB) and cast leaf by leaf, so the cast "
+        f"peaks at up to the draw and the bf16 copy of the stacked w_gu "
+        f"({2 * w_gu / 1e9:.1f} GB), about {(draw + 2 * w_gu) / 1e9:.0f} "
+        f"GB of the card's 80; each more layer adds about "
+        f"{layer / 1e9:.1f} GB of f32 draw")}
+    runs, nums = serve_model_phase(
+        cut, device, card, line, n_params, dense_want(cut),
+        plain={"plain_cut": MOE_PLAIN}, profile=profile,
+        reduced=reduced,
+        numbers=lambda: {"flash_fwd_serve_shape": attention_numbers(
+            serve_case(cut), device)})
+    return runs["serve"]["launches"], nums["flash_fwd_serve_shape"]
+
+
+def grad_moe_phase(full, device, card, n_params, layers=1) -> dict:
+    """``full`` cut to ``layers`` layers at published widths: the
+    training path's loss and gradients (``compute_grads``: bf16
+    compute, f32 master weights and gradient buffers, full remat) without
+    the optimizer, on one TRAIN_SEQ-token sequence, MOE_GRAD_CALLS calls:
+    K4's forward twice a call (the recomputation under remat) and its
+    backward once, on the wgmma library; the loss, its aux and every
+    gradient finite.  Then an f32 cut's loss and gradients on the card
+    against the plain CPU path (``check_grads_against_plain``, ``layers``
+    layers).
+    Prints the ``grad_qwen3_moe`` line; returns the launches of the timed
+    calls and of the f32 cut on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import count_params, init_params
+    from repro_torch.train.step import compute_grads
+
+    cfg = dataclasses.replace(full, num_layers=layers)
+    got = count_params(cfg)
+    if got != n_params:
+        raise AssertionError(f"{cfg.name} cut: {got} params, want {n_params}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, TRAIN_SEQ)).astype(np.int64)).to(device)
+    batch = {"tokens": toks, "labels": toks}
+    reset_counts()
+    call_ms = []
+    for i in range(MOE_GRAD_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss, metrics, grads = compute_grads(cfg, params, batch)
+        torch.cuda.synchronize()
+        call_ms.append((time.monotonic() - t0) * 1e3)
+        if i < MOE_GRAD_CALLS - 1:
+            del grads
+    launches = read_counts()
+    n = MOE_GRAD_CALLS
+    _check_launches(launches, {"flash_fwd": 2 * n, "flash_bwd_sm90": n,
+                               "flash_bwd": 0}, "grad_qwen3_moe")
+    finite = all(bool(torch.isfinite(g).all()) for _, g in
+                 _float_leaves(grads))
+    if not (finite and math.isfinite(float(loss))
+            and float(metrics["aux"]) > 0):
+        raise AssertionError(f"grad_qwen3_moe: loss {float(loss)}, aux "
+                             f"{float(metrics['aux'])}, grads finite "
+                             f"{finite}")
+    peak = torch.cuda.max_memory_allocated()
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    median = sorted(call_ms[1:])[len(call_ms[1:]) // 2]
+    plain = check_grads_against_plain(cfg, device, layers=layers)
+    log(f"  grad_qwen3_moe f32 cut against the plain CPU path: "
+        f"{json.dumps(plain)}")
+    res = {
+        "card": card, "arch": cfg.name, "layers": cfg.num_layers,
+        "params": n_params, "reduced": {
+            "num_layers": (
+                f"{full.num_layers} -> {layers}, and no optimizer: the "
+                f"trainer keeps about 23 B a parameter (f32 weights, AdamW "
+                f"moments, gradients, codes; qwen2.5-3b's training phase "
+                f"peaked at 78,336,771,584 B for 3,397,627,904 params), "
+                f"about {23 * n_params / 1e9:.0f} GB for {layers} layer(s) "
+                f"against the card's 80 GB"),
+            "global_batch": f"one sequence of {TRAIN_SEQ} tokens a call"},
+        "seq": TRAIN_SEQ, "batch": 1, "calls": n,
+        "call_ms": call_ms, "call_ms_median": median,
+        "tokens_per_s": TRAIN_SEQ / (median / 1e3), "init_s": init_s,
+        "loss": float(loss), "xent": float(metrics["xent"]),
+        "aux": float(metrics["aux"]), "launches": launches,
+        "max_memory_allocated": peak, "plain_grads": plain,
+        "host": host_rss(),
+    }
+    log(card)
+    log(json.dumps({"grad_qwen3_moe": res}))
+    return launches, plain["launches"]
 
 
 # --------------------------------------------------------------------------
@@ -2593,6 +2812,8 @@ def main() -> int:
     gcfg = get_config("recurrentgemma-9b")
     dcfg = get_config("deepseek-7b")
     pcfg = get_config("phi3-medium-14b")
+    bcfg = get_config("dbrx-132b")
+    qcfg = get_config("qwen3-moe-235b-a22b")
     tcfg = get_config("qwen2.5-3b")
     rh = rcfg.d_model // rcfg.rwkv_head_dim
     rwkv_cases = {"prefill": (BATCH, rh, PROMPT, rcfg.rwkv_head_dim),
@@ -2605,6 +2826,9 @@ def main() -> int:
                  gcfg.resolved_head_dim, True, gcfg.window)
     train_case = (1, tcfg.num_heads, tcfg.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
                   tcfg.resolved_head_dim, True, tcfg.window)
+    # qwen3-moe-235b-a22b's training shape (phase 5d): GQA 16:1 at D 64
+    moe_train_case = (1, qcfg.num_heads, qcfg.num_kv_heads, TRAIN_SEQ,
+                      TRAIN_SEQ, qcfg.resolved_head_dim, True, qcfg.window)
     # the recurrent training phases' shapes: K6 and K7 at one 4096-token
     # sequence, K4 at head dim 256 under the window of 2048
     rwkv_train_case = (1, rh, TRAIN_SEQ, rcfg.rwkv_head_dim)
@@ -2624,8 +2848,11 @@ def main() -> int:
     log(f"  flash_fwd {train_case} bfloat16: max abs err {train_err:.3e}")
     # the bf16 forward at the two dense serving paths' shapes of phases
     # 4e and 4f (MHA 32/32, GQA 40/10)
+    # and at the MoE serving paths' of phases 4g and 4h (GQA 48/8 at D
+    # 128, 16:1 at D 64)
     dense_errs = {}
-    for name, c in (("deepseek", dcfg), ("phi3", pcfg)):
+    for name, c in (("deepseek", dcfg), ("phi3", pcfg), ("dbrx", bcfg),
+                    ("qwen3_moe", qcfg)):
         dense_errs[name] = check_attention_case(serve_case(c), "bfloat16",
                                                 device)
         log(f"  flash_fwd {serve_case(c)} bfloat16: max abs err "
@@ -2633,6 +2860,15 @@ def main() -> int:
     d256_err = check_kernels(d256_case, device, D256_SWEEP)
     check_empty_rows(device)
     bwd_err = check_bwd(train_case, device)
+    # K4 forward and backward at the MoE training path's shape (phase 5d)
+    moe_fwd_err = check_attention_case(moe_train_case, "bfloat16", device)
+    log(f"  flash_fwd {moe_train_case} bfloat16: max abs err "
+        f"{moe_fwd_err:.3e}")
+    moe_bwd_err = check_bwd_case(moe_train_case, "bfloat16", device,
+                                 determinism=True)
+    log(f"  flash_bwd {moe_train_case} bfloat16: max abs err "
+        f"{moe_bwd_err:.3e}; two runs bit-equal")
+    torch.cuda.empty_cache()
     codec_bad = check_codec(CODEC_NS + [w_gu], device)
     rwkv_errs = check_rwkv6(rwkv_cases, device)
     rglru_errs = check_rglru(rglru_cases, device)
@@ -2731,6 +2967,22 @@ def main() -> int:
     del runs
     log(f"  phase 4f done at {time.monotonic() - t_start:.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
+
+    moe_launches, moe_nums = {}, {}
+    # the MoE phases take one profile window, over a prefill of 4g, to
+    # keep the run within its time budget
+    for phase, line, c, n_params, profile in (
+            ("4g", "serve_dbrx", bcfg, 14_269_470_720, ("prefill",)),
+            ("4h", "serve_qwen3_moe", qcfg, 11_054_125_056, ())):
+        log(f"phase {phase}: serving, {c.name} cut to {MOE_SERVE_LAYERS} of "
+            f"{c.num_layers} layers d_model {c.d_model}, {c.num_experts} "
+            f"experts top-{c.experts_per_token}, {c.dtype}, {BATCH} x "
+            f"{PROMPT} prompt tokens, {GEN} new tokens")
+        moe_launches[line], moe_nums[line] = serve_moe_phase(
+            c, device, card, line, n_params, profile)
+        log(f"  phase {phase} done at {time.monotonic() - t_start:.1f} s; "
+            f"weights freed, {torch.cuda.memory_allocated()} bytes "
+            f"allocated")
 
     n_params = count_params(tcfg)
     log(f"phase 5: training, {tcfg.name} {tcfg.num_layers} layers d_model "
@@ -2835,6 +3087,14 @@ def main() -> int:
                     "train_recurrentgemma f32 cut")
     log(f"  phase 5c done at {time.monotonic() - t_start:.1f} s")
 
+    log(f"phase 5d: {qcfg.name} cut to 1 layer d_model {qcfg.d_model}, "
+        f"{qcfg.num_experts} experts top-{qcfg.experts_per_token}: loss and "
+        f"gradients of one {TRAIN_SEQ}-token sequence, {MOE_GRAD_CALLS} "
+        f"calls, no optimizer")
+    moe_grad, moe_grad_cut = grad_moe_phase(qcfg, device, card,
+                                            3_697_815_552)
+    log(f"  phase 5d done at {time.monotonic() - t_start:.1f} s")
+
     cut_cfg = dataclasses.replace(tcfg, num_layers=CUT_LAYERS)
     log(f"phase 6: {tcfg.name} cut to {CUT_LAYERS} layers, compressed "
         f"gradients, 1 -> 2 rank resize with overlap")
@@ -2850,13 +3110,17 @@ def main() -> int:
     rglru_bwd = rglru_bwd_numbers(rglru_train_case, device)
     rglru_bwd_route = rglru_bwd_route_ms(gcfg.resolved_rnn_width, device)
     d256_bwd = bwd_d256_numbers(d256_train_case, device)
+    moe_fwd_train = attention_numbers(moe_train_case, device)
+    moe_bwd_train = bwd_numbers(moe_train_case, device)
     torch.cuda.synchronize()
     log(json.dumps({"flash_fwd_train_shape": fwd_train,
                     "flash_bwd_train_shape": bwd, "codec_w_gu": codec,
                     "rwkv6_bwd_train_shape": rwkv_bwd,
                     "rglru_bwd_train_shape": rglru_bwd,
                     "rglru_bwd_route_ms": rglru_bwd_route,
-                    "flash_bwd_d256_train_shape": d256_bwd}))
+                    "flash_bwd_d256_train_shape": d256_bwd,
+                    "flash_fwd_qwen3_moe_train_shape": moe_fwd_train,
+                    "flash_bwd_qwen3_moe_train_shape": moe_bwd_train}))
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
     paths = {"serve": yi_launches, "serve_rwkv6": rw_launches,
@@ -2864,11 +3128,13 @@ def main() -> int:
              "serve_recurrentgemma_ring": rg_launches["ring"],
              "serve_deepseek": ds_launches["serve"],
              "serve_deepseek_int8": ds_launches["int8"],
-             "serve_phi3": ph_launches,
+             "serve_phi3": ph_launches, **moe_launches,
              "train": tr["launches"], "train_cut": cut["launches"],
              "train_rwkv6": rw_train, "train_rwkv6_f32_cut": rw_cut,
              "train_recurrentgemma": rg_train,
              "train_recurrentgemma_f32_cut": rg_cut,
+             "grad_qwen3_moe": moe_grad,
+             "grad_qwen3_moe_f32_cut": moe_grad_cut,
              "rs_encode_check": rs["launches"]}
 
     def counts(name, path):
@@ -2898,7 +3164,13 @@ def main() -> int:
             deepseek_serve_shape={**ds_num["flash_fwd_serve_shape"],
                                   "max_abs_err": dense_errs["deepseek"]},
             phi3_serve_shape={**ph_num["flash_fwd_serve_shape"],
-                              "max_abs_err": dense_errs["phi3"]}),
+                              "max_abs_err": dense_errs["phi3"]},
+            dbrx_serve_shape={**moe_nums["serve_dbrx"],
+                              "max_abs_err": dense_errs["dbrx"]},
+            qwen3_moe_serve_shape={**moe_nums["serve_qwen3_moe"],
+                                   "max_abs_err": dense_errs["qwen3_moe"]},
+            qwen3_moe_train_shape={**moe_fwd_train,
+                                   "max_abs_err": moe_fwd_err}),
         # the same kernel's head-dim-256 instance, on recurrentgemma-9b's
         # path (its windowed MQA layers)
         row("flash_fwd_d256", fa + "flash_fwd_sm90.cu",
@@ -2907,7 +3179,9 @@ def main() -> int:
             rg_num["flash_fwd_d256_prefill_shape"]),
         row("flash_bwd", fa + "flash_bwd_sm90.cu",
             "flash_attention/ops.py:94",
-            counts("flash_bwd_sm90", "train"), bwd_err, bwd)]
+            counts("flash_bwd_sm90", "train"), bwd_err, bwd,
+            qwen3_moe_train_shape={**moe_bwd_train,
+                                   "max_abs_err": moe_bwd_err})]
     for name, line in (("quantize", 54), ("quantize_delta", 74),
                        ("dequantize", 98)):
         # K3 runs only where gradients are compressed: the cut phase

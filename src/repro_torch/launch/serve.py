@@ -3,8 +3,8 @@
   python -m repro_torch.launch.serve --arch ARCH \
       --batch 4 --prompt-len 32 --gen 16 [--icheck] [--device cuda|cpu]
 
-ARCH is yi-6b, qwen2.5-3b, deepseek-7b, phi3-medium-14b, rwkv6-7b or
-recurrentgemma-9b.
+ARCH is yi-6b, qwen2.5-3b, deepseek-7b, phi3-medium-14b, dbrx-132b,
+qwen3-moe-235b-a22b, rwkv6-7b or recurrentgemma-9b.
 
 With --icheck, the filled KV cache (attention), recurrent state (RWKV-6)
 or both (the RG-LRU hybrid: ring caches of its windowed attention layers

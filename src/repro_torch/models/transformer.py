@@ -1,7 +1,9 @@
-"""The LM backbone for dense attention models (``mixer="attention"``
-without MoE), RWKV-6 (``mixer="rwkv6"``) and the RG-LRU hybrid
-(``mixer="rglru_hybrid"``, Griffin / RecurrentGemma): the twin of
-``repro/models/transformer.py`` on those paths.
+"""The LM backbone for token-input decoder-only attention models
+(``mixer="attention"``) with a gated FFN or a Mixture-of-Experts FFN
+(``ffn="moe"``, ``moe.py``), RWKV-6 (``mixer="rwkv6"``) and the RG-LRU
+hybrid (``mixer="rglru_hybrid"``, Griffin / RecurrentGemma): the twin of
+``repro/models/transformer.py`` on those paths (not yet the
+encoder-decoder and the frames / patches frontends).
 
 * ``init_params(cfg, generator, device)``: a nested dict of f32 tensors
   whose names and shapes equal ``repro.models.init_params``; the layer
@@ -10,7 +12,8 @@ without MoE), RWKV-6 (``mixer="rwkv6"``) and the RG-LRU hybrid
   leftover layers are ``tail0``, ``tail1``, ... (``stack_plan``).
 * ``forward`` / ``loss_fn``: the training and scoring path, each layer
   recomputed in the backward (``torch.utils.checkpoint``) unless the
-  config's ``remat_policy`` is ``"none"``.
+  config's ``remat_policy`` is ``"none"``; the MoE layers' aux losses are
+  summed in f32 and added to the loss.
 * ``init_cache`` / ``prefill`` / ``decode_step``: the serving path.  The
   cache has the reference's layout, ``{"stack": {"b0": ...}, "tails":
   [...], "idx": int32 0-d}``: a ``{"self": KVCache(k, v)}`` of k/v
@@ -34,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn
+from . import moe as moe_lib
 from . import rglru_layer as rglru
 from . import rwkv6_layer as rwkv
 from .layers import (embed_apply, embed_init, ffn_apply, ffn_init,
@@ -47,9 +51,10 @@ Params = Dict[str, Any]
 # ==========================================================================
 def stack_plan(cfg: ModelConfig) -> Dict[str, Any]:
     """How layers are grouped (``repro/models/transformer.py:49-68``):
-    dense attention and RWKV-6 models stack every layer as one super-layer
-    ``b0``; the RG-LRU hybrid stacks one pattern period, e.g. (rec, rec,
-    attn), as ``b0, b1, b2`` and runs the leftovers as tail layers."""
+    attention models (dense or MoE) and RWKV-6 stack every layer as one
+    super-layer ``b0``; the RG-LRU hybrid stacks one pattern period, e.g.
+    (rec, rec, attn), as ``b0, b1, b2`` and runs the leftovers as tail
+    layers."""
     if cfg.mixer == "rwkv6" and cfg.ffn == "rwkv_cmix":
         return dict(scan_kinds=("rwkv",), scan_len=cfg.num_layers,
                     tail_kinds=(), enc_layers=0)
@@ -60,12 +65,12 @@ def stack_plan(cfg: ModelConfig) -> Dict[str, Any]:
         tail = (cfg.tail_layers or ("rec",) * n_tail)[:n_tail]
         return dict(scan_kinds=tuple(period), scan_len=n_scan,
                     tail_kinds=tuple(tail), enc_layers=0)
-    if (cfg.mixer != "attention" or cfg.ffn == "moe" or cfg.is_encdec
+    if (cfg.mixer != "attention" or cfg.is_encdec
             or cfg.frontend != "token"):
         raise NotImplementedError(
-            f"{cfg.name}: the port builds dense token-input attention "
-            f"models, RWKV-6 and the RG-LRU hybrid only (mixer={cfg.mixer}, "
-            f"ffn={cfg.ffn})")
+            f"{cfg.name}: the port builds token-input decoder-only attention "
+            f"models (dense or MoE), RWKV-6 and the RG-LRU hybrid only "
+            f"(mixer={cfg.mixer}, ffn={cfg.ffn}, frontend={cfg.frontend})")
     return dict(scan_kinds=("attn",), scan_len=cfg.num_layers,
                 tail_kinds=(), enc_layers=0)
 
@@ -112,20 +117,40 @@ def _block_init(generator, cfg: ModelConfig, kind: str, *, lead, device):
                                     lead=lead, device=device),
         }
     hd = cfg.resolved_head_dim
-    return {
+    p = {
         "norm1": rmsnorm_init(cfg.d_model, lead=lead, device=device),
         "attn": attn.attn_init(generator, cfg.d_model, cfg.num_heads,
                                cfg.num_kv_heads, hd, qkv_bias=cfg.qkv_bias,
                                lead=lead, device=device),
         "norm2": rmsnorm_init(cfg.d_model, lead=lead, device=device),
-        "ffn": ffn_init(generator, cfg.d_model, cfg.d_ff, lead=lead,
-                        device=device),
     }
+    if cfg.ffn == "moe":
+        p["moe"] = moe_lib.moe_init(generator, cfg.d_model, cfg.num_experts,
+                                    cfg.resolved_moe_d_ff, lead=lead,
+                                    device=device)
+    else:
+        p["ffn"] = ffn_init(generator, cfg.d_model, cfg.d_ff, lead=lead,
+                            device=device)
+    return p
 
 
 def _attn_kw(cfg: ModelConfig):
     return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
+
+
+def _ffn_or_moe(cfg: ModelConfig, p: Params, h):
+    """An attention layer's FFN: (y, aux), aux the MoE layer's f32 aux
+    loss or None for a gated FFN (``repro/models/transformer.py:114-120``,
+    whose zero aux is left out).  MoE's capacity follows h's T, so decode
+    runs it with one slot an expert, as the reference does."""
+    if cfg.ffn == "moe":
+        return moe_lib.moe_apply(
+            p["moe"], h, num_experts=cfg.num_experts,
+            experts_per_token=cfg.experts_per_token,
+            capacity_factor=cfg.capacity_factor,
+            aux_coef=cfg.router_aux_coef)
+    return ffn_apply(p["ffn"], h, kind=cfg.ffn), None
 
 
 def _rwkv_block(cfg: ModelConfig, p: Params, x, state):
@@ -171,11 +196,11 @@ def _block_apply(cfg: ModelConfig, p: Params, x, *, kind: str, positions,
                  state):
     """Full-sequence application of one layer of ``kind``.  ``state`` is
     None when scoring; for prefill it is this layer's cache slot, filled
-    in place.  Returns (x, state)."""
-    if kind == "rwkv":
-        return _rwkv_block(cfg, p, x, state)
-    if kind == "rec":
-        return _rec_block(cfg, p, x, state)
+    in place.  Returns (x, aux, state), aux None but for a MoE layer."""
+    if kind in ("rwkv", "rec"):
+        block = _rwkv_block if kind == "rwkv" else _rec_block
+        x, state = block(cfg, p, x, state)
+        return x, None, state
     window = _layer_window(cfg, kind)
     h = rmsnorm(p["norm1"], x)
     if state is not None:
@@ -188,8 +213,8 @@ def _block_apply(cfg: ModelConfig, p: Params, x, *, kind: str, positions,
         y = attn.attn_apply(p["attn"], h, positions=positions,
                             window=window, **_attn_kw(cfg))
     x = x + y
-    x = x + ffn_apply(p["ffn"], rmsnorm(p["norm2"], x), kind=cfg.ffn)
-    return x, state
+    y, aux = _ffn_or_moe(cfg, p, rmsnorm(p["norm2"], x))
+    return x + y, aux, state
 
 
 def _write_prefill_cache(cache: attn.KVCache, kvc: attn.KVCache, window):
@@ -230,7 +255,7 @@ def _block_decode(cfg: ModelConfig, p: Params, x, idx, *, kind: str,
                               window=_layer_window(cfg, kind),
                               **_attn_kw(cfg))
     x = x + y
-    x = x + ffn_apply(p["ffn"], rmsnorm(p["norm2"], x), kind=cfg.ffn)
+    x = x + _ffn_or_moe(cfg, p, rmsnorm(p["norm2"], x))[0]
     return x, dict(state, self=kvc)
 
 
@@ -312,26 +337,35 @@ def _layers(cfg: ModelConfig, params, caches=None):
 
 
 def _run_stack(cfg: ModelConfig, params, x, positions, caches=None):
+    """Every layer in order.  Returns (x, aux): the MoE layers' aux losses
+    summed in f32 in layer order, as the reference's scan sums them (None
+    without a MoE layer)."""
     remat = caches is None and _remat(cfg)
+    aux = None
     for kind, lp, st in _layers(cfg, params, caches):
         if remat:
             # the layer has no randomness, so no RNG state is kept
-            x = checkpoint(lambda h, lp=lp, kind=kind: _block_apply(
-                cfg, lp, h, kind=kind, positions=positions, state=None)[0],
+            x, aux_i = checkpoint(lambda h, lp=lp, kind=kind: _block_apply(
+                cfg, lp, h, kind=kind, positions=positions, state=None)[:2],
                 x, use_reentrant=False, preserve_rng_state=False)
         else:
-            x, _ = _block_apply(cfg, lp, x, kind=kind, positions=positions,
-                                state=st)
-    return x
+            x, aux_i, _ = _block_apply(cfg, lp, x, kind=kind,
+                                       positions=positions, state=st)
+        if aux_i is not None:
+            aux = aux_i if aux is None else aux + aux_i
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params, batch):
-    """Training / scoring forward pass. Returns (logits, aux_loss = 0)."""
+    """Training / scoring forward pass. Returns (logits, aux_loss): the MoE
+    layers' summed aux loss, an f32 zero for a model without one."""
     x, positions = _embed_inputs(cfg, params, batch)
-    x = _run_stack(cfg, params, x, positions)
+    x, aux = _run_stack(cfg, params, x, positions)
     x = rmsnorm(params["final_norm"], x)
     logits = lm_head_apply(params["lm_head"], x, valid_vocab=cfg.vocab_size)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
@@ -404,7 +438,7 @@ def prefill(cfg: ModelConfig, params, batch, cache):
 
     Returns (logits_last: (B, vocab), cache with ``idx`` = T)."""
     x, positions = _embed_inputs(cfg, params, batch)
-    x = _run_stack(cfg, params, x, positions, caches=cache)
+    x, _ = _run_stack(cfg, params, x, positions, caches=cache)
     x = rmsnorm(params["final_norm"], x)
     logits = lm_head_apply(params["lm_head"], x[:, -1:, :],
                            valid_vocab=cfg.vocab_size)[:, 0, :]

@@ -63,7 +63,14 @@ Every test skips without a card.  Tolerances:
   ``_dq`` on the card bit-equal to the CPU's; a tiny int8 prefill (K4)
   and 8 decode steps against the CPU, codes at most one step apart on at
   most 1e-3 of them, logits within the CPU's own int8-against-exact
-  difference plus 1e-4 and argmax-equal.
+  difference plus 1e-4 and argmax-equal;
+* the MoE serving shapes of K4's bf16 forward (qwen3-moe-235b-a22b's GQA
+  16:1 at D 64, dbrx-132b's 48/8 at D 128) with the forward's tolerances;
+  ``moe_apply`` (tensor ops, no kernel of its own) on the card against
+  the same call on the CPU in f32: expert ids and kept assignments
+  equal, y and aux within 1e-5 of their largest; two bf16 runs on the
+  card bit-equal (dispatch writes unique slots, combine sums a view: no
+  atomics).
 
 ``allow_tf32`` is False so the plain versions' f32 matmuls are full f32.
 """
@@ -1384,3 +1391,64 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# K4's bf16 forward at the MoE archs' serving shapes:
+# qwen3-moe-235b-a22b (GQA 16:1, D 64) and dbrx-132b (48/8, D 128)
+MOE_SERVE_CASES = [(4, 64, 4, 512, 512, 64, True, None),
+                   (4, 48, 8, 512, 512, 128, True, None)]
+
+
+@pytest.mark.parametrize("case", MOE_SERVE_CASES)
+def test_kernel_matches_plain_at_moe_serving_shapes(card, case):
+    test_kernel_matches_plain(card, case, "bfloat16")
+
+
+def _moe_inputs(arch, t, seed=0):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, tiny=True)
+    rng = np.random.default_rng(seed)
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.resolved_moe_d_ff
+    p = {"router": rng.standard_normal((d, e)) * d ** -0.5,
+         "w_gu": rng.standard_normal((2, e, d, f)) * d ** -0.5,
+         "w_down": rng.standard_normal((e, f, d)) * f ** -0.5}
+    p = {k: torch.from_numpy(v.astype(np.float32)) for k, v in p.items()}
+    x = torch.from_numpy(rng.standard_normal((2, t, d)).astype(np.float32))
+    kw = dict(num_experts=e, experts_per_token=cfg.experts_per_token,
+              capacity_factor=0.5, aux_coef=cfg.router_aux_coef)
+    return cfg, p, x, kw
+
+
+@pytest.mark.parametrize("t", [1, 64])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "qwen3-moe-235b-a22b"])
+def test_moe_apply_on_card_matches_cpu(card, arch, t):
+    from repro_torch.models import moe
+
+    cfg, p, x, kw = _moe_inputs(arch, t)
+    cap = moe.capacity(t, cfg.num_experts, cfg.experts_per_token,
+                       kw["capacity_factor"])
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        _, _, ids = moe.route(pd, x.to(dev), cfg.experts_per_token)
+        _, keep = moe.dispatch(ids, cap, cfg.num_experts)
+        y, aux = moe.moe_apply(pd, x.to(dev), **kw)
+        out[dev.type] = [a.cpu() for a in (ids, keep, y, aux)]
+    (ids, keep, y, aux), (cids, ckeep, cy, caux) = out["cuda"], out["cpu"]
+    assert torch.equal(ids, cids) and torch.equal(keep, ckeep)
+    if t > 1:
+        assert not bool(ckeep.all())          # capacity 0.5 drops
+    assert (y - cy).abs().max().item() <= 1e-5 * cy.abs().max().item()
+    assert abs(aux.item() - caux.item()) <= 1e-5 * abs(caux.item())
+
+
+def test_moe_apply_bf16_runs_are_bit_equal(card):
+    from repro_torch.models import moe
+
+    _, p, x, kw = _moe_inputs("qwen3-moe-235b-a22b", 64, seed=1)
+    p = {k: v.to(card, torch.bfloat16) for k, v in p.items()}
+    x = x.to(card, torch.bfloat16)
+    (y1, a1), (y2, a2) = (moe.moe_apply(p, x, **kw) for _ in range(2))
+    assert y1.dtype == torch.bfloat16
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)

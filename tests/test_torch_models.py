@@ -1,12 +1,20 @@
-"""The port's dense backbone held against the JAX reference.
+"""The port's attention backbone held against the JAX reference.
 
 Tiny ``yi-6b``, ``qwen2.5-3b``, ``deepseek-7b`` and ``phi3-medium-14b``
-(f32, head dim 16), with the reference's parameters carried across by
-name (``params_from_numpy``), so both frameworks run the same weights on
-the same numpy tokens.  Prefill logits and cache, and each
-decode step's logits, agree to atol 1e-5 (f32 sums in another order).
-f32 matmuls run in full precision (``allow_tf32 = False``).
+(dense), and tiny ``dbrx-132b`` and ``qwen3-moe-235b-a22b`` (MoE FFN),
+f32, head dim 16, with the reference's parameters carried across by
+name (``params_from_numpy``, the ``moe`` subtree too), so both
+frameworks run the same weights on the same numpy tokens.  Forward
+logits, prefill logits and cache, and each decode step's logits agree to
+atol 1e-5, the MoE aux loss to rtol 1e-5 (f32 sums in another order).
+The MoE archs' loss (with the aux loss) and gradients match
+``jax.grad`` of the reference's.  Parameter counts equal the reference's
+for every arch the port builds, also counting only a token's active
+experts.  f32 matmuls run in full
+precision (``allow_tf32 = False``).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -21,17 +29,22 @@ from repro.models import decode_step as jax_decode_step  # noqa: E402
 from repro.models import forward as jax_forward  # noqa: E402
 from repro.models import init_cache as jax_init_cache  # noqa: E402
 from repro.models import init_params as jax_init_params  # noqa: E402
+from repro.models import loss_fn as jax_loss_fn  # noqa: E402
 from repro.models import prefill as jax_prefill  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.snapshot import snapshot_pytree  # noqa: E402
 from repro_torch.models import (count_params, decode_step, forward,  # noqa: E402
-                                init_cache, init_params, prefill)
+                                init_cache, init_params, loss_fn, prefill)
 from repro_torch.serve import ServeEngine, serve_max_len  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
-ARCHS = ["yi-6b", "qwen2.5-3b", "deepseek-7b", "phi3-medium-14b"]
+ARCHS = ["yi-6b", "qwen2.5-3b", "deepseek-7b", "phi3-medium-14b",
+         "dbrx-132b", "qwen3-moe-235b-a22b"]
+MOE_ARCHS = ["dbrx-132b", "qwen3-moe-235b-a22b"]
+# every arch the port builds
+PORT_ARCHS = ARCHS + ["rwkv6-7b", "recurrentgemma-9b"]
 B, T, GEN = 2, 12, 4
 ATOL = 1e-5
 
@@ -72,19 +85,94 @@ def test_param_tree_matches_reference(pair):
         assert mine[name].dtype == np.float32
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PORT_ARCHS)
 def test_count_params_full_size(arch):
-    assert count_params(get_config(arch)) == \
-        jax_count_params(jax_get_config(arch))
+    """All parameters, and those a token activates (MoE experts scaled
+    by k/E)."""
+    for active_only in (False, True):
+        assert count_params(get_config(arch), active_only) == \
+            jax_count_params(jax_get_config(arch), active_only)
+
+
+@pytest.mark.parametrize("arch", PORT_ARCHS)
+def test_count_params_tiny(arch):
+    for active_only in (False, True):
+        assert count_params(get_config(arch, tiny=True), active_only) == \
+            jax_count_params(jax_get_config(arch, tiny=True), active_only)
+
+
+def test_params_from_numpy_carries_the_moe_subtree(pair):
+    """Every leaf of the reference's tree, the ``moe`` subtree's too,
+    arrives under its name with its values."""
+    jcfg, cfg, jparams, params = pair
+    mine, ref = _flat(params), _jax_flat(jparams)
+    assert list(mine) == list(ref)
+    for name in ref:
+        assert mine[name].tobytes() == np.asarray(ref[name]).tobytes(), name
+    moe_leaves = [n for n in ref if "/moe/" in n]
+    if cfg.ffn == "moe":
+        assert sorted(moe_leaves) == ["stack/b0/moe/router",
+                                      "stack/b0/moe/w_down",
+                                      "stack/b0/moe/w_gu"]
+    else:
+        assert not moe_leaves
 
 
 def test_forward_matches_reference(pair):
     jcfg, cfg, jparams, params = pair
     toks = _tokens(cfg, 1, (B, T))
-    want, _ = jax_forward(jcfg, jparams, {"tokens": toks})
+    want, jaux = jax_forward(jcfg, jparams, {"tokens": toks})
     got, aux = forward(cfg, params, {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+    assert (float(aux) > 0) == (cfg.ffn == "moe")
+
+
+@pytest.mark.parametrize("arch,remat", [("dbrx-132b", "full"),
+                                        ("qwen3-moe-235b-a22b", "none")])
+def test_moe_loss_and_grads_match_reference(arch, remat):
+    """The MoE archs' loss (cross-entropy plus the layers' aux loss) and
+    every gradient leaf against ``jax.grad`` of the reference's
+    ``loss_fn``, one with full remat (each layer's routing recomputed in
+    the backward) and one without: rtol 1e-5, each leaf also atol 1e-6 of
+    its largest gradient (the dense archs' tolerances in
+    test_torch_train.py)."""
+    jcfg, cfg = (dataclasses.replace(get(arch, tiny=True),
+                                     remat_policy=remat)
+                 for get in (jax_get_config, get_config))
+    jparams, _ = jax_init_params(jcfg, jax.random.key(1))
+    toks = _tokens(cfg, 4, (B, T))
+    labels = toks.copy()
+    labels[:, -2:] = -1
+    (jloss, jm), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jax_loss_fn(jcfg, p, {"tokens": toks, "labels": labels},
+                              impl="xla"), has_aux=True))(jparams)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    leaves = dict(_named(params))
+    for t in leaves.values():
+        t.requires_grad_()
+    loss, m = loss_fn(cfg, params, {"tokens": torch.from_numpy(toks),
+                                    "labels": torch.from_numpy(labels)})
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(float(m["aux"]), float(jm["aux"]),
+                               rtol=1e-5)
+    assert float(m["aux"]) > 0
+    for name, w in _jax_flat(jgrads).items():
+        w = np.asarray(w)
+        np.testing.assert_allclose(
+            leaves[name].grad.numpy(), w, rtol=1e-5,
+            atol=1e-6 * float(np.abs(w).max()), err_msg=name)
+
+
+def _named(tree, prefix=""):
+    """(leaf name, tensor) for every leaf of a params tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
 
 
 def test_prefill_and_decode_match_reference(pair):

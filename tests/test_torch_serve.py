@@ -87,6 +87,31 @@ def test_serving_state_checkpoint():
         client.finalize()
 
 
+def test_serving_state_checkpoint_moe():
+    """Tiny dbrx-132b: the KV cache committed after prefill is restored
+    bit-equal to a second prefill's, and decoding from it gives the live
+    run's tokens."""
+    from repro_torch.core.snapshot import _flatten, _leaf_name
+
+    cfg = get_config("dbrx-132b", tiny=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = {"tokens": _tokens(cfg, 6, (2, 12))}
+    with ICheckCluster(n_icheck_nodes=1) as cluster:
+        client = ICheckClient("serve", cluster.controller).init()
+        eng = ServeEngine(cfg, params, max_len=20, device="cpu")
+        out = eng.generate(batch, gen_len=6, checkpoint_client=client)
+        eng.last_commit.wait(timeout=60)
+        restored = eng.restore_serving_state(client, batch_size=2)
+        _, fresh = eng.prefill(batch)
+        got, want = list(_flatten(restored)), list(_flatten(fresh))
+        assert [p for p, _ in got] == [p for p, _ in want]
+        for (path, g), (_, w) in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), _leaf_name(path)
+        cont = eng.decode_greedy(restored, out[:, :1], 5)
+        np.testing.assert_array_equal(cont, out[:, 1:])
+        client.finalize()
+
+
 def test_restore_without_commit_is_none():
     cfg = get_config("yi-6b", tiny=True)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -203,3 +228,12 @@ def test_serve_cli_on_cpu(capsys):
           "4", "--icheck", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "generated (2, 4)" in out and "first sequence:" in out
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "qwen3-moe-235b-a22b"])
+def test_serve_cli_moe_on_cpu(capsys, arch):
+    from repro_torch.launch.serve import main
+
+    main(["--arch", arch, "--icheck", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "generated (4, 16)" in out and "first sequence:" in out

@@ -4,7 +4,8 @@ Same numpy inputs through both frameworks:
 
 * rmsnorm's custom backward against ``jax.grad`` of the reference's;
 * ``loss_fn`` value and grads on tiny qwen2.5, yi, rwkv6 and
-  recurrentgemma, from the reference's parameters carried across by name:
+  recurrentgemma (the MoE archs': test_torch_models.py), from the
+  reference's parameters carried across by name:
   rtol 1e-5 (f32 sums in another order), each leaf also allowed atol 1e-6
   of its largest gradient (1e-5 for the recurrent models, whose
   recurrences' backwards sum in other orders, over many terms), with full
@@ -13,7 +14,8 @@ Same numpy inputs through both frameworks:
   state forgets at once, and lam's gradient is a cancellation of roundoff
   (ROADMAP §3);
 * AdamW twins of ``tests/test_optim.py``;
-* two train steps from one state (``train_state_from_numpy``): params and
+* two train steps from one state (``train_state_from_numpy``), also on
+  tiny qwen3-moe-235b-a22b (its loss includes the aux loss): params and
   moments rtol 1e-5 (each leaf atol 1e-6 of its largest value, 1e-5 for
   the recurrent models), but for the elements the test names, held to the
   size of the steps taken;
@@ -60,10 +62,14 @@ from repro_torch.train.step import compute_grads  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
-ARCHS = ["qwen2.5-3b", "yi-6b", "rwkv6-7b", "recurrentgemma-9b"]
+ARCHS = ["qwen2.5-3b", "yi-6b", "rwkv6-7b", "recurrentgemma-9b",
+         "qwen3-moe-235b-a22b"]
+# the MoE archs' loss and gradients are held in test_torch_models.py
+# (both remat policies); here the MoE arch takes train steps
+LOSS_ARCHS = [a for a in ARCHS if "moe" not in a]
 # each leaf's atol, relative to its largest element
 REL_ATOL = {"qwen2.5-3b": 1e-6, "yi-6b": 1e-6, "rwkv6-7b": 1e-5,
-            "recurrentgemma-9b": 1e-5}
+            "recurrentgemma-9b": 1e-5, "qwen3-moe-235b-a22b": 1e-6}
 CPU = torch.device("cpu")
 # an overlap resize's background streams must land within this wall time
 RESIZE_WAIT_S = 120
@@ -156,17 +162,17 @@ def test_rmsnorm_grads_match_jax(dtype):
 
 # ------------------------------------------------------------------ loss_fn
 @pytest.mark.parametrize("remat", ["none", "full"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", LOSS_ARCHS)
 def test_loss_and_grads_match_jax(arch, remat):
     jcfg = dataclasses.replace(jax_get_config(arch, tiny=True),
                                remat_policy=remat)
     cfg = dataclasses.replace(get_config(arch, tiny=True), remat_policy=remat)
     jparams = _perturb(jax_init_params(jcfg, jax.random.key(1))[0])
     batch = _batch(cfg)
-    (jloss, jm), jgrads = jax.value_and_grad(
+    (jloss, jm), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jax_loss_fn(jcfg, p, {k: jnp.asarray(v)
                                         for k, v in batch.items()},
-                              impl="xla"), has_aux=True)(jparams)
+                              impl="xla"), has_aux=True))(jparams)
     params = params_from_numpy(jparams, CPU)
     loss, metrics, grads = compute_grads(cfg, params, _port_batch(batch))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
@@ -269,7 +275,10 @@ def test_train_step_matches_jax(arch, compress):
       element by its own size (m / sqrt(v)), so an element whose gradient
       lies near the roundoff of the recurrences' backwards (summed in
       other orders, ``REL_ATOL``) takes a step whose size that roundoff
-      sets.
+      sets.  The same holds for the MoE model (its family is not
+      ``dense`` either): an expert that few tokens reach has weight
+      gradients near that roundoff (one ``w_gu`` element of 98,304, 1e-5
+      apart after two steps of 1e-3 and 5e-4).
     """
     jcfg = jax_get_config(arch, tiny=True)
     cfg = get_config(arch, tiny=True)
@@ -463,3 +472,16 @@ def _q8_delta_roundtrip(arch):
         assert np.isfinite(t.metrics_log[-1]["loss"])
         t.finalize()
 
+
+
+def test_train_cli_moe_on_cpu(capsys):
+    """Tiny qwen3-moe-235b-a22b through the trainer's CLI: 12 steps,
+    commits every 4 and a 1 -> 2 resize at step 6."""
+    from repro_torch.launch.train import main
+
+    main(["--arch", "qwen3-moe-235b-a22b", "--icheck", "--device", "cpu",
+          "--steps", "12", "--commit-every", "4", "--resize-at", "6"])
+    out = capsys.readouterr().out
+    assert "[resize] 1 -> 2 ranks, resizes=1" in out
+    final = float(out.split("final loss ")[1].split()[0])
+    assert np.isfinite(final)
