@@ -32,6 +32,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      512, 128) and qwen3-moe-235b-a22b's (4, 64, 4, 512, 512, 64) serving
      shapes too, and forward and backward (two runs bit-equal) at
      qwen3-moe-235b-a22b's training shape (1, 64, 4, 4096, 4096, 64);
+     the forward at head dim 160 (pixtral-12b) over the card tests' sm90
+     cases and its serving shape (4, 32, 8, 768, 768, causal), f32 and
+     bf16 with the tolerances above; seamless-m4t-medium's causal serving
+     shape (4, 16, 16, 512, 512, 64), and its non-causal encoder and
+     cross-attention calls, (4, 16, 16, 512, 512, 64) served and (1, 16,
+     16, 4096, 512, 64) trained (T != S), forward in f32 and bf16 and
+     backward in bf16 (two runs bit-equal, within twice SDPA's error);
    * the flash-attention backward over the same sweep plus the training
      path's shape, from the same (q, k, v, out, lse, do): f32 dq, dk, dv
      within atol 1e-4 + rtol 1e-4; bf16 dq, dk, dv each within twice
@@ -162,6 +169,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 4h. the same for qwen3-moe-235b-a22b (128 experts, top 8, d_ff 1536
    each; d_model 4096, 64 heads of 64 over 4 KV heads) cut to 4 of its 94
    layers (11,054,125,056 params), no profile window;
+4i. the same serving path for seamless-m4t-medium at full width (the
+   encoder-decoder: 12 encoder + 12 decoder layers, d_model 1024, 16
+   heads of 64, d_ff 4096, vocab 256,206 padded to 256,256, bf16,
+   978,909,184 params), 512 frames (seeded f32 embeddings) a request: K4
+   36 times a prefill (12 non-causal encoder layers, 12 causal decoder
+   self-attentions, 12 non-causal cross-attentions over the frames) and
+   never in decode; the self + cross cache (207,618,052 bytes) restored
+   bit-equal, decoding from it giving the live tokens; then the same
+   with int8 self and cross caches (155,713,540 bytes); a 1 + 1-layer f32
+   cut against the plain CPU path, and the same with the int8 caches over
+   8 decode steps, held as deepseek-7b's (phase 4e);
+4j. the same for pixtral-12b at full width (40 layers, d_model 5120, 32
+   heads of 160 over 8 KV heads, d_ff 14336, vocab 131,072, 256 projected
+   patches before each prompt, bf16, 12,798,284,800 params; its f32 draw
+   is 51.2 GB, its largest leaf 23.5 GB): K4 at head dim 160 40 times a
+   prefill and never in decode; the 655,360,004-byte KV cache (800 slots:
+   256 patches, 512 prompt tokens, 32 new) restored bit-equal; a 2-layer
+   f32 cut against the plain CPU path (``flash_fwd.cu``'s head-dim-160
+   instance on the card); the peak memory of the cast and of serving in
+   its line;
 5. the training path: ``ElasticTrainer`` trains qwen2.5-3b at full width
    (36 layers, d_model 2048, bf16 compute, f32 master weights, full remat)
    on 4096-token sequences, global batch 1 (cut from 256), 6 steps with a
@@ -195,14 +222,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    even this layer); K4 forward 2 and backward 1 a call, on the wgmma
    library; then a 1-layer f32 cut's loss and gradients on the card
    against the plain CPU path, as in 5b;
-6. a second training phase at full width cut to 8 layers: int8 gradient
+5e. the training path of 5b for seamless-m4t-medium at full width
+   (978,909,184 params, f32 master weights, bf16 compute, full remat):
+   one sequence of 4096 decoder tokens over 512 frames a step (global
+   batch cut from 256 to 1), 4 steps, q8-delta commits at 2 and 4, no
+   restart: K4's forward 2 x 36 a step (encoder, self, cross; remat
+   recomputes each), its backward 36, all on the bf16 wgmma libraries;
+   then a 1 + 1-layer f32 cut's loss and every gradient leaf (the
+   encoder's and the frontend's among them) against the plain CPU path;
+6. a second training phase at full width cut to 4 layers: int8 gradient
    compression (K1 + K3 in every step) and a 1 -> 2 logical-rank resize
    with ``overlap_resize``;
 7. numbers: the serving lines (yi-6b, rwkv6-7b, recurrentgemma-9b,
-   deepseek-7b with its int8 subrun, phi3-medium-14b, dbrx-132b,
-   qwen3-moe-235b-a22b), the
-   training lines (qwen2.5-3b, rwkv6-7b, recurrentgemma-9b; qwen3-moe's
-   loss-and-gradient line), step ms,
+   deepseek-7b with its int8 subrun, phi3-medium-14b, seamless-m4t-medium
+   with its int8 subrun, pixtral-12b, dbrx-132b, qwen3-moe-235b-a22b), the
+   training lines (qwen2.5-3b, rwkv6-7b, recurrentgemma-9b,
+   seamless-m4t-medium; qwen3-moe's loss-and-gradient line), step ms,
    tokens/s,
    ``mfu``, commit and restart wall seconds,
    bytes on the wire, peak device memory, host RSS, a ``torch.profiler``
@@ -264,7 +299,9 @@ ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
 LSE_ATOL = 1e-4
 BWD_TOL = {"float32": (1e-4, 1e-4)}
 # the training path: qwen2.5-3b, one 4096-token sequence a step
-TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 6, 2, 8
+# the cut phase (6) runs qwen2.5-3b cut to CUT_LAYERS layers (8 until the
+# encoder-decoder's phases came, 4 since, to keep the run within its time)
+TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 6, 2, 4
 # the cut phase's overlap resize must complete within this wall time
 RESIZE_WAIT_S = 300
 CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
@@ -348,6 +385,20 @@ GRAD_SEQ, GRAD_TOL, LOSS_RTOL = 64, 1e-3, 1e-5
 D256_BWD_SWEEP = [(1, 4, 1, 300, 300, 256, True, 128),
                   (2, 8, 1, 200, 333, 256, True, 100),
                   (1, 16, 1, 1100, 1100, 256, True, 1024)]
+# K4's forward at head dim 160 (pixtral-12b): the card tests' sm90 cases
+# at that head dim (T = 1 under S > T, T and S ragged at the tiles, GQA
+# groups 1 to 16, a window whose edge crosses a tile, T > S, no mask);
+# pixtral-12b's serving shape follows
+D160_SWEEP = [(1, 4, 4, 1, 160, 160, True, None),
+              (1, 4, 2, 127, 127, 160, True, None),
+              (2, 8, 1, 129, 200, 160, True, None),
+              (1, 16, 1, 200, 333, 160, True, 100),
+              (1, 4, 2, 96, 40, 160, True, None),
+              (1, 2, 2, 200, 200, 160, False, None)]
+# the encoder-decoder (seamless-m4t-medium): its served and trained
+# layers (12 + 12) and one TRAIN_SEQ-token sequence with its frames a
+# training step; its f32 cuts (1 + 1 layers) against the plain CPU path
+SEAMLESS_PLAIN_LAYERS = 1
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -502,7 +553,11 @@ SASS_REQUIRED = {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
 # and in the kernels whose (mangled) names hold these: the head-dim-256
 # instances of the bf16 backward
 SASS_FUNCTION_REQUIRED = {"flash_bwd_sm90": {"dkdv_d256": "HGMMA",
-                                             "dq_sm90_kernelILi256E": "HGMMA"}}
+                                             "dq_sm90_kernelILi256E": "HGMMA"},
+                          # the forward's head-dim-160 instance (pixtral-12b)
+                          "flash_fwd_sm90": {
+                              "flash_fwd_sm90_kernelILi160E": "HGMMA",
+                              "sm90_kernelILi160E": "UTMALDG"}}
 
 
 def sass_counts(path) -> dict:
@@ -673,6 +728,23 @@ def dense_want(cfg):
                         "decode": {"flash_fwd": 0}}
 
 
+def request_batch(cfg, rng, batch_size, prompt) -> dict:
+    """numpy prompt tokens from ``rng``, and the frames (encoder-decoder)
+    or patches (VLM) embeddings that go with them, f32 as the engine takes
+    them."""
+    import numpy as np
+
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (batch_size, prompt))
+             .astype(np.int32)}
+    if cfg.frontend == "frames":
+        batch["frames"] = rng.standard_normal(
+            (batch_size, cfg.num_frames, cfg.d_model), dtype=np.float32)
+    if cfg.frontend == "patches":
+        batch["patches"] = rng.standard_normal(
+            (batch_size, cfg.num_patches, cfg.d_model), dtype=np.float32)
+    return batch
+
+
 def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
                     gen=GEN, want=None, profile=("prefill", "decode_8")):
     """Serve one batch with iCheck checkpointing and check the restore.
@@ -689,9 +761,7 @@ def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
     from repro_torch.serve import ServeEngine, serve_max_len
 
     want = want or {}
-    rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size, (batch_size, prompt))
-             .astype(np.int32)}
+    batch = request_batch(cfg, np.random.default_rng(0), batch_size, prompt)
     max_len = serve_max_len(cfg, prompt, gen)
     engine = ServeEngine(cfg, params, max_len=max_len, device=device)
     res = {}
@@ -960,18 +1030,14 @@ def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
     import numpy as np
     import torch
 
-    from repro_torch.models import decode_step, init_cache, prefill, \
-        stack_plan
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.serve import serve_max_len
 
-    small = dataclasses.replace(cfg, num_layers=layers, dtype="float32",
-                                window=window or cfg.window,
-                                kv_quant=kv_quant)
-    n = stack_plan(small)["scan_len"]
-    cut = {k: v for k, v in params.items() if k != "stack"}
-    cut["stack"] = {b: _map(lambda t: t[:n], sub)
-                    for b, sub in params["stack"].items()}
-    toks = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, prompt)).astype(np.int32)
+    small = cut_config(cfg, layers, window=window or cfg.window,
+                       kv_quant=kv_quant)
+    cut = cut_params(small, params)
+    inputs = request_batch(cfg, np.random.default_rng(1), 2, prompt)
+    max_len = serve_max_len(small, prompt, steps)
     runs = [("cpu", small, torch.device("cpu")), ("card", small, device)]
     if kv_quant:
         runs.insert(1, ("exact", dataclasses.replace(small, kv_quant=False),
@@ -979,10 +1045,10 @@ def check_against_plain(cfg, params, device, layers=2, atol=1e-3,
     logits, q8, routes = {}, {}, {}
     for name, c, dev in runs:
         p = _map(lambda t: t.to(dev).float(), cut)
-        cache = init_cache(c, 2, prompt + steps, device=dev)
+        cache = init_cache(c, 2, max_len, device=dev)
         with torch.no_grad(), recording_routes(routes.setdefault(name, [])):
-            lg, cache = prefill(c, p, {"tokens": torch.from_numpy(toks)
-                                       .to(dev)}, cache)
+            lg, cache = prefill(c, p, {k: torch.from_numpy(v).to(dev)
+                                       for k, v in inputs.items()}, cache)
             out = [lg.float().cpu()]
             greedy = logits.get("cpu", out)     # the CPU's tokens drive all
             for i in range(steps):
@@ -1107,6 +1173,26 @@ def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def cut_config(cfg, layers, **over):
+    """``cfg`` cut to ``layers`` layers, and an encoder-decoder's encoder
+    to as many, in f32."""
+    if cfg.is_encdec:
+        over["encoder_layers"] = layers
+    return dataclasses.replace(cfg, num_layers=layers, dtype="float32",
+                               **over)
+
+
+def cut_params(small, params):
+    """The leaves of ``params`` a cut config ``small`` has: the first
+    layers of each stack (views, no copies)."""
+    from repro_torch.models import stack_plan
+
+    plan = stack_plan(small)
+    lead = {"stack": plan["scan_len"], "enc": plan["enc_layers"]}
+    return {k: _map(lambda t, n=lead[k]: t[:n], v) if k in lead else v
+            for k, v in params.items()}
 
 
 # --------------------------------------------------------------------------
@@ -2435,21 +2521,20 @@ def check_grads_against_plain(cfg, device, layers, window=None,
     from repro_torch.models import init_params
     from repro_torch.train.step import compute_grads
 
-    small = dataclasses.replace(cfg, num_layers=layers, dtype="float32",
-                                window=window or cfg.window)
+    small = cut_config(cfg, layers, window=window or cfg.window)
     t0 = time.monotonic()
     params = _map(lambda t: t.cpu(), init_params(
         small, torch.Generator(device=device).manual_seed(0),
         device=device))
     _perturb_lam(params)
-    toks = np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (1, seq)).astype(np.int64)
+    inputs = request_batch(cfg, np.random.default_rng(2), 1, seq)
+    inputs["tokens"] = inputs["tokens"].astype(np.int64)
+    inputs["labels"] = inputs["tokens"]
     out, wall = {}, {"draw_s": time.monotonic() - t0}
     for dev in (torch.device("cpu"), device):
         t0 = time.monotonic()
         p = _map(lambda t: t.to(dev), params)
-        batch = {"tokens": torch.from_numpy(toks).to(dev),
-                 "labels": torch.from_numpy(toks).to(dev)}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
         reset_counts()
         loss, _, grads = compute_grads(small, p, batch)
         _sync(dev)
@@ -2814,6 +2899,8 @@ def main() -> int:
     pcfg = get_config("phi3-medium-14b")
     bcfg = get_config("dbrx-132b")
     qcfg = get_config("qwen3-moe-235b-a22b")
+    scfg = get_config("seamless-m4t-medium")
+    xcfg = get_config("pixtral-12b")
     tcfg = get_config("qwen2.5-3b")
     rh = rcfg.d_model // rcfg.rwkv_head_dim
     rwkv_cases = {"prefill": (BATCH, rh, PROMPT, rcfg.rwkv_head_dim),
@@ -2835,6 +2922,19 @@ def main() -> int:
     rglru_train_case = (1, TRAIN_SEQ, gcfg.resolved_rnn_width)
     d256_train_case = (1, gcfg.num_heads, gcfg.num_kv_heads, TRAIN_SEQ,
                        TRAIN_SEQ, gcfg.resolved_head_dim, True, gcfg.window)
+    # seamless-m4t-medium's K4 calls: the encoder's and the decoder's
+    # cross-attention non-causal (T = S = 512 served: one shape), the
+    # decoder's self-attention causal; in training the cross-attention
+    # takes TRAIN_SEQ queries over the 512 frames
+    seamless_self = serve_case(scfg)
+    seamless_cross = seamless_self[:6] + (False, None)
+    seamless_cross_train = (1, scfg.num_heads, scfg.num_kv_heads, TRAIN_SEQ,
+                            scfg.num_frames, scfg.resolved_head_dim, False,
+                            None)
+    # pixtral-12b's prefill: 256 patches before the 512 prompt tokens
+    pix_case = (BATCH, xcfg.num_heads, xcfg.num_kv_heads,
+                xcfg.num_patches + PROMPT, xcfg.num_patches + PROMPT,
+                xcfg.resolved_head_dim, True, xcfg.window)
     w_gu = tcfg.num_layers * 2 * tcfg.d_model * tcfg.d_ff
     t_start = time.monotonic()
 
@@ -2852,7 +2952,7 @@ def main() -> int:
     # 128, 16:1 at D 64)
     dense_errs = {}
     for name, c in (("deepseek", dcfg), ("phi3", pcfg), ("dbrx", bcfg),
-                    ("qwen3_moe", qcfg)):
+                    ("qwen3_moe", qcfg), ("seamless", scfg)):
         dense_errs[name] = check_attention_case(serve_case(c), "bfloat16",
                                                 device)
         log(f"  flash_fwd {serve_case(c)} bfloat16: max abs err "
@@ -2879,6 +2979,21 @@ def main() -> int:
     d256_bwd_err = check_bwd(d256_train_case, device, D256_BWD_SWEEP)
     log(json.dumps({"backward_split": backward_split(
         rwkv_train_case, d256_train_case, device)}))
+    # K4's forward at head dim 160 (pixtral-12b), f32 on FMAs and bf16 on
+    # wgmma, over the sm90 cases and the serving shape
+    d160_err = check_kernels(pix_case, device, D160_SWEEP)
+    # the encoder-decoder's non-causal calls: the served encoder and cross
+    # shape (T = S), and the training cross-attention (T 4096 over S 512),
+    # forward in both dtypes and backward in bf16, two runs bit-equal
+    cross_errs = {}
+    for case in (seamless_cross, seamless_cross_train):
+        for dtype in ("float32", "bfloat16"):
+            err = check_attention_case(case, dtype, device)
+            log(f"  flash_fwd {case} {dtype}: max abs err {err:.3e}")
+        cross_errs[case] = (err, check_bwd_case(case, "bfloat16", device,
+                                                determinism=True))
+        log(f"  flash_bwd {case} bfloat16: max abs err "
+            f"{cross_errs[case][1]:.3e}; two runs bit-equal")
     torch.cuda.empty_cache()
     log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
 
@@ -2983,6 +3098,47 @@ def main() -> int:
         log(f"  phase {phase} done at {time.monotonic() - t_start:.1f} s; "
             f"weights freed, {torch.cuda.memory_allocated()} bytes "
             f"allocated")
+
+    log(f"phase 4i: serving, {scfg.name} {scfg.encoder_layers} + "
+        f"{scfg.num_layers} layers d_model {scfg.d_model} {scfg.dtype}, "
+        f"{BATCH} x {PROMPT} prompt tokens over {scfg.num_frames} frames, "
+        f"{GEN} new tokens; then the same with the int8 KV cache")
+    # K4 three times a layer in prefill (encoder, decoder self- and
+    # cross-attention), never in decode
+    n = scfg.encoder_layers + 2 * scfg.num_layers
+    runs, sm_num = serve_model_phase(
+        scfg, device, card, "serve_seamless", 978_909_184,
+        lambda gen: {"generate": {"flash_fwd": n}, "prefill": {"flash_fwd": n},
+                     "decode": {"flash_fwd": 0}},
+        state_bytes=207_618_052,
+        subruns=[("int8", BATCH, PROMPT, GEN, 155_713_540,
+                  dataclasses.replace(scfg, kv_quant=True))],
+        plain={"plain_cut": dict(layers=SEAMLESS_PLAIN_LAYERS),
+               "plain_int8_cut": dict(layers=SEAMLESS_PLAIN_LAYERS,
+                                      kv_quant=True, steps=INT8_CUT_STEPS)},
+        numbers=lambda: {
+            "flash_fwd_serve_shape": attention_numbers(seamless_self, device),
+            "flash_fwd_noncausal_shape": attention_numbers(seamless_cross,
+                                                           device)})
+    sm_launches = {name: r["launches"] for name, r in runs.items()}
+    del runs
+    log(f"  phase 4i done at {time.monotonic() - t_start:.1f} s; weights "
+        f"freed, {torch.cuda.memory_allocated()} bytes allocated")
+
+    log(f"phase 4j: serving, {xcfg.name} {xcfg.num_layers} layers d_model "
+        f"{xcfg.d_model} {xcfg.dtype}, {xcfg.num_heads} heads of "
+        f"{xcfg.resolved_head_dim} over {xcfg.num_kv_heads} KV heads, "
+        f"{BATCH} x ({xcfg.num_patches} patches + {PROMPT} prompt tokens), "
+        f"{GEN} new tokens")
+    runs, px_num = serve_model_phase(
+        xcfg, device, card, "serve_pixtral", 12_798_284_800, dense_want(xcfg),
+        state_bytes=655_360_004,
+        numbers=lambda: {"flash_fwd_d160_serve_shape": attention_numbers(
+            pix_case, device)})
+    px_launches = runs["serve"]["launches"]
+    del runs
+    log(f"  phase 4j done at {time.monotonic() - t_start:.1f} s; weights "
+        f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
     n_params = count_params(tcfg)
     log(f"phase 5: training, {tcfg.name} {tcfg.num_layers} layers d_model "
@@ -3095,10 +3251,31 @@ def main() -> int:
                                             3_697_815_552)
     log(f"  phase 5d done at {time.monotonic() - t_start:.1f} s")
 
+    log(f"phase 5e: training, {scfg.name} {scfg.encoder_layers} + "
+        f"{scfg.num_layers} layers d_model {scfg.d_model}, {TRAIN_SEQ} "
+        f"tokens over {scfg.num_frames} frames a step, {steps} steps, "
+        f"q8-delta commit every {TRAIN_REC_COMMIT}")
+    # every K4 call twice a step (full remat recomputes each layer in the
+    # backward), its backward once, all on the bf16 wgmma libraries
+    n = scfg.encoder_layers + 2 * scfg.num_layers
+    sm_train, sm_cut = train_recurrent_phase(
+        "train_seamless", scfg, device, card, 978_909_184,
+        {"flash_fwd": 2 * n * steps, "flash_bwd_sm90": n * steps,
+         "flash_bwd": 0},
+        {"global_batch": f"256 -> 1: one sequence of {TRAIN_SEQ} tokens "
+         f"over {scfg.num_frames} frames a step"},
+        dict(layers=SEAMLESS_PLAIN_LAYERS))
+    log(f"  phase 5e done at {time.monotonic() - t_start:.1f} s")
+
     cut_cfg = dataclasses.replace(tcfg, num_layers=CUT_LAYERS)
     log(f"phase 6: {tcfg.name} cut to {CUT_LAYERS} layers, compressed "
         f"gradients, 1 -> 2 rank resize with overlap")
     cut = train_cut_phase(cut_cfg, device)
+    cut["reduced"] = {"num_layers": (
+        f"{tcfg.num_layers} -> {CUT_LAYERS}: the phase shows compressed "
+        f"gradients and an overlap resize, whose wait grows with the "
+        f"state; 8 layers until the encoder-decoder's phases were added, "
+        f"4 since, to keep the whole run within its time")}
     log(json.dumps({"train_cut": cut}))
     log(f"  phase 6 done at {time.monotonic() - t_start:.1f} s")
 
@@ -3112,6 +3289,8 @@ def main() -> int:
     d256_bwd = bwd_d256_numbers(d256_train_case, device)
     moe_fwd_train = attention_numbers(moe_train_case, device)
     moe_bwd_train = bwd_numbers(moe_train_case, device)
+    cross_fwd_train = attention_numbers(seamless_cross_train, device)
+    cross_bwd_train = bwd_numbers(seamless_cross_train, device)
     torch.cuda.synchronize()
     log(json.dumps({"flash_fwd_train_shape": fwd_train,
                     "flash_bwd_train_shape": bwd, "codec_w_gu": codec,
@@ -3120,7 +3299,10 @@ def main() -> int:
                     "rglru_bwd_route_ms": rglru_bwd_route,
                     "flash_bwd_d256_train_shape": d256_bwd,
                     "flash_fwd_qwen3_moe_train_shape": moe_fwd_train,
-                    "flash_bwd_qwen3_moe_train_shape": moe_bwd_train}))
+                    "flash_bwd_qwen3_moe_train_shape": moe_bwd_train,
+                    "flash_fwd_seamless_cross_train_shape": cross_fwd_train,
+                    "flash_bwd_seamless_cross_train_shape":
+                        cross_bwd_train}))
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
     paths = {"serve": yi_launches, "serve_rwkv6": rw_launches,
@@ -3128,13 +3310,17 @@ def main() -> int:
              "serve_recurrentgemma_ring": rg_launches["ring"],
              "serve_deepseek": ds_launches["serve"],
              "serve_deepseek_int8": ds_launches["int8"],
-             "serve_phi3": ph_launches, **moe_launches,
+             "serve_phi3": ph_launches,
+             "serve_seamless": sm_launches["serve"],
+             "serve_seamless_int8": sm_launches["int8"],
+             "serve_pixtral": px_launches, **moe_launches,
              "train": tr["launches"], "train_cut": cut["launches"],
              "train_rwkv6": rw_train, "train_rwkv6_f32_cut": rw_cut,
              "train_recurrentgemma": rg_train,
              "train_recurrentgemma_f32_cut": rg_cut,
              "grad_qwen3_moe": moe_grad,
              "grad_qwen3_moe_f32_cut": moe_grad_cut,
+             "train_seamless": sm_train, "train_seamless_f32_cut": sm_cut,
              "rs_encode_check": rs["launches"]}
 
     def counts(name, path):
@@ -3170,7 +3356,20 @@ def main() -> int:
             qwen3_moe_serve_shape={**moe_nums["serve_qwen3_moe"],
                                    "max_abs_err": dense_errs["qwen3_moe"]},
             qwen3_moe_train_shape={**moe_fwd_train,
-                                   "max_abs_err": moe_fwd_err}),
+                                   "max_abs_err": moe_fwd_err},
+            seamless_serve_shape={**sm_num["flash_fwd_serve_shape"],
+                                  "max_abs_err": dense_errs["seamless"]},
+            seamless_noncausal_shape={
+                **sm_num["flash_fwd_noncausal_shape"],
+                "max_abs_err": cross_errs[seamless_cross][0]},
+            seamless_cross_train_shape={
+                **cross_fwd_train,
+                "max_abs_err": cross_errs[seamless_cross_train][0]}),
+        # its head-dim-160 instance, on pixtral-12b's path
+        row("flash_fwd_d160", fa + "flash_fwd_sm90.cu",
+            "flash_attention/kernel.py:95",
+            counts("flash_fwd", "serve_pixtral"), d160_err,
+            px_num["flash_fwd_d160_serve_shape"]),
         # the same kernel's head-dim-256 instance, on recurrentgemma-9b's
         # path (its windowed MQA layers)
         row("flash_fwd_d256", fa + "flash_fwd_sm90.cu",
@@ -3181,7 +3380,10 @@ def main() -> int:
             "flash_attention/ops.py:94",
             counts("flash_bwd_sm90", "train"), bwd_err, bwd,
             qwen3_moe_train_shape={**moe_bwd_train,
-                                   "max_abs_err": moe_bwd_err})]
+                                   "max_abs_err": moe_bwd_err},
+            seamless_cross_train_shape={
+                **cross_bwd_train,
+                "max_abs_err": cross_errs[seamless_cross_train][1]})]
     for name, line in (("quantize", 54), ("quantize_delta", 74),
                        ("dequantize", 98)):
         # K3 runs only where gradients are compressed: the cut phase

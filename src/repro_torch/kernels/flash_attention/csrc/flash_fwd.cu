@@ -25,8 +25,9 @@
 // read from device memory once per block and serves 64 queries.  KV tiles
 // that the causal or window mask fully hides are never loaded, which halves
 // the causal work.  mma/wgmma, TMA and pipelining come in later versions.
-// Head dims 32, 64, 128 and 256 (recurrentgemma-9b's MQA layers, window
-// 2048); at 256 the tiles take 213,760 B of shared memory, one block an
+// Head dims 32, 64, 128, 160 (pixtral-12b: 140,032 B of shared memory,
+// 4 x 10 accumulators a thread) and 256 (recurrentgemma-9b's MQA layers,
+// window 2048); at 256 the tiles take 213,760 B of shared memory, one block an
 // SM, and each thread's accumulator is 4 x 16 f32 registers.
 //
 // Numerics follow the reference: q is scaled in f32 before Q.K^T, scores
@@ -242,6 +243,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                            causal, has_window, window, stream);
     case 128:
       return launch<128>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
+                            causal, has_window, window, stream);
+    case 160:
+      return launch<160>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
                             causal, has_window, window, stream);
     case 256:
       return launch<256>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,

@@ -21,7 +21,7 @@
 //     issues every TMA load.  setmaxnreg gives the consumers 240 registers
 //     and the producer 24.
 //   * The Q tile (128 rows) is loaded once.  K and V tiles of BK keys (128
-//     at D <= 128, 64 at D 256) go through a ring of NSTAGE stages, one
+//     at D <= 128, 64 at D 160 and 256) go through a ring of NSTAGE stages, one
 //     full and one empty mbarrier a stage: the producer waits for a stage
 //     to be empty, loads it, and the consumers wait for it to be full,
 //     use it and release it, so the next tiles load during the products.
@@ -30,6 +30,12 @@
 //     the reference scales q in f32 before its product.  P is rounded to
 //     bf16 in registers, where the S accumulator's layout is already the
 //     A fragment's, and O += P V is an RS wgmma with V the MN-major B.
+//   * Head dim 160 (pixtral-12b) is not a power of two: its tiles are five
+//     column boxes of 32 under SWIZZLE_64B (sm90.cuh, Geo), so one
+//     m64n160k16 instruction spans V's five boxes with one descriptor
+//     stride, and Q K^T walks ten k-steps, two a box.  Shared memory is
+//     123,944 bytes (Q 40,960, two stages of K and V 81,920), one block an
+//     SM; a consumer thread holds o[80] + s[32] + p[16] f32 registers.
 //   * Only tiles that the causal diagonal, the window's edge or the end
 //     of the keys cross are masked; tiles a mask hides entirely are never
 //     loaded, and the query tiles with the most key tiles start first.
@@ -292,7 +298,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // bf16 only (dtype 1); q (B, Hq, T, D), k/v (B, Hkv, S, D), out (B, Hq, T,
 // D) bf16, lse (B, Hq, T) f32, all contiguous, q/k/v 16-byte aligned (TMA).
-// D in {32, 64, 128, 256}.  Launches on `stream` without synchronising and
+// D in {32, 64, 128, 160, 256}.  Launches on `stream` without synchronising and
 // returns cudaGetLastError().
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                               void* out, void* lse, int B, int Hq, int Hkv,
@@ -312,6 +318,9 @@ extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                             causal, has_window, window, st));
     case 128:
       return int(launch<128>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
+                             causal, has_window, window, st));
+    case 160:
+      return int(launch<160>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,
                              causal, has_window, window, st));
     case 256:
       return int(launch<256>(q, k, v, out, lse, B, Hq, Hkv, Tq, S, scale,

@@ -31,8 +31,9 @@ LIBRARIES = {"flash_fwd": _CSRC / "flash_fwd.cu",
 HEADERS = {"flash_fwd_sm90": (_CSRC / "sm90.cuh",),
            "flash_bwd_sm90": (_CSRC / "sm90.cuh",)}
 # head dims each kernel is instantiated for, 256 for recurrentgemma-9b's
-# attention layers
-FWD_HEAD_DIMS = (32, 64, 128, 256)
+# attention layers; the forward also at 160, pixtral-12b's, which is served
+# and not trained
+FWD_HEAD_DIMS = (32, 64, 128, 160, 256)
 BWD_HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -149,7 +150,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: Optional[int],
                          scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Hq, T, D), k/v: (B, Hkv, S, D) CUDA tensors, contiguous, of
-    one dtype (f32 or bf16; bf16 16-byte aligned), D in {32, 64, 128, 256}.
+    one dtype (f32 or bf16; bf16 16-byte aligned), D in ``FWD_HEAD_DIMS``.
     Returns ``(out in q.dtype, lse f32 (B, Hq, T))``."""
     global launches
     b, hq, hkv, t, s, d = _check_qkv(q, k, v, FWD_HEAD_DIMS, "flash_fwd")
@@ -175,7 +176,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                         torch.Tensor]:
     """Gradients of the forward: q/out/dout (B, Hq, T, D), k/v (B, Hkv, S,
     D) of one dtype (bf16 16-byte aligned), lse (B, Hq, T) f32, all
-    contiguous CUDA tensors, D in {32, 64, 128, 256}.  Returns ``(dq, dk,
+    contiguous CUDA tensors, D in ``BWD_HEAD_DIMS``.  Returns ``(dq, dk,
     dv)`` in the inputs' dtype; deterministic."""
     global bwd_launches, bwd_sm90_launches
     b, hq, hkv, t, s, d = _check_qkv(q, k, v, BWD_HEAD_DIMS, "flash_bwd",

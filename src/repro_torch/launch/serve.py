@@ -4,9 +4,12 @@
       --batch 4 --prompt-len 32 --gen 16 [--icheck] [--device cuda|cpu]
 
 ARCH is yi-6b, qwen2.5-3b, deepseek-7b, phi3-medium-14b, dbrx-132b,
-qwen3-moe-235b-a22b, rwkv6-7b or recurrentgemma-9b.
+qwen3-moe-235b-a22b, rwkv6-7b, recurrentgemma-9b, seamless-m4t-medium
+(encoder-decoder over audio frames) or pixtral-12b (vision patches before
+the prompt); the frames or patches are drawn from the seed.
 
-With --icheck, the filled KV cache (attention), recurrent state (RWKV-6)
+With --icheck, the filled KV cache (attention; self and cross caches for
+the encoder-decoder), recurrent state (RWKV-6)
 or both (the RG-LRU hybrid: ring caches of its windowed attention layers
 and its RG-LRU states) is committed to agents after prefill
 (serving-state fault tolerance).
@@ -42,6 +45,12 @@ def main(argv=None):
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
                                     (args.batch, args.prompt_len))
              .astype(np.int32)}
+    if cfg.frontend == "frames":
+        batch["frames"] = rng.standard_normal(
+            (args.batch, cfg.num_frames, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "patches":
+        batch["patches"] = rng.standard_normal(
+            (args.batch, cfg.num_patches, cfg.d_model)).astype(np.float32)
 
     engine = ServeEngine(cfg, params,
                          max_len=serve_max_len(cfg, args.prompt_len,

@@ -5,6 +5,12 @@ default; ``--full`` builds the published widths).
       --global-batch 8 --seq-len 64 [--icheck] [--resize-at 30 --ranks 2] \
       [--device cuda|cpu]
 
+ARCH is any of the ten: yi-6b, qwen2.5-3b, deepseek-7b, phi3-medium-14b,
+dbrx-132b, qwen3-moe-235b-a22b, rwkv6-7b, recurrentgemma-9b,
+seamless-m4t-medium or pixtral-12b; the data pipeline draws the frames or
+patches of the last two beside the tokens, and ``--microbatches`` splits
+them with the tokens.
+
 With --icheck, the run is driven by the ElasticTrainer: the paper's
 Listing 1 control flow (register -> add_adapt -> commit/async -> probe ->
 redistribute on resize), backed by an in-process iCheck cluster.

@@ -1,6 +1,9 @@
 """GQA attention block: prefill (flash kernel) + decode over the KV cache.
 
-The twin of ``repro/models/attention.py`` for the self-attention case.
+The twin of ``repro/models/attention.py``: self-attention, causal or not
+(an encoder's), and cross-attention over an encoder's output (``xkv``;
+no RoPE, never causal, its K/V a static cache that ``cross_kv`` fills at
+prefill and decode reads without inserting).
 Prefill attention runs the flash-attention op, which launches the Hopper
 kernel on CUDA tensors.  Decode keeps the reference's plain f32 softmax
 over the whole cache (``attention.py:222-246``): with one query per step
@@ -120,24 +123,43 @@ def attn_apply(params, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
                head_dim: int, positions: Optional[torch.Tensor] = None,
                causal: bool = True, window: Optional[int] = None,
                rope_theta: float = 10000.0, use_rope: bool = True,
+               xkv: Optional[torch.Tensor] = None,
                return_cache: bool = False):
-    """Full-sequence self-attention (prefill / scoring).
+    """Full-sequence attention (train / prefill / encoder / cross).
 
-    Returns ``out`` or ``(out, KVCache)`` when ``return_cache``.
+    ``xkv`` (B, S, d_model), for cross-attention, defaults to ``x``
+    (self-attention); cross-attention takes no RoPE and no causal mask
+    (``repro/models/attention.py:105-134``).  Returns ``out`` or ``(out,
+    KVCache)`` when ``return_cache``.
     """
     b, t, _ = x.shape
-    q, k, v = _project_qkv(params, x, x, num_heads, num_kv_heads, head_dim)
-    if use_rope:
+    self_attn = xkv is None
+    xkv = x if xkv is None else xkv
+    q, k, v = _project_qkv(params, x, xkv, num_heads, num_kv_heads,
+                           head_dim)
+    if use_rope and self_attn:
         if positions is None:
             positions = torch.arange(t, device=x.device).expand(b, t)
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    o = flash_attention(q, k, v, causal=causal, window=window)
+    o = flash_attention(q, k, v, causal=causal and self_attn, window=window)
     o = o.transpose(1, 2).reshape(b, t, num_heads * head_dim)
     out = o @ params["wo"].to(x.dtype)
     if return_cache:
         return out, KVCache(k=k, v=v)
     return out
+
+
+def cross_kv(params, enc_out: torch.Tensor, num_kv_heads: int,
+             head_dim: int, dtype) -> KVCache:
+    """The encoder's output projected into a static cross-attention KV
+    cache, (B, Hkv, S, D) in ``dtype``
+    (``repro/models/attention.py:137-146``)."""
+    b, s, _ = enc_out.shape
+    k, v = _project_kv(params, enc_out)
+    k = k.reshape(b, s, num_kv_heads, head_dim).transpose(1, 2)
+    v = v.reshape(b, s, num_kv_heads, head_dim).transpose(1, 2)
+    return KVCache(k=k.to(dtype), v=v.to(dtype))
 
 
 # --------------------------------------------------------------------------
@@ -164,15 +186,16 @@ def init_kv_cache(batch: int, num_kv_heads: int, max_len: int, head_dim: int,
 def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
                 num_heads: int, num_kv_heads: int, head_dim: int,
                 rope_theta: float = 10000.0, use_rope: bool = True,
-                window: Optional[int] = None,
+                window: Optional[int] = None, cross: bool = False,
                 scale: Optional[float] = None):
-    """One-token self-attention decode. x: (B, 1, d_model); idx: 0-d
-    int32 position.
+    """One-token decode. x: (B, 1, d_model); idx: 0-d int32 position.
 
     The new K/V (int8 codes and scales for an int8 cache) are written into
     ``cache`` in place at slot ``idx``, or ``idx % S`` for a
     sliding-window layer's ring (the reference returns an updated copy;
-    the same tensors come back here).
+    the same tensors come back here).  ``cross=True`` attends over a
+    static, prefilled cache (cross-attention) without inserting, every
+    slot valid.
     """
     b = x.shape[0]
     s = cache.k.shape[2]
@@ -185,35 +208,39 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
     pos = idx.to(torch.int32).reshape(1, 1).expand(b, 1)
     if use_rope:
         q = apply_rope(q, pos, rope_theta)
-    k_new, v_new = _project_kv(params, x)
-    k_new = k_new.reshape(b, 1, num_kv_heads, head_dim).transpose(1, 2)
-    v_new = v_new.reshape(b, 1, num_kv_heads, head_dim).transpose(1, 2)
-    if use_rope:
-        k_new = apply_rope(k_new, pos, rope_theta)
-    slot = idx.reshape(1).long()
-    if window is not None:
-        slot = slot % s
-    if cache.ks is not None:                       # int8 cache
-        for buf, sbuf, new in ((cache.k, cache.ks, k_new),
-                               (cache.v, cache.vs, v_new)):
-            codes, scales = _q8(new)
-            buf.index_copy_(2, slot, codes)
-            sbuf.index_copy_(2, slot, scales)
+    if not cross:
+        k_new, v_new = _project_kv(params, x)
+        k_new = k_new.reshape(b, 1, num_kv_heads, head_dim).transpose(1, 2)
+        v_new = v_new.reshape(b, 1, num_kv_heads, head_dim).transpose(1, 2)
+        if use_rope:
+            k_new = apply_rope(k_new, pos, rope_theta)
+        slot = idx.reshape(1).long()
+        if window is not None:
+            slot = slot % s
+        if cache.ks is not None:                   # int8 cache
+            for buf, sbuf, new in ((cache.k, cache.ks, k_new),
+                                   (cache.v, cache.vs, v_new)):
+                codes, scales = _q8(new)
+                buf.index_copy_(2, slot, codes)
+                sbuf.index_copy_(2, slot, scales)
+        else:
+            cache.k.index_copy_(2, slot, k_new.to(cache.k.dtype))
+            cache.v.index_copy_(2, slot, v_new.to(cache.v.dtype))
+    if cache.ks is not None:
         kf, vf = _dq(cache.k, cache.ks), _dq(cache.v, cache.vs)
     else:
-        cache.k.index_copy_(2, slot, k_new.to(cache.k.dtype))
-        cache.v.index_copy_(2, slot, v_new.to(cache.v.dtype))
         kf, vf = cache.k.float(), cache.v.float()
 
     g = num_heads // num_kv_heads
     qg = q.reshape(b, num_kv_heads, g, head_dim).float() * scale
     scores = torch.matmul(qg, kf.transpose(-1, -2))          # (B,Hkv,G,S)
-    kpos = torch.arange(s, device=x.device)
-    if window is not None:
-        valid = kpos < torch.clamp(idx + 1, max=s)      # slots written
-    else:
-        valid = kpos <= idx
-    scores = torch.where(valid, scores, NEG_INF)
+    if not cross:
+        kpos = torch.arange(s, device=x.device)
+        if window is not None:
+            valid = kpos < torch.clamp(idx + 1, max=s)  # slots written
+        else:
+            valid = kpos <= idx
+        scores = torch.where(valid, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     o = torch.matmul(p, vf)                                   # (B,Hkv,G,D)
     o = o.reshape(b, 1, num_heads * head_dim).to(x.dtype)

@@ -1,5 +1,6 @@
 """Core building blocks: RMSNorm, RWKV-6's per-head group norm, dense
-projections, RoPE, gated FFNs, embeddings.  Plain functions on tensors;
+projections, RoPE, gated FFNs, embeddings, the frames / patches frontend
+projection.  Plain functions on tensors;
 parameters are nested dicts with the reference's names and shapes
 (``repro/models/layers.py``).
 
@@ -154,3 +155,16 @@ def lm_head_apply(params, x: torch.Tensor, valid_vocab: int = 0):
         ok = torch.arange(vp, device=logits.device) < valid_vocab
         logits = torch.where(ok, logits, logits.new_full((), -1e30))
     return logits
+
+
+# --------------------------------------------------------------------------
+# Frontend stubs: audio frames and vision patches arrive as precomputed
+# embeddings (B, N, d_in); the frontend is one projection
+# (``repro/models/layers.py:159-167``)
+# --------------------------------------------------------------------------
+def frontend_init(generator, d_in: int, d_model: int, *, device=None):
+    return {"proj": _dense_init(generator, (d_in, d_model), device=device)}
+
+
+def frontend_apply(params, embeds: torch.Tensor) -> torch.Tensor:
+    return embeds @ params["proj"].to(embeds.dtype)

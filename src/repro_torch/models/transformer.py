@@ -1,19 +1,25 @@
-"""The LM backbone for token-input decoder-only attention models
-(``mixer="attention"``) with a gated FFN or a Mixture-of-Experts FFN
-(``ffn="moe"``, ``moe.py``), RWKV-6 (``mixer="rwkv6"``) and the RG-LRU
-hybrid (``mixer="rglru_hybrid"``, Griffin / RecurrentGemma): the twin of
-``repro/models/transformer.py`` on those paths (not yet the
-encoder-decoder and the frames / patches frontends).
+"""The LM backbone, the twin of ``repro/models/transformer.py`` on all ten
+architectures: decoder-only attention models (``mixer="attention"``) with
+a gated FFN or a Mixture-of-Experts FFN (``ffn="moe"``, ``moe.py``), the
+encoder-decoder over audio frames (``frontend="frames"``,
+seamless-m4t-medium), the decoder over a prefix of vision patches
+(``frontend="patches"``, pixtral-12b), RWKV-6 (``mixer="rwkv6"``) and the
+RG-LRU hybrid (``mixer="rglru_hybrid"``, Griffin / RecurrentGemma).
 
 * ``init_params(cfg, generator, device)``: a nested dict of f32 tensors
   whose names and shapes equal ``repro.models.init_params``; the layer
   stack is stacked on a leading "layers" axis, one super-layer of the
   plan's kinds under ``stack/b0``, ``stack/b1``, ..., and the hybrid's
-  leftover layers are ``tail0``, ``tail1``, ... (``stack_plan``).
+  leftover layers are ``tail0``, ``tail1``, ... (``stack_plan``).  The
+  frames / patches models add ``frontend/proj``; the encoder-decoder adds
+  the encoder ``enc/b0`` (non-causal attention layers) and ``enc_norm``,
+  and its decoder layers (kind ``"dec"``) cross-attention ``norm_x`` and
+  ``xattn`` over the encoder's output.
 * ``forward`` / ``loss_fn``: the training and scoring path, each layer
   recomputed in the backward (``torch.utils.checkpoint``) unless the
-  config's ``remat_policy`` is ``"none"``; the MoE layers' aux losses are
-  summed in f32 and added to the loss.
+  config's ``remat_policy`` is ``"none"``, the encoder's layers too; the
+  MoE layers' aux losses are summed in f32 and added to the loss.  A
+  patch prefix is cut off before the LM head.
 * ``init_cache`` / ``prefill`` / ``decode_step``: the serving path.  The
   cache has the reference's layout, ``{"stack": {"b0": ...}, "tails":
   [...], "idx": int32 0-d}``: a ``{"self": KVCache(k, v)}`` of k/v
@@ -22,7 +28,10 @@ encoder-decoder and the frames / patches frontends).
   f16 scales ks/vs (L, B, Hkv, S, D/blk), ``attention._q8``), an
   ``RWKVState`` (shift_tm, shift_cm (L, B, D), wkv (L, B, H, Dh, Dh) f32)
   for RWKV-6 and an ``RGLRUState`` (conv (L, B, W-1, N), h (L, B, N) f32)
-  for an RG-LRU layer; tail layers have no leading L.  It is written in place.
+  for an RG-LRU layer; tail layers have no leading L.  A decoder layer of
+  the encoder-decoder holds ``{"self": ..., "cross": ...}``, the cross
+  cache ``num_frames`` slots of the encoder's projected K/V, filled at
+  prefill and only read in decode.  It is written in place.
 
 A Python loop over the stacked layers takes the place of ``lax.scan``;
 on one device the reference's sharding constraints are no-ops and are
@@ -41,7 +50,8 @@ from . import moe as moe_lib
 from . import rglru_layer as rglru
 from . import rwkv6_layer as rwkv
 from .layers import (embed_apply, embed_init, ffn_apply, ffn_init,
-                     lm_head_apply, lm_head_init, rmsnorm, rmsnorm_init)
+                     frontend_apply, frontend_init, lm_head_apply,
+                     lm_head_init, rmsnorm, rmsnorm_init)
 
 Params = Dict[str, Any]
 
@@ -54,23 +64,21 @@ def stack_plan(cfg: ModelConfig) -> Dict[str, Any]:
     attention models (dense or MoE) and RWKV-6 stack every layer as one
     super-layer ``b0``; the RG-LRU hybrid stacks one pattern period, e.g.
     (rec, rec, attn), as ``b0, b1, b2`` and runs the leftovers as tail
-    layers."""
-    if cfg.mixer == "rwkv6" and cfg.ffn == "rwkv_cmix":
+    layers; the encoder-decoder stacks its decoder layers (kind ``"dec"``)
+    as ``b0`` and its ``enc_layers`` encoder layers apart, under ``enc``."""
+    if cfg.mixer == "rwkv6":
         return dict(scan_kinds=("rwkv",), scan_len=cfg.num_layers,
                     tail_kinds=(), enc_layers=0)
-    if cfg.mixer == "rglru_hybrid" and cfg.ffn != "moe":
+    if cfg.mixer == "rglru_hybrid":
         period = cfg.pattern or ("rec", "rec", "attn")
         n_scan = cfg.num_layers // len(period)
         n_tail = cfg.num_layers - n_scan * len(period)
         tail = (cfg.tail_layers or ("rec",) * n_tail)[:n_tail]
         return dict(scan_kinds=tuple(period), scan_len=n_scan,
                     tail_kinds=tuple(tail), enc_layers=0)
-    if (cfg.mixer != "attention" or cfg.is_encdec
-            or cfg.frontend != "token"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port builds token-input decoder-only attention "
-            f"models (dense or MoE), RWKV-6 and the RG-LRU hybrid only "
-            f"(mixer={cfg.mixer}, ffn={cfg.ffn}, frontend={cfg.frontend})")
+    if cfg.is_encdec:
+        return dict(scan_kinds=("dec",), scan_len=cfg.num_layers,
+                    tail_kinds=(), enc_layers=cfg.encoder_layers)
     return dict(scan_kinds=("attn",), scan_len=cfg.num_layers,
                 tail_kinds=(), enc_layers=0)
 
@@ -117,13 +125,18 @@ def _block_init(generator, cfg: ModelConfig, kind: str, *, lead, device):
                                     lead=lead, device=device),
         }
     hd = cfg.resolved_head_dim
-    p = {
-        "norm1": rmsnorm_init(cfg.d_model, lead=lead, device=device),
-        "attn": attn.attn_init(generator, cfg.d_model, cfg.num_heads,
-                               cfg.num_kv_heads, hd, qkv_bias=cfg.qkv_bias,
-                               lead=lead, device=device),
-        "norm2": rmsnorm_init(cfg.d_model, lead=lead, device=device),
-    }
+
+    def attn_init():
+        return attn.attn_init(generator, cfg.d_model, cfg.num_heads,
+                              cfg.num_kv_heads, hd, qkv_bias=cfg.qkv_bias,
+                              lead=lead, device=device)
+
+    p = {"norm1": rmsnorm_init(cfg.d_model, lead=lead, device=device),
+         "attn": attn_init()}
+    if kind == "dec":
+        p["norm_x"] = rmsnorm_init(cfg.d_model, lead=lead, device=device)
+        p["xattn"] = attn_init()
+    p["norm2"] = rmsnorm_init(cfg.d_model, lead=lead, device=device)
     if cfg.ffn == "moe":
         p["moe"] = moe_lib.moe_init(generator, cfg.d_model, cfg.num_experts,
                                     cfg.resolved_moe_d_ff, lead=lead,
@@ -193,10 +206,15 @@ def _rec_block(cfg: ModelConfig, p: Params, x, state):
 
 
 def _block_apply(cfg: ModelConfig, p: Params, x, *, kind: str, positions,
-                 state):
-    """Full-sequence application of one layer of ``kind``.  ``state`` is
+                 state, enc_out=None, causal: bool = True):
+    """Full-sequence application (train / prefill / encoder) of one layer
+    of ``kind`` (``repro/models/transformer.py:124-190``).  ``state`` is
     None when scoring; for prefill it is this layer's cache slot, filled
-    in place.  Returns (x, aux, state), aux None but for a MoE layer."""
+    in place.  ``causal=False`` for an encoder layer; a ``"dec"`` layer
+    cross-attends over ``enc_out`` after its self-attention, and at
+    prefill fills its cross cache from ``enc_out`` (int8 codes and scales
+    for an int8 cache).  Returns (x, aux, state), aux None but for a MoE
+    layer."""
     if kind in ("rwkv", "rec"):
         block = _rwkv_block if kind == "rwkv" else _rec_block
         x, state = block(cfg, p, x, state)
@@ -205,16 +223,37 @@ def _block_apply(cfg: ModelConfig, p: Params, x, *, kind: str, positions,
     h = rmsnorm(p["norm1"], x)
     if state is not None:
         y, kvc = attn.attn_apply(p["attn"], h, positions=positions,
-                                 window=window, return_cache=True,
-                                 **_attn_kw(cfg))
+                                 causal=causal, window=window,
+                                 return_cache=True, **_attn_kw(cfg))
         state = dict(state, self=_write_prefill_cache(state["self"], kvc,
                                                       window))
     else:
         y = attn.attn_apply(p["attn"], h, positions=positions,
-                            window=window, **_attn_kw(cfg))
+                            causal=causal, window=window, **_attn_kw(cfg))
     x = x + y
+    if kind == "dec":
+        y = attn.attn_apply(p["xattn"], rmsnorm(p["norm_x"], x), xkv=enc_out,
+                            causal=False, use_rope=False, **_attn_kw(cfg))
+        x = x + y
+        if state is not None:
+            _write_cross_cache(state["cross"], attn.cross_kv(
+                p["xattn"], enc_out, cfg.num_kv_heads, cfg.resolved_head_dim,
+                enc_out.dtype))
     y, aux = _ffn_or_moe(cfg, p, rmsnorm(p["norm2"], x))
     return x + y, aux, state
+
+
+def _write_cross_cache(cache: attn.KVCache, kvc: attn.KVCache) -> None:
+    """Store the encoder's projected K/V into the cross cache in place,
+    as int8 codes and scales for an int8 cache
+    (``repro/models/transformer.py:152-162``)."""
+    pairs = [(cache.k, kvc.k), (cache.v, kvc.v)]
+    if cache.ks is not None:                       # int8 cache
+        (kq, ks), (vq, vs) = attn._q8(kvc.k), attn._q8(kvc.v)
+        pairs = [(cache.k, kq), (cache.v, vq), (cache.ks, ks),
+                 (cache.vs, vs)]
+    for buf, val in pairs:
+        buf.copy_(val)
 
 
 def _write_prefill_cache(cache: attn.KVCache, kvc: attn.KVCache, window):
@@ -255,6 +294,11 @@ def _block_decode(cfg: ModelConfig, p: Params, x, idx, *, kind: str,
                               window=_layer_window(cfg, kind),
                               **_attn_kw(cfg))
     x = x + y
+    if kind == "dec":
+        y, _ = attn.attn_decode(p["xattn"], rmsnorm(p["norm_x"], x),
+                                state["cross"], idx, cross=True,
+                                use_rope=False, **_attn_kw(cfg))
+        x = x + y
     x = x + _ffn_or_moe(cfg, p, rmsnorm(p["norm2"], x))[0]
     return x, dict(state, self=kvc)
 
@@ -268,14 +312,20 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     allocates nothing).  Names and shapes equal the reference's; the
     values differ, since the two frameworks draw different numbers."""
     plan = stack_plan(cfg)
-    params = {
-        "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model,
-                            device=device),
-        "stack": {f"b{i}": _block_init(generator, cfg, kind,
-                                       lead=(plan["scan_len"],),
-                                       device=device)
-                  for i, kind in enumerate(plan["scan_kinds"])},
-    }
+    params = {"embed": embed_init(generator, cfg.padded_vocab, cfg.d_model,
+                                  device=device)}
+    if cfg.frontend in ("frames", "patches"):
+        params["frontend"] = frontend_init(generator, cfg.d_model,
+                                           cfg.d_model, device=device)
+    if plan["enc_layers"]:
+        params["enc"] = {"b0": _block_init(generator, cfg, "attn",
+                                           lead=(plan["enc_layers"],),
+                                           device=device)}
+        params["enc_norm"] = rmsnorm_init(cfg.d_model, device=device)
+    params["stack"] = {f"b{i}": _block_init(generator, cfg, kind,
+                                            lead=(plan["scan_len"],),
+                                            device=device)
+                       for i, kind in enumerate(plan["scan_kinds"])}
     for i, kind in enumerate(plan["tail_kinds"]):
         params[f"tail{i}"] = _block_init(generator, cfg, kind, lead=(),
                                          device=device)
@@ -307,11 +357,21 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _embed_inputs(cfg: ModelConfig, params, batch):
+    """The tokens' embeddings, after the projected patches for a patches
+    model; positions run over prefix and tokens together.  Returns (x,
+    positions, prefix length)."""
     tokens = batch["tokens"]
-    b, t = tokens.shape
+    b = tokens.shape[0]
     x = embed_apply(params["embed"], tokens).to(_dtype(cfg))
-    positions = torch.arange(t, device=x.device).expand(b, t)
-    return x, positions
+    prefix = 0
+    if cfg.frontend == "patches":
+        pe = frontend_apply(params["frontend"],
+                            batch["patches"].to(_dtype(cfg)))
+        x = torch.cat([pe, x], dim=1)
+        prefix = pe.shape[1]
+    positions = torch.arange(x.shape[1], device=x.device).expand(
+        b, x.shape[1])
+    return x, positions, prefix
 
 
 def _remat(cfg: ModelConfig) -> bool:
@@ -336,32 +396,70 @@ def _layers(cfg: ModelConfig, params, caches=None):
                None if caches is None else caches["tails"][j])
 
 
-def _run_stack(cfg: ModelConfig, params, x, positions, caches=None):
-    """Every layer in order.  Returns (x, aux): the MoE layers' aux losses
-    summed in f32 in layer order, as the reference's scan sums them (None
-    without a MoE layer)."""
+def _run_encoder(cfg: ModelConfig, params, batch):
+    """The encoder over the projected frames: non-causal layers with RoPE
+    at positions 0..S-1, each recomputed in the backward as the decoder's
+    are, then ``enc_norm`` (``repro/models/transformer.py:358-371``)."""
+    e = frontend_apply(params["frontend"], batch["frames"].to(_dtype(cfg)))
+    b, s, _ = e.shape
+    epos = torch.arange(s, device=e.device).expand(b, s)
+    remat = _remat(cfg)
+    for i in range(stack_plan(cfg)["enc_layers"]):
+        lp = _layer(params["enc"]["b0"], i)
+        if remat:
+            e = checkpoint(lambda h, lp=lp: _block_apply(
+                cfg, lp, h, kind="attn", positions=epos, state=None,
+                causal=False)[0], e, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            e = _block_apply(cfg, lp, e, kind="attn", positions=epos,
+                             state=None, causal=False)[0]
+    return rmsnorm(params["enc_norm"], e)
+
+
+def _run_stack(cfg: ModelConfig, params, x, positions, caches=None,
+               enc_out=None):
+    """Every layer in order, the decoder's cross-attending over
+    ``enc_out``.  Returns (x, aux): the MoE layers' aux losses summed in
+    f32 in layer order, as the reference's scan sums them (None without a
+    MoE layer)."""
     remat = caches is None and _remat(cfg)
     aux = None
     for kind, lp, st in _layers(cfg, params, caches):
         if remat:
-            # the layer has no randomness, so no RNG state is kept
-            x, aux_i = checkpoint(lambda h, lp=lp, kind=kind: _block_apply(
-                cfg, lp, h, kind=kind, positions=positions, state=None)[:2],
-                x, use_reentrant=False, preserve_rng_state=False)
+            # the layer has no randomness, so no RNG state is kept;
+            # enc_out is an input of each layer, so its gradient flows
+            # from every layer's cross-attention K/V
+            x, aux_i = checkpoint(
+                lambda h, e, lp=lp, kind=kind: _block_apply(
+                    cfg, lp, h, kind=kind, positions=positions, state=None,
+                    enc_out=e)[:2],
+                x, enc_out, use_reentrant=False, preserve_rng_state=False)
         else:
             x, aux_i, _ = _block_apply(cfg, lp, x, kind=kind,
-                                       positions=positions, state=st)
+                                       positions=positions, state=st,
+                                       enc_out=enc_out)
         if aux_i is not None:
             aux = aux_i if aux is None else aux + aux_i
     return x, aux
 
 
+def _encode(cfg: ModelConfig, params, batch):
+    """The encoder's output for an encoder-decoder, else None."""
+    return _run_encoder(cfg, params, batch) if cfg.is_encdec else None
+
+
 def forward(cfg: ModelConfig, params, batch):
     """Training / scoring forward pass. Returns (logits, aux_loss): the MoE
-    layers' summed aux loss, an f32 zero for a model without one."""
-    x, positions = _embed_inputs(cfg, params, batch)
-    x, aux = _run_stack(cfg, params, x, positions)
+    layers' summed aux loss, an f32 zero for a model without one.  The
+    logits are the tokens' only: a patch prefix is cut off before the LM
+    head."""
+    x, positions, prefix = _embed_inputs(cfg, params, batch)
+    x, aux = _run_stack(cfg, params, x, positions,
+                        enc_out=_encode(cfg, params, batch))
     x = rmsnorm(params["final_norm"], x)
+    if prefix:
+        x = x[:, prefix:, :]
     logits = lm_head_apply(params["lm_head"], x, valid_vocab=cfg.vocab_size)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -390,19 +488,25 @@ def _kind_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, lead, device):
     """One layer's (or, with ``lead``, a stack's) zero cache of ``kind``
     (``repro/models/transformer.py:462-485``)."""
-    if kind == "attn":
-        window = _layer_window(cfg, kind)
-        s = min(max_len, window) if window else max_len
+    def kv_cache(s):
         kv = attn.init_kv_cache(batch, cfg.num_kv_heads, s,
                                 cfg.resolved_head_dim, dtype,
                                 quant=cfg.kv_quant, lead=lead, device=device)
         if lead and kv.ks is not None:
             # the reference stacks a cache as zeros of each leaf's shape
             # (``repro/models/transformer.py:489-490``), scales included;
-            # the slots not yet written are masked in decode either way
+            # the slots not yet written are masked in decode, and prefill
+            # fills a cross cache whole
             kv.ks.zero_()
             kv.vs.zero_()
-        return {"self": kv}
+        return kv
+
+    if kind == "attn":
+        window = _layer_window(cfg, kind)
+        return {"self": kv_cache(min(max_len, window) if window
+                                 else max_len)}
+    if kind == "dec":
+        return {"self": kv_cache(max_len), "cross": kv_cache(cfg.num_frames)}
     if kind == "rwkv":
         return rwkv.init_state(batch, cfg.d_model, cfg.rwkv_head_dim, dtype,
                                lead=lead, device=device)
@@ -434,11 +538,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):
-    """Run the prompt through the model, filling ``cache`` in place.
+    """Run the prompt (after its patch prefix, over its frames) through
+    the model, filling ``cache`` in place.
 
-    Returns (logits_last: (B, vocab), cache with ``idx`` = T)."""
-    x, positions = _embed_inputs(cfg, params, batch)
-    x, _ = _run_stack(cfg, params, x, positions, caches=cache)
+    Returns (logits_last: (B, vocab), cache with ``idx`` = prefix + T)."""
+    x, positions, _ = _embed_inputs(cfg, params, batch)
+    x, _ = _run_stack(cfg, params, x, positions, caches=cache,
+                      enc_out=_encode(cfg, params, batch))
     x = rmsnorm(params["final_norm"], x)
     logits = lm_head_apply(params["lm_head"], x[:, -1:, :],
                            valid_vocab=cfg.vocab_size)[:, 0, :]

@@ -24,6 +24,11 @@ from ..models.transformer import (cast_params, decode_step, init_cache,
                                   prefill)
 
 
+# a batch's precomputed embeddings beside its tokens: audio frames (the
+# encoder's input) and vision patches (a prefix of the decoder's)
+MODALITY_KEYS = ("frames", "patches")
+
+
 def serve_max_len(cfg: ModelConfig, seq_len: int, gen: int = 0) -> int:
     n = seq_len + gen
     if cfg.frontend == "patches":
@@ -49,12 +54,20 @@ class ServeEngine:
 
     @torch.no_grad()
     def prefill(self, batch: Dict):
-        """Prefill a fresh KV cache / recurrent state: returns
-        (last-position logits, cache)."""
-        tokens = self._tokens(batch["tokens"])
-        cache = init_cache(self.cfg, tokens.shape[0], self.max_len,
+        """Prefill a fresh KV cache / recurrent state from ``batch``'s
+        tokens and, for a frames / patches model, its ``frames`` /
+        ``patches`` embeddings (moved to ``device`` as f32; the model casts
+        them to its dtype as the reference does): returns (last-position
+        logits, cache)."""
+        inputs = {"tokens": self._tokens(batch["tokens"])}
+        for key in MODALITY_KEYS:
+            if key in batch:
+                inputs[key] = torch.as_tensor(np.asarray(batch[key]),
+                                              dtype=torch.float32,
+                                              device=self.device)
+        cache = init_cache(self.cfg, inputs["tokens"].shape[0], self.max_len,
                            device=self.device)
-        return prefill(self.cfg, self.params, {"tokens": tokens}, cache)
+        return prefill(self.cfg, self.params, inputs, cache)
 
     @torch.no_grad()
     def decode_greedy(self, cache, tokens, steps: int) -> np.ndarray:
@@ -72,7 +85,8 @@ class ServeEngine:
 
     def generate(self, batch: Dict, gen_len: int = 16,
                  checkpoint_client=None) -> np.ndarray:
-        """Greedy generation. batch: {"tokens": (B, T)} -> (B, gen_len).
+        """Greedy generation. batch: {"tokens": (B, T), ...modality} ->
+        (B, gen_len).
 
         ``checkpoint_client``: optional ICheckClient; if given, the filled
         KV cache / recurrent state is committed after prefill

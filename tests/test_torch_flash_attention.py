@@ -10,10 +10,12 @@ has no consistent answer there (it depends on its tile size); a separate
 case checks that the port gives zeros and lse = -inf.
 
 Head dim 256 with a sliding window (recurrentgemma-9b's attention
-layers) takes the forward's tolerances.
+layers), head dim 160 (pixtral-12b's) and non-causal calls whose query
+and key lengths differ (cross-attention) take the forward's tolerances.
 
 Gradients: dq/dk/dv against ``jax.grad`` of the reference's XLA backward,
-f32 atol 5e-4, over the sweep and at head dim 256.
+f32 atol 5e-4, over the sweep, at head dim 256 and at the cross-attention
+shapes.
 
 f32 matmuls run in full precision: ``torch.backends.cuda.matmul.allow_tf32``
 is set False.  The kernel against its plain version on the card is in
@@ -110,6 +112,32 @@ D256 = [
 @pytest.mark.parametrize("case", D256)
 def test_forward_matches_jax_at_head_dim_256(case, dtype):
     test_forward_matches_jax(case, dtype)
+
+
+# the shapes this slice adds, cut to a few heads and tokens: pixtral-12b's
+# head dim 160 (GQA, causal; with a window; T < S), and cross-attention's
+# non-causal calls whose query and key lengths differ, more queries than
+# keys and fewer
+NEW_SHAPES = [
+    (1, 4, 2, 48, 48, 160, True, None),
+    (1, 2, 1, 40, 40, 160, True, 16),
+    (1, 2, 2, 24, 56, 160, True, None),
+    (2, 4, 4, 72, 24, 64, False, None),
+    (1, 4, 2, 20, 64, 64, False, None),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", NEW_SHAPES)
+def test_forward_matches_jax_at_head_dim_160_and_cross(case, dtype):
+    test_forward_matches_jax(case, dtype)
+
+
+@pytest.mark.parametrize("case", NEW_SHAPES[3:])
+def test_grads_match_jax_cross(case):
+    """As ``test_grads_match_jax``, at the non-causal T != S calls of the
+    encoder-decoder's cross-attention, which it trains through."""
+    _check_grads(case)
 
 
 def test_rows_without_allowed_key_are_zero():

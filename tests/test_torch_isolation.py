@@ -31,7 +31,8 @@ COPIES = (
        for n in ("__init__.py", "base.py", "yi_6b.py", "qwen2_5_3b.py",
                  "rwkv6_7b.py", "recurrentgemma_9b.py", "deepseek_7b.py",
                  "phi3_medium_14b.py", "dbrx_132b.py",
-                 "qwen3_moe_235b_a22b.py")]
+                 "qwen3_moe_235b_a22b.py", "seamless_m4t_medium.py",
+                 "pixtral_12b.py")]
     + [(SRC / "repro" / "data" / n, SRC / "repro_torch" / "data" / n)
        for n in ("__init__.py", "pipeline.py")]
 )

@@ -36,6 +36,11 @@ Every test skips without a card.  Tolerances:
   the TMA kernel bit-equal to the register kernel at every shape and ring
   depth (the same f32 steps); two runs bit-equal; [0, T/2) then [T/2, T)
   and one-token steps equal to one shot; ``ops.rglru`` routes by length;
+* the flash-attention forward at head dim 160 (pixtral-12b, its serving
+  shape (4, 32, 8, 768, 768) among them) in f32 and bf16, and the sm90
+  cases at 160, with the forward's tolerances; both backwards refuse head
+  dim 160 with ``ValueError``; non-causal T != S (cross-attention) at D 64
+  in the forward and backward sweeps;
 * the flash-attention forward at head dim 256 (recurrentgemma-9b's MQA
   layers): the forward's tolerances above; its backward there (MQA,
   causal, a window shorter than T): f32 on the FMA kernel within the f32
@@ -101,6 +106,18 @@ SWEEP = [
     (1, 2, 1, 1, 160, 64, True, None),
     (1, 2, 2, 72, 200, 32, True, None),
     (4, 32, 4, 512, 512, 128, True, None),
+    # non-causal T != S at D 64, as cross-attention calls it: more queries
+    # than keys, and fewer
+    (2, 4, 4, 100, 37, 64, False, None),
+    (1, 4, 2, 64, 200, 64, False, None),
+]
+# the forward alone also at head dim 160 (pixtral-12b, served and not
+# trained): ragged, GQA, a window, T < S, no mask, and its serving shape
+FWD_SWEEP = SWEEP + [
+    (1, 4, 2, 100, 130, 160, True, None),
+    (2, 4, 1, 96, 96, 160, True, 32),
+    (1, 2, 2, 72, 200, 160, False, None),
+    (4, 32, 8, 768, 768, 160, True, None),
 ]
 ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
 
@@ -121,7 +138,7 @@ def _mk(card, seed, b, hq, hkv, t, s, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", SWEEP)
+@pytest.mark.parametrize("case", FWD_SWEEP)
 def test_kernel_matches_plain(card, case, dtype):
     from repro_torch.kernels.flash_attention import kernel
 
@@ -311,7 +328,7 @@ def libraries(monkeypatch):
 
 
 @pytest.mark.parametrize("case", SM90_CASES)
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 160, 256])
 def test_sm90_fwd_matches_plain(card, libraries, d, case):
     b, hq, hkv, t, s, causal, window = case
     test_kernel_matches_plain(card, (b, hq, hkv, t, s, d, causal, window),
@@ -334,6 +351,22 @@ def test_sm90_bwd_matches_plain(card, libraries, d, case):
     assert libraries == ["flash_bwd_sm90"]
     dead = ~allowed_mask(t, s, causal, window, s - t, card).any(dim=1)
     assert torch.all(dq[:, :, dead] == 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_kernels_refuse_head_dim_160(card, dtype):
+    """The forward has a head dim 160 instance (pixtral-12b is served);
+    neither backward has one yet, and both wrappers say so."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        BWD_HEAD_DIMS, FWD_HEAD_DIMS, flash_attention_bwd_cuda)
+
+    assert 160 in FWD_HEAD_DIMS and 160 not in BWD_HEAD_DIMS
+    q, k, v = _mk(card, 3, 1, 4, 2, 64, 64, 160, dtype)
+    out, lse = attention(q, k, v, causal=True, return_lse=True)
+    with pytest.raises(ValueError, match="head dim 160"):
+        flash_attention_bwd_cuda(q, k, v, out, lse, torch.ones_like(out),
+                                 causal=True, window=None,
+                                 scale=160 ** -0.5)
 
 
 def test_sm90_bwd_runs_are_bit_equal(card, libraries):

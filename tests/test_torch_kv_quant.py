@@ -4,7 +4,8 @@
   ``jax.jit``, the way the reference serves (its scale ``absmax / 127.0``
   is a multiply by the f32 reciprocal there; ROADMAP.md section 3), and
   ``_dq`` is bit-equal to the reference's;
-* tiny models, the reference's weights carried across by name
+* tiny models (seamless-m4t-medium's int8 self and cross caches among
+  them), the reference's weights carried across by name
   (``params_from_numpy``): the port's int8 decode against its own exact
   cache, argmax-equal and within 0.1 (the twin of
   ``tests/test_kv_quant.py``); the port's int8 prefill and decode logits
@@ -67,6 +68,15 @@ def _tokens(cfg, seed, shape):
         0, cfg.vocab_size, shape).astype(np.int32)
 
 
+def _frames(cfg, seed, b):
+    """The encoder-decoder's audio frames (an empty dict for a model
+    without them), numpy."""
+    if cfg.frontend != "frames":
+        return {}
+    return {"frames": np.random.default_rng(seed).standard_normal(
+        (b, cfg.num_frames, cfg.d_model)).astype(np.float32)}
+
+
 def _pair(arch, quant=True, **over):
     """(jax cfg, port cfg, jax params, port params) for a tiny arch."""
     jcfg = dataclasses.replace(jax_get_config(arch, tiny=True),
@@ -124,18 +134,20 @@ def test_q8_rounds_half_to_even_and_clips():
 # the cache on the serving path
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["deepseek-7b", "yi-6b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "seamless-m4t-medium"])
 def test_int8_kv_matches_exact(arch):
     """The twin of ``tests/test_kv_quant.py::test_int8_kv_matches_exact``:
-    4 greedy decode steps from an int8 cache against the exact cache."""
+    4 greedy decode steps from an int8 cache against the exact cache (the
+    encoder-decoder's int8 self and cross caches)."""
     _, cfg, _, params = _pair(arch, quant=False)
     cfgq = dataclasses.replace(cfg, kv_quant=True)
-    toks = torch.from_numpy(_tokens(cfg, 1, (B, 16)))
+    batch = {"tokens": _tokens(cfg, 1, (B, 16)), **_frames(cfg, 2, B)}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     logits = {}
     for c in (cfg, cfgq):
         cache = init_cache(c, B, 32, device="cpu")
         with torch.no_grad():
-            lg, cache = prefill(c, params, {"tokens": toks}, cache)
+            lg, cache = prefill(c, params, batch, cache)
             nxt = torch.argmax(lg, -1)[:, None].to(torch.int32)
             out = []
             for _ in range(4):
@@ -172,18 +184,20 @@ def _differing(mine, ref):
 @pytest.mark.parametrize("arch,prompt,steps", [
     ("deepseek-7b", 16, 6), ("yi-6b", 16, 6), ("phi3-medium-14b", 16, 6),
     # the window of 16: the prompt rolls the ring, the steps wrap it
-    ("recurrentgemma-9b", 40, 20)])
+    ("recurrentgemma-9b", 40, 20),
+    # int8 self and cross caches
+    ("seamless-m4t-medium", 16, 6)])
 def test_int8_path_matches_jitted_reference(arch, prompt, steps):
     jcfg, cfg, jparams, params = _pair(arch)
-    toks = _tokens(cfg, 1, (B, prompt))
+    batch = {"tokens": _tokens(cfg, 1, (B, prompt)), **_frames(cfg, 2, B)}
     max_len = prompt + steps
     jlg, jcache = jax.jit(lambda p, b, c: jax_prefill(jcfg, p, b, c))(
-        jparams, {"tokens": jnp.asarray(toks)},
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()},
         jax_init_cache(jcfg, B, max_len))
     cache = init_cache(cfg, B, max_len, device="cpu")
     with torch.no_grad():
-        lg, cache = prefill(cfg, params, {"tokens": torch.from_numpy(toks)},
-                            cache)
+        lg, cache = prefill(cfg, params, {k: torch.from_numpy(v)
+                                          for k, v in batch.items()}, cache)
     errs = [np.abs(lg.numpy() - np.asarray(jlg)).max()]
     shares = [_differing(_port_leaves(cache), _jax_leaves(jcache))]
     jdec = jax.jit(lambda p, c, t: jax_decode_step(jcfg, p, c, t))
@@ -196,6 +210,8 @@ def test_int8_path_matches_jitted_reference(arch, prompt, steps):
         errs.append(np.abs(lg.numpy() - np.asarray(jlg)).max())
     shares.append(_differing(_port_leaves(cache), _jax_leaves(jcache)))
     assert any(k.endswith("/ks") for k in shares[0])
+    if cfg.is_encdec:
+        assert shares[0]["stack/b0/cross/ks"][1] > 0
     bad = sum(n for s in shares for n, _ in s.values())
     total = sum(m for s in shares for _, m in s.values())
     print(f"{arch}: logits max abs err {max(errs):.2e}; {bad} of {total} "
@@ -240,7 +256,8 @@ def test_int8_cache_is_smaller():
     assert nbytes(cfgq) < 0.45 * nbytes(cfg)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "recurrentgemma-9b",
+                                  "seamless-m4t-medium"])
 def test_snapshot_regions_match_reference(arch):
     """A fresh int8 cache, snapshot by both: the same region names,
     shapes, dtypes (int8 codes, float16 scales) and bytes."""
@@ -277,6 +294,32 @@ def test_serving_commit_and_restore_bit_equal():
         assert [p for p, _ in got] == [p for p, _ in want]
         dtypes = {t.dtype for _, t in got}
         assert {torch.int8, torch.float16} <= dtypes
+        for (path, g), (_, w) in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), path
+        cont = eng.decode_greedy(restored, out[:, :1], 5)
+        np.testing.assert_array_equal(cont, out[:, 1:])
+        client.finalize()
+
+
+def test_serving_commit_and_restore_bit_equal_encdec():
+    """Tiny seamless-m4t-medium's int8 self and cross caches through a
+    serving commit and restore: bit-equal to a second prefill's, and
+    decoding from them gives the live run's tokens."""
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium", tiny=True),
+                              kv_quant=True)
+    _, _, _, params = _pair("seamless-m4t-medium")
+    batch = {"tokens": _tokens(cfg, 5, (B, 12)), **_frames(cfg, 6, B)}
+    with ICheckCluster(n_icheck_nodes=1) as cluster:
+        client = ICheckClient("serve", cluster.controller).init()
+        eng = ServeEngine(cfg, params, max_len=serve_max_len(cfg, 12, 6),
+                          device="cpu")
+        out = eng.generate(batch, gen_len=6, checkpoint_client=client)
+        eng.last_commit.wait(timeout=60)
+        restored = eng.restore_serving_state(client, batch_size=B)
+        _, fresh = eng.prefill(batch)
+        got, want = list(_flatten(restored)), list(_flatten(fresh))
+        assert [p for p, _ in got] == [p for p, _ in want]
+        assert ("stack", "b0", "cross", "ks") in [p for p, _ in got]
         for (path, g), (_, w) in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w), path
         cont = eng.decode_greedy(restored, out[:, :1], 5)

@@ -1,8 +1,9 @@
 """The port's attention backbone held against the JAX reference.
 
 Tiny ``yi-6b``, ``qwen2.5-3b``, ``deepseek-7b`` and ``phi3-medium-14b``
-(dense), and tiny ``dbrx-132b`` and ``qwen3-moe-235b-a22b`` (MoE FFN),
-f32, head dim 16, with the reference's parameters carried across by
+(dense), tiny ``dbrx-132b`` and ``qwen3-moe-235b-a22b`` (MoE FFN), and
+tiny ``seamless-m4t-medium`` (encoder-decoder, with numpy frames) and
+``pixtral-12b`` (with numpy patches), f32, head dim 16, with the reference's parameters carried across by
 name (``params_from_numpy``, the ``moe`` subtree too), so both
 frameworks run the same weights on the same numpy tokens.  Forward
 logits, prefill logits and cache, and each decode step's logits agree to
@@ -41,7 +42,8 @@ from repro_torch.serve import ServeEngine, serve_max_len  # noqa: E402
 torch.backends.cuda.matmul.allow_tf32 = False
 
 ARCHS = ["yi-6b", "qwen2.5-3b", "deepseek-7b", "phi3-medium-14b",
-         "dbrx-132b", "qwen3-moe-235b-a22b"]
+         "dbrx-132b", "qwen3-moe-235b-a22b", "seamless-m4t-medium",
+         "pixtral-12b"]
 MOE_ARCHS = ["dbrx-132b", "qwen3-moe-235b-a22b"]
 # every arch the port builds
 PORT_ARCHS = ARCHS + ["rwkv6-7b", "recurrentgemma-9b"]
@@ -73,6 +75,24 @@ def pair(request):
 def _tokens(cfg, seed, shape):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _inputs(cfg, seed, shape):
+    """numpy tokens of ``shape``, and the frames (encoder-decoder) or
+    patches (VLM) the config's frontend takes."""
+    batch = {"tokens": _tokens(cfg, seed, shape)}
+    rng = np.random.default_rng(seed + 100)
+    if cfg.frontend == "frames":
+        batch["frames"] = rng.standard_normal(
+            (shape[0], cfg.num_frames, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "patches":
+        batch["patches"] = rng.standard_normal(
+            (shape[0], cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _port(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 def test_param_tree_matches_reference(pair):
@@ -120,9 +140,9 @@ def test_params_from_numpy_carries_the_moe_subtree(pair):
 
 def test_forward_matches_reference(pair):
     jcfg, cfg, jparams, params = pair
-    toks = _tokens(cfg, 1, (B, T))
-    want, jaux = jax_forward(jcfg, jparams, {"tokens": toks})
-    got, aux = forward(cfg, params, {"tokens": torch.from_numpy(toks)})
+    batch = _inputs(cfg, 1, (B, T))
+    want, jaux = jax_forward(jcfg, jparams, batch)
+    got, aux = forward(cfg, params, _port(batch))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     assert aux.dtype == torch.float32
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
@@ -177,13 +197,13 @@ def _named(tree, prefix=""):
 
 def test_prefill_and_decode_match_reference(pair):
     jcfg, cfg, jparams, params = pair
-    toks = _tokens(cfg, 2, (B, T))
-    max_len = T + GEN
-    jlogits, jcache = jax_prefill(jcfg, jparams, {"tokens": toks},
+    batch = _inputs(cfg, 2, (B, T))
+    max_len = serve_max_len(cfg, T, GEN)
+    prefix = max_len - T - GEN               # the VLM's patches
+    jlogits, jcache = jax_prefill(jcfg, jparams, batch,
                                   jax_init_cache(jcfg, B, max_len))
     cache = init_cache(cfg, B, max_len, device="cpu")
-    logits, cache = prefill(cfg, params, {"tokens": torch.from_numpy(toks)},
-                            cache)
+    logits, cache = prefill(cfg, params, _port(batch), cache)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                atol=ATOL)
 
@@ -195,7 +215,7 @@ def test_prefill_and_decode_match_reference(pair):
                                        atol=ATOL, err_msg=name)
 
     check_cache()
-    assert int(cache["idx"]) == T
+    assert int(cache["idx"]) == prefix + T
     step_toks = _tokens(cfg, 3, (GEN, B, 1))
     for i in range(GEN):
         jlogits, jcache = jax_decode_step(jcfg, jparams, jcache,
@@ -205,7 +225,7 @@ def test_prefill_and_decode_match_reference(pair):
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                    atol=ATOL, err_msg=f"decode step {i}")
     check_cache()
-    assert int(cache["idx"]) == T + GEN
+    assert int(cache["idx"]) == prefix + T + GEN
 
 
 def test_generation_self_consistent():

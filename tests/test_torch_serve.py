@@ -237,3 +237,77 @@ def test_serve_cli_moe_on_cpu(capsys, arch):
     main(["--arch", arch, "--icheck", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "generated (4, 16)" in out and "first sequence:" in out
+
+
+# ------------------------------------------------- frames / patches models
+FRONTEND_ARCHS = ["seamless-m4t-medium", "pixtral-12b"]
+
+
+def _modal_batch(cfg, seed, b, t):
+    """Tokens, and the encoder-decoder's frames or the VLM's patches."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": _tokens(cfg, seed, (b, t))}
+    if cfg.frontend == "frames":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.num_frames, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "patches":
+        batch["patches"] = rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_generate_matches_reference_tokens_frontends(arch):
+    """The engine passes the frames / patches on: the reference's greedy
+    tokens from the same weights and inputs."""
+    jcfg, cfg, jparams, params = _shared_params(arch)
+    b, t, gen = 2, 16, 8
+    batch = _modal_batch(cfg, 12, b, t)
+    max_len = serve_max_len(cfg, t, gen)
+    want = JaxServeEngine(jcfg, jparams, max_len=max_len).generate(
+        batch, gen_len=gen)
+    got = ServeEngine(cfg, params, max_len=max_len, device="cpu").generate(
+        batch, gen_len=gen)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_serving_state_checkpoint_frontends(arch):
+    """The committed cache's regions are named as the reference's (the
+    encoder-decoder's ``cross`` leaves among them), it is restored
+    bit-equal to a second prefill's, and decoding from it gives the live
+    run's tokens."""
+    from repro_torch.core.snapshot import _flatten, _leaf_name
+
+    jcfg, cfg, jparams, params = _shared_params(arch)
+    batch = _modal_batch(cfg, 7, 2, 12)
+    max_len = serve_max_len(cfg, 12, 6)
+    _, jcache = jax_prefill(jcfg, jparams, batch,
+                            jax_init_cache(jcfg, 2, max_len))
+    with ICheckCluster(n_icheck_nodes=1) as cluster:
+        client = ICheckClient("serve", cluster.controller).init()
+        eng = ServeEngine(cfg, params, max_len=max_len, device="cpu")
+        out = eng.generate(batch, gen_len=6, checkpoint_client=client)
+        eng.last_commit.wait(timeout=60)
+        restored = eng.restore_serving_state(client, batch_size=2)
+        names = list(snapshot_pytree(restored).regions)
+        assert names == list(jax_snapshot_pytree(jcache).regions)
+        if cfg.is_encdec:
+            assert {"stack/b0/cross/k", "stack/b0/cross/v"} <= set(names)
+        _, fresh = eng.prefill(batch)
+        got, want = list(_flatten(restored)), list(_flatten(fresh))
+        assert [p for p, _ in got] == [p for p, _ in want]
+        for (path, g), (_, w) in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), _leaf_name(path)
+        cont = eng.decode_greedy(restored, out[:, :1], 5)
+        np.testing.assert_array_equal(cont, out[:, 1:])
+        client.finalize()
+
+
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_serve_cli_frontends_on_cpu(capsys, arch):
+    from repro_torch.launch.serve import main
+
+    main(["--arch", arch, "--icheck", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "generated (4, 16)" in out and "first sequence:" in out

@@ -3,8 +3,9 @@
 Same numpy inputs through both frameworks:
 
 * rmsnorm's custom backward against ``jax.grad`` of the reference's;
-* ``loss_fn`` value and grads on tiny qwen2.5, yi, rwkv6 and
-  recurrentgemma (the MoE archs': test_torch_models.py), from the
+* ``loss_fn`` value and grads on tiny qwen2.5, yi, rwkv6,
+  recurrentgemma, seamless-m4t-medium (with its frames) and pixtral-12b
+  (with its patches) (the MoE archs': test_torch_models.py), from the
   reference's parameters carried across by name:
   rtol 1e-5 (f32 sums in another order), each leaf also allowed atol 1e-6
   of its largest gradient (1e-5 for the recurrent models, whose
@@ -23,7 +24,7 @@ Same numpy inputs through both frameworks:
   against port, raw codec: losses rtol 1e-6, params bit-equal) and
   ``tests/test_elastic.py`` (a 1 -> 2 resize, losses rtol 1e-5), and the
   q8-delta roundtrip with a resize of ``tests/test_delta_codec.py``, also
-  on tiny rwkv6 and recurrentgemma.
+  on tiny rwkv6, recurrentgemma, seamless-m4t-medium and pixtral-12b.
 
 f32 matmuls run in full precision (``allow_tf32 = False``).
 """
@@ -63,13 +64,18 @@ from repro_torch.train.step import compute_grads  # noqa: E402
 torch.backends.cuda.matmul.allow_tf32 = False
 
 ARCHS = ["qwen2.5-3b", "yi-6b", "rwkv6-7b", "recurrentgemma-9b",
-         "qwen3-moe-235b-a22b"]
+         "qwen3-moe-235b-a22b", "seamless-m4t-medium", "pixtral-12b"]
 # the MoE archs' loss and gradients are held in test_torch_models.py
 # (both remat policies); here the MoE arch takes train steps
 LOSS_ARCHS = [a for a in ARCHS if "moe" not in a]
 # each leaf's atol, relative to its largest element
 REL_ATOL = {"qwen2.5-3b": 1e-6, "yi-6b": 1e-6, "rwkv6-7b": 1e-5,
-            "recurrentgemma-9b": 1e-5, "qwen3-moe-235b-a22b": 1e-6}
+            "recurrentgemma-9b": 1e-5, "qwen3-moe-235b-a22b": 1e-6,
+            # the encoder-decoder's: its gradients hold to 1e-6
+            # (test_torch_encdec.py), but after two steps a few first
+            # moments (AdamW's mu, 0.1 g a step, whose largest is some 20
+            # times below g's) are 4e-6 of their largest apart
+            "seamless-m4t-medium": 1e-5, "pixtral-12b": 1e-6}
 CPU = torch.device("cpu")
 # an overlap resize's background streams must land within this wall time
 RESIZE_WAIT_S = 120
@@ -85,11 +91,19 @@ def _walk(tree, path=()):
 
 
 def _batch(cfg, seed=0, b=2, t=16):
-    toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (b, t)).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
     labels = toks.copy()
     labels[:, -3:] = -1                      # masked targets count as none
-    return {"tokens": toks, "labels": labels}
+    batch = {"tokens": toks, "labels": labels}
+    # the encoder-decoder's audio frames, the VLM's vision patches
+    if cfg.frontend == "frames":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.num_frames, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "patches":
+        batch["patches"] = rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _perturb(tree, seed=1):
@@ -278,7 +292,8 @@ def test_train_step_matches_jax(arch, compress):
       sets.  The same holds for the MoE model (its family is not
       ``dense`` either): an expert that few tokens reach has weight
       gradients near that roundoff (one ``w_gu`` element of 98,304, 1e-5
-      apart after two steps of 1e-3 and 5e-4).
+      apart after two steps of 1e-3 and 5e-4).  The encoder-decoder
+      and the VLM (families ``audio`` and ``vlm``) are held so too.
     """
     jcfg = jax_get_config(arch, tiny=True)
     cfg = get_config(arch, tiny=True)
@@ -458,6 +473,14 @@ def test_elastic_trainer_q8_delta_roundtrip_recurrent(arch):
     _q8_delta_roundtrip(arch)
 
 
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "pixtral-12b"])
+def test_elastic_trainer_q8_delta_roundtrip_frontends(arch):
+    """The round trip above on the encoder-decoder and the VLM: the
+    trainer's batches carry frames / patches, the q8-delta commits carry
+    the encoder's and the frontend's leaves."""
+    _q8_delta_roundtrip(arch)
+
+
 def _q8_delta_roundtrip(arch):
     with ICheckCluster(n_icheck_nodes=2) as cluster:
         t = _trainer(cluster, "app", 5, arch=arch, commit_every=2,
@@ -472,6 +495,24 @@ def _q8_delta_roundtrip(arch):
         assert np.isfinite(t.metrics_log[-1]["loss"])
         t.finalize()
 
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "pixtral-12b"])
+def test_train_cli_frontends_on_cpu(arch, capsys):
+    """Tiny seamless-m4t-medium and pixtral-12b through the trainer's CLI,
+    two microbatches a step (the frames / patches split with the
+    tokens), then through the ElasticTrainer with a resize."""
+    from repro_torch.launch.train import main
+
+    main(["--arch", arch, "--device", "cpu", "--steps", "3",
+          "--global-batch", "4", "--seq-len", "16", "--microbatches", "2"])
+    main(["--arch", arch, "--icheck", "--device", "cpu", "--steps", "6",
+          "--commit-every", "2", "--resize-at", "3", "--global-batch", "4",
+          "--seq-len", "16"])
+    out = capsys.readouterr().out
+    assert "3 steps in" in out
+    assert "[resize] 1 -> 2 ranks, resizes=1" in out
+    assert np.isfinite(float(out.split("final loss ")[1].split()[0]))
 
 
 def test_train_cli_moe_on_cpu(capsys):
