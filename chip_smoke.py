@@ -85,7 +85,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      (FMAs) within atol 1e-4 + rtol 1e-4 and bf16 (wgmma) within twice
      SDPA's error as at the lower head dims (both printed), over three
      windowed MQA cases and (1, 16, 1, 4096, 4096, 256) under the window
-     of 2048; then one call each of the two redesigned backwards (K6's
+     of 2048; K4's backward at head dim 160 (pixtral-12b), f32 (FMAs) and
+     bf16 (wgmma: 64 keys a dk/dv block, its query tile split between the
+     consumers) with the tolerances above, two runs bit-equal, over the
+     card tests' cases (GQA, causal and not, a window, T != S both ways),
+     the sm90 cases at 160 and pixtral's training shape (1, 32, 8, 4352,
+     4352, causal: 256 patches before 4096 tokens); then one call each of
+     the two redesigned backwards (K6's
      chunked, K4's at head dim 256) at their training shapes under
      ``torch.profiler``: their device time by kernel (``backward_split``);
 4. the serving path: yi-6b at full width (32 layers, bf16, random weights
@@ -191,18 +197,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    its line;
 5. the training path: ``ElasticTrainer`` trains qwen2.5-3b at full width
    (36 layers, d_model 2048, bf16 compute, f32 master weights, full remat)
-   on 4096-token sequences, global batch 1 (cut from 256), 6 steps with a
-   q8-delta commit every 2 (keyframe, delta, delta) encoded on the card, 2
+   on 4096-token sequences, global batch 1 (cut from 256), 4 steps with a
+   q8-delta commit every 2 (keyframe, delta) encoded on the card, 2
    more steps as the uninterrupted reference; a fresh trainer restarts from
    the agents, step and data state restored and every float leaf equal to
    its committed codes (which lie within absmax/127 * 0.51 per block of
    the state at commit), and trains 2 steps.  Counts are set to 0 before
-   and read after the 6 steps and their commits;
-5b. the same training path for rwkv6-7b at published widths cut to 8
-   layers (2,290,520,064 params), bf16 compute, 4 steps of 4096 tokens,
-   q8-delta commits at 2 and 4, no restart: K6's chunked forward 2 x 8 x
+   and read after the 4 steps and their commits;
+5b. the same training path for rwkv6-7b at published widths cut to 4
+   layers (1,413,697,536 params), bf16 compute, 4 steps of 4096 tokens,
+   q8-delta commits at 2 and 4, no restart: K6's chunked forward 2 x 4 x
    4 times (full remat runs each layer's forward twice), its chunked
-   backward 8 x 4, the sequential forward and backward never; K1 and K2
+   backward 4 x 4, the sequential forward and backward never; K1 and K2
    in the commits; then a 2-layer f32 cut's loss and every
    gradient on the card against the plain CPU path (one 64-token
    sequence; each leaf within 1e-3 of its largest element, the loss
@@ -230,14 +236,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    recomputes each), its backward 36, all on the bf16 wgmma libraries;
    then a 1 + 1-layer f32 cut's loss and every gradient leaf (the
    encoder's and the frontend's among them) against the plain CPU path;
-6. a second training phase at full width cut to 4 layers: int8 gradient
+5f. the training path of 5b for pixtral-12b at published widths cut to
+   2 of its 40 layers (1,939,891,200 params, about 45 GB of state),
+   through the sharded trainer: this process joins a one-rank NCCL world
+   over a ``FileStore`` (``sharding.init_world``), so ``ElasticTrainer``
+   makes its ``DeviceMesh`` (``sharding.make_mesh``: one card), all-reduces
+   every gradient leaf over it (one NCCL all-reduce a leaf a step, counted)
+   and snapshots its state as DTensors; 4 steps of 4096 tokens after 256
+   seeded patches (K4 at T 4352, head dim 160), q8-delta commits at 2 and
+   4: K4's forward 2 x 2 a step (remat), its backward 2 a step, all on
+   ``flash_bwd_sm90``; then a 1-layer f32 cut's loss and gradients
+   (``flash_bwd.cu``'s head-dim-160 instance on the card) against the
+   plain CPU path, each leaf within 1e-4 of its largest element;
+6. a second training phase at full width cut to 2 layers: int8 gradient
    compression (K1 + K3 in every step) and a 1 -> 2 logical-rank resize
    with ``overlap_resize``;
 7. numbers: the serving lines (yi-6b, rwkv6-7b, recurrentgemma-9b,
    deepseek-7b with its int8 subrun, phi3-medium-14b, seamless-m4t-medium
    with its int8 subrun, pixtral-12b, dbrx-132b, qwen3-moe-235b-a22b), the
    training lines (qwen2.5-3b, rwkv6-7b, recurrentgemma-9b,
-   seamless-m4t-medium; qwen3-moe's loss-and-gradient line), step ms,
+   seamless-m4t-medium, pixtral-12b; qwen3-moe's loss-and-gradient line),
+   step ms,
    tokens/s,
    ``mfu``, commit and restart wall seconds,
    bytes on the wire, peak device memory, host RSS, a ``torch.profiler``
@@ -298,10 +317,13 @@ BATCH, PROMPT, GEN = 4, 512, 32
 ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
 LSE_ATOL = 1e-4
 BWD_TOL = {"float32": (1e-4, 1e-4)}
-# the training path: qwen2.5-3b, one 4096-token sequence a step
+# the training path: qwen2.5-3b, one 4096-token sequence a step, 4 steps
+# (6 until pixtral-12b's training phase came: the third commit repeated
+# the second's delta frames)
 # the cut phase (6) runs qwen2.5-3b cut to CUT_LAYERS layers (8 until the
-# encoder-decoder's phases came, 4 since, to keep the run within its time)
-TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 6, 2, 4
+# encoder-decoder's phases came, 4 until pixtral-12b's training phase
+# came, 2 since, to keep the run within its time)
+TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 4, 2, 2
 # the cut phase's overlap resize must complete within this wall time
 RESIZE_WAIT_S = 300
 CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
@@ -362,10 +384,11 @@ Q8_SCALE_SHARE = Q8_SHARE * 2 ** 11 / 127
 Q8_SCALE_STEP = 127 * 2 ** -10
 CODEC_DTYPES = ("float32", "bfloat16", "float16")
 # the recurrent training phases (5b, 5c): TRAIN_SEQ tokens a step, steps
-# and q8-delta commit interval; rwkv6-7b cut to 8 layers, recurrentgemma-9b
-# to one super-layer (rec, rec, attn) without its two tail layers
+# and q8-delta commit interval; rwkv6-7b cut to 4 layers (8 until
+# pixtral-12b's training phase came), recurrentgemma-9b to one
+# super-layer (rec, rec, attn) without its two tail layers
 TRAIN_REC_STEPS, TRAIN_REC_COMMIT = 4, 2
-RWKV_TRAIN_LAYERS, HYBRID_TRAIN_LAYERS = 8, 3
+RWKV_TRAIN_LAYERS, HYBRID_TRAIN_LAYERS = 4, 3
 # the MoE phases: dbrx-132b and qwen3-moe-235b-a22b served cut to 4
 # layers, their f32 cuts (1 layer, a 64-token prompt, 8 decode steps)
 # against the plain CPU path; qwen3-moe's training loss and gradients cut
@@ -395,6 +418,18 @@ D160_SWEEP = [(1, 4, 4, 1, 160, 160, True, None),
               (1, 16, 1, 200, 333, 160, True, 100),
               (1, 4, 2, 96, 40, 160, True, None),
               (1, 2, 2, 200, 200, 160, False, None)]
+# K4's backward at head dim 160 (pixtral-12b): the card tests' cases
+# (GQA 2:1 and 4:1, T < S ragged at the 64-key blocks, a window,
+# non-causal T < S and T > S, a longer causal run), then the sm90 cases
+D160_BWD_SWEEP = [(1, 4, 2, 100, 130, 160, True, None),
+                  (2, 4, 1, 96, 96, 160, True, 32),
+                  (1, 2, 2, 72, 200, 160, False, None),
+                  (2, 4, 4, 100, 37, 160, False, None),
+                  (1, 8, 2, 520, 520, 160, True, None)] + D160_SWEEP
+# pixtral-12b trained (phase 5f): cut to 2 of its 40 layers; its f32 cut
+# of 1 layer against the plain CPU path, every gradient leaf within
+# PIX_GRAD_TOL of its largest element
+PIX_TRAIN_LAYERS, PIX_PLAIN_LAYERS, PIX_GRAD_TOL = 2, 1, 1e-4
 # the encoder-decoder (seamless-m4t-medium): its served and trained
 # layers (12 + 12) and one TRAIN_SEQ-token sequence with its frames a
 # training step; its f32 cuts (1 + 1 layers) against the plain CPU path
@@ -553,7 +588,10 @@ SASS_REQUIRED = {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
 # and in the kernels whose (mangled) names hold these: the head-dim-256
 # instances of the bf16 backward
 SASS_FUNCTION_REQUIRED = {"flash_bwd_sm90": {"dkdv_d256": "HGMMA",
-                                             "dq_sm90_kernelILi256E": "HGMMA"},
+                                             "dq_sm90_kernelILi256E": "HGMMA",
+                                             # and at head dim 160
+                                             "dkdv_qsplit": "HGMMA",
+                                             "dq_sm90_kernelILi160E": "HGMMA"},
                           # the forward's head-dim-160 instance (pixtral-12b)
                           "flash_fwd_sm90": {
                               "flash_fwd_sm90_kernelILi160E": "HGMMA",
@@ -2284,11 +2322,13 @@ def host_rss() -> dict:
 
 def train_main_path(cfg, device, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
                     commit_every=COMMIT_EVERY, node_memory=48 << 30,
-                    profile=False, restart=True) -> dict:
+                    profile=False, restart=True, on_trainer=None) -> dict:
     """ElasticTrainer with q8-delta commits, two more steps (the first's
     launches counted, the second profiled when ``profile``), then, when
-    ``restart``, a restart from the agents; else a clean exit.  Returns
-    counts, losses, wall times and commit records."""
+    ``restart``, a restart from the agents; else a clean exit.
+    ``on_trainer(trainer)``, if given, checks the trainer once it is
+    built and returns a dict kept under ``trainer``.  Returns counts,
+    losses, wall times and commit records."""
     import numpy as np
     import torch
 
@@ -2318,6 +2358,8 @@ def train_main_path(cfg, device, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
             t1 = ElasticTrainer(cfg, shape, cluster, **kw)
             _sync(device)
             res["init_s"] = time.monotonic() - t0
+            if on_trainer is not None:
+                res["trainer"] = on_trainer(t1)
             reset_counts()
             for i in range(1, steps + 1):
                 t0 = time.monotonic()
@@ -2504,13 +2546,13 @@ def _perturb_lam(params, seed=1) -> None:
 
 
 def check_grads_against_plain(cfg, device, layers, window=None,
-                              seq=GRAD_SEQ) -> dict:
+                              seq=GRAD_SEQ, tol=GRAD_TOL) -> dict:
     """A cut of ``cfg`` to its first ``layers`` layers at published widths
     in f32 (``window``, if given, in place of the config's): the loss and
     every gradient leaf of ``compute_grads`` on the card (the kernels,
     forward and backward) against the plain CPU path's, from the same
     seeded parameters (``lam`` moved by ``_perturb_lam``) and one
-    ``seq``-token sequence.  Each leaf within GRAD_TOL of its largest
+    ``seq``-token sequence.  Each leaf within ``tol`` of its largest
     element, the loss within LOSS_RTOL.  The parameters are drawn on the
     card (its generator draws billions of values in milliseconds, the
     CPU's in tens of seconds) and copied to the CPU.  Returns the errors,
@@ -2555,23 +2597,25 @@ def check_grads_against_plain(cfg, device, layers, window=None,
            "loss": want_loss, "loss_rel_err": loss_err,
            "worst_leaf": worst_leaf, "worst_leaf_err_of_max": worst,
            "launches": launches, **wall}
-    if not (loss_err <= LOSS_RTOL and worst <= GRAD_TOL):
+    if not (loss_err <= LOSS_RTOL and worst <= tol):
         raise AssertionError(f"{layers}-layer f32 cut: card vs plain CPU "
                              f"grads {json.dumps(res)} (loss rtol "
-                             f"{LOSS_RTOL}, each leaf {GRAD_TOL} of its "
+                             f"{LOSS_RTOL}, each leaf {tol} of its "
                              f"largest)")
     return res
 
 
 def train_recurrent_phase(line, cfg, device, card, n_params, want, reduced,
-                          plain) -> dict:
+                          plain, on_trainer=None, extra=None) -> dict:
     """``cfg`` (a cut of a recurrent model at published widths) through
     ``train_main_path``: TRAIN_REC_STEPS steps of TRAIN_SEQ tokens, bf16
     compute, q8-delta commits every TRAIN_REC_COMMIT steps, no restart
     (phase 5 holds that); the launches of those steps and commits held to
     ``want`` (K1 and K2 in the commits); then ``plain`` (keywords of
     ``check_grads_against_plain``).  Prints the ``line`` JSON line and
-    its profile; returns its launches and the f32 cut's on the card."""
+    its profile; returns its launches and the f32 cut's on the card.
+    ``on_trainer`` goes to ``train_main_path``; ``extra()``, called after
+    the steps, adds its keys to the line."""
     import torch
 
     from repro_torch.models import count_params
@@ -2582,7 +2626,7 @@ def train_recurrent_phase(line, cfg, device, card, n_params, want, reduced,
     torch.cuda.reset_peak_memory_stats()
     tr = train_main_path(cfg, device, steps=TRAIN_REC_STEPS,
                          commit_every=TRAIN_REC_COMMIT, profile=True,
-                         restart=False)
+                         restart=False, on_trainer=on_trainer)
     _check_launches(tr["launches"], want, line)
     if not (tr["launches"]["quantize"] and tr["launches"]["quantize_delta"]):
         raise AssertionError(f"{line}: commits did not run K1 and K2: "
@@ -2616,11 +2660,82 @@ def train_recurrent_phase(line, cfg, device, card, n_params, want, reduced,
         "launches_per_step": tr["launches_per_step"],
         "max_memory_allocated": tr["max_memory_allocated"],
         "plain_grads": grads, "host": host_rss(),
+        **({"trainer": tr["trainer"]} if "trainer" in tr else {}),
+        **(extra() if extra is not None else {}),
     }
     log(card)
     log(json.dumps({line: res}))
     log(json.dumps({f"profile_{line}_step": tr["profile_step"]}))
     return tr["launches"], grads["launches"]
+
+
+def train_pixtral_mesh_phase(xcfg, device, card, steps=TRAIN_REC_STEPS):
+    """Phase 5f: pixtral-12b cut to PIX_TRAIN_LAYERS layers through
+    ``train_recurrent_phase``, its trainer sharded: this process is the
+    one rank of an NCCL world (``sharding.init_world`` over a
+    ``FileStore``), so the trainer's mesh is a one-card ``DeviceMesh``,
+    its state is snapshotted as DTensors, and every step all-reduces each
+    gradient leaf, the loss and the token count over the mesh (counted
+    here: ``torch.distributed.all_reduce`` wrapped for the phase).
+    Returns the launches of the steps and of the f32 cut."""
+    import torch.distributed as dist
+
+    from repro_torch.core.snapshot import _flatten, is_dtensor
+    from repro_torch.sharding import init_world
+
+    n = PIX_TRAIN_LAYERS
+    cut = dataclasses.replace(xcfg, num_layers=n)
+    store = tempfile.mkdtemp(prefix="chip-smoke-world-")
+    init_world(0, 1, "nccl", store)
+    real, calls = dist.all_reduce, []
+
+    def counted(tensor, *a, **k):
+        calls.append(tensor.device.type)
+        return real(tensor, *a, **k)
+
+    def on_trainer(t) -> dict:
+        mesh = t.mesh
+        leaves = [x for _, x in _flatten(t._sharded())]
+        if mesh is None or mesh.device_type != "cuda" or mesh.size() != 1:
+            raise AssertionError(f"the trainer's mesh: {mesh}")
+        if not all(is_dtensor(x) and x.to_local().is_cuda for x in leaves):
+            raise AssertionError("the trainer's state is not DTensors on "
+                                 "the card")
+        grads = sum(1 for _ in _flatten(t.state.params))
+        info["per_step"] = grads + 2
+        return {"mesh": repr(mesh), "backend": dist.get_backend(),
+                "world": dist.get_world_size(), "state_leaves": len(leaves),
+                "grad_leaves": grads}
+
+    def extra() -> dict:
+        # the 4 steps, the counted one and the profiled one
+        want = (steps + 2) * info["per_step"]
+        if len(calls) != want or set(calls) != {"cuda"}:
+            raise AssertionError(f"all-reduces: {len(calls)} on "
+                                 f"{set(calls)}, want {want} on the card")
+        return {"all_reduces": len(calls),
+                "all_reduces_per_step": info["per_step"]}
+
+    info: dict = {}
+    dist.all_reduce = counted
+    try:
+        return train_recurrent_phase(
+            "train_pixtral", cut, device, card, 1_939_891_200,
+            # each layer's forward twice a step (remat), its backward once,
+            # all on the bf16 wgmma libraries
+            {"flash_fwd": 2 * n * steps, "flash_bwd_sm90": n * steps,
+             "flash_bwd": 0},
+            {"num_layers": f"{xcfg.num_layers} -> {n}: the whole model's "
+             f"f32 weights, AdamW moments, gradients and codes (about 23 B "
+             f"a parameter, 294 GB for 12,798,284,800) do not fit the "
+             f"card's 80 GB", "global_batch": f"one sequence of "
+             f"{TRAIN_SEQ} tokens after {xcfg.num_patches} patches a step"},
+            dict(layers=PIX_PLAIN_LAYERS, tol=PIX_GRAD_TOL),
+            on_trainer=on_trainer, extra=extra)
+    finally:
+        dist.all_reduce = real
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
 
 
 def serve_moe_phase(cfg, device, card, line, n_params, profile=()):
@@ -2935,6 +3050,11 @@ def main() -> int:
     pix_case = (BATCH, xcfg.num_heads, xcfg.num_kv_heads,
                 xcfg.num_patches + PROMPT, xcfg.num_patches + PROMPT,
                 xcfg.resolved_head_dim, True, xcfg.window)
+    # pixtral-12b's training shape (phase 5f): 256 patches before 4096 tokens
+    pix_train_case = (1, xcfg.num_heads, xcfg.num_kv_heads,
+                      xcfg.num_patches + TRAIN_SEQ,
+                      xcfg.num_patches + TRAIN_SEQ, xcfg.resolved_head_dim,
+                      True, xcfg.window)
     w_gu = tcfg.num_layers * 2 * tcfg.d_model * tcfg.d_ff
     t_start = time.monotonic()
 
@@ -2982,6 +3102,9 @@ def main() -> int:
     # K4's forward at head dim 160 (pixtral-12b), f32 on FMAs and bf16 on
     # wgmma, over the sm90 cases and the serving shape
     d160_err = check_kernels(pix_case, device, D160_SWEEP)
+    # and its backward, f32 on FMAs and bf16 on wgmma, over the card
+    # tests' cases and pixtral's training shape
+    d160_bwd_err = check_bwd(pix_train_case, device, D160_BWD_SWEEP)
     # the encoder-decoder's non-causal calls: the served encoder and cross
     # shape (T = S), and the training cross-attention (T 4096 over S 512),
     # forward in both dtypes and backward in bf16, two runs bit-equal
@@ -3201,15 +3324,16 @@ def main() -> int:
     # ones
     rw_train, rw_cut = train_recurrent_phase(
         "train_rwkv6", dataclasses.replace(rcfg, num_layers=n), device, card,
-        2_290_520_064,
+        1_413_697_536,
         {"rwkv6_sm90": 2 * n * steps, "rwkv6_bwd_sm90": n * steps,
          "rwkv6_bwd": 0, "rwkv6": 0, "flash_fwd": 0, "flash_bwd": 0,
          "flash_bwd_sm90": 0},
         {"num_layers": f"{rcfg.num_layers} -> {n}: the whole model's f32 "
          f"weights, AdamW moments, gradients and codes (about 23 B a "
          f"parameter, 174 GB for {count_params(rcfg)}) do not fit the "
-         f"card's 80 GB", "global_batch": f"one sequence of {TRAIN_SEQ} "
-         f"tokens a step"},
+         f"card's 80 GB; 8 layers until pixtral-12b's training phase came, "
+         f"{n} since, to keep the whole run within its time",
+         "global_batch": f"one sequence of {TRAIN_SEQ} tokens a step"},
         dict(layers=2))
     log(f"  phase 5b done at {time.monotonic() - t_start:.1f} s")
 
@@ -3267,6 +3391,18 @@ def main() -> int:
         dict(layers=SEAMLESS_PLAIN_LAYERS))
     log(f"  phase 5e done at {time.monotonic() - t_start:.1f} s")
 
+    n = PIX_TRAIN_LAYERS
+    log(f"phase 5f: training, {xcfg.name} cut to {n} of {xcfg.num_layers} "
+        f"layers d_model {xcfg.d_model}, {TRAIN_SEQ} tokens after "
+        f"{xcfg.num_patches} patches a step, {steps} steps, q8-delta commit "
+        f"every {TRAIN_REC_COMMIT}, through a one-card NCCL mesh")
+    px_train, px_cut = train_pixtral_mesh_phase(xcfg, device, card)
+    # the f32 cut's one layer: K4's backward at head dim 160 on the FMA
+    # library once
+    _check_launches(px_cut, {"flash_bwd": PIX_PLAIN_LAYERS,
+                             "flash_bwd_sm90": 0}, "train_pixtral f32 cut")
+    log(f"  phase 5f done at {time.monotonic() - t_start:.1f} s")
+
     cut_cfg = dataclasses.replace(tcfg, num_layers=CUT_LAYERS)
     log(f"phase 6: {tcfg.name} cut to {CUT_LAYERS} layers, compressed "
         f"gradients, 1 -> 2 rank resize with overlap")
@@ -3275,7 +3411,8 @@ def main() -> int:
         f"{tcfg.num_layers} -> {CUT_LAYERS}: the phase shows compressed "
         f"gradients and an overlap resize, whose wait grows with the "
         f"state; 8 layers until the encoder-decoder's phases were added, "
-        f"4 since, to keep the whole run within its time")}
+        f"4 until pixtral-12b's training phase was, {CUT_LAYERS} since, to "
+        f"keep the whole run within its time")}
     log(json.dumps({"train_cut": cut}))
     log(f"  phase 6 done at {time.monotonic() - t_start:.1f} s")
 
@@ -3291,6 +3428,8 @@ def main() -> int:
     moe_bwd_train = bwd_numbers(moe_train_case, device)
     cross_fwd_train = attention_numbers(seamless_cross_train, device)
     cross_bwd_train = bwd_numbers(seamless_cross_train, device)
+    d160_fwd_train = attention_numbers(pix_train_case, device)
+    d160_bwd = bwd_numbers(pix_train_case, device)
     torch.cuda.synchronize()
     log(json.dumps({"flash_fwd_train_shape": fwd_train,
                     "flash_bwd_train_shape": bwd, "codec_w_gu": codec,
@@ -3302,7 +3441,9 @@ def main() -> int:
                     "flash_bwd_qwen3_moe_train_shape": moe_bwd_train,
                     "flash_fwd_seamless_cross_train_shape": cross_fwd_train,
                     "flash_bwd_seamless_cross_train_shape":
-                        cross_bwd_train}))
+                        cross_bwd_train,
+                    "flash_fwd_d160_train_shape": d160_fwd_train,
+                    "flash_bwd_d160_train_shape": d160_bwd}))
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
     paths = {"serve": yi_launches, "serve_rwkv6": rw_launches,
@@ -3321,6 +3462,7 @@ def main() -> int:
              "grad_qwen3_moe": moe_grad,
              "grad_qwen3_moe_f32_cut": moe_grad_cut,
              "train_seamless": sm_train, "train_seamless_f32_cut": sm_cut,
+             "train_pixtral": px_train, "train_pixtral_f32_cut": px_cut,
              "rs_encode_check": rs["launches"]}
 
     def counts(name, path):
@@ -3369,7 +3511,8 @@ def main() -> int:
         row("flash_fwd_d160", fa + "flash_fwd_sm90.cu",
             "flash_attention/kernel.py:95",
             counts("flash_fwd", "serve_pixtral"), d160_err,
-            px_num["flash_fwd_d160_serve_shape"]),
+            px_num["flash_fwd_d160_serve_shape"],
+            train_shape=d160_fwd_train),
         # the same kernel's head-dim-256 instance, on recurrentgemma-9b's
         # path (its windowed MQA layers)
         row("flash_fwd_d256", fa + "flash_fwd_sm90.cu",
@@ -3445,7 +3588,13 @@ def main() -> int:
         row("flash_bwd_d256", fa + "flash_bwd_sm90.cu",
             "flash_attention/ops.py:94",
             counts("flash_bwd_sm90", "train_recurrentgemma"), d256_bwd_err,
-            d256_bwd, f32_fma_design=d256_bwd["f32_fma_design"])]
+            d256_bwd, f32_fma_design=d256_bwd["f32_fma_design"]),
+        # its head-dim-160 instance (the query-split dk/dv kernel), on
+        # pixtral-12b's training path
+        row("flash_bwd_d160", fa + "flash_bwd_sm90.cu",
+            "flash_attention/ops.py:94",
+            counts("flash_bwd_sm90", "train_pixtral"), d160_bwd_err,
+            d160_bwd)]
     log(f"  total {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

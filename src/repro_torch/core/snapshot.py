@@ -11,7 +11,19 @@ JAX pytree:
 * ``None`` fields and empty lists produce no leaf;
 * a 0-d tensor becomes a region of shape ``()``.
 
-On one device a leaf is one part (the whole tensor).  bfloat16 leaves
+A plain tensor is one part (the whole tensor).  A ``DTensor`` leaf (a
+tensor sharded or replicated over a ``DeviceMesh``) is the parts of the
+distinct boxes of its sharding, replicas deduplicated, the twin of the
+reference's ``_device_parts`` (``repro/core/snapshot.py:80-110``).  The
+iCheck client lives in rank 0 of the process world, as the reference's
+single controller holds it: every rank of a DTensor leaf's mesh calls
+``snapshot_pytree`` together, each box's first holder sends it to rank 0
+(a gather of the distinct shards only: with a replicated leaf rank 0
+holds every box and no bytes move), and the snapshot is rank 0's; the
+other ranks get None.  ``load_leaf_`` is the reverse: rank 0 assembles a
+leaf from its fetched parts and sends each rank of the mesh its box (a
+scatter), which lands in that rank's local shard.  Rank 0 is a rank of
+every such mesh.  bfloat16 leaves
 travel as their uint16 bit patterns (region dtype ``"uint16"``): the
 service calls ``np.dtype(meta.dtype)`` throughout, and numpy knows no
 bfloat16 without ``ml_dtypes``.  ``restore_pytree`` views the bits back
@@ -38,6 +50,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import plan as planlib
 from ..kernels.ckpt_codec import BLOCK, quantize, quantize_delta
@@ -90,6 +103,93 @@ def _leaf_name(path: Tuple[str, ...]) -> str:
     return "/".join(path) or "leaf"
 
 
+# --------------------------------------------------------------------------
+# DTensor leaves: boxes, and the gather / scatter through rank 0
+# --------------------------------------------------------------------------
+ROOT = 0     # the rank that holds the iCheck client
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
+def is_dtensor(x) -> bool:
+    if not isinstance(x, torch.Tensor) or not dist.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def dtensor_sharding(leaf):
+    """The ``NamedSharding`` of a DTensor's placements: array dim d split
+    over the mesh axes that ``Shard(d)`` (major first)."""
+    from ..sharding import NamedSharding
+
+    mesh = leaf.device_mesh
+    names = mesh.mesh_dim_names
+    if names is None:
+        raise ValueError("a DTensor leaf's mesh needs named dims")
+    axes: List[List[str]] = [[] for _ in range(leaf.dim())]
+    for i, pl in enumerate(leaf.placements):
+        if pl.is_shard():
+            axes[pl.dim].append(names[i])
+        elif not pl.is_replicate():
+            raise ValueError(f"placement {pl} (partial) has no boxes")
+    return NamedSharding(mesh, [None if not a else a[0] if len(a) == 1
+                                else tuple(a) for a in axes])
+
+
+def _layout(leaf) -> Tuple[Tuple[planlib.Box, ...], Dict[int, int]]:
+    """(distinct boxes in canonical order, rank -> its box's index) of a
+    DTensor leaf."""
+    idx_map = dtensor_sharding(leaf).devices_indices_map(tuple(leaf.shape))
+    box_of = {r: tuple((sl.start, sl.stop) for sl in idx)
+              for r, idx in idx_map.items()}
+    boxes = tuple(sorted(set(box_of.values())))   # as mesh_part_bounds
+    index = {b: i for i, b in enumerate(boxes)}
+    if ROOT not in box_of:
+        raise ValueError(f"rank {ROOT} is not in the leaf's mesh")
+    return boxes, {r: index[b] for r, b in sorted(box_of.items())}
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """The tensor point-to-point calls move: bfloat16 as its int16 bits."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _box_shape(box: planlib.Box) -> Tuple[int, ...]:
+    return tuple(hi - lo for lo, hi in box)
+
+
+def _device_parts(leaf) -> Tuple[Tuple[planlib.Box, ...], Dict[int, Any]]:
+    """(boxes, part index -> tensor or array) of one leaf.  A DTensor's
+    distinct shards are gathered to rank 0, from the first rank holding
+    each box; other ranks return no parts."""
+    if not is_dtensor(leaf):
+        shape = tuple(np.shape(leaf))
+        return (tuple((0, int(s)) for s in shape),), {0: leaf}
+    boxes, part_of = _layout(leaf)
+    owner: Dict[int, int] = {}
+    for r, p in part_of.items():
+        owner.setdefault(p, r)
+    me, local = _rank(), leaf.to_local()
+    parts: Dict[int, Any] = {}
+    for p, r in sorted(owner.items()):
+        if r == ROOT:
+            if me == ROOT:
+                parts[p] = local
+        elif me == r:
+            dist.send(_wire(local.detach().contiguous()), dst=ROOT)
+        elif me == ROOT:
+            buf = torch.empty(_box_shape(boxes[p]), dtype=local.dtype,
+                              device=local.device)
+            dist.recv(_wire(buf), src=r)
+            parts[p] = buf
+    return boxes, parts
+
+
 @dataclasses.dataclass
 class SnapshotRegion:
     meta: RegionMeta
@@ -132,31 +232,36 @@ def _np_dtype(dtype: torch.dtype) -> str:
     return str(torch.empty((), dtype=dtype).numpy().dtype)
 
 
-def _region_meta(name: str, shape, dtype: str, nbytes: int
+def _region_meta(name: str, shape, dtype: str, nbytes: int, boxes=None
                  ) -> Tuple[RegionMeta, Tuple[planlib.Box, ...]]:
-    """One part covering the whole leaf (one device)."""
-    boxes = (tuple((0, int(s)) for s in shape),)
-    desc = PartitionDesc(scheme=PartitionScheme.MESH, num_parts=1,
-                         bounds=boxes)
+    """The region of a leaf split into ``boxes`` (default: one part
+    covering the whole leaf)."""
+    if boxes is None:
+        boxes = (tuple((0, int(s)) for s in shape),)
+    desc = PartitionDesc(scheme=PartitionScheme.MESH, num_parts=len(boxes),
+                         bounds=tuple(boxes))
     return RegionMeta(name=name, shape=tuple(int(s) for s in shape),
                       dtype=dtype, partition=desc, nbytes=nbytes), boxes
 
 
 def describe_pytree(tree, step: int = 0) -> HostSnapshot:
     """The regions of ``tree`` as ``snapshot_pytree(codec="raw")`` would
-    name and shape them, with no parts: registering regions needs no
-    device→host copy."""
+    name, shape and split them, with no parts: registering regions needs
+    no device→host copy, and no rank but the caller takes part."""
     regions: Dict[str, SnapshotRegion] = {}
     for path, leaf in _flatten(tree):
         name = _leaf_name(path)
+        split = None
         if isinstance(leaf, torch.Tensor):
             dtype = "uint16" if leaf.dtype == torch.bfloat16 else \
                 _np_dtype(leaf.dtype)
             shape, nbytes = leaf.shape, leaf.numel() * leaf.element_size()
+            if is_dtensor(leaf):
+                split = _layout(leaf)[0]
         else:
             arr = np.asarray(leaf)
             dtype, shape, nbytes = str(arr.dtype), arr.shape, arr.nbytes
-        meta, boxes = _region_meta(name, shape, dtype, nbytes)
+        meta, boxes = _region_meta(name, shape, dtype, nbytes, split)
         regions[name] = SnapshotRegion(meta=meta, parts={}, boxes=boxes)
     return HostSnapshot(regions=regions, step=step)
 
@@ -214,17 +319,17 @@ def _delta_is_smaller(d: torch.Tensor, s: torch.Tensor,
         d.shape[0])
 
 
-def _encode_leaf(leaf: torch.Tensor, prev: Optional[Dict[int, DeltaState]]):
-    """Encode one float leaf (one part) on its device and copy the result
-    to the host: the XOR delta when its frame will be a delta, else the
-    codes, and the scales.  Returns ({part: (host delta or codes, host
-    scales, device codes)}, whether the frame is a delta).
+def _encode_part(leaf: torch.Tensor, prev: Optional[DeltaState]):
+    """Encode one float part on its device and copy the result to the
+    host: the XOR delta when its frame will be a delta, else the codes,
+    and the scales.  Returns ((host delta or codes, host scales, device
+    codes), whether the frame is a delta).
 
     The copies go to pageable host memory: pinned buffers for a whole
     state's codes would stay in PyTorch's host cache after every commit
     (tens of GB at full width)."""
     if prev is not None:
-        st = prev[0]
+        st = prev
         prev_q = st.codes_dev
         if prev_q is None or prev_q.device != leaf.device:
             prev_q = torch.from_numpy(np.ascontiguousarray(st.codes)) \
@@ -238,10 +343,10 @@ def _encode_leaf(leaf: torch.Tensor, prev: Optional[Dict[int, DeltaState]]):
         if _delta_is_smaller(d, s, st):
             # the dense int8 delta crosses the link (the host packs it
             # sparse); the new codes stay on the device for the next commit
-            return {0: (d.cpu(), s.cpu(), q)}, True
-        return {0: (q.cpu(), s.cpu(), q)}, False
+            return (d.cpu(), s.cpu(), q), True
+        return (q.cpu(), s.cpu(), q), False
     q, s = quantize(leaf)
-    return {0: (q.cpu(), s.cpu(), q)}, False
+    return (q.cpu(), s.cpu(), q), False
 
 
 def snapshot_pytree(tree, step: int = 0, codec: str = "raw",
@@ -252,43 +357,63 @@ def snapshot_pytree(tree, step: int = 0, codec: str = "raw",
     device before the copy; ``chain_lookup(name, num_parts)`` supplies the
     catalog's previous-codes state so ``q8-delta`` regions ship sparse
     XOR-delta frames (``ICheckClient.delta_chain_lookup``).  Non-float
-    leaves always travel raw.
+    leaves always travel raw.  With DTensor leaves every rank of their
+    meshes calls it; rank 0 gets the snapshot, the others None.
     """
     if codec not in ("raw", "q8", "q8-delta"):
         raise ValueError(f"unknown snapshot codec {codec!r}")
     encode = codec != "raw"
-    # 1) encode every float leaf on its device and copy its codes (or
-    #    delta) and scales to the host
-    work: Dict[str, dict] = {}
+    root = _rank() == ROOT
+    # 1) gather each leaf's distinct parts to rank 0; there, encode every
+    #    float leaf's parts on its device and copy their codes (or
+    #    deltas) and scales to the host, or copy a raw leaf's parts
+    regions: Dict[str, SnapshotRegion] = {}
     with torch.no_grad():
         for path, leaf in _flatten(tree):
             name = _leaf_name(path)
-            if not (encode and _is_float_leaf(leaf)):
+            boxes, parts = _device_parts(leaf)
+            if not root:
                 continue
-            leaf = torch.as_tensor(leaf)
-            n = max(leaf.numel(), 1)
-            prev = parent_chain = None
-            if codec == "q8-delta":
-                prev, parent_chain = _chain_states(chain_lookup, name, 1,
-                                                   {0: n})
-            t0 = time.monotonic()
-            outs, delta = _encode_leaf(leaf, prev)
-            work[name] = {"n": n, "outs": outs,
-                          "prev": prev if delta else None,
-                          "parent_chain": parent_chain, "leaf": leaf,
-                          "launch_s": time.monotonic() - t0}
-    # 2) pack the encoded wire frames
-    regions: Dict[str, SnapshotRegion] = {}
-    for path, leaf in _flatten(tree):
-        name = _leaf_name(path)
-        if name in work:
-            regions[name] = _gather_encoded(name, codec, work.pop(name))
-            continue
-        arr = _to_host(leaf)
-        meta, boxes = _region_meta(name, arr.shape, str(arr.dtype),
-                                   arr.nbytes)
-        regions[name] = SnapshotRegion(meta=meta, parts={0: arr}, boxes=boxes)
-    return HostSnapshot(regions=regions, step=step)
+            if encode and _is_float_leaf(leaf):
+                regions[name] = _encode_region(name, codec, leaf, boxes,
+                                               parts, chain_lookup)
+                continue
+            host = {p: _to_host(a) for p, a in parts.items()}
+            shape, arr = tuple(np.shape(leaf)), host[0]
+            nbytes = int(np.prod(shape, dtype=np.int64)) * arr.itemsize
+            meta, boxes = _region_meta(name, shape, str(arr.dtype), nbytes,
+                                       boxes)
+            regions[name] = SnapshotRegion(meta=meta, parts=host,
+                                           boxes=boxes)
+    return HostSnapshot(regions=regions, step=step) if root else None
+
+
+def _encode_region(name: str, codec: str, leaf, boxes, parts,
+                   chain_lookup) -> SnapshotRegion:
+    """Encode one float leaf's parts on their device, then pack its wire
+    frames (2)."""
+    leaf = torch.as_tensor(leaf)
+    sizes = {p: max(int(np.prod(_box_shape(boxes[p]), dtype=np.int64)), 1)
+             for p in parts}
+    prev = parent_chain = None
+    if codec == "q8-delta":
+        prev, parent_chain = _chain_states(chain_lookup, name, len(boxes),
+                                           sizes)
+    t0 = time.monotonic()
+    outs, delta = {}, {}
+    for p, a in parts.items():
+        outs[p], delta[p] = _encode_part(torch.as_tensor(a),
+                                         None if prev is None else prev[p])
+    # one frame kind a region: delta frames only where every part takes
+    # one, else keyframes (a part that shipped its delta ships its codes)
+    if not all(delta.values()):
+        for p in (p for p, d in delta.items() if d):
+            outs[p] = (outs[p][2].cpu(), *outs[p][1:])
+    delta = prev is not None and all(delta.values())
+    return _gather_encoded(name, codec, {
+        "sizes": sizes, "outs": outs, "prev": prev if delta else None,
+        "parent_chain": parent_chain, "leaf": leaf, "boxes": boxes,
+        "launch_s": time.monotonic() - t0})
 
 
 def _gather_encoded(name: str, codec: str, w: dict) -> SnapshotRegion:
@@ -309,7 +434,7 @@ def _gather_encoded(name: str, codec: str, w: dict) -> SnapshotRegion:
             dense_deltas[p] = a
         else:
             codes = a
-        qparts[p] = (w["n"], codes, scales)
+        qparts[p] = (w["sizes"][p], codes, scales)
         dev_codes[p] = q_dev
     leaf = w["leaf"]
     itemsize = leaf.element_size()
@@ -331,7 +456,8 @@ def _gather_encoded(name: str, codec: str, w: dict) -> SnapshotRegion:
         enc = EncodedRegion(codec=codec, blobs=blobs, states=None,
                             frame=None, raw_nbytes=raw_nbytes,
                             encode_s=w["launch_s"] + time.monotonic() - t0)
-    meta, boxes = _region_meta(name, leaf.shape, dtype, raw_nbytes)
+    meta, boxes = _region_meta(name, tuple(leaf.shape), dtype, raw_nbytes,
+                               w["boxes"])
     meta.codec = codec
     return SnapshotRegion(meta=meta, parts={}, boxes=boxes, encoded=enc)
 
@@ -380,16 +506,39 @@ def restore_pytree(template, regions: Dict[str, Dict[int, np.ndarray]],
     return _unflatten(template, rebuild)
 
 
-def load_leaf_(name: str, leaf: torch.Tensor, meta: RegionMeta,
-               parts: Dict[int, np.ndarray]) -> None:
+def load_leaf_(name: str, leaf: torch.Tensor, meta: Optional[RegionMeta],
+               parts: Optional[Dict[int, np.ndarray]]) -> None:
     """Copy one region's fetched parts, placed by ``meta``'s boxes, into
-    ``leaf`` in place (shapes must agree)."""
-    full = _assemble(meta, parts)
-    if tuple(full.shape) != tuple(leaf.shape):
-        raise ValueError(f"{name}: restored shape {full.shape} != "
-                         f"{tuple(leaf.shape)}")
+    ``leaf`` in place (shapes must agree).  A DTensor leaf's box of each
+    rank of its mesh is sent there from rank 0, which alone passes
+    ``meta`` and ``parts``; each rank writes its box into its local
+    shard."""
+    if not is_dtensor(leaf):
+        full = _assemble(meta, parts)
+        if tuple(full.shape) != tuple(leaf.shape):
+            raise ValueError(f"{name}: restored shape {full.shape} != "
+                             f"{tuple(leaf.shape)}")
+        with torch.no_grad():
+            leaf.copy_(_host_tensor(full, leaf.dtype))
+        return
+    idx_map = dtensor_sharding(leaf).devices_indices_map(tuple(leaf.shape))
+    local = leaf.to_local()
     with torch.no_grad():
-        leaf.copy_(_host_tensor(full, leaf.dtype))
+        if _rank() != ROOT:
+            buf = torch.empty_like(local)
+            dist.recv(_wire(buf), src=ROOT)
+            local.copy_(buf)
+            return
+        full = _assemble(meta, parts)
+        if tuple(full.shape) != tuple(leaf.shape):
+            raise ValueError(f"{name}: restored shape {full.shape} != "
+                             f"{tuple(leaf.shape)}")
+        for r, box in sorted(idx_map.items()):
+            t = _host_tensor(np.asarray(full[box]), local.dtype)
+            if r == ROOT:
+                local.copy_(t)
+            else:
+                dist.send(_wire(t.to(local.device)), dst=r)
 
 
 def load_pytree_(tree, regions: Dict[str, Dict[int, np.ndarray]],

@@ -32,9 +32,10 @@
 // k and v alone would take 263 KB of the 227 KB a block may use, and the
 // dk and dv accumulators of a 64-key tile 128 f32 registers a thread each:
 // the D 256 instance takes tiles of 32 x 32 (2 x 2 a thread), 137 KB of
-// shared memory and 64 accumulator registers.  Probabilities are masked to exact
-// zeros, so a row with no allowed key (lse = -inf) gives zero gradients,
-// never exp(-inf - -inf).
+// shared memory and 64 accumulator registers, and so does D 160
+// (pixtral-12b; 83 KB, 40 registers), as every head dim above 128.
+// Probabilities are masked to exact zeros, so a row with no allowed key
+// (lse = -inf) gives zero gradients, never exp(-inf - -inf).
 //
 // What bounds it.  At the training path's shape (B 1, Hq 16, Hkv 2,
 // T = S = 4096, D 128, causal) the work is five T x S x D products halved
@@ -438,8 +439,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // shares).  q, out, dout, dq (B, Hq, T, D); k, v, dk, dv (B, Hkv, S, D);
 // lse and the scratch Dsum (B, Hq, T) f32; the scratch `part` (2, B, Hq,
 // S, D) f32 (the per-query-head dk and dv: hg, the query heads a part
-// sums, is 1); all contiguous; D in {32, 64, 128, 256}.  Launches the four
-// kernels on `stream` without synchronising and returns the first error.
+// sums, is 1); all contiguous; D in {32, 64, 128, 160, 256}.  Launches
+// the four kernels on `stream` without synchronising and returns the first
+// error.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* out, const void* dout, const void* lse,
                          void* Dsum, void* part, void* dq, void* dk, void* dv,
@@ -457,6 +459,7 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
     case 32: return FLASH_BWD_LAUNCH(32);
     case 64: return FLASH_BWD_LAUNCH(64);
     case 128: return FLASH_BWD_LAUNCH(128);
+    case 160: return FLASH_BWD_LAUNCH(160);
     case 256: return FLASH_BWD_LAUNCH(256);
     default: return int(cudaErrorInvalidValue);
   }

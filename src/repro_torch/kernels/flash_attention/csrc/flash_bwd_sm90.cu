@@ -2,7 +2,7 @@
 // GQA, causal (bottom-right) or sliding window; dq, dk, dv from q, k, v,
 // out, the f32 log-sum-exp and the output's gradient.
 //
-// Replaces, for bf16 inputs at every head dim (32, 64, 128 and 256), the
+// Replaces, for bf16 inputs at every head dim (32, 64, 128, 160, 256), the
 // backward of K4 (flash_attention_pallas, src/repro/kernels/
 // flash_attention/kernel.py:95), which JAX runs as the XLA blockwise
 // ops._xla_flash_bwd (src/repro/kernels/flash_attention/ops.py:94-150);
@@ -27,7 +27,9 @@
 //      At head dim 256 these tiles do not fit: dkdv_d256 (below) takes 64
 //      keys a block, splits the queries of S^T and dP^T and the columns of
 //      dK and dV between its consumers, and sums a group of query heads
-//      into each part.
+//      into each part.  At head dim 160 dkdv_qsplit takes 64 keys a block
+//      and splits each query tile between its consumers, whose partial dk
+//      and dv are summed in shared memory at the end.
 //   3. dkdv_reduce: dk, dv = the sum of the parts of each KV head, in
 //      head order.
 //   4. dq: one block per (b, q-head, 128 queries), longest first; Q and dO
@@ -565,11 +567,257 @@ dkdv_d256_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
+// ------------------------------------------------------- dk / dv, D 160
+// At head dim 160 (pixtral-12b) neither design above fits.  The D <= 128
+// one would keep dk and dv of 64 keys x 160 columns (160 f32 registers a
+// thread) beside S^T and dP^T of 64 queries (64 more) and their bf16
+// fragments; the D 256 one splits dK and dV by columns, but 160 columns are
+// five 64-byte boxes, which two warpgroups cannot halve on a box boundary.
+// So a block takes 64 keys and the consumers split the query tile instead:
+//   * warpgroup w takes queries [32 w, 32 w + 32) of each 64-query tile:
+//     S^T = K Q^T and dP^T = V dO^T over them (SS wgmmas, m64n32), P^T and
+//     dS^T rounded to bf16 in registers;
+//   * dV += P^T dO and dK += dS^T Q over the same 32 queries (RS wgmmas,
+//     m64n160: dO and Q as the MN-major B, all five boxes), so each
+//     warpgroup holds a partial dk and dv of all 160 columns (160
+//     registers, S^T and dP^T 32 more);
+//   * after the last tile, warpgroup 1 leaves its partials in the ring
+//     (128 threads x 160 f32, exactly the ring's 80 KB) and warpgroup 0
+//     adds them, in the same order for every block, and writes the part.
+// K and V (40 KB), two ring stages of (Q, dO) (80 KB) and lse / D take
+// 121 KB.  One part per query head, as below D 256.
+template <int D>
+struct DkdvQsplitCfg {
+  static constexpr int KV_BYTES = K2_ROWS * D * 2;
+  static constexpr int Q_BYTES = QT * D * 2;
+  static constexpr int OFF_RING = 2 * KV_BYTES;
+  static constexpr int RING_BYTES = NSTAGE * 2 * Q_BYTES;
+  static constexpr int OFF_LD = OFF_RING + RING_BYTES;
+  static constexpr int OFF_BAR = OFF_LD + NSTAGE * 2 * QT * 4;
+  static constexpr size_t SMEM = 1024 + OFF_BAR + 8 * (1 + 2 * NSTAGE);
+  static_assert(RING_BYTES >= 128 * D * 4, "the ring holds the partials");
+};
+
+// grid (Hq, key tiles, B); pdk / pdv are (B, Hq, S, D) f32
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+dkdv_qsplit_kernel(const __grid_constant__ CUtensorMap mq,
+                   const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv,
+                   const __grid_constant__ CUtensorMap mdo,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ Dsum, float* __restrict__ pdk,
+                   float* __restrict__ pdv, int Hq, int Hkv, int Tq, int S,
+                   float scale, int causal, int has_window, int window) {
+  using C = DkdvQsplitCfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* sK = base;
+  uint8_t* sV = base + C::KV_BYTES;
+  uint8_t* ring = base + C::OFF_RING;     // stage s: Q, then dO
+  float* sLD = reinterpret_cast<float*>(base + C::OFF_LD);  // [s][2][QT]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + C::OFF_BAR);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + NSTAGE;
+
+  const int h = blockIdx.x;
+  const int k0 = blockIdx.y * K2_ROWS;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int offset = S - Tq;
+  const size_t qoff = (size_t(b) * Hq + h) * size_t(Tq);
+
+  const int k_last = min(k0 + K2_ROWS, S) - 1;
+  const int q_lo = causal ? max(0, k0 - offset) : 0;
+  const int q_hi = has_window ? min(Tq, k_last + window - offset) : Tq;
+  const int qt0 = (q_lo / QT) * QT;
+  const int n_tiles = q_hi > qt0 ? (q_hi - qt0 + QT - 1) / QT : 0;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<24>();
+    if (tid < 256 + 32) {
+      const int lane = tid - 256;
+      if (lane == 0) {
+        prefetch_tensormap(&mq);
+        prefetch_tensormap(&mdo);
+        mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
+        load_tile<D, K2_ROWS>(sK, &mk, kv_full, k0, b * Hkv + hk);
+        load_tile<D, K2_ROWS>(sV, &mv, kv_full, k0, b * Hkv + hk);
+      }
+      int stage = 0, phase = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int q0 = qt0 + j * QT;
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* st = ring + stage * 2 * C::Q_BYTES;
+        float* sl = sLD + stage * 2 * QT;
+        float* sd = sl + QT;
+        for (int r = lane; r < QT; r += 32) {
+          const int qi = q0 + r;
+          const float L = qi < Tq ? lse[qoff + qi] : -INFINITY;
+          sl[r] = L == -INFINITY ? INFINITY : L * LOG2E;
+          sd[r] = qi < Tq ? Dsum[qoff + qi] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[stage], 2 * C::Q_BYTES);
+          load_tile<D, QT>(st, &mq, &full[stage], q0, b * Hq + h);
+          load_tile<D, QT>(st + C::Q_BYTES, &mdo, &full[stage], q0,
+                           b * Hq + h);
+        } else {
+          mbar_arrive(&full[stage]);
+        }
+        if (++stage == NSTAGE) { stage = 0; phase ^= 1; }
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int t = tid % 128;
+    const int lane = t % 32;
+    const int r_in = (t / 32) * 16 + lane / 4;   // key rows r_in, r_in + 8
+    const int cq = 2 * (lane % 4);
+    const int qw = 32 * wg;                      // this warpgroup's queries
+    const float scale_log2 = scale * LOG2E;
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    const uint32_t kaddr = smem_u32(sK), vaddr = smem_u32(sV);
+    mbar_wait(kv_full, 0);
+
+    int stage = 0, phase = 0;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int q0 = qt0 + j * QT;
+      mbar_wait(&full[stage], phase);
+      const int qa = q0 + qw;                    // this warpgroup's first
+      const bool hidden =
+          (causal && k0 > qa + 31 + offset) ||
+          (has_window && k0 + K2_ROWS - 1 <= qa + offset - window);
+      if (!hidden) {
+        uint8_t* st = ring + stage * 2 * C::Q_BYTES;
+        const uint32_t qaddr = smem_u32(st);
+        const uint32_t doaddr = smem_u32(st + C::Q_BYTES);
+        const float* sl = sLD + stage * 2 * QT;
+        const float* sd = sl + QT;
+        float s[16], dp[16];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(s, desc_k<D, K2_ROWS>(kaddr, 0, kk),
+                   desc_k<D, QT>(qaddr, qw, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss(dp, desc_k<D, K2_ROWS>(vaddr, 0, kk),
+                   desc_k<D, QT>(doaddr, qw, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // rows are keys, columns this warpgroup's queries
+        const bool masked =
+            (causal && k0 + K2_ROWS - 1 > qa + offset) ||
+            (has_window && k0 <= qa + 31 + offset - window);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int c = qw + 8 * n + cq + jj;
+            const float L = sl[c], Dc = sd[c];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int x = 4 * n + 2 * i + jj;
+              float p = exp2f(fmaf(s[x], scale_log2, -L));
+              if (masked) {
+                const int kpos = k0 + r_in + 8 * i;
+                const int qpos = q0 + c + offset;
+                const bool ok = (!causal || kpos <= qpos) &&
+                                (!has_window || kpos > qpos - window);
+                p = ok ? p : 0.f;
+              }
+              s[x] = p;
+              dp[x] = p * (dp[x] - Dc);
+            }
+          }
+
+        uint32_t pa[2][4], dsa[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          to_a_frag(s, kk, pa[kk]);
+          to_a_frag(dp, kk, dsa[kk]);
+        }
+        fence_regs(dv);
+        fence_regs(dk);
+        wgmma_fence();
+        // rows [qw + 16 kk, qw + 16 kk + 16) of the tile's dO and Q
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma_rs(dv, pa[kk], desc_mn<D, QT>(doaddr, 2 * wg + kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma_rs(dk, dsa[kk], desc_mn<D, QT>(qaddr, 2 * wg + kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+      }
+      mbar_arrive(&empty[stage]);
+      if (++stage == NSTAGE) { stage = 0; phase ^= 1; }
+    }
+
+    // every tile has landed and been read by both warpgroups: the ring is
+    // free.  Warpgroup 1's partials go there, element i of thread t at
+    // [i][t] (conflict-free), and warpgroup 0 adds them.
+    float* red = reinterpret_cast<float*>(ring);
+    named_barrier(1, 256);
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        red[i * 128 + t] = dk[i];
+        red[(D / 2 + i) * 128 + t] = dv[i];
+      }
+    }
+    named_barrier(2, 256);
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        dk[i] += red[i * 128 + t];
+        dv[i] += red[(D / 2 + i) * 128 + t];
+      }
+      const size_t poff = (size_t(b) * Hq + h) * size_t(S) * D;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = k0 + r_in + 8 * i;
+        if (r >= S) continue;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const size_t e = poff + size_t(r) * D + 8 * n + cq;
+          *reinterpret_cast<float2*>(pdk + e) = make_float2(
+              dk[4 * n + 2 * i] * scale, dk[4 * n + 2 * i + 1] * scale);
+          *reinterpret_cast<float2*>(pdv + e) =
+              make_float2(dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
 // --------------------------------------------------------------------- dq
 constexpr int Q_ROWS = 128;     // queries per dq block, 64 per consumer
 
-// KT keys per ring tile: 64 up to head dim 128, 32 at 256 (where Q and dO
-// of 128 queries take 128 KB)
+// KT keys per ring tile: 64 up to head dim 160 (at 160 Q and dO of 128
+// queries take 80 KB, two stages of K and V another 80), 32 at 256 (where
+// Q and dO take 128 KB)
 template <int D, int KT>
 struct DqCfg {
   static constexpr int Q_BYTES = Q_ROWS * D * 2;
@@ -755,15 +1003,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* Dsum, void* part, void* dq, void* dk, void* dv,
                    int B, int Hq, int Hkv, int Tq, int S, int hg, float scale,
                    int causal, int has_window, int window, cudaStream_t st) {
-  constexpr bool WIDE = D == 256;
+  // the dk/dv design: 128 keys a block below 160, 64 keys split by
+  // queries at 160, by columns at 256
+  constexpr bool WIDE = D == 256, QSPLIT = D == 160;
   constexpr int KT = WIDE ? 32 : 64;     // dq's key tile
-  constexpr size_t smem_kv = WIDE ? Dkdv256Cfg::SMEM : DkdvCfg<D>::SMEM;
+  constexpr size_t smem_kv = WIDE     ? Dkdv256Cfg::SMEM
+                             : QSPLIT ? DkdvQsplitCfg<D>::SMEM
+                                      : DkdvCfg<D>::SMEM;
   constexpr size_t smem_q = DqCfg<D, KT>::SMEM;
   static bool configured = false;   // the attributes are per kernel, once
   if (!configured) {
     cudaError_t e;
     if constexpr (WIDE)
       e = cudaFuncSetAttribute(dkdv_d256_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(smem_kv));
+    else if constexpr (QSPLIT)
+      e = cudaFuncSetAttribute(dkdv_qsplit_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                int(smem_kv));
     else
@@ -805,6 +1061,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       dkdv_d256_kernel<<<gkv, NTHREADS, smem_kv, st>>>(
           mq, mk, mv, mdo, lp, Dp, pdk, pdv, Hq, Hkv, Tq, S, hg, scale,
           causal, has_window, window);
+    } else if constexpr (QSPLIT) {
+      dim3 gkv(Hq, (S + K2_ROWS - 1) / K2_ROWS, B);
+      dkdv_qsplit_kernel<D><<<gkv, NTHREADS, smem_kv, st>>>(
+          mq, mk, mv, mdo, lp, Dp, pdk, pdv, Hq, Hkv, Tq, S, scale, causal,
+          has_window, window);
     } else {
       dim3 gkv(Hq, (S + KV_ROWS - 1) / KV_ROWS, B);
       dkdv_sm90_kernel<D><<<gkv, NTHREADS, smem_kv, st>>>(
@@ -836,7 +1097,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // Hkv, S, D); lse and the scratch Dsum (B, Hq, T) f32; the scratch `part`
 // (2, B, Hq / hg, S, D) f32 (dk and dv summed over each group of hg query
 // heads; hg divides Hq / Hkv, and is 1 below D 256); all contiguous,
-// q/k/v/dout 16-byte aligned (TMA); D in {32, 64, 128, 256}.  Launches
+// q/k/v/dout 16-byte aligned (TMA); D in {32, 64, 128, 160, 256}.  Launches
 // the four kernels on `stream` without synchronising and returns the
 // first error.
 extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
@@ -857,6 +1118,7 @@ extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
     case 32: return FLASH_BWD_SM90_LAUNCH(32);
     case 64: return FLASH_BWD_SM90_LAUNCH(64);
     case 128: return FLASH_BWD_SM90_LAUNCH(128);
+    case 160: return FLASH_BWD_SM90_LAUNCH(160);
     case 256: return FLASH_BWD_SM90_LAUNCH(256);
     default: return int(cudaErrorInvalidValue);
   }

@@ -30,11 +30,10 @@ LIBRARIES = {"flash_fwd": _CSRC / "flash_fwd.cu",
              "flash_bwd_sm90": _CSRC / "flash_bwd_sm90.cu"}
 HEADERS = {"flash_fwd_sm90": (_CSRC / "sm90.cuh",),
            "flash_bwd_sm90": (_CSRC / "sm90.cuh",)}
-# head dims each kernel is instantiated for, 256 for recurrentgemma-9b's
-# attention layers; the forward also at 160, pixtral-12b's, which is served
-# and not trained
+# head dims each kernel is instantiated for, 160 for pixtral-12b's and 256
+# for recurrentgemma-9b's attention layers
 FWD_HEAD_DIMS = (32, 64, 128, 160, 256)
-BWD_HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = FWD_HEAD_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the forward and of the backward in this process, and of the

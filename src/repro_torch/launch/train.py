@@ -14,10 +14,22 @@ them with the tokens.
 With --icheck, the run is driven by the ElasticTrainer: the paper's
 Listing 1 control flow (register -> add_adapt -> commit/async -> probe ->
 redistribute on resize), backed by an in-process iCheck cluster.
+
+Launched as a process world (``RANK`` and ``WORLD_SIZE`` in the
+environment, as ``torchrun`` sets them, and ``--store-dir`` a directory
+every rank reaches), the ranks are real: each process joins the world
+over a ``FileStore`` there (NCCL on CUDA, gloo on the CPU), the trainer
+is data parallel over a mesh of ``--ranks`` of them, and a resize moves
+it onto ``--new-ranks``.  Rank 0 holds the iCheck cluster and prints.
+
+  for r in 0 1; do RANK=$r WORLD_SIZE=2 python -m repro_torch.launch.train \
+      --icheck --device cpu --store-dir /tmp/world --ranks 1 --new-ranks 2 \
+      --resize-at 6 --steps 12 & done; wait
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 
@@ -39,6 +51,8 @@ def main(argv=None):
     ap.add_argument("--new-ranks", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--store-dir", default=None,
+                    help="the FileStore directory of a launched world")
     args = ap.parse_args(argv)
 
     import torch
@@ -55,27 +69,22 @@ def main(argv=None):
     device = torch.device(args.device)
 
     if args.icheck:
-        from repro_torch.core import ICheckCluster
-        from repro_torch.train import ElasticTrainer
+        world = int(os.environ.get("WORLD_SIZE", "0"))
+        rank = int(os.environ.get("RANK", "0"))
+        if world:
+            from repro_torch.sharding import init_world
+            from repro_torch.sharding.mesh import default_backend
 
-        with ICheckCluster(n_icheck_nodes=2) as cluster:
-            trainer = ElasticTrainer(
-                cfg, shape, cluster, ranks=args.ranks, seed=args.seed,
-                opt_cfg=opt_cfg, commit_every=args.commit_every,
-                total_steps=args.steps, device=device)
-            if args.resize_at:
-                trainer.run(args.resize_at)
-                cluster.rm.schedule_resize("train", args.new_ranks)
-                rest = trainer.run(args.steps - args.resize_at)
-                print(f"[resize] {args.ranks} -> {args.new_ranks} ranks, "
-                      f"resizes={trainer.resizes}")
-            else:
-                rest = trainer.run(args.steps)
-            trainer.finalize()
-            for m in trainer.metrics_log[:3] + trainer.metrics_log[-3:]:
-                print(f"step {m['step']:5d} loss {m['loss']:.4f}")
-            print(f"final loss {rest['final_loss']:.4f} "
-                  f"({rest['wall_s']:.1f}s)")
+            if args.store_dir is None:
+                ap.error("a launched world (WORLD_SIZE) needs --store-dir")
+            init_world(rank, world, default_backend(device), args.store_dir)
+        try:
+            _train_icheck(args, cfg, shape, opt_cfg, device, rank)
+        finally:
+            if world:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
         return
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -95,6 +104,39 @@ def main(argv=None):
     dt = time.monotonic() - t0
     print(f"{args.steps} steps in {dt:.1f}s "
           f"({args.steps * shape.global_batch * shape.seq_len / dt:.0f} tok/s)")
+
+
+def _train_icheck(args, cfg, shape, opt_cfg, device, rank):
+    """The ElasticTrainer's run; rank 0 holds the cluster, schedules the
+    resize and prints."""
+    import contextlib
+
+    from repro_torch.core import ICheckCluster
+    from repro_torch.train import ElasticTrainer
+
+    root = rank == 0
+    with (ICheckCluster(n_icheck_nodes=2) if root
+          else contextlib.nullcontext()) as cluster:
+        trainer = ElasticTrainer(
+            cfg, shape, cluster, ranks=args.ranks, seed=args.seed,
+            opt_cfg=opt_cfg, commit_every=args.commit_every,
+            total_steps=args.steps, device=device)
+        if args.resize_at:
+            trainer.run(args.resize_at)
+            if root:
+                cluster.rm.schedule_resize("train", args.new_ranks)
+            rest = trainer.run(args.steps - args.resize_at)
+            if root:
+                print(f"[resize] {args.ranks} -> {args.new_ranks} ranks, "
+                      f"resizes={trainer.resizes}")
+        else:
+            rest = trainer.run(args.steps)
+        trainer.finalize()
+        if root:
+            for m in trainer.metrics_log[:3] + trainer.metrics_log[-3:]:
+                print(f"step {m['step']:5d} loss {m['loss']:.4f}")
+            print(f"final loss {rest['final_loss']:.4f} "
+                  f"({rest['wall_s']:.1f}s)")
 
 
 if __name__ == "__main__":

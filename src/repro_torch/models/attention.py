@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..kernels.flash_attention import attention as flash_attention
+from ..sharding import constrain
 from .layers import _dense_init, _normal, apply_rope
 
 NEG_INF = -1e30
@@ -97,6 +98,15 @@ def attn_init(generator, d_model: int, num_heads: int, num_kv_heads: int,
     return p
 
 
+def attn_axes(qkv_bias: bool = False):
+    """Logical axes of ``attn_init``'s leaves."""
+    a = {"wq": ("embed", "heads"), "wkv": ("stack", "embed", "kv_heads"),
+         "wo": ("heads", "embed")}
+    if qkv_bias:
+        a["bq"], a["bkv"] = ("heads",), ("stack", "kv_heads")
+    return a
+
+
 def _project_kv(params, xkv: torch.Tensor):
     wkv = params["wkv"].to(xkv.dtype)
     k, v = xkv @ wkv[0], xkv @ wkv[1]
@@ -142,9 +152,12 @@ def attn_apply(params, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
             positions = torch.arange(t, device=x.device).expand(b, t)
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    q = constrain(q, "batch", "act_heads", "seq", None)
+    k = constrain(k, "batch", "act_kv_heads", "kv_seq", None)
+    v = constrain(v, "batch", "act_kv_heads", "kv_seq", None)
     o = flash_attention(q, k, v, causal=causal and self_attn, window=window)
     o = o.transpose(1, 2).reshape(b, t, num_heads * head_dim)
-    out = o @ params["wo"].to(x.dtype)
+    out = constrain(o @ params["wo"].to(x.dtype), "batch", "seq", "act_embed")
     if return_cache:
         return out, KVCache(k=k, v=v)
     return out
@@ -181,6 +194,14 @@ def init_kv_cache(batch: int, num_kv_heads: int, max_len: int, head_dim: int,
             vs=torch.ones(sshape, dtype=torch.float16, device=device))
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def cache_axes(quant: bool = False) -> KVCache:
+    """Logical axes of ``init_kv_cache``'s leaves."""
+    ax = ("batch", "act_kv_heads", "kv_seq", None)
+    if quant:
+        return KVCache(k=ax, v=ax, ks=ax, vs=ax)
+    return KVCache(k=ax, v=ax)
 
 
 def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
@@ -244,4 +265,5 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1)
     o = torch.matmul(p, vf)                                   # (B,Hkv,G,D)
     o = o.reshape(b, 1, num_heads * head_dim).to(x.dtype)
-    return o @ params["wo"].to(x.dtype), cache
+    out = o @ params["wo"].to(x.dtype)
+    return constrain(out, "batch", None, "act_embed"), cache

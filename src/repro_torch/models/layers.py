@@ -7,6 +7,10 @@ parameters are nested dicts with the reference's names and shapes
 Initialisers take an explicit ``torch.Generator`` and ``device`` and a
 ``lead`` shape prepended to every parameter, which is how a stack of
 layers is made in one call (the reference ``vmap``s its init over keys).
+Beside each ``*_init`` a ``*_axes`` gives the logical axes of its leaves,
+leaf for leaf the ``axes`` half of the reference's ``(params, axes)``;
+``constrain`` calls stand where the reference's do (no-ops on plain
+tensors, ``repro_torch/sharding``).
 
 As in the reference, every weight is cast to the activation dtype where it
 is used (``w.to(x.dtype)``).  A caller may cast the weights once up front
@@ -19,6 +23,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from ..sharding import constrain
 
 
 def _normal(generator, shape, device) -> torch.Tensor:
@@ -42,6 +48,10 @@ def _dense_init(generator, shape: Sequence[int], scale: Optional[float] = None,
 def rmsnorm_init(d: int, *, lead: Sequence[int] = (), device=None):
     return {"scale": torch.ones((*lead, d), dtype=torch.float32,
                                 device=device)}
+
+
+def rmsnorm_axes():
+    return {"scale": ("embed",)}
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -120,6 +130,10 @@ def ffn_init(generator, d_model: int, d_ff: int, *,
                                   device=device)}
 
 
+def ffn_axes():
+    return {"w_gu": ("stack", "embed", "ff"), "w_down": ("ff", "embed")}
+
+
 def ffn_apply(params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     wgu = params["w_gu"].to(x.dtype)
     wd = params["w_down"].to(x.dtype)
@@ -128,7 +142,8 @@ def ffn_apply(params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
         act = F.silu(gate)
     else:                        # jax.nn.gelu defaults to the tanh form
         act = F.gelu(gate, approximate="tanh")
-    return (act * up) @ wd
+    h = constrain(act * up, "batch", "seq", "act_ff")
+    return h @ wd
 
 
 # --------------------------------------------------------------------------
@@ -138,12 +153,21 @@ def embed_init(generator, vocab: int, d_model: int, *, device=None):
     return {"table": _normal(generator, (vocab, d_model), device)}
 
 
+def embed_axes():
+    return {"table": ("vocab", "embed")}
+
+
 def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), params["table"])
+    out = F.embedding(tokens.long(), params["table"])
+    return constrain(out, "batch", "seq", "act_embed")
 
 
 def lm_head_init(generator, d_model: int, vocab: int, *, device=None):
     return {"w": _dense_init(generator, (d_model, vocab), device=device)}
+
+
+def lm_head_axes():
+    return {"w": ("embed", "vocab")}
 
 
 def lm_head_apply(params, x: torch.Tensor, valid_vocab: int = 0):
@@ -154,7 +178,7 @@ def lm_head_apply(params, x: torch.Tensor, valid_vocab: int = 0):
     if valid_vocab and valid_vocab < vp:
         ok = torch.arange(vp, device=logits.device) < valid_vocab
         logits = torch.where(ok, logits, logits.new_full((), -1e30))
-    return logits
+    return constrain(logits, "batch", "seq", "act_vocab")
 
 
 # --------------------------------------------------------------------------
@@ -166,5 +190,10 @@ def frontend_init(generator, d_in: int, d_model: int, *, device=None):
     return {"proj": _dense_init(generator, (d_in, d_model), device=device)}
 
 
+def frontend_axes():
+    return {"proj": (None, "embed")}
+
+
 def frontend_apply(params, embeds: torch.Tensor) -> torch.Tensor:
-    return embeds @ params["proj"].to(embeds.dtype)
+    out = embeds @ params["proj"].to(embeds.dtype)
+    return constrain(out, "batch", "seq", "act_embed")

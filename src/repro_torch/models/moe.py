@@ -29,6 +29,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ..sharding import constrain
 from .layers import _dense_init, _normal
 
 
@@ -45,6 +46,13 @@ def moe_init(generator, d_model: int, num_experts: int, d_ff: int, *,
         "w_down": _normal(generator, (*lead, num_experts, d_ff, d_model),
                           device).mul_(d_ff ** -0.5),
     }
+
+
+def moe_axes():
+    """Logical axes of ``moe_init``'s leaves."""
+    return {"router": ("embed", None),
+            "w_gu": ("stack", "experts", "embed", "expert_ff"),
+            "w_down": ("experts", "expert_ff", "embed")}
 
 
 def capacity(t: int, num_experts: int, experts_per_token: int,
@@ -109,14 +117,18 @@ def moe_apply(params, x: torch.Tensor, *, num_experts: int,
     src = (x[:, :, None, :].expand(b, t, k, d).reshape(b, t * k, d)
            * keep[..., None].to(x.dtype))
     xe = x.new_zeros((b, e * cap + 1, d)).index_put((rows, slot), src)
+    xe = constrain(xe[:, :-1].reshape(b, e, cap, d), "batch", "act_experts",
+                   None, None)
     # (B, E, C, D) -> (E, B*C, D): one batched product per weight
-    xe = xe[:, :-1].reshape(b, e, cap, d).transpose(0, 1).reshape(
-        e, b * cap, d)
+    xe = xe.transpose(0, 1).reshape(e, b * cap, d)
     w_gu = params["w_gu"].to(x.dtype)
     h = F.silu(torch.bmm(xe, w_gu[0])) * torch.bmm(xe, w_gu[1])
+    h = constrain(h, "act_experts", None, None)
     ye = torch.bmm(h, params["w_down"].to(x.dtype))             # (E, B*C, D)
-    ye = ye.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+    ye = constrain(ye.reshape(e, b, cap, d).transpose(0, 1),
+                   "batch", None, None, None).reshape(b, e * cap, d)
     flat = torch.cat([ye, ye.new_zeros((b, 1, d))], dim=1)
     wk = (keep * top_w.reshape(b, t * k)).to(x.dtype)
     contrib = flat[rows, slot] * wk[..., None]                  # (B, T*k, D)
-    return contrib.reshape(b, t, k, d).sum(dim=2), aux
+    y = contrib.reshape(b, t, k, d).sum(dim=2)
+    return constrain(y, "batch", "seq", "act_embed"), aux

@@ -1,10 +1,16 @@
-"""Parameter accounting for whole param trees (sharding specs come with the
-multi-device slice)."""
+"""Parameter accounting and sharding-spec resolution for whole param
+trees, the twin of ``repro/models/params.py``.
+
+An axes tree mirrors a param (or cache, or state) tree, with a tuple of
+logical axis names (``str`` or None) at each leaf; ``map_axes`` walks one
+with any trees of the same structure beside it.
+"""
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..sharding import NamedSharding, Rules, spec as axes_spec
 
 _EXPERT_KEYS = ("w_gu", "w_down")
 
@@ -36,3 +42,45 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
             n = int(n * frac)
         total += n
     return total
+
+
+def is_axes(x) -> bool:
+    """A leaf of an axes tree: a tuple of logical names (or None)."""
+    return (isinstance(x, tuple) and not hasattr(x, "_fields")
+            and all(e is None or isinstance(e, str) for e in x))
+
+
+def map_axes(fn, axes, *trees):
+    """``fn(axes leaf, matching leaves of trees...)`` over an axes tree of
+    dicts, NamedTuples and lists, keeping its structure (None stays
+    None)."""
+    if axes is None:
+        return None
+    if is_axes(axes):
+        return fn(axes, *trees)
+    if isinstance(axes, dict):
+        return {k: map_axes(fn, v, *(t[k] for t in trees))
+                for k, v in axes.items()}
+    if hasattr(axes, "_fields"):
+        return type(axes)(*(map_axes(fn, v, *(getattr(t, f) for t in trees))
+                            for f, v in zip(axes._fields, axes)))
+    if isinstance(axes, list):
+        return [map_axes(fn, v, *(t[i] for t in trees))
+                for i, v in enumerate(axes)]
+    raise TypeError(f"not an axes tree node: {axes!r}")
+
+
+def param_specs(axes_tree, rules: Rules, mesh=None, shapes=None):
+    """axes tree (+ an optional matching tree of tensors or anything with
+    a ``shape``, e.g. ``abstract_params``' meta tensors) -> a tree of
+    ``PartitionSpec``s (``repro/models/params.py:40-48``)."""
+    if shapes is None:
+        return map_axes(lambda ax: axes_spec(ax, rules), axes_tree)
+    return map_axes(lambda ax, sh: axes_spec(ax, rules, mesh, sh.shape),
+                    axes_tree, shapes)
+
+
+def param_shardings(axes_tree, rules: Rules, mesh, shapes=None):
+    """The ``NamedSharding`` tree of ``param_specs`` on ``mesh``."""
+    specs = param_specs(axes_tree, rules, mesh, shapes)
+    return map_axes(lambda ax, s: NamedSharding(mesh, s), axes_tree, specs)

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rglru import rglru as rglru_core
+from ..sharding import constrain
 from .layers import _dense_init, _normal
 
 RGLRU_C = 8.0  # Griffin's fixed recurrence-sharpness constant
@@ -57,6 +58,13 @@ def recurrent_init(generator, d_model: int, rnn_width: int, conv_width: int,
     }
 
 
+def recurrent_axes():
+    """Logical axes of ``recurrent_init``'s leaves."""
+    return {"w_ig": ("stack", "embed", "rnn"), "w_out": ("rnn", "embed"),
+            "conv_w": ("conv", "rnn"), "conv_b": ("rnn",),
+            "w_ai": ("stack", "rnn", None), "lam": ("rnn",)}
+
+
 def _causal_conv(y: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
                  state: torch.Tensor):
     """Depthwise causal conv in y's dtype. y: (B, T, N); state: (B, W-1, N)
@@ -76,7 +84,7 @@ def recurrent_apply(params, x: torch.Tensor, state: RGLRUState):
     """x: (B, T, d_model) -> (out (B, T, d_model), new state)."""
     dt = x.dtype
     w_ig = params["w_ig"].to(dt)
-    y = x @ w_ig[0]
+    y = constrain(x @ w_ig[0], "batch", "seq", "act_rnn")
     gate = F.gelu(x @ w_ig[1], approximate="tanh")   # jax.nn.gelu's form
     y, conv_state = _causal_conv(y, params["conv_w"], params["conv_b"],
                                  state.conv)
@@ -88,7 +96,9 @@ def recurrent_apply(params, x: torch.Tensor, state: RGLRUState):
     a2 = torch.exp(2.0 * log_a)
     g = torch.sqrt(torch.clamp_min(1.0 - a2, 1e-12)) * i * yf
     h, h_last = rglru_core(log_a, g.to(dt), state.h)
+    h = constrain(h, "batch", "seq", "act_rnn")
     out = (gate * h.to(dt)) @ params["w_out"].to(dt)
+    out = constrain(out, "batch", "seq", "act_embed")
     return out, RGLRUState(conv=conv_state.to(state.conv.dtype), h=h_last)
 
 
@@ -100,3 +110,9 @@ def init_state(batch: int, rnn_width: int, conv_width: int, dtype, *,
                          dtype=dtype, device=device),
         h=torch.zeros((*lead, batch, rnn_width), dtype=torch.float32,
                       device=device))
+
+
+def state_axes() -> RGLRUState:
+    """Logical axes of ``init_state``'s leaves."""
+    return RGLRUState(conv=("batch", None, "act_rnn"),
+                      h=("batch", "act_rnn"))

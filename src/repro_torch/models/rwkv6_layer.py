@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rwkv6 import rwkv6 as rwkv6_core
+from ..sharding import constrain
 from .layers import _dense_init, _normal, groupnorm_heads
 
 LORA_RANK = 32
@@ -65,6 +66,15 @@ def timemix_init(generator, d_model: int, head_dim: int, *,
     }
 
 
+def timemix_axes():
+    """Logical axes of ``timemix_init``'s leaves."""
+    return {"w_rkvg": ("stack", "embed", "rnn"), "wo": ("rnn", "embed"),
+            "w0": ("rnn",), "wA": ("embed", None), "wB": (None, "rnn"),
+            "mu": ("stack", "embed"), "muA": ("embed", None),
+            "muB": (None, None), "u": (None, "rnn"),
+            "gn_scale": (None, "rnn"), "gn_bias": (None, "rnn")}
+
+
 def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     """x: (B, T, D); last: (B, D) previous token (zeros at sequence
     start)."""
@@ -96,12 +106,14 @@ def timemix_apply(params, x: torch.Tensor, state_tm: torch.Tensor,
     def heads(z):
         return z.reshape(b, t, h, head_dim).transpose(1, 2)
 
-    o, wkv_new = rwkv6_core(heads(r), heads(k), heads(v), heads(log_w),
+    r_ = constrain(heads(r), "batch", "act_rnn", "seq", None)
+    o, wkv_new = rwkv6_core(r_, heads(k), heads(v), heads(log_w),
                             params["u"], wkv_state)
     o = groupnorm_heads(o.transpose(1, 2), params["gn_scale"],
                         params["gn_bias"])
     o = o.reshape(b, t, d) * F.silu(g)
-    return o @ params["wo"].to(dt), x[:, -1, :], wkv_new
+    out = constrain(o @ params["wo"].to(dt), "batch", "seq", "act_embed")
+    return out, x[:, -1, :], wkv_new
 
 
 def chanmix_init(generator, d_model: int, d_ff: int, *,
@@ -114,6 +126,12 @@ def chanmix_init(generator, d_model: int, d_ff: int, *,
             "mu": _full(lead, (2, d_model), 0.5, device)}      # k, r
 
 
+def chanmix_axes():
+    """Logical axes of ``chanmix_init``'s leaves."""
+    return {"wk": ("embed", "ff"), "wv": ("ff", "embed"),
+            "wr": ("embed", "rnn"), "mu": ("stack", "embed")}
+
+
 def chanmix_apply(params, x: torch.Tensor, state_cm: torch.Tensor):
     """Returns (out (B, T, D), the last token's x (B, D))."""
     dt = x.dtype
@@ -122,8 +140,10 @@ def chanmix_apply(params, x: torch.Tensor, state_cm: torch.Tensor):
     xk = x + delta * mu[0]
     xr = x + delta * mu[1]
     k = torch.square(F.relu(xk @ params["wk"].to(dt)))
+    k = constrain(k, "batch", "seq", "act_ff")
     kv = k @ params["wv"].to(dt)
-    return torch.sigmoid(xr @ params["wr"].to(dt)) * kv, x[:, -1, :]
+    out = torch.sigmoid(xr @ params["wr"].to(dt)) * kv
+    return constrain(out, "batch", "seq", "act_embed"), x[:, -1, :]
 
 
 def init_state(batch: int, d_model: int, head_dim: int, dtype, *,
@@ -136,3 +156,10 @@ def init_state(batch: int, d_model: int, head_dim: int, dtype, *,
                              device=device),
         wkv=torch.zeros((*lead, batch, h, head_dim, head_dim),
                         dtype=torch.float32, device=device))
+
+
+def state_axes() -> RWKVState:
+    """Logical axes of ``init_state``'s leaves."""
+    return RWKVState(shift_tm=("batch", "act_embed"),
+                     shift_cm=("batch", "act_embed"),
+                     wkv=("batch", "act_rnn", None, None))

@@ -7,7 +7,9 @@ seamless-m4t-medium), the decoder over a prefix of vision patches
 RG-LRU hybrid (``mixer="rglru_hybrid"``, Griffin / RecurrentGemma).
 
 * ``init_params(cfg, generator, device)``: a nested dict of f32 tensors
-  whose names and shapes equal ``repro.models.init_params``; the layer
+  whose names and shapes equal ``repro.models.init_params``'s params
+  (``param_axes(cfg)`` is its axes half, ``abstract_params(cfg)`` both on
+  the ``meta`` device); the layer
   stack is stacked on a leading "layers" axis, one super-layer of the
   plan's kinds under ``stack/b0``, ``stack/b1``, ..., and the hybrid's
   leftover layers are ``tail0``, ``tail1``, ... (``stack_plan``).  The
@@ -31,11 +33,12 @@ RG-LRU hybrid (``mixer="rglru_hybrid"``, Griffin / RecurrentGemma).
   for an RG-LRU layer; tail layers have no leading L.  A decoder layer of
   the encoder-decoder holds ``{"self": ..., "cross": ...}``, the cross
   cache ``num_frames`` slots of the encoder's projected K/V, filled at
-  prefill and only read in decode.  It is written in place.
+  prefill and only read in decode.  It is written in place;
+  ``cache_axes(cfg)`` gives its logical axes.
 
-A Python loop over the stacked layers takes the place of ``lax.scan``;
-on one device the reference's sharding constraints are no-ops and are
-left out.
+A Python loop over the stacked layers takes the place of ``lax.scan``.
+The reference's sharding constraints stand where it has them; on plain
+tensors they are no-ops.
 """
 from __future__ import annotations
 
@@ -45,13 +48,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..sharding import constrain
 from . import attention as attn
 from . import moe as moe_lib
 from . import rglru_layer as rglru
 from . import rwkv6_layer as rwkv
-from .layers import (embed_apply, embed_init, ffn_apply, ffn_init,
-                     frontend_apply, frontend_init, lm_head_apply,
-                     lm_head_init, rmsnorm, rmsnorm_init)
+from .layers import (embed_apply, embed_axes, embed_init, ffn_apply,
+                     ffn_axes, ffn_init, frontend_apply, frontend_axes,
+                     frontend_init, lm_head_apply, lm_head_axes,
+                     lm_head_init, rmsnorm, rmsnorm_axes, rmsnorm_init)
+from .params import map_axes
 
 Params = Dict[str, Any]
 
@@ -147,6 +153,31 @@ def _block_init(generator, cfg: ModelConfig, kind: str, *, lead, device):
     return p
 
 
+def _block_axes(cfg: ModelConfig, kind: str):
+    """Logical axes of ``_block_init``'s leaves (one layer, no lead)."""
+    if kind == "rec":
+        return {"norm1": rmsnorm_axes(), "rec": rglru.recurrent_axes(),
+                "norm2": rmsnorm_axes(), "ffn": ffn_axes()}
+    if kind == "rwkv":
+        return {"norm1": rmsnorm_axes(), "tm": rwkv.timemix_axes(),
+                "norm2": rmsnorm_axes(), "cm": rwkv.chanmix_axes()}
+    a = {"norm1": rmsnorm_axes(), "attn": attn.attn_axes(cfg.qkv_bias)}
+    if kind == "dec":
+        a["norm_x"] = rmsnorm_axes()
+        a["xattn"] = attn.attn_axes(cfg.qkv_bias)
+    a["norm2"] = rmsnorm_axes()
+    if cfg.ffn == "moe":
+        a["moe"] = moe_lib.moe_axes()
+    else:
+        a["ffn"] = ffn_axes()
+    return a
+
+
+def _stacked(axes):
+    """A layer's axes with the stack's leading ``"layers"`` axis."""
+    return map_axes(lambda ax: ("layers",) + tuple(ax), axes)
+
+
 def _attn_kw(cfg: ModelConfig):
     return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
@@ -218,7 +249,7 @@ def _block_apply(cfg: ModelConfig, p: Params, x, *, kind: str, positions,
     if kind in ("rwkv", "rec"):
         block = _rwkv_block if kind == "rwkv" else _rec_block
         x, state = block(cfg, p, x, state)
-        return x, None, state
+        return constrain(x, "batch", "seq", "act_embed"), None, state
     window = _layer_window(cfg, kind)
     h = rmsnorm(p["norm1"], x)
     if state is not None:
@@ -240,7 +271,7 @@ def _block_apply(cfg: ModelConfig, p: Params, x, *, kind: str, positions,
                 p["xattn"], enc_out, cfg.num_kv_heads, cfg.resolved_head_dim,
                 enc_out.dtype))
     y, aux = _ffn_or_moe(cfg, p, rmsnorm(p["norm2"], x))
-    return x + y, aux, state
+    return constrain(x + y, "batch", "seq", "act_embed"), aux, state
 
 
 def _write_cross_cache(cache: attn.KVCache, kvc: attn.KVCache) -> None:
@@ -333,6 +364,32 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     params["lm_head"] = lm_head_init(generator, cfg.d_model,
                                      cfg.padded_vocab, device=device)
     return params
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """Logical axes of ``init_params``'s leaves, leaf for leaf the
+    reference's axes tree (``repro/models/transformer.py:268-309``): the
+    stacked leaves lead with ``"layers"``, the tail layers do not."""
+    plan = stack_plan(cfg)
+    axes = {"embed": embed_axes()}
+    if cfg.frontend in ("frames", "patches"):
+        axes["frontend"] = frontend_axes()
+    if plan["enc_layers"]:
+        axes["enc"] = {"b0": _stacked(_block_axes(cfg, "attn"))}
+        axes["enc_norm"] = rmsnorm_axes()
+    axes["stack"] = {f"b{i}": _stacked(_block_axes(cfg, kind))
+                     for i, kind in enumerate(plan["scan_kinds"])}
+    for i, kind in enumerate(plan["tail_kinds"]):
+        axes[f"tail{i}"] = _block_axes(cfg, kind)
+    axes["final_norm"] = rmsnorm_axes()
+    axes["lm_head"] = lm_head_axes()
+    return axes
+
+
+def abstract_params(cfg: ModelConfig):
+    """(params on the ``meta`` device, their axes): shapes and dtypes
+    with nothing allocated."""
+    return init_params(cfg, None, "meta"), param_axes(cfg)
 
 
 def cast_params(params: Params, dtype) -> Params:
@@ -466,9 +523,16 @@ def forward(cfg: ModelConfig, params, batch):
     return logits, aux
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, params, batch, *,
+            token_total: Optional[torch.Tensor] = None, ranks: int = 1):
     """Next-token cross-entropy over f32 logits, labels < 0 masked out
-    (``repro/models/transformer.py:429-441``). Returns (loss, metrics)."""
+    (``repro/models/transformer.py:429-441``). Returns (loss, metrics).
+
+    Under data parallelism each of ``ranks`` ranks scores its slice of the
+    global batch and passes ``token_total``, the whole batch's count of
+    unmasked targets: its cross-entropy is then its masked sum over that
+    count and its aux loss (a mean over sequences) a ``ranks``-th of its
+    own, so the ranks' losses and gradients sum to the whole batch's."""
     logits, aux = forward(cfg, params, batch)
     labels = batch["labels"]
     logits = logits[:, :-1, :].float()
@@ -476,8 +540,9 @@ def loss_fn(cfg: ModelConfig, params, batch):
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.clamp_min(0)[..., None])[..., 0]
     mask = (targets >= 0).float()
-    xent = torch.sum((logz - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
-    loss = xent + aux
+    count = mask.sum() if token_total is None else token_total
+    xent = torch.sum((logz - gold) * mask) / torch.clamp_min(count, 1.0)
+    loss = xent + aux / ranks
     return loss, {"xent": xent, "aux": aux}
 
 
@@ -535,6 +600,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                   for kind in plan["tail_kinds"]],
         "idx": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def _kind_cache_axes(kind: str, quant: bool = False):
+    if kind == "attn":
+        return {"self": attn.cache_axes(quant)}
+    if kind == "dec":
+        return {"self": attn.cache_axes(quant),
+                "cross": attn.cache_axes(quant)}
+    if kind == "rwkv":
+        return rwkv.state_axes()
+    if kind == "rec":
+        return rglru.state_axes()
+    raise ValueError(kind)
+
+
+def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axes of ``init_cache``'s leaves
+    (``repro/models/transformer.py:500-509``)."""
+    plan = stack_plan(cfg)
+    return {"stack": {f"b{i}": _stacked(_kind_cache_axes(kind, cfg.kv_quant))
+                      for i, kind in enumerate(plan["scan_kinds"])},
+            "tails": [_kind_cache_axes(kind, cfg.kv_quant)
+                      for kind in plan["tail_kinds"]],
+            "idx": ()}
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):

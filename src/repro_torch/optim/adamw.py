@@ -6,8 +6,9 @@ updates and the parameter step.  Unlike the reference, which returns new
 arrays, the update works in place on the f32 parameters, moments, grads
 and residuals, one layer slice of a stacked leaf at a time, so that no
 temporary of a whole leaf exists (``stack/b0/ffn/w_gu`` of qwen2.5-3b is
-6.5 GB of f32).  ZeRO-1 sharding of the moments is a no-op on one device
-and is left out.
+6.5 GB of f32).  ``opt_state_axes`` gives the state's logical axes, which
+``train/state.py`` resolves against FSDP rules (ZeRO-1) whatever the
+model's rules.
 """
 from __future__ import annotations
 
@@ -140,3 +141,11 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
     new_state = AdamWState(mu=state.mu, nu=state.nu, count=count,
                            err=state.err)
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_axes(param_axes, compress: bool = False) -> AdamWState:
+    """Logical axes of the optimizer state: the params' for each moment
+    (and the residual), ``()`` for the count
+    (``repro/optim/adamw.py:115-118``)."""
+    return AdamWState(mu=param_axes, nu=param_axes, count=(),
+                      err=param_axes if compress else None)

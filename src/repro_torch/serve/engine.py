@@ -9,7 +9,10 @@ snapshot copies it to the host (synchronously) before the first decode
 step writes into it.  An RWKV-6 model's state does not grow with the
 prompt, and a sliding-window layer's ring (recurrentgemma-9b's attention
 layers) holds at most ``window`` slots: ``max_len`` sizes only a KV cache,
-up to the window.
+up to the window.  With a ``mesh`` prefill and decode run under
+``use_rules(mesh, rules)``, as the reference's do
+(``repro/serve/engine.py:26-45``), so the models' ``constrain`` calls see
+the mesh; on plain tensors they change nothing.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from ..configs.base import ModelConfig
 from ..core.snapshot import restore_pytree, snapshot_pytree
 from ..models.transformer import (cast_params, decode_step, init_cache,
                                   prefill)
+from ..sharding import get_rules, use_rules
 
 
 # a batch's precomputed embeddings beside its tokens: audio frames (the
@@ -38,9 +42,11 @@ def serve_max_len(cfg: ModelConfig, seq_len: int, gen: int = 0) -> int:
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.rules = get_rules(cfg.rules)
         # the reference casts each weight to the compute dtype where it is
         # used; casting once here gives the same bits and saves the
         # per-step casts
@@ -67,7 +73,8 @@ class ServeEngine:
                                               device=self.device)
         cache = init_cache(self.cfg, inputs["tokens"].shape[0], self.max_len,
                            device=self.device)
-        return prefill(self.cfg, self.params, inputs, cache)
+        with use_rules(self.mesh, self.rules):
+            return prefill(self.cfg, self.params, inputs, cache)
 
     @torch.no_grad()
     def decode_greedy(self, cache, tokens, steps: int) -> np.ndarray:
@@ -76,7 +83,9 @@ class ServeEngine:
         tok = self._tokens(tokens).reshape(-1, 1)
         out = []
         for _ in range(steps):
-            logits, cache = decode_step(self.cfg, self.params, cache, tok)
+            with use_rules(self.mesh, self.rules):
+                logits, cache = decode_step(self.cfg, self.params, cache,
+                                            tok)
             tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
             out.append(tok)
         if not out:

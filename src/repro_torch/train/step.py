@@ -8,12 +8,22 @@ the buffer, so autograd accumulates every layer's gradient in place: no
 full-size temporary per layer (which indexing a stacked leaf that itself
 requires grad would build) and no copy afterwards.  Microbatches
 accumulate into the same buffers.
+
+Data parallel over a process group (``group``): each rank scores its
+slice of the global batch, its cross-entropy taken over the whole batch's
+unmasked targets (an all-reduced count) and its aux loss over the rank
+count, so the gradients all-reduced (summed) over the group, one
+all-reduce a leaf, are the whole batch's.  They are all-reduced before
+clipping and compression, which the optimizer applies to the global
+gradient, so every rank takes the same update and the replicas stay
+bit-equal.  The reported loss is the all-reduced one.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig
 from ..models import loss_fn
@@ -45,22 +55,42 @@ def zeros_like_tree(tree):
     return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
 
 
-def compute_grads(cfg: ModelConfig, params, batch, grads=None):
-    """Loss and gradient of ``loss_fn`` at ``params``; the gradient is
-    added into ``grads`` (f32 buffers of the params' layout, made zero
-    when not given).  Returns (loss, metrics, grads)."""
+def compute_grads(cfg: ModelConfig, params, batch, grads=None, **loss_kw):
+    """Loss and gradient of ``loss_fn`` at ``params`` (``loss_kw`` passed
+    on to it); the gradient is added into ``grads`` (f32 buffers of the
+    params' layout, made zero when not given).  Returns (loss, metrics,
+    grads)."""
     if grads is None:
         grads = zeros_like_tree(params)
     with torch.enable_grad():
-        loss, metrics = loss_fn(cfg, _bind(params, grads), batch)
+        loss, metrics = loss_fn(cfg, _bind(params, grads), batch, **loss_kw)
         loss.backward()
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def _dp_grads(cfg: ModelConfig, params, batch, group):
+    """This rank's share of the global batch's loss and gradient, then
+    the gradient and the loss all-reduced over ``group``."""
+    ranks = dist.get_world_size(group)
+    count = (batch["labels"][:, 1:] >= 0).sum().float()
+    dist.all_reduce(count, group=group)
+    loss, metrics, grads = compute_grads(cfg, params, batch,
+                                         token_total=count, ranks=ranks)
+    for g in _leaves(grads):
+        dist.all_reduce(g, group=group)
+    dist.all_reduce(loss, group=group)
+    return loss, metrics, grads
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     schedule: Optional[Callable] = None,
-                    microbatches: int = 1) -> Callable:
+                    microbatches: int = 1, group=None) -> Callable:
+    """``group``: the process group the step is data parallel over (None:
+    one rank)."""
     opt_cfg = opt_cfg or AdamWConfig()
+    if group is not None and microbatches > 1:
+        raise ValueError("microbatches > 1 is not taken under data "
+                         "parallelism")
 
     def train_step(state: TrainState, batch: Dict) -> tuple:
         """(state, batch of tensors) -> (state, metrics); the params and
@@ -82,6 +112,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     g.div_(microbatches)
             loss = lsum / microbatches
             metrics = {}
+        elif group is not None:
+            loss, metrics, grads = _dp_grads(cfg, params, batch, group)
         else:
             loss, metrics, grads = compute_grads(cfg, params, batch)
         _, new_opt, opt_metrics = adamw_update(grads, state.opt, params,

@@ -38,9 +38,10 @@ Every test skips without a card.  Tolerances:
   and one-token steps equal to one shot; ``ops.rglru`` routes by length;
 * the flash-attention forward at head dim 160 (pixtral-12b, its serving
   shape (4, 32, 8, 768, 768) among them) in f32 and bf16, and the sm90
-  cases at 160, with the forward's tolerances; both backwards refuse head
-  dim 160 with ``ValueError``; non-causal T != S (cross-attention) at D 64
-  in the forward and backward sweeps;
+  cases at 160, with the forward's tolerances; its backward there (GQA,
+  causal and not, a window, T != S both ways, and the sm90 cases) with the
+  backward's tolerances below, two runs bit-equal; non-causal T != S
+  (cross-attention) at D 64 in the forward and backward sweeps;
 * the flash-attention forward at head dim 256 (recurrentgemma-9b's MQA
   layers): the forward's tolerances above; its backward there (MQA,
   causal, a window shorter than T): f32 on the FMA kernel within the f32
@@ -111,8 +112,8 @@ SWEEP = [
     (2, 4, 4, 100, 37, 64, False, None),
     (1, 4, 2, 64, 200, 64, False, None),
 ]
-# the forward alone also at head dim 160 (pixtral-12b, served and not
-# trained): ragged, GQA, a window, T < S, no mask, and its serving shape
+# the forward also at head dim 160 (pixtral-12b): ragged, GQA, a window,
+# T < S, no mask, and its serving shape
 FWD_SWEEP = SWEEP + [
     (1, 4, 2, 100, 130, 160, True, None),
     (2, 4, 1, 96, 96, 160, True, 32),
@@ -343,7 +344,7 @@ def test_sm90_fwd_matches_plain(card, libraries, d, case):
 
 
 @pytest.mark.parametrize("case", SM90_CASES)
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 160, 256])
 def test_sm90_bwd_matches_plain(card, libraries, d, case):
     b, hq, hkv, t, s, causal, window = case
     (dq, _, _), _ = _check_bwd(card, (b, hq, hkv, t, s, d, causal, window),
@@ -353,20 +354,30 @@ def test_sm90_bwd_matches_plain(card, libraries, d, case):
     assert torch.all(dq[:, :, dead] == 0)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bwd_kernels_refuse_head_dim_160(card, dtype):
-    """The forward has a head dim 160 instance (pixtral-12b is served);
-    neither backward has one yet, and both wrappers say so."""
-    from repro_torch.kernels.flash_attention.kernel import (
-        BWD_HEAD_DIMS, FWD_HEAD_DIMS, flash_attention_bwd_cuda)
+# pixtral-12b's backward at head dim 160: GQA 2:1 and 4:1 with T < S
+# ragged at the 64-key blocks, a window, non-causal T < S and T > S (as
+# cross-attention calls it), MHA, and a longer causal GQA run
+D160_BWD_CASES = [
+    (1, 4, 2, 100, 130, 160, True, None),
+    (2, 4, 1, 96, 96, 160, True, 32),
+    (1, 2, 2, 72, 200, 160, False, None),
+    (2, 4, 4, 100, 37, 160, False, None),
+    (1, 8, 2, 520, 520, 160, True, None),
+]
 
-    assert 160 in FWD_HEAD_DIMS and 160 not in BWD_HEAD_DIMS
-    q, k, v = _mk(card, 3, 1, 4, 2, 64, 64, 160, dtype)
-    out, lse = attention(q, k, v, causal=True, return_lse=True)
-    with pytest.raises(ValueError, match="head dim 160"):
-        flash_attention_bwd_cuda(q, k, v, out, lse, torch.ones_like(out),
-                                 causal=True, window=None,
-                                 scale=160 ** -0.5)
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", D160_BWD_CASES)
+def test_bwd_kernel_at_head_dim_160(card, libraries, case, dtype):
+    """f32 through ``flash_bwd.cu`` against the plain backward within the
+    f32 tolerance; bf16 through ``flash_bwd_sm90.cu``'s query-split dk/dv
+    kernel within twice SDPA's error of the plain backward on f32 copies;
+    two runs of each bit-equal."""
+    got, run = _check_bwd(card, case, dtype)
+    for g, g2 in zip(got, run()):
+        assert torch.equal(g, g2)
+    lib = "flash_bwd_sm90" if dtype == "bfloat16" else "flash_bwd"
+    assert libraries == [lib] * 2
 
 
 def test_sm90_bwd_runs_are_bit_equal(card, libraries):
@@ -1485,3 +1496,57 @@ def test_moe_apply_bf16_runs_are_bit_equal(card):
     (y1, a1), (y2, a2) = (moe.moe_apply(p, x, **kw) for _ in range(2))
     assert y1.dtype == torch.bfloat16
     assert torch.equal(y1, y2) and torch.equal(a1, a2)
+
+
+# --------------------------------------------------------------------------
+# sharding: a one-card NCCL world
+# --------------------------------------------------------------------------
+def test_make_mesh_on_one_card_snapshots_as_a_plain_tensor(card, tmp_path):
+    """At world size 1 over NCCL, ``make_mesh`` (asked for 4 ranks) gives
+    a one-card CUDA mesh, and a tree of DTensors replicated over it
+    snapshots to the parts of the same plain tensors: raw bit-equal, q8
+    codes equal; ``load_leaf_`` writes the parts back into the local
+    shard."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.core.snapshot import load_leaf_, snapshot_pytree
+    from repro_torch.sharding import init_world, make_mesh
+
+    init_world(0, 1, "nccl", tmp_path / "store")
+    try:
+        mesh = make_mesh(4)
+        assert mesh.device_type == "cuda" and mesh.size() == 1
+        gen = torch.Generator(device=card).manual_seed(0)
+        plain = {"w": torch.randn(300, 257, generator=gen, device=card),
+                 "h": torch.randn(64, 8, generator=gen, device=card)
+                 .to(torch.bfloat16),
+                 "step": torch.full((), 7, dtype=torch.int32, device=card)}
+        tree = {k: DTensor.from_local(v, mesh, [Replicate()],
+                                      run_check=False)
+                for k, v in plain.items()}
+        for codec in ("raw", "q8"):
+            got = snapshot_pytree(tree, codec=codec)
+            want = snapshot_pytree(plain, codec=codec)
+            assert got.regions.keys() == want.regions.keys()
+            for name, r in want.regions.items():
+                g = got.regions[name]
+                assert g.meta.partition == r.meta.partition
+                assert g.parts.keys() == r.parts.keys()
+                for p, arr in r.parts.items():
+                    np.testing.assert_array_equal(g.parts[p], arr)
+                if r.encoded is not None:
+                    assert g.encoded.blobs == r.encoded.blobs
+        raw = snapshot_pytree(plain)
+        kept = {k: v.clone() for k, v in plain.items()}
+        for name, leaf in tree.items():
+            leaf.to_local().zero_()        # the plain tensor's storage too
+            r = raw.regions[name]
+            load_leaf_(name, leaf, dataclasses.replace(r.meta), r.parts)
+        for name, t in kept.items():
+            local = tree[name].to_local()
+            assert local.is_cuda and torch.equal(local, t)
+    finally:
+        dist.destroy_process_group()
