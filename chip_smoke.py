@@ -196,7 +196,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    instance on the card); the peak memory of the cast and of serving in
    its line;
 5. the training path: ``ElasticTrainer`` trains qwen2.5-3b at full width
-   (36 layers, d_model 2048, bf16 compute, f32 master weights, full remat)
+   cut to ``TRAIN_LAYERS`` of its 36 layers (d_model 2048, bf16 compute,
+   f32 master weights, full remat)
    on 4096-token sequences, global batch 1 (cut from 256), 4 steps with a
    q8-delta commit every 2 (keyframe, delta) encoded on the card, 2
    more steps as the uninterrupted reference; a fresh trainer restarts from
@@ -266,7 +267,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    the ``kernels`` line (each kernel's
    launches on the path named in ``launches_path``, its time, its plain
    version's, the bound, a library yardstick where one
-   PyTorch call computes the same function).
+   PyTorch call computes the same function);
+8. report: three cells of the one-H100 report (``repro_torch.launch.
+   report``) run on the card as its one-device step at the 16 x 16
+   mesh: yi-6b x decode_32k (8 sequences, a 32,768-slot cache), yi-6b x
+   prefill_32k (2 sequences of 32,768 tokens) on one draw of its
+   weights, and qwen2.5-3b x train_4k (16 sequences in 8 microbatches),
+   all at full depth.  Each step runs once under the op counter on the
+   card and is traced once on ``meta``: FLOPs, bytes and the kernels'
+   records must be equal, K4's records equal to its launches, and
+   ``max_memory_allocated`` (after ``reset_peak_memory_stats``) over a
+   timed run within 0.8-1.25x of the report's peak; the
+   ``report`` line gives the measured ms beside ``bound_s``.
 
 The last line is ``{"ok": true, "device": {...}}``.  f32 matmuls run in full
 f32 (``allow_tf32`` is False).  A kernel's ``ms``, ``plain_ms`` and
@@ -324,6 +336,11 @@ BWD_TOL = {"float32": (1e-4, 1e-4)}
 # encoder-decoder's phases came, 4 until pixtral-12b's training phase
 # came, 2 since, to keep the run within its time)
 TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 4, 2, 2
+# the training path (phase 5) cut to 18 of qwen2.5-3b's 36 layers since
+# the report's phase (8) came, to keep the run within its time: the
+# restart's host decode of the whole f32 state (136 s at 36 layers) and
+# the two commits scale with the depth
+TRAIN_LAYERS = 18
 # the cut phase's overlap resize must complete within this wall time
 RESIZE_WAIT_S = 300
 CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
@@ -434,6 +451,12 @@ PIX_TRAIN_LAYERS, PIX_PLAIN_LAYERS, PIX_GRAD_TOL = 2, 1, 1e-4
 # layers (12 + 12) and one TRAIN_SEQ-token sequence with its frames a
 # training step; its f32 cuts (1 + 1 layers) against the plain CPU path
 SEAMLESS_PLAIN_LAYERS = 1
+# the report's cells run on the card (phase 8), each at full depth: the
+# report puts qwen2.5-3b's training cell's peak at 81.2 GB (its training
+# state 54 GB, the f32 logits of a 2 x 4096-token microbatch in the loss's
+# backward 25 GB) of the card's 85.0 GB
+REPORT_CELLS = (("yi-6b", "decode_32k"), ("yi-6b", "prefill_32k"),
+                ("qwen2.5-3b", "train_4k"))
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -2851,6 +2874,49 @@ def grad_moe_phase(full, device, card, n_params, layers=1) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 8: the report's cells on the card
+# --------------------------------------------------------------------------
+def report_phase(device, cells=REPORT_CELLS) -> list:
+    """Each cell's one-device step at the 16 x 16 mesh run on the card
+    and held against the report's ``meta`` trace
+    (``report.measure_cell`` and ``check_measure``); a serving cell's
+    weights serve the next cell of the same arch.  Returns each cell's
+    numbers, with the bytes the card held before the cell
+    (``allocated_before``; the prefill cell's include the weights)."""
+    import torch
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import report, specs
+    from repro_torch.launch.mesh import production_mesh
+
+    mesh = production_mesh()
+    out = []
+    served = {}            # arch -> its serving weights on the card
+    for arch, shape_name in cells:
+        cfg, shape = get_config(arch), get_shape(shape_name)
+        if shape.kind == "train" or arch not in served:
+            served.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(device)
+        t0 = time.monotonic()
+        if shape.kind != "train" and not served:
+            gen = torch.Generator(device=device).manual_seed(0)
+            served[arch] = report.serving_params(cfg, device, gen)
+        m = report.measure_cell(
+            cfg, shape, report.device_batch(shape, mesh),
+            specs.default_microbatches(cfg, shape, mesh), device,
+            timed_runs=3 if shape.kind == "decode" else 1,
+            params=served.get(arch))
+        m.update(allocated_before=before, wall_s=time.monotonic() - t0)
+        log(json.dumps({"report_cell": m}))
+        report.check_measure(m)
+        out.append(m)
+    served.clear()
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 7: kernel numbers at the training path's shapes
 # --------------------------------------------------------------------------
 def bwd_numbers(path_case, device) -> dict:
@@ -3263,18 +3329,19 @@ def main() -> int:
     log(f"  phase 4j done at {time.monotonic() - t_start:.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
-    n_params = count_params(tcfg)
-    log(f"phase 5: training, {tcfg.name} {tcfg.num_layers} layers d_model "
-        f"{tcfg.d_model} {tcfg.dtype} compute, {n_params} params, "
-        f"{TRAIN_SEQ} tokens a step, q8-delta commit every {COMMIT_EVERY} "
-        f"steps")
+    pcfg5 = dataclasses.replace(tcfg, num_layers=TRAIN_LAYERS)
+    n_params = count_params(pcfg5)
+    log(f"phase 5: training, {tcfg.name} cut to {TRAIN_LAYERS} of "
+        f"{tcfg.num_layers} layers d_model {tcfg.d_model} {tcfg.dtype} "
+        f"compute, {n_params} params, {TRAIN_SEQ} tokens a step, q8-delta "
+        f"commit every {COMMIT_EVERY} steps")
     torch.cuda.reset_peak_memory_stats()
-    tr = train_main_path(tcfg, device, profile=True)
+    tr = train_main_path(pcfg5, device, profile=True)
     frames = [(c["key_frames"], c["delta_frames"]) for c in tr["commits"]]
     ratios = [c["raw_bytes"] / c["encoded_bytes"] for c in tr["commits"]]
-    if tr["launches"]["flash_fwd"] != 2 * tcfg.num_layers * TRAIN_STEPS or \
+    if tr["launches"]["flash_fwd"] != 2 * TRAIN_LAYERS * TRAIN_STEPS or \
             tr["launches"]["flash_bwd_sm90"] != \
-            tcfg.num_layers * TRAIN_STEPS or tr["launches"]["flash_bwd"]:
+            TRAIN_LAYERS * TRAIN_STEPS or tr["launches"]["flash_bwd"]:
         raise AssertionError(f"training launches {tr['launches']}")
     if not (tr["launches"]["quantize"] and tr["launches"]["quantize_delta"]):
         raise AssertionError(f"commits did not run K1 and K2: "
@@ -3306,6 +3373,9 @@ def main() -> int:
         "host": host_rss(), "restart_host": tr["restart_rss"],
         "pre_restart_host": tr["pre_restart_rss"],
         "pfs_free_bytes": tr["pfs_free_bytes"],
+        "reduced": {"num_layers": (
+            f"{tcfg.num_layers} -> {TRAIN_LAYERS}: 36 until the report's "
+            f"phase came, cut to keep the whole run within its time")},
     }
     log(card)
     log(json.dumps({"train": train}))
@@ -3444,6 +3514,19 @@ def main() -> int:
                         cross_bwd_train,
                     "flash_fwd_d160_train_shape": d160_fwd_train,
                     "flash_bwd_d160_train_shape": d160_bwd}))
+    log(f"  phase 7 done at {time.monotonic() - t_start:.1f} s")
+
+    log("phase 8: report cells on the card against their meta traces")
+    t8 = time.monotonic()
+    cells = report_phase(device)
+    log(json.dumps({"report": [
+        {k: m[k] for k in ("arch", "shape", "layers", "sequences",
+                           "microbatches", "ms", "bound_s", "flops",
+                           "bytes", "report_peak_bytes",
+                           "max_memory_allocated", "peak_ratio",
+                           "k4_launches")} for m in cells],
+        "phase_s": time.monotonic() - t8}))
+    log(f"  phase 8 done at {time.monotonic() - t_start:.1f} s")
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
     paths = {"serve": yi_launches, "serve_rwkv6": rw_launches,

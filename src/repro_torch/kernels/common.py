@@ -3,7 +3,15 @@
 Dispatch follows the device of the inputs, with no environment variable and
 no ``auto``: tensors on the CPU take a kernel's plain PyTorch version;
 tensors on a CUDA device launch the hand-written kernel, and a kernel that
-does not build or launch raises.  Nothing falls back.
+does not build or launch raises.  Nothing falls back.  Tensors on the
+``meta`` device (which hold no values) get empty outputs of the kernel's
+shapes and dtypes: that is how a step is traced abstractly
+(``launch/opcount.py``).  Any other device raises.
+
+Each kernel call, launched or traced on ``meta``, passes its work (FLOPs
+and bytes, the counts its bound in ``PERF.md`` uses) to ``record_cost``,
+which hands it to every sink in ``cost_sinks``: an active
+``launch.opcount.OpCounter`` adds one.
 
 Kernels are CUDA C++ sources with a plain C interface under each package's
 ``csrc/``.  ``load_library`` compiles them with ``nvcc`` for ``sm_90a`` at
@@ -21,7 +29,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
@@ -55,6 +63,21 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if kinds == {"cuda"}:
         return True
     raise ValueError(f"inputs on mixed or unsupported devices: {sorted(kinds)}")
+
+
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the ``meta`` device."""
+    return {t.device.type for t in tensors} == {"meta"}
+
+
+# callables (kernel name, flops, bytes) that each kernel call reports to
+cost_sinks: List[Callable[[str, float, float], None]] = []
+
+
+def record_cost(name: str, flops: float, nbytes: float) -> None:
+    """Pass one kernel call's work to every sink in ``cost_sinks``."""
+    for sink in cost_sinks:
+        sink(name, flops, nbytes)
 
 
 def check_tensor(name: str, t: torch.Tensor, shape, dtypes, device) -> None:

@@ -11,16 +11,23 @@ kernel.py:95``) and its XLA backward (``ops._xla_flash_bwd``, ``ops.py:94``).
 Each CUDA source is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/common.load_library``) and called through its plain C interface
 with ``ctypes`` on PyTorch's current stream.
+
+Every launch records its work (``fwd_cost`` / ``bwd_cost``) with
+``common.record_cost``; ``flash_attention_meta`` and
+``flash_attention_bwd_meta`` give ``meta`` tensors the outputs and scratch
+of a launch and record the same work, launching nothing.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..common import load_library
+from ..common import load_library, record_cost
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # library name -> its source, and the headers a library includes
@@ -106,8 +113,50 @@ def heads_per_part(b: int, hq: int, hkv: int, s: int, d: int,
                default=1)
 
 
+# an H100 SXM's SMs: what ``heads_per_part`` assumes on ``meta``
+H100_SMS = 132
+
+
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def allowed_pairs(t: int, s: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """The (query, key) pairs the mask allows, query row i at position
+    S - T + i (``ref.allowed_mask(...).sum()`` without the T x S mask):
+    the work of the products, the tiles the kernels skip left out."""
+    pos = np.arange(t, dtype=np.int64) + (s - t)
+    hi = np.minimum(pos, s - 1) if causal else np.full(t, s - 1)
+    lo = np.maximum(pos - window + 1, 0) if window is not None \
+        else np.zeros(t, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def fwd_cost(q_shape, kv_shape, causal: bool, window: Optional[int],
+             itemsize: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one forward, as its bound in ``PERF.md`` counts
+    them: Q K^T and P V over the allowed pairs, 2 FLOPs a multiply-add;
+    q, k, v read and out written once in the inputs' dtype, lse f32."""
+    b, hq, t, d = q_shape
+    hkv, s = kv_shape[1], kv_shape[2]
+    flops = 4 * b * hq * d * allowed_pairs(t, s, causal, window)
+    nbytes = (2 * b * hq * t * d + 2 * b * hkv * s * d) * itemsize \
+        + b * hq * t * 4
+    return flops, nbytes
+
+
+def bwd_cost(q_shape, kv_shape, causal: bool, window: Optional[int],
+             itemsize: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one backward: five products over the allowed
+    pairs; q, k, v, out and their gradients, dout, and lse twice."""
+    b, hq, t, d = q_shape
+    hkv, s = kv_shape[1], kv_shape[2]
+    flops = 10 * b * hq * d * allowed_pairs(t, s, causal, window)
+    nbytes = (5 * b * hq * t * d + 4 * b * hkv * s * d) * itemsize \
+        + 2 * b * hq * t * 4
+    return flops, nbytes
 
 
 def _check_qkv(q, k, v, head_dims, what, extra=()):
@@ -163,6 +212,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           lse.data_ptr(), b, hq, hkv, t, s, d, float(scale), int(causal),
           int(window is not None), int(window or 0), _DTYPES[q.dtype], stream)
     launches += 1
+    record_cost(_library("fwd", q.dtype),
+                *fwd_cost(q.shape, k.shape, causal, window, q.element_size()))
+    return out, lse
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool, window: Optional[int],
+                         scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_cuda`` on ``meta`` tensors: its outputs, and its
+    work recorded; nothing is launched."""
+    b, hq, t, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    if out.numel():
+        record_cost(_library("fwd", q.dtype),
+                    *fwd_cost(q.shape, k.shape, causal, window,
+                              q.element_size()))
     return out, lse
 
 
@@ -208,4 +274,33 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     bwd_launches += 1
     if name == "flash_bwd_sm90":
         bwd_sm90_launches += 1
+    record_cost(name, *bwd_cost(q.shape, k.shape, causal, window,
+                                q.element_size()))
+    return dq, dk, dv
+
+
+def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool, window: Optional[int],
+                             scale: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``flash_attention_bwd_cuda`` on ``meta`` tensors: its outputs and
+    scratch (at an H100's SM count), and its work recorded."""
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    name = _library("bwd", q.dtype)
+    hg = 1 if name == "flash_bwd" else \
+        heads_per_part(b, hq, hkv, s, d, H100_SMS)
+    # the launch's scratch, alive while it runs
+    scratch = (torch.empty((b, hq, t), dtype=torch.float32, device=q.device),
+               torch.empty((2, b, hq // hg, s, d), dtype=torch.float32,
+                           device=q.device))
+    del scratch
+    record_cost(name, *bwd_cost(q.shape, k.shape, causal, window,
+                                q.element_size()))
     return dq, dk, dv

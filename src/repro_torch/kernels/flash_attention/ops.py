@@ -1,5 +1,7 @@
 """Public attention op: the Hopper kernels on CUDA tensors, the plain
-versions on CPU tensors, forward and backward.
+versions on CPU tensors, forward and backward; on ``meta`` tensors the
+kernels' outputs and recorded work, with nothing launched (an abstract
+trace, ``launch/opcount.py``).
 
 An ``autograd.Function`` saves ``(q, k, v, out, lse)`` as the reference's
 ``custom_vjp`` does (``repro/kernels/flash_attention/ops.py:153-190``), and
@@ -12,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from ..common import on_cuda
+from ..common import on_cuda, on_meta
 from . import kernel
 from .ref import attention_bwd_ref, attention_ref
 
@@ -20,7 +22,11 @@ from .ref import attention_bwd_ref, attention_ref
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        if on_cuda(q, k, v):
+        if on_meta(q, k, v):
+            out, lse = kernel.flash_attention_meta(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=causal, window=window, scale=scale)
+        elif on_cuda(q, k, v):
             out, lse = kernel.flash_attention_cuda(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 causal=causal, window=window, scale=scale)
@@ -36,7 +42,11 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         kw = dict(causal=ctx.causal, window=ctx.window, scale=ctx.scale)
-        if on_cuda(q, k, v, dout):
+        if on_meta(q, k, v, dout):
+            dq, dk, dv = kernel.flash_attention_bwd_meta(
+                q.contiguous(), k.contiguous(), v.contiguous(), out, lse,
+                dout.contiguous(), **kw)
+        elif on_cuda(q, k, v, dout):
             dq, dk, dv = kernel.flash_attention_bwd_cuda(
                 q.contiguous(), k.contiguous(), v.contiguous(), out, lse,
                 dout.contiguous(), **kw)

@@ -20,7 +20,9 @@ two kernels of the same two designs, bit-equal to each other:
 Each CUDA source is compiled
 with ``nvcc`` for ``sm_90a`` at first use (``kernels/common.load_library``)
 and called through its plain C interface with ``ctypes`` on PyTorch's
-current stream.
+current stream.  Every launch records its work (``cost``) with
+``common.record_cost``; ``rglru_meta`` and ``rglru_bwd_meta`` do the same
+for ``meta`` tensors, launching nothing.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import CONVERT_HEADER, check_tensor, load_library
+from ..common import CONVERT_HEADER, check_tensor, load_library, \
+    record_cost
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # the headers of the sources that include csrc/rglru.cuh
@@ -159,6 +162,47 @@ def _empty(g, h0):
         if h0 is None else h0.clone())
 
 
+def cost(name: str, b: int, t: int, d: int,
+         itemsize: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one call of kernel ``name`` at (B, T, D) with g
+    (forward) or h and dh (backward) of ``itemsize`` bytes, as its bound
+    in ``PERF.md`` counts them.  Forward: log_a (f32), g and h a token,
+    h0 and h_final (f32) a channel; an exp and a multiply-add an element.
+    Backward: log_a and dlog_a (f32), h, dh and dg a token, h0, dh_last
+    and dh0 (f32) a channel; an exp and three multiplies an element."""
+    if name in ("rglru", "rglru_sm90"):
+        return 3 * b * t * d, b * t * d * (4 + 2 * itemsize) + 2 * b * d * 4
+    return 4 * b * t * d, b * t * d * (8 + 3 * itemsize) + 3 * b * d * 4
+
+
+def rglru_meta(name: str, log_a: torch.Tensor, g: torch.Tensor,
+               h0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel ``name`` ("rglru" or "rglru_sm90") on ``meta`` tensors: the
+    launch's outputs, and its work recorded."""
+    b, t, d = g.shape
+    if t == 0 or b * d == 0:
+        return _empty(g, h0)
+    h = torch.empty_like(g)
+    h_final = torch.empty((b, d), dtype=torch.float32, device=g.device)
+    record_cost(name, *cost(name, b, t, d, g.element_size()))
+    return h, h_final
+
+
+def rglru_bwd_meta(name: str, log_a: torch.Tensor, h: torch.Tensor,
+                   h0: Optional[torch.Tensor], dh: torch.Tensor,
+                   dh_last: Optional[torch.Tensor] = None):
+    """Backward kernel ``name`` ("rglru_bwd" or "rglru_bwd_sm90") on
+    ``meta`` tensors: the launch's outputs, and its work recorded."""
+    b, t, d = h.shape
+    if t == 0 or b * d == 0:
+        return _empty_bwd(log_a, h, h0, dh_last)
+    out = (torch.empty_like(log_a), torch.empty_like(h),
+           None if h0 is None else torch.empty_like(h0))
+    record_cost(name, *cost(name, b, t, d, h.element_size()))
+    return out
+
+
 def rglru_cuda(log_a: torch.Tensor, g: torch.Tensor,
                h0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -176,6 +220,7 @@ def rglru_cuda(log_a: torch.Tensor, g: torch.Tensor,
           h_final.data_ptr(), b, t, d, _DTYPES[g.dtype],
           torch.cuda.current_stream(g.device).cuda_stream)
     launches += 1
+    record_cost("rglru", *cost("rglru", b, t, d, g.element_size()))
     return h, h_final
 
 
@@ -198,6 +243,7 @@ def rglru_sm90_cuda(log_a: torch.Tensor, g: torch.Tensor,
           h_final.data_ptr(), b, t, d, _DTYPES[g.dtype], tokens, stages,
           torch.cuda.current_stream(g.device).cuda_stream)
     sm90_launches += 1
+    record_cost("rglru_sm90", *cost("rglru_sm90", b, t, d, g.element_size()))
     return h, h_final
 
 
@@ -249,6 +295,7 @@ def rglru_bwd_cuda(log_a: torch.Tensor, h: torch.Tensor,
         return _empty_bwd(log_a, h, h0, dh_last)
     out = _bwd("rglru_bwd", log_a, h, h0, dh, dh_last)
     bwd_launches += 1
+    record_cost("rglru_bwd", *cost("rglru_bwd", b, t, d, h.element_size()))
     return out
 
 
@@ -268,4 +315,6 @@ def rglru_bwd_sm90_cuda(log_a: torch.Tensor, h: torch.Tensor,
     out = _bwd("rglru_bwd_sm90", log_a, h, h0, dh, dh_last,
                *plan(b, t, d, _sms(h.device.index)))
     bwd_sm90_launches += 1
+    record_cost("rglru_bwd_sm90",
+                *cost("rglru_bwd_sm90", b, t, d, h.element_size()))
     return out

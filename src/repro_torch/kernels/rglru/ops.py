@@ -1,5 +1,7 @@
 """Public RG-LRU op: the Hopper kernels (K7) on CUDA tensors, the plain
-chunked version on CPU tensors.
+chunked version on CPU tensors, and on ``meta`` tensors the routed
+kernel's outputs and recorded work, with nothing launched (an abstract
+trace, ``launch/opcount.py``).
 
 The twin of ``repro/kernels/rglru/ops.py::rglru``.  A call whose inputs
 require grad goes through an ``autograd.Function`` that saves ``(log_a,
@@ -29,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from ..common import on_cuda
+from ..common import on_cuda, on_meta
 from . import kernel
 from .ref import rglru_bwd_ref, rglru_chunked
 
@@ -71,13 +73,20 @@ def rglru(log_a: torch.Tensor, g: torch.Tensor,
 
 
 def _forward(log_a, g, h0):
-    if not on_cuda(*((log_a, g) + (() if h0 is None else (h0,)))):
+    tensors = (log_a, g) + (() if h0 is None else (h0,))
+    meta = on_meta(*tensors)
+    if not meta and not on_cuda(*tensors):
         return rglru_chunked(log_a, g, h0)
     log_a, g = log_a.float().contiguous(), g.contiguous()
     h0 = None if h0 is None else h0.float().contiguous()
-    if route(g.shape[1], g.shape[2], g.dtype) == "rglru_sm90":
-        return kernel.rglru_sm90_cuda(*_aligned(log_a, g), h0)
-    return kernel.rglru_cuda(log_a, g, h0)
+    name = route(g.shape[1], g.shape[2], g.dtype)
+    if name == "rglru_sm90":
+        log_a, g = _aligned(log_a, g)
+    if meta:
+        return kernel.rglru_meta(name, log_a, g, h0)
+    run = kernel.rglru_sm90_cuda if name == "rglru_sm90" else \
+        kernel.rglru_cuda
+    return run(log_a, g, h0)
 
 
 def _aligned(*tensors):
@@ -96,17 +105,21 @@ class _RGLRU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh, dh_last):
         log_a, h, h0 = ctx.saved_tensors
-        if on_cuda(log_a, h):
+        meta = on_meta(log_a, h)
+        if meta or on_cuda(log_a, h):
             f32 = (None if x is None else x.float().contiguous()
                    for x in (log_a, h0, dh_last))
             la, h0f, dlf = f32
             h, dh = h.contiguous(), dh.to(h.dtype).contiguous()
-            if route_bwd(h.shape[1], h.shape[2], h.dtype) == "rglru_bwd_sm90":
+            name = route_bwd(h.shape[1], h.shape[2], h.dtype)
+            if name == "rglru_bwd_sm90":
                 la, h, dh = _aligned(la, h, dh)
                 run = kernel.rglru_bwd_sm90_cuda
             else:
                 run = kernel.rglru_bwd_cuda
-            dlog_a, dg, dh0 = run(la, h, h0f, dh, dlf)
+            args = (la, h, h0f, dh, dlf)
+            dlog_a, dg, dh0 = kernel.rglru_bwd_meta(name, *args) if meta \
+                else run(*args)
         else:
             dlog_a, dg, dh0 = rglru_bwd_ref(log_a, h, h0, dh, dh_last)
         need = ctx.needs_input_grad

@@ -20,7 +20,10 @@ same rule:
 
 Each CUDA source is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/common.load_library``) and called through its plain C
-interface with ``ctypes`` on PyTorch's current stream.
+interface with ``ctypes`` on PyTorch's current stream.  Every launch
+records its work (``cost``) with ``common.record_cost``; ``rwkv6_meta``
+and ``rwkv6_bwd_meta`` do the same for ``meta`` tensors, launching
+nothing.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import CONVERT_HEADER, check_tensor, load_library
+from ..common import CONVERT_HEADER, check_tensor, load_library, \
+    record_cost
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SM90 = (_CSRC.parent.parent / "flash_attention" / "csrc" / "sm90.cuh",
@@ -53,6 +57,8 @@ bwd_launches = 0
 bwd_sm90_launches = 0
 # both backwards keep the state before every BWD_CHUNK tokens
 BWD_CHUNK = 64
+# the chunked forward's chunk
+FWD_CHUNK = 64
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"rwkv6": [_VP] * 8 + [_CI] * 5 + [_VP],
@@ -106,6 +112,76 @@ def _check(r, k, v, log_w, u, s0, dtypes) -> Tuple[int, int, int, int]:
     return b, h, t, d
 
 
+def cost(name: str, b: int, h: int, t: int, d: int,
+         itemsize: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one call of kernel ``name`` at (B, H, T, D) with
+    r/k/v of ``itemsize`` bytes, as its bound in ``PERF.md`` counts them.
+    Bytes: each input read once, each output written once (r, k, v, o and
+    f32 log_w a token; u; s0 and sT; the backward adds do, dr, dk, dv,
+    dlog_w, du and ds0).  FLOPs: the chunked forward's four products a
+    chunk, 2 C D^2 each; the sequential forward's 5 operations a state
+    element a token; the chunked backward's five C D^2 products and five
+    lower-triangle C^2 D ones a chunk; the sequential backward's six D x D
+    products a token."""
+    n = b * h * t * d
+    if name in ("rwkv6", "rwkv6_sm90"):
+        nbytes = n * (4 * itemsize + 4) + h * d * 4 + 2 * b * h * d * d * 4
+        flops = (8 * FWD_CHUNK * d * d * -(-t // FWD_CHUNK) * b * h
+                 if name == "rwkv6_sm90" else 5 * b * h * t * d * d)
+    else:
+        nbytes = n * (7 * itemsize + 8) + 2 * h * d * 4 \
+            + 3 * b * h * d * d * 4
+        flops = (b * h * -(-t // BWD_CHUNK)
+                 * (12 * BWD_CHUNK * d * d + 5 * BWD_CHUNK ** 2 * d)
+                 if name == "rwkv6_bwd_sm90" else 12 * b * h * t * d * d)
+    return flops, nbytes
+
+
+def rwkv6_meta(name: str, r: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, log_w: torch.Tensor, u: torch.Tensor,
+               s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel ``name`` ("rwkv6" or "rwkv6_sm90") on ``meta`` tensors: the
+    launch's outputs, and its work recorded."""
+    b, h, t, d = r.shape
+    o = torch.empty_like(v)
+    if t == 0 or b * h == 0:
+        return o, s0.clone()
+    sT = torch.empty_like(s0)
+    record_cost(name, *cost(name, b, h, t, d, r.element_size()))
+    return o, sT
+
+
+def rwkv6_bwd_meta(name: str, r, k, v, log_w, u, s0, do, dsT=None):
+    """Backward kernel ``name`` ("rwkv6_bwd" or "rwkv6_bwd_sm90") on
+    ``meta`` tensors: the launch's outputs and scratch, and its work
+    recorded."""
+    b, h, t, d = r.shape
+    dr, dk, dv = (torch.empty_like(x) for x in (r, k, v))
+    dlog_w = torch.empty_like(log_w)
+    du = torch.empty_like(u)
+    ds0 = None if s0 is None else torch.empty_like(s0)
+    if t == 0 or b * h == 0:
+        for x in (dr, dk, dv, dlog_w, du):
+            x.zero_()
+        if ds0 is not None:
+            ds0.zero_() if dsT is None else ds0.copy_(dsT)
+        return dr, dk, dv, dlog_w, du, ds0
+    nc = -(-t // BWD_CHUNK)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    if name == "rwkv6_bwd_sm90":
+        scratch = (torch.empty((b, h, nc, d), **f32),
+                   torch.empty((b, h, nc + 1, d, d), **f32),
+                   torch.empty((b, h, nc, d, d), **f32),
+                   torch.empty((b, h, nc, d), **f32))
+    else:
+        scratch = (torch.empty((b, h, nc, d, d), **f32),
+                   torch.empty((b, h, BWD_CHUNK, d, d), **f32),
+                   torch.empty((b, h, d), **f32))
+    del scratch
+    record_cost(name, *cost(name, b, h, t, d, r.element_size()))
+    return dr, dk, dv, dlog_w, du, ds0
+
+
 def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                log_w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,6 +200,8 @@ def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           sT.data_ptr(), b, h, t, d, _DTYPES[r.dtype],
           torch.cuda.current_stream(r.device).cuda_stream)
     launches += 1
+    record_cost("rwkv6",
+                *cost("rwkv6", b, h, t, d, r.element_size()))
     return o, sT
 
 
@@ -146,6 +224,8 @@ def rwkv6_sm90_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           sT.data_ptr(), b, h, t, d,
           torch.cuda.current_stream(r.device).cuda_stream)
     sm90_launches += 1
+    record_cost("rwkv6_sm90",
+                *cost("rwkv6_sm90", b, h, t, d, r.element_size()))
     return o, sT
 
 
@@ -194,6 +274,8 @@ def rwkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           win.data_ptr(), b, h, t, d, _DTYPES[r.dtype],
           torch.cuda.current_stream(r.device).cuda_stream)
     bwd_launches += 1
+    record_cost("rwkv6_bwd",
+                *cost("rwkv6_bwd", b, h, t, d, r.element_size()))
     return dr, dk, dv, dlog_w, du, ds0
 
 
@@ -240,4 +322,6 @@ def rwkv6_bwd_sm90_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           states.data_ptr(), cotangents.data_ptr(), du_part.data_ptr(), b, h,
           t, d, torch.cuda.current_stream(r.device).cuda_stream)
     bwd_sm90_launches += 1
+    record_cost("rwkv6_bwd_sm90",
+                *cost("rwkv6_bwd_sm90", b, h, t, d, r.element_size()))
     return dr, dk, dv, dlog_w, du, ds0

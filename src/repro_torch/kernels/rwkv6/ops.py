@@ -1,5 +1,7 @@
 """Public RWKV-6 op: the Hopper kernels (K6) on CUDA tensors, the plain
-chunked version on CPU tensors.
+chunked version on CPU tensors, and on ``meta`` tensors the routed
+kernel's outputs and recorded work, with nothing launched (an abstract
+trace, ``launch/opcount.py``).
 
 The twin of ``repro/kernels/rwkv6/ops.py::rwkv6``.  A call whose inputs
 require grad goes through an ``autograd.Function`` that saves its inputs,
@@ -30,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from ..common import on_cuda
+from ..common import on_cuda, on_meta
 from . import kernel
 from .ref import rwkv6_bwd_ref, rwkv6_chunked
 
@@ -68,7 +70,9 @@ def _aligned(*xs):
 
 
 def _forward(r, k, v, log_w, u, s0, chunk):
-    if not on_cuda(*(r, k, v, log_w, u) + (() if s0 is None else (s0,))):
+    tensors = (r, k, v, log_w, u) + (() if s0 is None else (s0,))
+    meta = on_meta(*tensors)
+    if not meta and not on_cuda(*tensors):
         return rwkv6_chunked(r, k, v, log_w, u, s0, chunk=chunk)
     b, h, t, d = r.shape
     if s0 is None:
@@ -76,11 +80,11 @@ def _forward(r, k, v, log_w, u, s0, chunk):
     r, k, v, log_w = (x.contiguous() for x in (r, k, v, log_w.float()))
     if r.dtype == torch.bfloat16 and t >= SM90_MIN_T:
         r, k, v, log_w = _aligned(r, k, v, log_w)
-        run = kernel.rwkv6_sm90_cuda
+        name, run = "rwkv6_sm90", kernel.rwkv6_sm90_cuda
     else:
-        run = kernel.rwkv6_cuda
-    return run(r, k, v, log_w, u.float().contiguous(),
-               s0.float().contiguous())
+        name, run = "rwkv6", kernel.rwkv6_cuda
+    args = (r, k, v, log_w, u.float().contiguous(), s0.float().contiguous())
+    return kernel.rwkv6_meta(name, *args) if meta else run(*args)
 
 
 class _RWKV6(torch.autograd.Function):
@@ -94,17 +98,20 @@ class _RWKV6(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dsT):
         r, k, v, log_w, u, s0 = ctx.saved_tensors
-        if on_cuda(r, k, v, log_w, u):
+        meta = on_meta(r, k, v, log_w, u)
+        if meta or on_cuda(r, k, v, log_w, u):
             f32 = (None if x is None else x.float().contiguous()
                    for x in (log_w, u, s0, dsT))
             lw, uf, s0f, dsTf = f32
             r, k, v, do = (x.contiguous() for x in (r, k, v, do.to(r.dtype)))
             if r.dtype == torch.bfloat16 and r.shape[2] >= SM90_MIN_T:
                 r, k, v, do = _aligned(r, k, v, do)
-                run = kernel.rwkv6_bwd_sm90_cuda
+                name, run = "rwkv6_bwd_sm90", kernel.rwkv6_bwd_sm90_cuda
             else:
-                run = kernel.rwkv6_bwd_cuda
-            grads = run(r, k, v, lw, uf, s0f, do, dsTf)
+                name, run = "rwkv6_bwd", kernel.rwkv6_bwd_cuda
+            args = (r, k, v, lw, uf, s0f, do, dsTf)
+            grads = kernel.rwkv6_bwd_meta(name, *args) if meta \
+                else run(*args)
         else:
             grads = rwkv6_bwd_ref(r, k, v, log_w, u, s0, do, dsT,
                                   chunk=ctx.chunk)

@@ -67,6 +67,34 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert int(proc.stdout.strip()) >= 40       # every module was imported
 
 
+EXAMPLES = sorted((SRC.parent / "examples").glob("*_torch.py"))
+
+
+def test_example_twins_import_no_jax_and_nothing_of_repro():
+    """The examples' PyTorch twins load, as modules (their ``main`` not
+    run), with no jax, no ml_dtypes and nothing of ``repro``."""
+    assert [p.name for p in EXAMPLES] == [
+        "elastic_train_torch.py", "multi_app_torch.py",
+        "quickstart_torch.py", "serve_demo_torch.py",
+        "train_e2e_torch.py"]
+    script = textwrap.dedent("""
+        import importlib.util, sys
+        for path in sys.argv[1:]:
+            spec = importlib.util.spec_from_file_location("ex", path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        loaded = [m for m, mod in sys.modules.items() if mod is not None]
+        bad = sorted(m for m in loaded
+                     if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
+                                            "repro"))
+        assert not bad, bad
+        assert "repro_torch" in sys.modules
+    """)
+    proc = subprocess.run([sys.executable, "-c", script,
+                           *map(str, EXAMPLES)], cwd=str(SRC),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("ref,copy", COPIES,
                          ids=[str(c.relative_to(SRC)) for _, c in COPIES])
 def test_copies_have_not_drifted(ref, copy):

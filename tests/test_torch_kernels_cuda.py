@@ -70,6 +70,11 @@ Every test skips without a card.  Tolerances:
   and 8 decode steps against the CPU, codes at most one step apart on at
   most 1e-3 of them, logits within the CPU's own int8-against-exact
   difference plus 1e-4 and argmax-equal;
+* the op counter (``launch/opcount.py``): one small step (full width, a
+  layer or a super-layer, 320 tokens; yi-6b trained, prefilled and
+  decoded, rwkv6-7b and recurrentgemma-9b trained) counted on the card
+  and traced on ``meta`` gives equal FLOPs, bytes and kernel records
+  (K4, K6, K7 forward and backward), and K4's records equal its launches;
 * the MoE serving shapes of K4's bf16 forward (qwen3-moe-235b-a22b's GQA
   16:1 at D 64, dbrx-132b's 48/8 at D 128) with the forward's tolerances;
   ``moe_apply`` (tensor ops, no kernel of its own) on the card against
@@ -1550,3 +1555,33 @@ def test_make_mesh_on_one_card_snapshots_as_a_plain_tensor(card, tmp_path):
             assert local.is_cuda and torch.equal(local, t)
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# the op counter: one step on the card and on meta
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch,kind,layers", [
+    ("yi-6b", "train", 1), ("yi-6b", "prefill", 1), ("yi-6b", "decode", 1),
+    ("rwkv6-7b", "train", 1), ("recurrentgemma-9b", "train", 3)])
+def test_step_counts_on_the_card_equal_the_meta_trace(card, arch, kind,
+                                                      layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import report
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    shape = ShapeConfig(f"small_{kind}", kind, 320, 2)
+    m = report.measure_cell(cfg, shape, batch=2,
+                            microbatches=2 if kind == "train" else 1,
+                            device=card)
+    assert (m["flops"], m["bytes"]) == (m["meta_flops"], m["meta_bytes"])
+    assert m["kernels"] == m["meta_kernels"]
+    calls = sum(v["calls"] for v in
+                report.k4_records(m["kernels"]).values())
+    assert calls == m["k4_launches"]
+    # decode and RWKV-6 run no flash attention
+    assert (calls > 0) == (kind != "decode" and arch != "rwkv6-7b")
+    if arch != "yi-6b":
+        assert set(m["kernels"]) - set(report.K4_KERNELS)

@@ -1,5 +1,6 @@
 """Worker processes of the port's multi-process CPU tests
-(``test_torch_mesh_devices.py``, ``test_torch_train_dp.py``).
+(``test_torch_mesh_devices.py``, ``test_torch_train_dp.py``,
+``test_torch_opcount.py``).
 
 ``spawn_world(fn, world, tmp_path, *args)`` starts ``world`` processes
 with ``torch.multiprocessing`` (spawn), each joining a gloo world over a
@@ -329,3 +330,21 @@ def dp_grads(rank, world, tmp, arch, init, batch, steps):
     out["losses"] = [float(step(state, mine)[1]["loss"])
                      for _ in range(steps)]
     return out
+
+
+# --------------------------------------------------------------------------
+# test_torch_opcount.py: collectives under the op counter
+# --------------------------------------------------------------------------
+def counted_collectives(rank, world, tmp, n):
+    """Two all-reduces of ``n`` f32 values and an all-gather of ``n`` per
+    rank, under an ``OpCounter``; returns its collectives."""
+    from repro_torch.launch.opcount import OpCounter
+
+    x, y = torch.ones(n), torch.ones(n)
+    out = torch.empty(world * n)
+    with OpCounter() as counter:
+        dist.all_reduce(x)
+        dist.all_reduce(y)
+        dist.all_gather_into_tensor(out, torch.ones(n))
+    assert float(x[0]) == world
+    return counter.result()["collectives"]
