@@ -279,6 +279,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``max_memory_allocated`` (after ``reset_peak_memory_stats``) over a
    timed run within 0.8-1.25x of the report's peak; the
    ``report`` line gives the measured ms beside ``bound_s``.
+9. the mesh's "model" axis (``sharding/tp.py``): two processes on the
+   one card in a gloo world (``init_world(..., "cuda:gloo", ...)``; NCCL
+   refuses two ranks on one card, so every all-reduce is staged through
+   the host), a ("data", "model") mesh of 1 x 2.  Each draws yi-6b whole
+   (phase 4's seed) and serves it split at full width and depth through
+   ``ServeEngine(mesh=)``: 16 of the 32 heads and 2 of the 4 KV heads a
+   rank (K4 32 times a prefill at (4, 16, 2, 512, 512, 128), never in
+   decode), 4 x 512 prompt tokens and 32 new, 67 all-reduces a decode
+   step (two a layer, the embedding's, the argmax's two over the vocab
+   shards), counted; the KV cache committed as DTensor views (one part a
+   rank) and restored on the mesh bit-equal to a second prefill, decoding
+   from it to the live tokens; each all-reduce of 8 decode steps timed
+   between synchronizations (their share of a step).  This process then
+   feeds the split run's tokens to yi-6b in one process on the card, in
+   f32 and in bf16: the split bf16 logits must lie within twice the
+   one-process bf16 logits' distance from the f32 ones of the one-process
+   bf16 logits (max abs difference over max abs, every step: each bf16
+   run lies about bf16's own error from f32), and the equal greedy tokens
+   are counted; the
+   split f32 cut (2 layers, a 64-token prompt, 8 greedy steps) gives the
+   plain CPU path's tokens, its logits within 1e-3.  Then qwen2.5-3b cut
+   to 2 layers at full width trains split: its f32 cut's loss and
+   gradient shards over one 64-token sequence against the plain CPU path
+   (each leaf within 1e-4 of its largest, the loss within rtol 1e-5),
+   then 3 bf16 train steps of 4096 tokens (``make_train_step(mesh=)``:
+   K4 at (1, 8, 1, 4096, 4096, 128), 4 forward and 2 backward a step on
+   the wgmma libraries; AdamW's clip over the split leaves).  The
+   ``serve_tp`` and ``train_tp`` lines give the numbers; phase 3 checks
+   K4 at both local shapes (forward, and backward at the training one)
+   and phase 7 times them.
 
 The last line is ``{"ok": true, "device": {...}}``.  f32 matmuls run in full
 f32 (``allow_tf32`` is False).  A kernel's ``ms``, ``plain_ms`` and
@@ -336,11 +366,12 @@ BWD_TOL = {"float32": (1e-4, 1e-4)}
 # encoder-decoder's phases came, 4 until pixtral-12b's training phase
 # came, 2 since, to keep the run within its time)
 TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 4, 2, 2
-# the training path (phase 5) cut to 18 of qwen2.5-3b's 36 layers since
-# the report's phase (8) came, to keep the run within its time: the
-# restart's host decode of the whole f32 state (136 s at 36 layers) and
-# the two commits scale with the depth
-TRAIN_LAYERS = 18
+# the training path (phase 5) cut to 12 of qwen2.5-3b's 36 layers since
+# the "model" axis's phase (9) came, 18 since the report's phase (8)
+# came, to keep the run within its time: the restart's host decode of
+# the whole f32 state (136 s at 36 layers) and the two commits scale with
+# the depth
+TRAIN_LAYERS = 12
 # the cut phase's overlap resize must complete within this wall time
 RESIZE_WAIT_S = 300
 CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
@@ -457,6 +488,21 @@ SEAMLESS_PLAIN_LAYERS = 1
 # backward 25 GB) of the card's 85.0 GB
 REPORT_CELLS = (("yi-6b", "decode_32k"), ("yi-6b", "prefill_32k"),
                 ("qwen2.5-3b", "train_4k"))
+# phase 9: the mesh's "model" axis on the one card: TP_MODEL processes
+# over gloo; yi-6b served split at full width and depth, its f32 cut
+# (TP_PLAIN, as ``check_against_plain``'s, within TP_PLAIN_ATOL) against
+# the plain CPU path; each all-reduce of TP_TIMED_STEPS decode steps
+# timed alone; qwen2.5-3b cut to TP_TRAIN_LAYERS layers trained split
+# TP_TRAIN_STEPS steps, its f32 cut's gradient shards within TP_GRAD_TOL
+# of each leaf's largest
+TP_MODEL = 2
+TP_PLAIN = dict(layers=2, prompt=64, steps=8)
+TP_PLAIN_ATOL = 1e-3
+# the split bf16 logits lie within TP_BF16_BOUND times the one-process
+# bf16 logits' own distance from the f32 ones (max abs over max abs)
+TP_BF16_BOUND = 2.0
+TP_TIMED_STEPS = 8
+TP_TRAIN_LAYERS, TP_TRAIN_STEPS, TP_GRAD_TOL = 2, 3, 1e-4
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -3048,6 +3094,553 @@ def codec_numbers(n, device) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 9: the mesh's "model" axis, two ranks on the one card
+# --------------------------------------------------------------------------
+class CountedAllReduce:
+    """Within the block, every ``torch.distributed.all_reduce`` is
+    counted; with ``timed`` the card is synchronized before and after
+    each, and the host wall time between is summed (``ms``): the
+    collective's own cost, with no queued work of the card in it."""
+
+    def __init__(self, timed: bool = False):
+        self.timed, self.calls, self.ms = timed, 0, 0.0
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.real = real = dist.all_reduce
+
+        def counted(tensor, *a, **k):
+            if self.timed:
+                _sync(tensor.device)
+                t0 = time.perf_counter()
+            out = real(tensor, *a, **k)
+            if self.timed:
+                _sync(tensor.device)
+                self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 1
+            return out
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce = self.real
+        return False
+
+
+def _card_mem(device, what="max_memory_allocated"):
+    """A ``torch.cuda`` memory figure of the card (None on the CPU)."""
+    import torch
+
+    return getattr(torch.cuda, what)() if device.type == "cuda" else None
+
+
+def _card_reset_peak(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.empty_cache()
+
+
+def tp_case(cfg, b, t, model=TP_MODEL):
+    """K4's case at a rank's local heads of a ``model``-way split."""
+    return (b, cfg.num_heads // model, cfg.num_kv_heads // model, t, t,
+            cfg.resolved_head_dim, True, cfg.window)
+
+
+def _greedy_run(engine, batch, steps, feed=None):
+    """A prefill of ``batch`` and ``steps`` decode steps through the
+    engine's ``step``: each step fed ``feed``'s next column (the whole
+    batch's tokens) or, without it, the greedy token.  Returns the
+    rank's logits after the prefill and each step (f32 on the CPU) and
+    the greedy tokens (B, steps + 1)."""
+    import torch
+
+    logits, cache = engine.prefill(batch)
+    out, toks = [logits.float().cpu()], [engine.greedy(logits)]
+    for i in range(steps):
+        tok = toks[-1] if feed is None else torch.as_tensor(
+            feed[:, i:i + 1], device=engine.device)
+        logits, cache = engine.step(cache, tok)
+        out.append(logits.float().cpu())
+        toks.append(engine.greedy(logits))
+    return out, torch.cat(toks, dim=1).cpu().numpy()
+
+
+def tp_serve_rank(cfg, mesh, device, batch_size=BATCH, prompt=PROMPT,
+                  gen=GEN) -> dict:
+    """Phase 9a on one rank: yi-6b drawn whole (the seed of phase 4),
+    its f32 cut served split first, then the whole model served split
+    in bf16 through ``ServeEngine(mesh=)``, the cache committed on rank
+    0 and restored on the mesh; a recording pass of the logits."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import ICheckClient, ICheckCluster
+    from repro_torch.core.snapshot import _flatten
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine, serve_max_len
+
+    rank = dist.get_rank()
+    full = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device)
+    _sync(device)
+    res = {}
+    # the f32 cut, split: its tokens and logits go to the parent, which
+    # runs the plain CPU path
+    small = cut_config(cfg, TP_PLAIN["layers"])
+    eng = ServeEngine(small, cut_params(small, full),
+                      max_len=serve_max_len(small, TP_PLAIN["prompt"],
+                                            TP_PLAIN["steps"]),
+                      device=device, mesh=mesh)
+    res["plain_cut_logits"], res["plain_cut_tokens"] = _greedy_run(
+        eng, request_batch(cfg, np.random.default_rng(1), 2,
+                           TP_PLAIN["prompt"]), TP_PLAIN["steps"])
+    del eng
+    engine = ServeEngine(cfg, full, max_len=serve_max_len(cfg, prompt, gen),
+                         device=device, mesh=mesh)
+    del full
+    gc.collect()
+    _card_reset_peak(device)
+    res["weights_bytes"] = _card_mem(device, "memory_allocated")
+    batch = request_batch(cfg, np.random.default_rng(0), batch_size, prompt)
+    cluster = ICheckCluster(n_icheck_nodes=1) if rank == 0 else None
+    try:
+        client = ICheckClient("serve_tp", cluster.controller).init() \
+            if rank == 0 else None
+        reset_counts()
+        _sync(device)
+        with CountedAllReduce() as ar:
+            t0 = time.monotonic()
+            out = engine.generate(batch, gen_len=gen,
+                                  checkpoint_client=client)
+            _sync(device)
+            res["generate_s"] = time.monotonic() - t0
+        res["launches"] = read_counts()
+        res["all_reduces_generate"] = ar.calls
+        if device.type == "cuda":
+            _check_launches(res["launches"], {"flash_fwd": cfg.num_layers},
+                            "the split generate")
+        res["tokens"] = out
+        if rank == 0:
+            t0 = time.monotonic()
+            engine.last_commit.wait(timeout=600)
+            res["commit_wait_s"] = time.monotonic() - t0
+            res["drain_wait_s"] = settle(cluster)
+            res["parts"] = {n: r.partition.num_parts
+                            for n, r in client.regions.items()}
+            res["committed_bytes"] = sum(r.nbytes
+                                         for r in client.regions.values())
+        dist.barrier()
+        t0 = time.monotonic()
+        restored = engine.restore_serving_state(client, batch_size)
+        _sync(device)
+        res["restore_s"] = time.monotonic() - t0
+        reset_counts()
+        with CountedAllReduce() as ar:
+            t0 = time.monotonic()
+            logits, fresh = engine.prefill(batch)
+            _sync(device)
+            res["prefill_ms"] = (time.monotonic() - t0) * 1e3
+        res["all_reduces_prefill"] = ar.calls
+        if device.type == "cuda":
+            _check_launches(read_counts(), {"flash_fwd": cfg.num_layers},
+                            "the split prefill")
+        res["restored_equal"] = all(
+            torch.equal(a, b) for (_, a), (_, b) in
+            zip(_flatten(restored), _flatten(fresh)))
+        res["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for _, t in _flatten(fresh))
+        del fresh, logits
+        reset_counts()
+        with CountedAllReduce() as ar:
+            t0 = time.monotonic()
+            cont = engine.decode_greedy(restored, out[:, :1], gen - 1)
+            res["decode_ms_per_token"] = \
+                (time.monotonic() - t0) * 1e3 / (gen - 1)
+        res["all_reduces_decode_step"] = ar.calls / (gen - 1)
+        _check_launches(read_counts(), {"flash_fwd": 0}, "the split decode")
+        res["restored_decode_equal"] = bool(np.array_equal(cont, out[:, 1:]))
+        del restored
+        # the collectives' own share of a decode step: each all-reduce
+        # timed between synchronizations, over TP_TIMED_STEPS steps
+        _, cache = engine.prefill(batch)
+        n = min(TP_TIMED_STEPS, gen - 1)
+        with CountedAllReduce(timed=True) as ar:
+            _sync(device)
+            t0 = time.monotonic()
+            engine.decode_greedy(cache, out[:, :1], n)
+            _sync(device)
+            step_ms = (time.monotonic() - t0) * 1e3 / n
+        res["timed_step_ms"] = step_ms
+        res["all_reduce_host_ms_per_step"] = ar.ms / n
+        del cache
+        # the logits after the prefill and each step, fed the live tokens,
+        # for the parent's one-process runs
+        res["logits"], _ = _greedy_run(engine, batch, gen - 1, feed=out)
+        res["max_memory_allocated"] = _card_mem(device)
+        if rank == 0:
+            client.finalize()
+    finally:
+        if cluster is not None:
+            cluster.close()
+    return res
+
+
+def tp_train_rank(tcfg, mesh, device, seq=TRAIN_SEQ) -> dict:
+    """Phase 9b on one rank: qwen2.5-3b cut to TP_TRAIN_LAYERS layers at
+    full width, drawn whole and split: the f32 cut's loss and gradient
+    shards over one GRAD_SEQ-token sequence (for the parent's plain CPU
+    path), then TP_TRAIN_STEPS bf16 train steps of one TRAIN_SEQ-token
+    sequence (``make_train_step(mesh=)``: AdamW's clip over the split
+    leaves)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import (init_params, map_axes, param_axes,
+                                    param_specs)
+    from repro_torch.models.params import local_box, shard_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.sharding import NamedSharding, get_rules, use_rules
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.train.step import compute_grads
+
+    cut = dataclasses.replace(tcfg, num_layers=TP_TRAIN_LAYERS)
+    small = cut_config(tcfg, TP_TRAIN_LAYERS)
+    full = init_params(cut, torch.Generator(device=device).manual_seed(0),
+                       device=device)
+    res = {}
+    rules = get_rules(cut.rules)
+    # each leaf's box, as (start, stop) rows of an int tensor
+    axes = param_axes(small)
+    res["boxes"] = dict(_named(map_axes(
+        lambda ax, s, t: torch.tensor([(sl.start, sl.stop) for sl in
+                                       local_box(NamedSharding(mesh, s),
+                                                 t.shape)]).reshape(-1, 2),
+        axes, param_specs(axes, rules, mesh, full), full)))
+    inputs = request_batch(tcfg, np.random.default_rng(2), 1, GRAD_SEQ)
+    batch = {"tokens": torch.from_numpy(inputs["tokens"].astype(np.int64))
+             .to(device)}
+    batch["labels"] = batch["tokens"]
+    params = shard_params(full, small, mesh)
+    reset_counts()
+    with use_rules(mesh, rules):
+        loss, _, grads = compute_grads(small, params, batch)
+    _sync(device)
+    res["plain_cut_launches"] = read_counts()
+    res["plain_cut_loss"] = float(loss)
+    res["plain_cut_grads"] = {n: g.cpu() for n, g in _named(grads)}
+    del params, grads
+    params = shard_params(full, cut, mesh)
+    del full
+    gc.collect()
+    _card_reset_peak(device)
+    state = TrainState(params=params, opt=adamw_init(params),
+                       step=torch.zeros((), dtype=torch.int32, device=device))
+    step = make_train_step(cut, AdamWConfig(), mesh=mesh)
+    toks = np.random.default_rng(3).integers(0, tcfg.vocab_size,
+                                             (1, seq))
+    batch = {"tokens": torch.from_numpy(toks).to(device)}
+    batch["labels"] = batch["tokens"]
+    res.update(step_ms=[], losses=[], grad_norms=[], all_reduces=[])
+    reset_counts()
+    for _ in range(TP_TRAIN_STEPS):
+        with CountedAllReduce() as ar:
+            _sync(device)
+            t0 = time.monotonic()
+            state, m = step(state, batch)
+            _sync(device)
+        res["step_ms"].append((time.monotonic() - t0) * 1e3)
+        res["losses"].append(float(m["loss"]))
+        res["grad_norms"].append(float(m["grad_norm"]))
+        res["all_reduces"].append(ar.calls)
+    res["launches"] = read_counts()
+    res["max_memory_allocated"] = _card_mem(device)
+    n = TP_TRAIN_LAYERS * TP_TRAIN_STEPS
+    if device.type == "cuda":
+        _check_launches(res["launches"], {"flash_fwd": 2 * n,
+                                          "flash_bwd_sm90": n,
+                                          "flash_bwd": 0},
+                        "the split training steps")
+    if not all(math.isfinite(x) for x in res["losses"] + res["grad_norms"]):
+        raise AssertionError(f"split training: {res['losses']}, "
+                             f"{res['grad_norms']}")
+    dist.barrier()
+    return res
+
+
+def _named(tree):
+    from repro_torch.core.snapshot import _flatten, _leaf_name
+
+    return [(_leaf_name(p), t) for p, t in _flatten(tree)]
+
+
+def tp_config(arch: str, rehearse: bool = False):
+    """Phase 9's config of ``arch``: the published one, or for a CPU
+    rehearsal its tiny one computing in bf16, as the card's does."""
+    from repro_torch.configs import get_config
+
+    if rehearse:
+        return dataclasses.replace(get_config(arch, tiny=True),
+                                   dtype="bfloat16")
+    return get_config(arch)
+
+
+def _tp_sizes(rehearse: bool) -> dict:
+    """Phase 9's sizes: the card's, or a CPU rehearsal's (tiny configs)."""
+    if rehearse:
+        return dict(batch=2, prompt=16, gen=4, seq=64)
+    return dict(batch=BATCH, prompt=PROMPT, gen=GEN, seq=TRAIN_SEQ)
+
+
+def tp_rank_main(rank, world, store, out_dir, rehearse=False) -> None:
+    """One rank of phase 9's world: ``world`` processes on the one card
+    over gloo (``init_world(..., "cuda:gloo", ...)``: NCCL refuses two
+    ranks on one card), a ("data", "model") mesh of 1 x ``world``.  Its
+    results go to ``out_dir``.  ``rehearse``: tiny configs in a CPU gloo
+    world, to try the phase without a card."""
+    sys.path[:0] = [str(SRC), str(ROOT / "tests")]
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.sharding import init_world, make_tp_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if rehearse:
+        torch.set_num_threads(1)
+    init_world(rank, world, "gloo" if rehearse else "cuda:gloo", store)
+    try:
+        mesh = make_tp_mesh(1, world)
+        device = torch.device("cpu") if rehearse else torch.device(
+            "cuda", torch.cuda.current_device())
+        sz = _tp_sizes(rehearse)
+        t0 = time.monotonic()
+        res = {"serve": tp_serve_rank(
+            tp_config("yi-6b", rehearse), mesh, device, sz["batch"],
+            sz["prompt"], sz["gen"])}
+        res["serve"]["phase_s"] = time.monotonic() - t0
+        gc.collect()
+        _card_reset_peak(device)
+        t0 = time.monotonic()
+        res["train"] = tp_train_rank(tp_config("qwen2.5-3b", rehearse), mesh,
+                                     device, sz["seq"])
+        res["train"]["phase_s"] = time.monotonic() - t0
+        res["backend"] = dist.get_backend()
+        res["mesh"] = repr(mesh)
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _rel(a, b) -> float:
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def _vocab_whole(parts):
+    """Logits of every rank (model-rank order) joined over the vocab."""
+    import torch
+
+    return [torch.cat(step, dim=-1) for step in zip(*parts)]
+
+
+def tp_phase(cfg, tcfg, device, card, rehearse=False) -> dict:
+    """Phase 9: ``tp_rank_main`` on TP_MODEL processes (their kernels
+    already built), then, in this process, the checks that need the
+    whole model: the f32 cuts against the plain CPU path, and the bf16
+    logits against this card's one-process runs in bf16 and in f32, fed
+    the split run's tokens.  ``rehearse``: all of it on the CPU with the
+    tiny configs (``cfg``, ``tcfg`` and ``device`` given so)."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine, serve_max_len
+    from repro_torch.train.step import compute_grads
+
+    sz = _tp_sizes(rehearse)
+    batch_size, prompt, gen = sz["batch"], sz["prompt"], sz["gen"]
+    gc.collect()
+    _card_reset_peak(device)
+    store = Path(tempfile.mkdtemp(prefix="chip-smoke-tp-"))
+    t0 = time.monotonic()
+    try:
+        mp.start_processes(tp_rank_main, args=(TP_MODEL, str(store / "w"),
+                                               str(store), rehearse),
+                           nprocs=TP_MODEL, join=True, start_method="spawn")
+        ranks = [torch.load(store / f"rank{r}.pt", weights_only=False)
+                 for r in range(TP_MODEL)]
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    children_s = time.monotonic() - t0
+    sv = [r["serve"] for r in ranks]
+    tr = [r["train"] for r in ranks]
+    out = sv[0]["tokens"]
+    for r, s in enumerate(sv):
+        if not np.array_equal(s["tokens"], out):
+            raise AssertionError(f"rank {r}'s tokens differ from rank 0's")
+        if not (s["restored_equal"] and s["restored_decode_equal"]):
+            raise AssertionError(f"rank {r}: the restored split cache "
+                                 f"{s['restored_equal']}, its decode "
+                                 f"{s['restored_decode_equal']}")
+    kv = {n: p for n, p in sv[0]["parts"].items() if n != "idx"}
+    if set(kv.values()) != {TP_MODEL}:
+        raise AssertionError(f"committed parts {sv[0]['parts']}")
+    # two all-reduces a layer (attention's and the FFN's outputs), one
+    # for the embedding, two for a greedy argmax over the vocab shards
+    per_step = 2 * cfg.num_layers + 3
+    counts = (sv[0]["all_reduces_prefill"], sv[0]["all_reduces_decode_step"],
+              sv[0]["all_reduces_generate"])
+    if counts != (per_step - 2, per_step, per_step * gen):
+        raise AssertionError(f"all-reduces (prefill, decode step, generate) "
+                             f"{counts}, want {per_step - 2}, {per_step}, "
+                             f"{per_step * gen}")
+
+    # 9a: the f32 cut against the plain CPU path
+    t0 = time.monotonic()
+    full = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device)
+    small = cut_config(cfg, TP_PLAIN["layers"])
+    cpu = ServeEngine(small, _map(lambda t: t.cpu(), cut_params(small, full)),
+                      max_len=serve_max_len(small, TP_PLAIN["prompt"],
+                                            TP_PLAIN["steps"]), device="cpu")
+    want, want_toks = _greedy_run(
+        cpu, request_batch(cfg, np.random.default_rng(1), 2,
+                           TP_PLAIN["prompt"]), TP_PLAIN["steps"])
+    del cpu
+    got = _vocab_whole([s["plain_cut_logits"] for s in sv])
+    cut_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if not (np.array_equal(sv[0]["plain_cut_tokens"], want_toks)
+            and cut_err <= TP_PLAIN_ATOL):
+        raise AssertionError(f"split f32 cut: tokens {sv[0]['plain_cut_tokens']}"
+                             f" against the CPU's {want_toks}, logits max "
+                             f"abs err {cut_err} (atol {TP_PLAIN_ATOL})")
+    # 9a: the bf16 logits against one process on this card, and the f32
+    # run's against them both; every run fed the split run's tokens
+    batch = request_batch(cfg, np.random.default_rng(0), batch_size, prompt)
+    one = {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        if dtype == "bfloat16":
+            cast_leaves_(full, torch.bfloat16)
+        eng = ServeEngine(c, full, max_len=serve_max_len(cfg, prompt, gen),
+                          device=device)
+        one[dtype], _ = _greedy_run(eng, batch, gen - 1, feed=out)
+        del eng
+        gc.collect()
+    del full
+    gc.collect()
+    _card_reset_peak(device)
+    split = _vocab_whole([s["logits"] for s in sv])
+    vocab = cfg.vocab_size
+
+    def rel(xs, ys):
+        return max(_rel(a[:, :vocab], b[:, :vocab]) for a, b in zip(xs, ys))
+    tp_rel = rel(split, one["bfloat16"])
+    bf16_rel = rel(one["bfloat16"], one["float32"])
+    tp_f32_rel = rel(split, one["float32"])
+    equal = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                for a, b in zip(split, one["bfloat16"]))
+    # each bf16 run lies about bf16's own error from the f32 logits, so
+    # two of them lie within twice it of each other
+    if not tp_rel <= TP_BF16_BOUND * bf16_rel:
+        raise AssertionError(f"split bf16 logits {tp_rel} of their max from "
+                             f"one process's, beyond {TP_BF16_BOUND} x "
+                             f"bf16's own {bf16_rel}")
+    check_s = time.monotonic() - t0
+
+    # 9b: the f32 cut's gradient shards against the plain CPU path
+    t0 = time.monotonic()
+    small_t = cut_config(tcfg, TP_TRAIN_LAYERS)
+    params = _map(lambda t: t.cpu(), init_params(
+        dataclasses.replace(tcfg, num_layers=TP_TRAIN_LAYERS),
+        torch.Generator(device=device).manual_seed(0), device=device))
+    inputs = request_batch(tcfg, np.random.default_rng(2), 1, GRAD_SEQ)
+    tb = {"tokens": torch.from_numpy(inputs["tokens"].astype(np.int64))}
+    tb["labels"] = tb["tokens"]
+    loss, _, grads = compute_grads(small_t, params, tb)
+    want = dict(_named(grads))
+    worst, worst_leaf = 0.0, None
+    for r in tr:
+        for name, g in r["plain_cut_grads"].items():
+            w = want[name][tuple(slice(a, b) for a, b in
+                                 r["boxes"][name].tolist())]
+            e = (g - w).abs().max().item() / max(
+                want[name].abs().max().item(), 1e-30)
+            if e > worst:
+                worst, worst_leaf = e, name
+    loss_err = max(abs(r["plain_cut_loss"] - float(loss)) / abs(float(loss))
+                   for r in tr)
+    if not (loss_err <= LOSS_RTOL and worst <= TP_GRAD_TOL):
+        raise AssertionError(f"split f32 cut's gradients: worst leaf "
+                             f"{worst_leaf} {worst} of its largest (at most "
+                             f"{TP_GRAD_TOL}), loss rel err {loss_err}")
+    grad_check_s = time.monotonic() - t0
+    del params, grads, want
+    s0, t0r = sv[0], tr[0]
+    serve = {
+        "card": card, "ranks": TP_MODEL, "backend": ranks[0]["backend"],
+        "mesh": ranks[0]["mesh"],
+        "local_heads": [cfg.num_heads // TP_MODEL,
+                        cfg.num_kv_heads // TP_MODEL],
+        "prefill_ms": s0["prefill_ms"],
+        "decode_ms_per_token": s0["decode_ms_per_token"],
+        "output_tokens_per_s": batch_size * gen / s0["generate_s"],
+        "generate_wall_s": s0["generate_s"],
+        "all_reduces_generate": s0["all_reduces_generate"],
+        "all_reduces_prefill": s0["all_reduces_prefill"],
+        "all_reduces_decode_step": s0["all_reduces_decode_step"],
+        "timed_step_ms": s0["timed_step_ms"],
+        "all_reduce_host_ms_per_step": s0["all_reduce_host_ms_per_step"],
+        "all_reduce_share": s0["all_reduce_host_ms_per_step"]
+        / s0["timed_step_ms"],
+        "commit_wait_s": s0["commit_wait_s"],
+        "restore_wall_s": s0["restore_s"], "parts": s0["parts"],
+        "committed_bytes": s0["committed_bytes"],
+        "cache_bytes_per_rank": [s["cache_bytes"] for s in sv],
+        "weights_bytes_per_rank": [s["weights_bytes"] for s in sv],
+        "max_memory_allocated_per_rank": [s["max_memory_allocated"]
+                                          for s in sv],
+        "launches": s0["launches"],
+        "logits_rel_err_vs_one_process_bf16": tp_rel,
+        "bf16_rel_err_vs_f32": bf16_rel,
+        "logits_rel_err_vs_one_process_f32": tp_f32_rel,
+        "logits_bound": TP_BF16_BOUND * bf16_rel,
+        "greedy_equal_to_one_process": equal,
+        "greedy_tokens": batch_size * gen,
+        "plain_cut_max_abs_err": cut_err,
+        "children_wall_s": children_s, "serve_phase_s": s0["phase_s"],
+        "check_s": check_s,
+        "reduced": {"ranks": f"{TP_MODEL} processes on one card over gloo "
+                    f"(NCCL takes one card a rank): every all-reduce is "
+                    f"staged through the host"}}
+    train = {
+        "card": card, "ranks": TP_MODEL, "layers": TP_TRAIN_LAYERS,
+        "seq": sz["seq"], "step_ms": t0r["step_ms"], "losses": t0r["losses"],
+        "grad_norms": t0r["grad_norms"],
+        "all_reduces_per_step": t0r["all_reduces"],
+        "launches": t0r["launches"],
+        "max_memory_allocated_per_rank": [r["max_memory_allocated"]
+                                          for r in tr],
+        "plain_cut_worst_leaf": worst_leaf,
+        "plain_cut_worst_leaf_err_of_max": worst,
+        "plain_cut_loss_rel_err": loss_err,
+        "plain_cut_launches": t0r["plain_cut_launches"],
+        "train_phase_s": t0r["phase_s"], "grad_check_s": grad_check_s,
+        "reduced": {"num_layers": f"{tcfg.num_layers} -> {TP_TRAIN_LAYERS}:"
+                    f" loss and gradients of a cut, as phase 5d's",
+                    "global_batch": f"one sequence of {sz['seq']} tokens"}}
+    return {"serve_tp": serve, "train_tp": train}
+
+
 def main() -> int:
     import torch
 
@@ -3183,6 +3776,18 @@ def main() -> int:
                                                 determinism=True))
         log(f"  flash_bwd {case} bfloat16: max abs err "
             f"{cross_errs[case][1]:.3e}; two runs bit-equal")
+    # K4 at a rank's local heads of the "model" axis's two-way split
+    # (phase 9): yi-6b's prefill, qwen2.5-3b's training shape
+    tp_serve_case = tp_case(cfg, BATCH, PROMPT)
+    tp_train_case = tp_case(tcfg, 1, TRAIN_SEQ)
+    tp_errs = {}
+    for case in (tp_serve_case, tp_train_case):
+        tp_errs[case] = check_attention_case(case, "bfloat16", device)
+        log(f"  flash_fwd {case} bfloat16: max abs err {tp_errs[case]:.3e}")
+    tp_bwd_err = check_bwd_case(tp_train_case, "bfloat16", device,
+                                determinism=True)
+    log(f"  flash_bwd {tp_train_case} bfloat16: max abs err "
+        f"{tp_bwd_err:.3e}; two runs bit-equal")
     torch.cuda.empty_cache()
     log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
 
@@ -3375,7 +3980,8 @@ def main() -> int:
         "pfs_free_bytes": tr["pfs_free_bytes"],
         "reduced": {"num_layers": (
             f"{tcfg.num_layers} -> {TRAIN_LAYERS}: 36 until the report's "
-            f"phase came, cut to keep the whole run within its time")},
+            f"phase came, 18 until the 'model' axis's phase came, cut to "
+            f"keep the whole run within its time")},
     }
     log(card)
     log(json.dumps({"train": train}))
@@ -3500,6 +4106,9 @@ def main() -> int:
     cross_bwd_train = bwd_numbers(seamless_cross_train, device)
     d160_fwd_train = attention_numbers(pix_train_case, device)
     d160_bwd = bwd_numbers(pix_train_case, device)
+    tp_fwd_serve = attention_numbers(tp_serve_case, device)
+    tp_fwd_train = attention_numbers(tp_train_case, device)
+    tp_bwd_train = bwd_numbers(tp_train_case, device)
     torch.cuda.synchronize()
     log(json.dumps({"flash_fwd_train_shape": fwd_train,
                     "flash_bwd_train_shape": bwd, "codec_w_gu": codec,
@@ -3513,7 +4122,10 @@ def main() -> int:
                     "flash_bwd_seamless_cross_train_shape":
                         cross_bwd_train,
                     "flash_fwd_d160_train_shape": d160_fwd_train,
-                    "flash_bwd_d160_train_shape": d160_bwd}))
+                    "flash_bwd_d160_train_shape": d160_bwd,
+                    "flash_fwd_tp_serve_shape": tp_fwd_serve,
+                    "flash_fwd_tp_train_shape": tp_fwd_train,
+                    "flash_bwd_tp_train_shape": tp_bwd_train}))
     log(f"  phase 7 done at {time.monotonic() - t_start:.1f} s")
 
     log("phase 8: report cells on the card against their meta traces")
@@ -3527,6 +4139,19 @@ def main() -> int:
                            "k4_launches")} for m in cells],
         "phase_s": time.monotonic() - t8}))
     log(f"  phase 8 done at {time.monotonic() - t_start:.1f} s")
+
+    log(f"phase 9: the mesh's \"model\" axis: {TP_MODEL} processes on the "
+        f"card over gloo; {cfg.name} served split ({cfg.num_layers} layers, "
+        f"{BATCH} x {PROMPT} prompt tokens, {GEN} new, the cache committed "
+        f"and restored), {tcfg.name} cut to {TP_TRAIN_LAYERS} layers trained "
+        f"split ({TP_TRAIN_STEPS} steps of {TRAIN_SEQ} tokens)")
+    t9 = time.monotonic()
+    tp = tp_phase(cfg, tcfg, device, card)
+    tp["serve_tp"]["phase_s"] = time.monotonic() - t9
+    log(card)
+    log(json.dumps({"serve_tp": tp["serve_tp"]}))
+    log(json.dumps({"train_tp": tp["train_tp"]}))
+    log(f"  phase 9 done at {time.monotonic() - t_start:.1f} s")
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
     paths = {"serve": yi_launches, "serve_rwkv6": rw_launches,
@@ -3546,6 +4171,8 @@ def main() -> int:
              "grad_qwen3_moe_f32_cut": moe_grad_cut,
              "train_seamless": sm_train, "train_seamless_f32_cut": sm_cut,
              "train_pixtral": px_train, "train_pixtral_f32_cut": px_cut,
+             "serve_tp": tp["serve_tp"]["launches"],
+             "train_tp": tp["train_tp"]["launches"],
              "rs_encode_check": rs["launches"]}
 
     def counts(name, path):
@@ -3589,7 +4216,14 @@ def main() -> int:
                 "max_abs_err": cross_errs[seamless_cross][0]},
             seamless_cross_train_shape={
                 **cross_fwd_train,
-                "max_abs_err": cross_errs[seamless_cross_train][0]}),
+                "max_abs_err": cross_errs[seamless_cross_train][0]},
+            # a rank's heads of the two-way "model" split: yi-6b's prefill
+            # (``launches_by_path``'s serve_tp) and qwen2.5-3b's training
+            # shape (train_tp)
+            tp_serve_shape={**tp_fwd_serve,
+                            "max_abs_err": tp_errs[tp_serve_case]},
+            tp_train_shape={**tp_fwd_train,
+                            "max_abs_err": tp_errs[tp_train_case]}),
         # its head-dim-160 instance, on pixtral-12b's path
         row("flash_fwd_d160", fa + "flash_fwd_sm90.cu",
             "flash_attention/kernel.py:95",
@@ -3609,7 +4243,8 @@ def main() -> int:
                                    "max_abs_err": moe_bwd_err},
             seamless_cross_train_shape={
                 **cross_bwd_train,
-                "max_abs_err": cross_errs[seamless_cross_train][1]})]
+                "max_abs_err": cross_errs[seamless_cross_train][1]},
+            tp_train_shape={**tp_bwd_train, "max_abs_err": tp_bwd_err})]
     for name, line in (("quantize", 54), ("quantize_delta", 74),
                        ("dequantize", 98)):
         # K3 runs only where gradients are compressed: the cut phase

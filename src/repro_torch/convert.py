@@ -3,7 +3,8 @@ name.
 
 ``params_from_numpy`` takes the reference's parameter tree with its leaves
 as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
-port's tree, the same names and shapes, on ``device``;
+port's tree, the same names and shapes, on ``device`` (with a ``cfg`` and
+a ``mesh``, only this rank's shards: ``models.shard_params``);
 ``train_state_from_numpy`` does the same for a whole ``TrainState``.
 """
 from __future__ import annotations
@@ -12,7 +13,11 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(tree, device="cuda"):
+def params_from_numpy(tree, device="cuda", cfg=None, mesh=None):
+    if mesh is not None:
+        from .models import shard_params
+
+        tree = shard_params(tree, cfg, mesh, copy=False)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, copy=True)).to(device)

@@ -159,6 +159,30 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
+def _p2p_device(device: torch.device) -> torch.device:
+    """Where a point-to-point call's buffer must lie: gloo moves only CPU
+    tensors (a world of several ranks on one card runs gloo over CUDA
+    tensors, ``sharding/mesh.py``), so a CUDA shard is staged through the
+    host there."""
+    return torch.device("cpu") if dist.get_backend() == "gloo" else device
+
+
+def _send(t: torch.Tensor, dst: int) -> None:
+    dist.send(_wire(t.detach().contiguous().to(_p2p_device(t.device))),
+              dst=dst)
+
+
+def _recv_into(buf: torch.Tensor, src: int) -> None:
+    """Receive a tensor of ``buf``'s shape and dtype into ``buf``."""
+    at = _p2p_device(buf.device)
+    if at == buf.device and buf.is_contiguous():
+        dist.recv(_wire(buf), src=src)
+        return
+    host = torch.empty(buf.shape, dtype=buf.dtype, device=at)
+    dist.recv(_wire(host), src=src)
+    buf.copy_(host)
+
+
 def _box_shape(box: planlib.Box) -> Tuple[int, ...]:
     return tuple(hi - lo for lo, hi in box)
 
@@ -181,11 +205,11 @@ def _device_parts(leaf) -> Tuple[Tuple[planlib.Box, ...], Dict[int, Any]]:
             if me == ROOT:
                 parts[p] = local
         elif me == r:
-            dist.send(_wire(local.detach().contiguous()), dst=ROOT)
+            _send(local, ROOT)
         elif me == ROOT:
             buf = torch.empty(_box_shape(boxes[p]), dtype=local.dtype,
                               device=local.device)
-            dist.recv(_wire(buf), src=r)
+            _recv_into(buf, r)
             parts[p] = buf
     return boxes, parts
 
@@ -525,9 +549,7 @@ def load_leaf_(name: str, leaf: torch.Tensor, meta: Optional[RegionMeta],
     local = leaf.to_local()
     with torch.no_grad():
         if _rank() != ROOT:
-            buf = torch.empty_like(local)
-            dist.recv(_wire(buf), src=ROOT)
-            local.copy_(buf)
+            _recv_into(local, ROOT)
             return
         full = _assemble(meta, parts)
         if tuple(full.shape) != tuple(leaf.shape):
@@ -538,7 +560,7 @@ def load_leaf_(name: str, leaf: torch.Tensor, meta: Optional[RegionMeta],
             if r == ROOT:
                 local.copy_(t)
             else:
-                dist.send(_wire(t.to(local.device)), dst=r)
+                _send(t.to(_p2p_device(local.device)), r)
 
 
 def load_pytree_(tree, regions: Dict[str, Dict[int, np.ndarray]],

@@ -21,7 +21,9 @@ from typing import Dict
 PEAK_FLOPS = 989e12          # bf16 FLOP/s (tensor cores, dense)
 HBM_BW = 3.35e12             # bytes/s of HBM3
 LINK_BW = 450e9              # bytes/s of NVLink, one way
-HBM_BYTES = 80e9             # bytes of device memory
+# bytes of device memory: the capacity an H100 80GB HBM3 reports (85.0 GB;
+# ``report --measure`` reads the card's own)
+HBM_BYTES = 85.0e9
 
 
 def production_mesh_shape(multi_pod: bool = False) -> Dict[str, int]:

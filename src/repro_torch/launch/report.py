@@ -10,11 +10,13 @@ Each cell's report has two parts:
 * one H100: one device's step (``train_step``, ``prefill`` or
   ``decode_step``) at ``global_batch // (pod * data)`` sequences, in
   ``specs.default_microbatches`` microbatches, at full width and depth,
-  traced on the ``meta`` device under ``opcount.OpCounter``.  The port is
-  data parallel only: nothing is split over "model".  It gives the
-  counted FLOPs, bytes and peak live bytes, the roofline terms at
-  ``mesh``'s H100 peaks, and ``fits`` (the peak within the card's
-  memory).  Serving weights are cast as ``models.cast_params`` casts
+  traced on the ``meta`` device under ``opcount.OpCounter``.  The trace
+  is of the data-parallel step: nothing in it is split over "model"
+  (the port's "model" axis, ``sharding/tp.py``, is not traced here yet).
+  It gives the counted FLOPs, bytes and peak live bytes, the roofline
+  terms at ``mesh``'s H100 peaks, and ``fits`` (the peak within the
+  card's memory: ``mesh.HBM_BYTES``, or under ``--measure`` on a card
+  its own ``total_memory``).  Serving weights are cast as ``models.cast_params`` casts
   them (norm scales and the recurrent layers' f32 leaves stay f32),
   where ``input_specs`` casts every floating leaf as the reference does.
   A training cell adds the data-parallel gradient all-reduce over the
@@ -218,10 +220,12 @@ def report_cell(cfg: ModelConfig, shape: ShapeConfig, *,
                 rules=None, kv_quant: bool = False,
                 remat: Optional[str] = None,
                 mesh_shape: Optional[Dict[str, int]] = None,
-                tops: int = 0) -> Dict[str, Any]:
+                tops: int = 0, hbm_bytes: float = HBM_BYTES
+                ) -> Dict[str, Any]:
     """One cell's artifact (module docstring); ``microbatches`` 0 takes
     ``specs.default_microbatches``, ``mesh_shape`` replaces the production
-    mesh (a {"data": 1, "model": 1} mesh is one device's step)."""
+    mesh (a {"data": 1, "model": 1} mesh is one device's step),
+    ``hbm_bytes`` is the card's memory ``fits`` is held to."""
     if kv_quant:
         cfg = dataclasses.replace(cfg, kv_quant=True)
     if remat:
@@ -270,7 +274,8 @@ def report_cell(cfg: ModelConfig, shape: ShapeConfig, *,
             "unread_inputs": sorted(set(leaves(inputs)) - used),
             "one_h100_input_bytes": analysis["start_bytes"],
             "peak_bytes_per_device": peak,
-            "fits": peak <= HBM_BYTES,
+            "device_bytes": hbm_bytes,
+            "fits": peak <= hbm_bytes,
         },
         "cost": {"flops": terms["flops"], "bytes": terms["bytes"],
                  "aten_flops": analysis["aten_flops"],
@@ -451,6 +456,10 @@ def main(argv=None) -> int:
     from ..sharding import get_rules
 
     archs = list(ARCH_IDS) if (args.all or not args.arch) else [args.arch]
+    hbm = HBM_BYTES
+    if args.measure and torch.device(args.measure_device).type == "cuda":
+        hbm = torch.cuda.get_device_properties(
+            torch.device(args.measure_device)).total_memory
     meshes = [False, True] if args.both_meshes else [args.multipod]
     rules = get_rules(args.rules) if args.rules else None
     rows, failures = [], []
@@ -467,7 +476,8 @@ def main(argv=None) -> int:
                     art = report_cell(cfg, shape, multi_pod=mp,
                                       microbatches=args.microbatches,
                                       rules=rules, kv_quant=args.kv_quant,
-                                      remat=args.remat, tops=args.tops)
+                                      remat=args.remat, tops=args.tops,
+                                      hbm_bytes=hbm)
                     if args.measure:
                         art["measured"] = m = measure_cell(
                             cfg, shape, art["device_batch"],

@@ -17,6 +17,13 @@ The int8 cache (``cfg.kv_quant``) holds int8 codes with one f16 scale per
 ``_Q8_SCALE_BLOCK`` head dims (``_q8``); decode dequantizes the whole cache
 to f32 (``_dq``) before its products, as the reference does.  Quantizing
 and dequantizing are elementwise tensor ops, XLA in the reference too.
+
+Under a mesh with a "model" axis each rank holds its heads' columns of
+``wq`` / ``wkv`` (and biases) and their rows of ``wo``
+(``models.params.shard_params``): the head counts are read from the
+shards, so the kernel and the cache see the rank's local heads, and
+``o @ wo`` is summed over the model ranks (``sharding/tp.py``).  The
+``num_heads`` / ``num_kv_heads`` arguments are the model's.
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..kernels.flash_attention import attention as flash_attention
-from ..sharding import constrain
+from ..sharding import constrain, tp
 from .layers import _dense_init, _normal, apply_rope
 
 NEG_INF = -1e30
@@ -116,8 +123,15 @@ def _project_kv(params, xkv: torch.Tensor):
     return k, v
 
 
-def _project_qkv(params, x, xkv, num_heads, num_kv_heads, head_dim):
+def local_heads(params, head_dim: int):
+    """(query heads, KV heads) of a rank's shards of ``params``."""
+    return (params["wq"].shape[-1] // head_dim,
+            params["wkv"].shape[-1] // head_dim)
+
+
+def _project_qkv(params, x, xkv, head_dim):
     b, t, _ = x.shape
+    num_heads, num_kv_heads = local_heads(params, head_dim)
     s = xkv.shape[1]
     q = x @ params["wq"].to(x.dtype)
     if "bq" in params:
@@ -144,9 +158,9 @@ def attn_apply(params, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
     """
     b, t, _ = x.shape
     self_attn = xkv is None
+    x = tp.enter(x)
     xkv = x if xkv is None else xkv
-    q, k, v = _project_qkv(params, x, xkv, num_heads, num_kv_heads,
-                           head_dim)
+    q, k, v = _project_qkv(params, x, xkv, head_dim)
     if use_rope and self_attn:
         if positions is None:
             positions = torch.arange(t, device=x.device).expand(b, t)
@@ -156,8 +170,9 @@ def attn_apply(params, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
     k = constrain(k, "batch", "act_kv_heads", "kv_seq", None)
     v = constrain(v, "batch", "act_kv_heads", "kv_seq", None)
     o = flash_attention(q, k, v, causal=causal and self_attn, window=window)
-    o = o.transpose(1, 2).reshape(b, t, num_heads * head_dim)
-    out = constrain(o @ params["wo"].to(x.dtype), "batch", "seq", "act_embed")
+    o = o.transpose(1, 2).reshape(b, t, q.shape[1] * head_dim)
+    out = constrain(tp.reduce(o @ params["wo"].to(x.dtype)), "batch", "seq",
+                    "act_embed")
     if return_cache:
         return out, KVCache(k=k, v=v)
     return out
@@ -220,8 +235,10 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
     """
     b = x.shape[0]
     s = cache.k.shape[2]
+    num_heads, num_kv_heads = local_heads(params, head_dim)
     if scale is None:
         scale = head_dim ** -0.5
+    x = tp.enter(x)
     q = x @ params["wq"].to(x.dtype)
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
@@ -265,5 +282,5 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1)
     o = torch.matmul(p, vf)                                   # (B,Hkv,G,D)
     o = o.reshape(b, 1, num_heads * head_dim).to(x.dtype)
-    out = o @ params["wo"].to(x.dtype)
+    out = tp.reduce(o @ params["wo"].to(x.dtype))
     return constrain(out, "batch", None, "act_embed"), cache

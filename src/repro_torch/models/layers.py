@@ -10,7 +10,11 @@ layers is made in one call (the reference ``vmap``s its init over keys).
 Beside each ``*_init`` a ``*_axes`` gives the logical axes of its leaves,
 leaf for leaf the ``axes`` half of the reference's ``(params, axes)``;
 ``constrain`` calls stand where the reference's do (no-ops on plain
-tensors, ``repro_torch/sharding``).
+tensors, ``repro_torch/sharding``).  Under a mesh with a "model" axis the
+parameters are a rank's shards (``models.params.shard_params``) and the
+collectives of ``sharding/tp.py`` stand where GSPMD would put them: the
+FFN is column- then row-parallel, the embedding and the LM head split
+the padded vocab.
 
 As in the reference, every weight is cast to the activation dtype where it
 is used (``w.to(x.dtype)``).  A caller may cast the weights once up front
@@ -24,7 +28,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..sharding import constrain
+from ..sharding import constrain, tp
 
 
 def _normal(generator, shape, device) -> torch.Tensor:
@@ -135,15 +139,18 @@ def ffn_axes():
 
 
 def ffn_apply(params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    """Split over "model": w_gu by columns, w_down by rows, the output
+    summed over the model ranks."""
     wgu = params["w_gu"].to(x.dtype)
     wd = params["w_down"].to(x.dtype)
+    x = tp.enter(x)
     gate, up = x @ wgu[0], x @ wgu[1]
     if kind == "swiglu":
         act = F.silu(gate)
     else:                        # jax.nn.gelu defaults to the tanh form
         act = F.gelu(gate, approximate="tanh")
     h = constrain(act * up, "batch", "seq", "act_ff")
-    return h @ wd
+    return tp.reduce(h @ wd)
 
 
 # --------------------------------------------------------------------------
@@ -158,7 +165,17 @@ def embed_axes():
 
 
 def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
-    out = F.embedding(tokens.long(), params["table"])
+    """Split over "model" by vocab rows: each rank looks up the tokens its
+    rows hold, zeros for the others, and the ranks' rows are summed."""
+    table = params["table"]
+    tokens = tokens.long()
+    if tp.model_axis() is None:
+        out = F.embedding(tokens, table)
+    else:
+        local = tokens - tp.vocab_offset(table.shape[0])
+        mine = (local >= 0) & (local < table.shape[0])
+        out = F.embedding(torch.where(mine, local, 0), table)
+        out = tp.reduce(out * mine[..., None].to(out.dtype))
     return constrain(out, "batch", "seq", "act_embed")
 
 
@@ -172,11 +189,15 @@ def lm_head_axes():
 
 def lm_head_apply(params, x: torch.Tensor, valid_vocab: int = 0):
     """valid_vocab > 0: the head is padded; the tail logits are set to
-    -1e30 in the logits' dtype so they are inert in softmax / argmax."""
-    logits = x @ params["w"].to(x.dtype)
-    vp = logits.shape[-1]
-    if valid_vocab and valid_vocab < vp:
-        ok = torch.arange(vp, device=logits.device) < valid_vocab
+    -1e30 in the logits' dtype so they are inert in softmax / argmax.
+    Split over "model" by vocab columns, each rank's logits are those of
+    its columns, masked by their global index (only the last shard holds
+    the padded tail)."""
+    logits = tp.enter(x) @ params["w"].to(x.dtype)
+    vl = logits.shape[-1]
+    lo = tp.vocab_offset(vl)
+    if valid_vocab and valid_vocab < lo + vl:
+        ok = torch.arange(lo, lo + vl, device=logits.device) < valid_vocab
         logits = torch.where(ok, logits, logits.new_full((), -1e30))
     return constrain(logits, "batch", "seq", "act_vocab")
 

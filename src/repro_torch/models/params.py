@@ -7,10 +7,15 @@ with any trees of the same structure beside it.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig
-from ..sharding import NamedSharding, Rules, spec as axes_spec
+from ..sharding import NamedSharding, Rules
+from ..sharding import spec as axes_spec
 
 _EXPERT_KEYS = ("w_gu", "w_down")
 
@@ -84,3 +89,47 @@ def param_shardings(axes_tree, rules: Rules, mesh, shapes=None):
     """The ``NamedSharding`` tree of ``param_specs`` on ``mesh``."""
     specs = param_specs(axes_tree, rules, mesh, shapes)
     return map_axes(lambda ax, s: NamedSharding(mesh, s), axes_tree, specs)
+
+
+def local_box(sharding: NamedSharding, shape, rank: Optional[int] = None):
+    """``rank``'s box (one slice a dim) of an array of ``shape`` under
+    ``sharding`` (default: this process's rank)."""
+    if rank is None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    return sharding.devices_indices_map(tuple(shape))[rank]
+
+
+def _take(leaf, box, copy: bool):
+    """``leaf[box]``: numpy or a tensor; with ``copy`` a tensor of its
+    own (a view would keep the whole leaf alive) unless the box is the
+    whole leaf."""
+    part = leaf[box]
+    whole = all(sl.stop - sl.start == n for sl, n in zip(box, leaf.shape))
+    if not copy or whole:
+        return part
+    if isinstance(part, torch.Tensor):
+        return part.clone(memory_format=torch.contiguous_format)
+    return np.array(part, copy=True)
+
+
+def shard_params(params, cfg: ModelConfig, mesh, rules: Optional[Rules] = None,
+                 copy: bool = True):
+    """This rank's box of every leaf of a whole parameter tree (numpy
+    arrays or tensors, the reference's names and shapes) on ``mesh``:
+    the box ``NamedSharding(mesh, param_specs(...))`` gives it, so the
+    split is the reference's (``TP_RULES``: wq / bq on heads, wkv / bkv on
+    kv heads, wo's rows, w_gu's columns, w_down's rows, the embedding's
+    rows and the LM head's columns on the padded vocab; norm scales
+    whole).  ``copy=False`` returns views (a whole leaf is returned as it
+    is either way).  Raises ``ValueError`` where ``cfg`` does not split
+    over the mesh's "model" axis (``sharding.tp.check_model_axis``)."""
+    from ..sharding import get_rules, tp
+    from .transformer import param_axes
+
+    rules = rules or get_rules(cfg.rules)
+    tp.check_model_axis(cfg, tp.axis_size(mesh), rules)
+    axes = param_axes(cfg)
+    specs = param_specs(axes, rules, mesh, params)
+    return map_axes(lambda ax, s, leaf: _take(
+        leaf, local_box(NamedSharding(mesh, s), leaf.shape), copy),
+        axes, specs, params)

@@ -38,7 +38,12 @@ RG-LRU hybrid (``mixer="rglru_hybrid"``, Griffin / RecurrentGemma).
 
 A Python loop over the stacked layers takes the place of ``lax.scan``.
 The reference's sharding constraints stand where it has them; on plain
-tensors they are no-ops.
+tensors they are no-ops.  Under a mesh with a "model" axis
+(``use_rules(mesh, rules)``) the params are a rank's shards
+(``params.shard_params``), the layers sum their row-parallel outputs over
+the model ranks (``sharding/tp.py``), the logits are the rank's vocab
+columns, ``loss_fn`` reduces its log-sum-exp and target logits over
+them, and ``init_cache(..., model_parts=)`` holds the rank's KV heads.
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..sharding import constrain
+from ..sharding import constrain, tp
 from . import attention as attn
 from . import moe as moe_lib
 from . import rglru_layer as rglru
@@ -510,7 +515,7 @@ def forward(cfg: ModelConfig, params, batch):
     """Training / scoring forward pass. Returns (logits, aux_loss): the MoE
     layers' summed aux loss, an f32 zero for a model without one.  The
     logits are the tokens' only: a patch prefix is cut off before the LM
-    head."""
+    head.  Under a "model" axis they are the rank's vocab columns."""
     x, positions, prefix = _embed_inputs(cfg, params, batch)
     x, aux = _run_stack(cfg, params, x, positions,
                         enc_out=_encode(cfg, params, batch))
@@ -537,8 +542,12 @@ def loss_fn(cfg: ModelConfig, params, batch, *,
     labels = batch["labels"]
     logits = logits[:, :-1, :].float()
     targets = labels[:, 1:].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.clamp_min(0)[..., None])[..., 0]
+    if tp.model_axis() is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            targets.clamp_min(0)[..., None])[..., 0]
+    else:
+        logz, gold = _vocab_parallel_xent(logits, targets)
     mask = (targets >= 0).float()
     count = mask.sum() if token_total is None else token_total
     xent = torch.sum((logz - gold) * mask) / torch.clamp_min(count, 1.0)
@@ -546,15 +555,30 @@ def loss_fn(cfg: ModelConfig, params, batch, *,
     return loss, {"xent": xent, "aux": aux}
 
 
+def _vocab_parallel_xent(logits, targets):
+    """(logsumexp, target logit) of vocab-sharded f32 ``logits``: the max
+    and the sums of exp and of the target's logit (held by one shard)
+    taken over the model ranks."""
+    top = tp.all_max(logits.amax(dim=-1))
+    logz = top + torch.log(tp.reduce(
+        torch.exp(logits - top[..., None]).sum(dim=-1)))
+    local = targets - tp.vocab_offset(logits.shape[-1])
+    mine = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
+    gold = tp.reduce(torch.where(mine, gold[..., 0], 0.0))
+    return logz, gold
+
+
 # ==========================================================================
 # serving: cache init / prefill / decode
 # ==========================================================================
 def _kind_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype, lead, device):
+                     dtype, lead, device, model_parts: int = 1):
     """One layer's (or, with ``lead``, a stack's) zero cache of ``kind``
-    (``repro/models/transformer.py:462-485``)."""
+    (``repro/models/transformer.py:462-485``), its KV heads a
+    ``model_parts``-th of the model's."""
     def kv_cache(s):
-        kv = attn.init_kv_cache(batch, cfg.num_kv_heads, s,
+        kv = attn.init_kv_cache(batch, cfg.num_kv_heads // model_parts, s,
                                 cfg.resolved_head_dim, dtype,
                                 quant=cfg.kv_quant, lead=lead, device=device)
         if lead and kv.ks is not None:
@@ -583,20 +607,23 @@ def _kind_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device="cuda") -> Dict[str, Any]:
+               device="cuda", model_parts: int = 1) -> Dict[str, Any]:
     """Decode cache for a batch of ``batch`` sequences: a KV cache of
     ``max_len`` slots (a ring of ``min(max_len, window)`` for a
     sliding-window layer), or a recurrent state, whose size does not
-    depend on ``max_len``."""
+    depend on ``max_len``.  ``model_parts``: the size of the "model" axis
+    the KV heads are split over (a rank's cache)."""
+    if model_parts > 1:
+        tp.check_model_axis(cfg, model_parts)
     dtype = dtype or _dtype(cfg)
     plan = stack_plan(cfg)
     lead = (plan["scan_len"],)
     return {
         "stack": {f"b{i}": _kind_cache_init(cfg, kind, batch, max_len, dtype,
-                                            lead, device)
+                                            lead, device, model_parts)
                   for i, kind in enumerate(plan["scan_kinds"])},
         "tails": [_kind_cache_init(cfg, kind, batch, max_len, dtype, (),
-                                   device)
+                                   device, model_parts)
                   for kind in plan["tail_kinds"]],
         "idx": torch.zeros((), dtype=torch.int32, device=device),
     }

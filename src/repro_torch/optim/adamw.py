@@ -17,6 +17,7 @@ import math
 from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..kernels.ckpt_codec import BLOCK, dequantize, quantize
 
@@ -89,11 +90,22 @@ def _slices(path, *leaves):
         yield leaves
 
 
-def _global_norm(grads) -> torch.Tensor:
-    total = None
+def _global_norm(grads, split=None, group=None) -> torch.Tensor:
+    """The f32 L2 norm of every gradient leaf.  Leaves split over the
+    model ranks (``split``: a tree of bools, ``group`` their process
+    group) hold a part of the gradient each: their squares are summed over
+    the group; a whole leaf, equal on every rank, counts once."""
+    total, parts = None, None
+    split_leaves = None if split is None else (s for _, s in _paths(split))
     for _, g in _paths(grads):
         sq = torch.linalg.vector_norm(g, dtype=torch.float32).square()
-        total = sq if total is None else total + sq
+        if split_leaves is not None and next(split_leaves):
+            parts = sq if parts is None else parts + sq
+        else:
+            total = sq if total is None else total + sq
+    if parts is not None:
+        dist.all_reduce(parts, group=group)
+        total = parts if total is None else total + parts
     return torch.sqrt(total)
 
 
@@ -109,12 +121,15 @@ def _compress_decompress_(g: torch.Tensor, err: torch.Tensor) -> None:
 
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
-                 schedule: Optional[Callable] = None):
+                 schedule: Optional[Callable] = None, split=None,
+                 group=None):
     """One AdamW step on f32 ``params``, in place; ``grads`` (f32) are
     clipped (and compressed) in place.  Returns (params, new_state,
-    metrics), the same tensors as given."""
+    metrics), the same tensors as given.  ``split`` / ``group``: the
+    leaves split over the "model" axis and its process group, for the
+    clip's global norm (``_global_norm``)."""
     count = state.count + 1
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, split, group)
     if cfg.grad_clip:
         clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
         for _, g in _paths(grads):

@@ -13,19 +13,38 @@ up to the window.  With a ``mesh`` prefill and decode run under
 ``use_rules(mesh, rules)``, as the reference's do
 (``repro/serve/engine.py:26-45``), so the models' ``constrain`` calls see
 the mesh; on plain tensors they change nothing.
+
+On a mesh with a "model" axis (tensor parallelism, ``sharding/tp.py``)
+every rank of the mesh builds the engine from the whole parameter tree
+and keeps its shards (``models.shard_params``); each "data" rank serves
+its rows of the batch.  Its cache holds its rows and its KV heads, and
+the greedy argmax is reduced over the vocab shards.  ``generate`` and
+``decode_greedy`` return the whole batch's tokens on every rank.  A
+commit snapshots the cache as DTensor views on the mesh (``Shard`` over
+batch and KV heads): one part a box, which the ranks send to rank 0,
+where the iCheck client lives.  ``restore_serving_state`` on a mesh
+fetches each rank's box through ``redistribute_mesh``, on one rank the
+whole cache.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig
-from ..core.snapshot import restore_pytree, snapshot_pytree
-from ..models.transformer import (cast_params, decode_step, init_cache,
-                                  prefill)
-from ..sharding import get_rules, use_rules
+from ..core import plan as planlib
+from ..core.snapshot import (_flatten, _leaf_name, _unflatten,
+                             dtensor_sharding, load_leaf_, restore_pytree,
+                             snapshot_pytree)
+from ..core.types import PartitionDesc, PartitionScheme
+from ..models.params import map_axes, shard_params
+from ..models.transformer import (cache_axes, cast_params, decode_step,
+                                  init_cache, prefill)
+from ..sharding import get_rules, placements, spec, tp, use_rules
 
 
 # a batch's precomputed embeddings beside its tokens: audio frames (the
@@ -40,6 +59,12 @@ def serve_max_len(cfg: ModelConfig, seq_len: int, gen: int = 0) -> int:
     return n
 
 
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when it is a view (of a whole leaf that the
+    engine does not keep)."""
+    return t if t._base is None else t.clone()
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
                  device="cuda", mesh=None):
@@ -47,10 +72,18 @@ class ServeEngine:
         self.device = torch.device(device)
         self.mesh = mesh
         self.rules = get_rules(cfg.rules)
+        self.model_parts = tp.axis_size(mesh)
         # the reference casts each weight to the compute dtype where it is
         # used; casting once here gives the same bits and saves the
         # per-step casts
-        self.params = cast_params(params, getattr(torch, cfg.dtype))
+        dtype = getattr(torch, cfg.dtype)
+        if self.model_parts > 1:
+            params = shard_params(params, cfg, mesh, self.rules, copy=False)
+        self.params = cast_params(params, dtype)
+        if self.model_parts > 1:
+            # the rank's boxes were views: each is cast (or copied) into a
+            # tensor of its own, so the engine holds no whole leaf
+            self.params = _unflatten(self.params, lambda name, t: _own(t))
         self.max_len = max_len
         self.last_commit = None     # CommitHandle of the newest cache commit
 
@@ -64,33 +97,58 @@ class ServeEngine:
         tokens and, for a frames / patches model, its ``frames`` /
         ``patches`` embeddings (moved to ``device`` as f32; the model casts
         them to its dtype as the reference does): returns (last-position
-        logits, cache)."""
-        inputs = {"tokens": self._tokens(batch["tokens"])}
+        logits, cache).  On a mesh both are this rank's: its rows of the
+        batch, its vocab columns and KV heads."""
+        tokens = self._tokens(batch["tokens"])
+        rows = tp.data_rows(tokens.shape[0], self.mesh)
+        inputs = {"tokens": tokens[rows]}
         for key in MODALITY_KEYS:
             if key in batch:
                 inputs[key] = torch.as_tensor(np.asarray(batch[key]),
                                               dtype=torch.float32,
-                                              device=self.device)
+                                              device=self.device)[rows]
         cache = init_cache(self.cfg, inputs["tokens"].shape[0], self.max_len,
-                           device=self.device)
+                           device=self.device, model_parts=self.model_parts)
         with use_rules(self.mesh, self.rules):
             return prefill(self.cfg, self.params, inputs, cache)
 
     @torch.no_grad()
-    def decode_greedy(self, cache, tokens, steps: int) -> np.ndarray:
-        """``steps`` greedy decode steps from ``cache`` (written in place),
-        fed ``tokens`` (B, 1) first.  Returns the new tokens (B, steps)."""
-        tok = self._tokens(tokens).reshape(-1, 1)
+    def step(self, cache, tokens: torch.Tensor):
+        """One decode step from ``cache`` (written in place) fed this
+        rank's ``tokens`` (B, 1): (logits, cache), as ``prefill``'s."""
+        with use_rules(self.mesh, self.rules):
+            return decode_step(self.cfg, self.params, cache, tokens)
+
+    @torch.no_grad()
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy tokens (B, 1) int32 of ``prefill`` / ``step`` logits,
+        the argmax over every vocab shard."""
+        with use_rules(self.mesh, self.rules):
+            return tp.argmax(logits)[:, None].to(torch.int32)
+
+    def _decode(self, cache, tok: torch.Tensor, steps: int) -> torch.Tensor:
         out = []
         for _ in range(steps):
-            with use_rules(self.mesh, self.rules):
-                logits, cache = decode_step(self.cfg, self.params, cache,
-                                            tok)
-            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            logits, cache = self.step(cache, tok)
+            tok = self.greedy(logits)
             out.append(tok)
         if not out:
-            return np.zeros((tok.shape[0], 0), np.int32)
-        return torch.cat(out, dim=1).cpu().numpy()
+            return tok.new_zeros((tok.shape[0], 0))
+        return torch.cat(out, dim=1)
+
+    def _gathered(self, local: torch.Tensor, batch: int) -> np.ndarray:
+        """The whole batch's tokens from each data rank's rows."""
+        return tp.gather_rows(local, batch, self.mesh).cpu().numpy()
+
+    @torch.no_grad()
+    def decode_greedy(self, cache, tokens, steps: int) -> np.ndarray:
+        """``steps`` greedy decode steps from ``cache`` (written in place),
+        fed ``tokens`` (B, 1) first, the whole batch's.  Returns the new
+        tokens (B, steps)."""
+        tok = self._tokens(tokens).reshape(-1, 1)
+        b = tok.shape[0]
+        out = self._decode(cache, tok[tp.data_rows(b, self.mesh)], steps)
+        return self._gathered(out, b)
 
     def generate(self, batch: Dict, gen_len: int = 16,
                  checkpoint_client=None) -> np.ndarray:
@@ -99,18 +157,48 @@ class ServeEngine:
 
         ``checkpoint_client``: optional ICheckClient; if given, the filled
         KV cache / recurrent state is committed after prefill
-        (serving-state fault tolerance).
+        (serving-state fault tolerance).  On a mesh every rank calls
+        ``generate``; the client is rank 0's (the others pass None).
         """
+        b = np.shape(batch["tokens"])[0]
         logits, cache = self.prefill(batch)
-        if checkpoint_client is not None:
-            snap = snapshot_pytree(cache, step=0)
-            checkpoint_client.add_adapt_snapshot(snap)
-            self.last_commit = checkpoint_client.commit(
-                0, {n: r.parts for n, r in snap.regions.items()})
-        first = torch.argmax(logits, -1)[:, None].to(torch.int32)
-        first = first.cpu().numpy()
-        rest = self.decode_greedy(cache, first, gen_len - 1)
-        return np.concatenate([first, rest], axis=1)
+        if self._root_says(checkpoint_client is not None):
+            snap = snapshot_pytree(cache if self.mesh is None
+                                   else self._on_mesh(cache, b), step=0)
+            if snap is not None:
+                checkpoint_client.add_adapt_snapshot(snap)
+                self.last_commit = checkpoint_client.commit(
+                    0, {n: r.parts for n, r in snap.regions.items()})
+        first = self.greedy(logits)
+        rest = self._decode(cache, first, gen_len - 1)
+        return self._gathered(torch.cat([first, rest], dim=1), b)
+
+    # ------------------------------------------------------------------
+    # the cache on the mesh
+    # ------------------------------------------------------------------
+    def _root_says(self, flag: bool) -> bool:
+        """Rank 0's ``flag``, on every rank of the mesh (one broadcast an
+        axis, rank 0 first)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        for name in self.mesh.mesh_dim_names:
+            group = self.mesh.get_group(name)
+            dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+        return bool(t.item())
+
+    def _on_mesh(self, cache, batch: int):
+        """``cache`` (this rank's, of a global batch of ``batch``) as
+        DTensor views on the mesh, each leaf placed as the reference
+        shards it (``cache_axes`` under the rules: batch over "data", KV
+        heads over "model")."""
+        from torch.distributed.tensor import DTensor
+
+        whole = init_cache(self.cfg, batch, self.max_len, device="meta")
+        return map_axes(lambda ax, w, t: DTensor.from_local(
+            t, self.mesh, placements(spec(ax, self.rules, self.mesh,
+                                          w.shape), self.mesh),
+            run_check=False), cache_axes(self.cfg), whole, cache)
 
     def restore_serving_state(self, checkpoint_client, batch_size: int):
         """Rebuild the prefilled KV cache / recurrent state from the
@@ -119,8 +207,13 @@ class ServeEngine:
         The restart half of serving-state fault tolerance: fetch the
         committed state from the agents (L1) or the PFS (L2) instead of
         re-running prefill.  Returns the restored cache on ``device``, or
-        None when nothing was committed.
+        None when nothing was committed.  On a mesh every rank calls it
+        (the client is rank 0's) and gets its own box of each leaf, which
+        rank 0 fetches through ``redistribute_mesh`` (the client must hold
+        the regions: the one that committed, or one that restarted).
         """
+        if self.mesh is not None:
+            return self._restore_on_mesh(checkpoint_client, batch_size)
         found = checkpoint_client.restart()
         if found is None:
             return None
@@ -130,3 +223,28 @@ class ServeEngine:
         region_meta = {name: meta.regions[name] for name in regions}
         return restore_pytree(template, regions, region_meta,
                               device=self.device)
+
+    def _restore_on_mesh(self, client, batch_size: int):
+        found = None
+        if dist.get_rank() == 0:
+            found = client.controller.latest_restartable(client.app_id)
+        if not self._root_says(found is not None):
+            return None
+        rows = tp.data_rows(batch_size, self.mesh)
+        cache = init_cache(self.cfg, rows.stop - rows.start, self.max_len,
+                           device=self.device, model_parts=self.model_parts)
+        for path, leaf in _flatten(self._on_mesh(cache, batch_size)):
+            name = _leaf_name(path)
+            meta = parts = None
+            if found is not None:
+                boxes = planlib.mesh_part_bounds(leaf.shape,
+                                                 dtensor_sharding(leaf))
+                parts = client.redistribute_mesh(
+                    name, boxes, ckpt_id=found[0].ckpt_id)
+                meta = dataclasses.replace(
+                    client.regions[name],
+                    partition=PartitionDesc(scheme=PartitionScheme.MESH,
+                                            num_parts=len(boxes),
+                                            bounds=tuple(boxes)))
+            load_leaf_(name, leaf, meta, parts)
+        return cache

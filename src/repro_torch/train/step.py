@@ -17,6 +17,13 @@ all-reduce a leaf, are the whole batch's.  They are all-reduced before
 clipping and compression, which the optimizer applies to the global
 gradient, so every rank takes the same update and the replicas stay
 bit-equal.  The reported loss is the all-reduced one.
+
+Split over a mesh's "model" axis too (``mesh``, ``sharding/tp.py``): the
+params, moments and gradients are the rank's shards
+(``models.shard_params``), the loss runs under ``use_rules(mesh,
+rules)`` (its collectives over the model ranks), the gradients are
+all-reduced over the "data" axis only, and the clip's global norm sums
+the split leaves' squares over the model ranks, the whole ones' once.
 """
 from __future__ import annotations
 
@@ -26,8 +33,9 @@ import torch
 import torch.distributed as dist
 
 from ..configs.base import ModelConfig
-from ..models import loss_fn
+from ..models import abstract_params, loss_fn, map_axes, param_specs
 from ..optim import AdamWConfig, adamw_update
+from ..sharding import get_rules, tp, use_rules
 from .state import TrainState
 
 
@@ -82,12 +90,40 @@ def _dp_grads(cfg: ModelConfig, params, batch, group):
     return loss, metrics, grads
 
 
+def model_split(cfg: ModelConfig, mesh, rules=None):
+    """A tree of the params' layout: True where the leaf is split over
+    ``mesh``'s "model" axis."""
+    rules = rules or get_rules(cfg.rules)
+    shapes, axes = abstract_params(cfg)
+    specs = param_specs(axes, rules, mesh, shapes)
+    return map_axes(lambda ax, s: any(
+        tp.AXIS in ((a,) if isinstance(a, str) else tuple(a or ()))
+        for a in s), axes, specs)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     schedule: Optional[Callable] = None,
-                    microbatches: int = 1, group=None) -> Callable:
+                    microbatches: int = 1, group=None,
+                    mesh=None) -> Callable:
     """``group``: the process group the step is data parallel over (None:
-    one rank)."""
+    one rank).  ``mesh``: a ("data", "model") mesh the step is split over
+    instead (its "data" axis taking ``group``'s place); the state holds
+    the rank's shards."""
     opt_cfg = opt_cfg or AdamWConfig()
+    rules = get_rules(cfg.rules)
+    axis = split = None
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("give a group or a mesh, not both")
+        tp.check_model_axis(cfg, tp.axis_size(mesh), rules)
+        axis = tp.mesh_axis(mesh)
+        if axis is not None:
+            if opt_cfg.compress_grads:
+                raise ValueError("compressed gradients are not split over "
+                                 "the 'model' axis")
+            split = model_split(cfg, mesh, rules)
+        if tp.axis_size(mesh, "data") > 1:
+            group = mesh.get_group("data")
     if group is not None and microbatches > 1:
         raise ValueError("microbatches > 1 is not taken under data "
                          "parallelism")
@@ -95,6 +131,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     def train_step(state: TrainState, batch: Dict) -> tuple:
         """(state, batch of tensors) -> (state, metrics); the params and
         moments are updated in place, ``state.step`` is a new tensor."""
+        with use_rules(mesh, rules):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Dict) -> tuple:
         params = state.params
         if microbatches > 1:
             b = batch["tokens"].shape[0]
@@ -116,8 +156,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
             loss, metrics, grads = _dp_grads(cfg, params, batch, group)
         else:
             loss, metrics, grads = compute_grads(cfg, params, batch)
-        _, new_opt, opt_metrics = adamw_update(grads, state.opt, params,
-                                               opt_cfg, schedule)
+        _, new_opt, opt_metrics = adamw_update(
+            grads, state.opt, params, opt_cfg, schedule, split=split,
+            group=None if axis is None else axis.group)
         del grads
         new_state = TrainState(params=params, opt=new_opt,
                                step=state.step + 1)

@@ -166,6 +166,25 @@ def test_kernel_matches_plain(card, case, dtype):
         assert fwd_rel_err(out, ref, live) <= FWD_REL_BF16
 
 
+# K4 at the local shapes of a two-way "model" split (sharding/tp.py):
+# yi-6b's prefill (16 of 32 heads, 2 of 4 KV heads) and qwen2.5-3b's
+# training shape (8 of 16, 1 of 2)
+TP_CASES = [(4, 16, 2, 512, 512, 128, True, None),
+            (1, 8, 1, 4096, 4096, 128, True, None)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", TP_CASES)
+def test_kernel_matches_plain_at_model_split_shapes(card, case, dtype):
+    test_kernel_matches_plain(card, case, dtype)
+
+
+def test_bwd_kernel_at_model_split_training_shape(card):
+    got, run = _check_bwd(card, TP_CASES[1], "bfloat16")
+    for g, g2 in zip(got, run()):
+        assert torch.equal(g, g2)
+
+
 def test_rows_without_allowed_key_are_zero(card):
     q, k, v = _mk(card, 3, 1, 2, 1, 16, 8, 64, "float32")
     out, lse = attention(q, k, v, causal=True, return_lse=True)

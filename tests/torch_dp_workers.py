@@ -1,6 +1,6 @@
 """Worker processes of the port's multi-process CPU tests
 (``test_torch_mesh_devices.py``, ``test_torch_train_dp.py``,
-``test_torch_opcount.py``).
+``test_torch_opcount.py``, ``test_torch_tp.py``).
 
 ``spawn_world(fn, world, tmp_path, *args)`` starts ``world`` processes
 with ``torch.multiprocessing`` (spawn), each joining a gloo world over a
@@ -348,3 +348,142 @@ def counted_collectives(rank, world, tmp, n):
         dist.all_gather_into_tensor(out, torch.ones(n))
     assert float(x[0]) == world
     return counter.result()["collectives"]
+
+
+# --------------------------------------------------------------------------
+# test_torch_tp.py: the "model" axis
+# --------------------------------------------------------------------------
+def _gathered(obj):
+    """Every rank's ``obj``, in rank order."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def _tp_cfg(case):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(case["arch"], tiny=True),
+                               **case.get("over", {}))
+
+
+def tp_serve(rank, world, tmp, data, model, cases):
+    """Each case ({arch, over, params (numpy tree), tokens, gen}) served on
+    a (data, model) mesh: this rank's prefill logits and cache, the
+    generated tokens with the cache committed on rank 0, the cache
+    restored on the mesh (bit-equal to a second prefill's) and the decode
+    from it, then the commit restored whole on rank 0 alone and decoded
+    there.  Returns every rank's results (rank 0's return value)."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import ICheckClient, ICheckCluster
+    from repro_torch.serve import ServeEngine, serve_max_len
+    from repro_torch.sharding import make_tp_mesh
+
+    mesh = make_tp_mesh(data, model)
+    out = []
+    for i, case in enumerate(cases):
+        cfg = _tp_cfg(case)
+        toks, gen = case["tokens"], case["gen"]
+        full = params_from_numpy(case["params"], "cpu")
+        max_len = serve_max_len(cfg, toks.shape[1], gen)
+        eng = ServeEngine(cfg, full, max_len=max_len, device="cpu", mesh=mesh)
+        res = {"coord": (mesh.get_local_rank("data"),
+                         mesh.get_local_rank("model")),
+               "param_shapes": {n: tuple(t.shape)
+                                for n, t in walk(eng.params)}}
+        logits, cache = eng.prefill({"tokens": toks})
+        res["logits"] = logits.numpy().copy()
+        res["cache"] = {n: t.numpy().copy() for n, t in walk(cache)}
+        cluster = ICheckCluster(n_icheck_nodes=1) if rank == 0 else None
+        try:
+            client = ICheckClient(f"serve{i}", cluster.controller).init() \
+                if rank == 0 else None
+            res["tokens"] = eng.generate({"tokens": toks}, gen_len=gen,
+                                         checkpoint_client=client)
+            if rank == 0:
+                eng.last_commit.wait(timeout=60)
+                res["parts"] = {n: r.partition.num_parts
+                                for n, r in client.regions.items()}
+            restored = eng.restore_serving_state(client, toks.shape[0])
+            _, fresh = eng.prefill({"tokens": toks})
+            res["restored_equal"] = all(
+                torch.equal(a, b) for (_, a), (_, b) in
+                zip(walk(restored), walk(fresh)))
+            res["restored_decode"] = eng.decode_greedy(
+                restored, res["tokens"][:, :1], gen - 1)
+            if rank == 0:
+                one = ServeEngine(cfg, full, max_len=max_len, device="cpu")
+                whole = one.restore_serving_state(client, toks.shape[0])
+                res["whole"] = {n: t.numpy().copy() for n, t in walk(whole)}
+                res["whole_decode"] = one.decode_greedy(
+                    whole, res["tokens"][:, :1], gen - 1)
+                client.finalize()
+        finally:
+            if cluster is not None:
+                cluster.close()
+        out.append(res)
+    # a "model" axis that does not divide a model's heads raises
+    from repro_torch.configs import get_config
+
+    phi3 = get_config("phi3-medium-14b", tiny=True)
+    try:
+        ServeEngine(phi3, params_from_numpy(cases[0]["phi3_params"], "cpu"),
+                    max_len=8, device="cpu", mesh=mesh)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    return {"cases": _gathered(out), "phi3_raised": raised}
+
+
+def tp_train(rank, world, tmp, data, model, cases, steps):
+    """Each case ({arch, over, params (numpy tree), batch}) trained on a
+    (data, model) mesh from the whole params' shards: this rank's param
+    shards, its loss and gradient shards over its rows of the batch, then
+    the losses and clip norms of ``steps`` train steps.  Returns every
+    rank's results."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
+    from repro_torch.sharding import get_rules, make_tp_mesh, use_rules
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.train.step import _dp_grads, compute_grads
+
+    mesh = make_tp_mesh(data, model)
+    out = []
+    for case in cases:
+        cfg = _tp_cfg(case)
+        params = params_from_numpy(case["params"], "cpu", cfg, mesh)
+        res = {"coord": (mesh.get_local_rank("data"),
+                         mesh.get_local_rank("model")),
+               "params": {n: t.numpy().copy() for n, t in walk(params)}}
+        b = case["batch"]["tokens"].shape[0] // data
+        d = mesh.get_local_rank("data")
+        mine = {k: torch.from_numpy(v[d * b:(d + 1) * b])
+                for k, v in case["batch"].items()}
+        with use_rules(mesh, get_rules(cfg.rules)):
+            if data > 1:
+                loss, _, grads = _dp_grads(cfg, params, mine,
+                                           mesh.get_group("data"))
+            else:
+                loss, _, grads = compute_grads(cfg, params, mine)
+        res["loss"] = float(loss)
+        res["grads"] = {n: g.numpy().copy() for n, g in walk(grads)}
+        opt = AdamWConfig(lr=1e-3)
+        state = TrainState(params=params, opt=adamw_init(params),
+                           step=torch.zeros((), dtype=torch.int32))
+        step = make_train_step(cfg, opt, warmup_cosine(1e-3, 2, 10),
+                               mesh=mesh)
+        res["losses"], res["grad_norms"] = [], []
+        for _ in range(steps):
+            state, m = step(state, mine)
+            res["losses"].append(float(m["loss"]))
+            res["grad_norms"].append(float(m["grad_norm"]))
+        out.append(res)
+    return _gathered(out)
+
+
+def tp_world(rank, world, tmp, data, model, cases, steps):
+    """``tp_serve`` then ``tp_train`` in one world."""
+    return {"serve": tp_serve(rank, world, tmp, data, model, cases),
+            "train": tp_train(rank, world, tmp, data, model, cases, steps)}
