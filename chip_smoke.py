@@ -205,11 +205,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    its committed codes (which lie within absmax/127 * 0.51 per block of
    the state at commit), and trains 2 steps.  Counts are set to 0 before
    and read after the 4 steps and their commits;
-5b. the same training path for rwkv6-7b at published widths cut to 4
-   layers (1,413,697,536 params), bf16 compute, 4 steps of 4096 tokens,
-   q8-delta commits at 2 and 4, no restart: K6's chunked forward 2 x 4 x
+5b. the same training path for rwkv6-7b at published widths cut to 2
+   layers (975,286,272 params), bf16 compute, 4 steps of 4096 tokens,
+   q8-delta commits at 2 and 4, no restart: K6's chunked forward 2 x 2 x
    4 times (full remat runs each layer's forward twice), its chunked
-   backward 4 x 4, the sequential forward and backward never; K1 and K2
+   backward 2 x 4, the sequential forward and backward never; K1 and K2
    in the commits; then a 2-layer f32 cut's loss and every
    gradient on the card against the plain CPU path (one 64-token
    sequence; each leaf within 1e-3 of its largest element, the loss
@@ -282,11 +282,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. the mesh's "model" axis (``sharding/tp.py``): two processes on the
    one card in a gloo world (``init_world(..., "cuda:gloo", ...)``; NCCL
    refuses two ranks on one card, so every all-reduce is staged through
-   the host), a ("data", "model") mesh of 1 x 2.  Each draws yi-6b whole
-   (phase 4's seed) and serves it split at full width and depth through
+   the host), a ("data", "model") mesh of 1 x 2.  Each draws yi-6b cut
+   to 4 of its 32 layers (phase 4's seed; full depth until phase 10
+   came) and serves it split at full width through
    ``ServeEngine(mesh=)``: 16 of the 32 heads and 2 of the 4 KV heads a
-   rank (K4 32 times a prefill at (4, 16, 2, 512, 512, 128), never in
-   decode), 4 x 512 prompt tokens and 32 new, 67 all-reduces a decode
+   rank (K4 4 times a prefill at (4, 16, 2, 512, 512, 128), never in
+   decode), 4 x 512 prompt tokens and 32 new, 11 all-reduces a decode
    step (two a layer, the embedding's, the argmax's two over the vocab
    shards), counted; the KV cache committed as DTensor views (one part a
    rank) and restored on the mesh bit-equal to a second prefill, decoding
@@ -309,6 +310,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``serve_tp`` and ``train_tp`` lines give the numbers; phase 3 checks
    K4 at both local shapes (forward, and backward at the training one)
    and phase 7 times them.
+10. the "model" axis for the recurrent models, at full width and depth:
+   the two processes of phase 9's world serve rwkv6-7b (10a: K6 at a
+   rank's 32 heads, its chunked kernel 32 times a prefill at (4, 32,
+   512, 64), its sequential one 32 times a decode step; 99 all-reduces a
+   step: three a layer, the time-mix's and the FFN's outputs and the
+   receptance's gather) and recurrentgemma-9b (10b: K7 at a rank's 2048
+   channels, its TMA kernel 26 times a prefill at (4, 512, 2048), its
+   register one 26 times a step; K4 12 times a prefill at (4, 8, 1, 512,
+   512, 256), fed the gathered MQA head; 129 all-reduces a step, the
+   gates' reduce-scatter among them) split two ways, drawn whole in turn
+   (phase 4's seed) and cast leaf by leaf: 4 x 512 prompt tokens, 32 new,
+   the state committed (its split leaves as one part a rank, the shift
+   states and ring caches whole), restored on the mesh (bit-equal to a
+   second prefill, decoding to the live tokens) and whole on one rank
+   (equal to every rank's box; one process decodes from it); the
+   collectives counted, and timed in the second prefill and the restored
+   decode; rank 0 then serves the batch in one process, fed the split
+   run's tokens, and the split bf16 logits lie within 0.16 (rwkv6-7b)
+   and 0.09 (recurrentgemma-9b) of its, max abs difference over max abs
+   (twice bf16's own distance from f32 there).  10c:
+   their f32 cuts at full width (rwkv6-7b 2 layers, recurrentgemma-9b 3,
+   one super-layer) served split (64 prompt tokens, 8 greedy steps: the
+   CPU's tokens, logits within 1e-3) and their loss and gradient shards
+   over 64 tokens (K6's, K7's and K4's backwards at the local widths;
+   every leaf within 1e-3 of its largest, the loss within rtol 1e-5)
+   against the plain CPU path, which this process runs while 10d's ranks
+   run (drawn on the card before phase 9's world starts).  10d:
+   phi3-medium-14b's f32 cut (2 layers, full width)
+   split four ways (a rank's 10 query heads straddle the GQA groups of
+   the gathered K/V, so K/V are expanded a head each): logits, 8 greedy
+   tokens, loss and gradients over 2 x 64 tokens against the plain CPU
+   path (each leaf within 1e-4).  Phase 3 checks and times K6, K7 and K4
+   at the ranks' shapes.  The ``serve_tp_rwkv6``,
+   ``serve_tp_recurrentgemma`` and ``tp_phi3`` lines give the numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  f32 matmuls run in full
 f32 (``allow_tf32`` is False).  A kernel's ``ms``, ``plain_ms`` and
@@ -366,12 +401,12 @@ BWD_TOL = {"float32": (1e-4, 1e-4)}
 # encoder-decoder's phases came, 4 until pixtral-12b's training phase
 # came, 2 since, to keep the run within its time)
 TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 4, 2, 2
-# the training path (phase 5) cut to 12 of qwen2.5-3b's 36 layers since
-# the "model" axis's phase (9) came, 18 since the report's phase (8)
-# came, to keep the run within its time: the restart's host decode of
-# the whole f32 state (136 s at 36 layers) and the two commits scale with
-# the depth
-TRAIN_LAYERS = 12
+# the training path (phase 5) cut to 4 of qwen2.5-3b's 36 layers since
+# the recurrent models' "model" axis phase (10) came, 12 since the
+# "model" axis's phase (9) came, 18 since the report's phase (8) came, to
+# keep the run within its time: the restart's host decode of the whole
+# f32 state (136 s at 36 layers) and the two commits scale with the depth
+TRAIN_LAYERS = 4
 # the cut phase's overlap resize must complete within this wall time
 RESIZE_WAIT_S = 300
 CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
@@ -432,11 +467,12 @@ Q8_SCALE_SHARE = Q8_SHARE * 2 ** 11 / 127
 Q8_SCALE_STEP = 127 * 2 ** -10
 CODEC_DTYPES = ("float32", "bfloat16", "float16")
 # the recurrent training phases (5b, 5c): TRAIN_SEQ tokens a step, steps
-# and q8-delta commit interval; rwkv6-7b cut to 4 layers (8 until
-# pixtral-12b's training phase came), recurrentgemma-9b to one
+# and q8-delta commit interval; rwkv6-7b cut to 2 layers (8 until
+# pixtral-12b's training phase came, 4 until the recurrent models'
+# "model" axis phase came), recurrentgemma-9b to one
 # super-layer (rec, rec, attn) without its two tail layers
 TRAIN_REC_STEPS, TRAIN_REC_COMMIT = 4, 2
-RWKV_TRAIN_LAYERS, HYBRID_TRAIN_LAYERS = 4, 3
+RWKV_TRAIN_LAYERS, HYBRID_TRAIN_LAYERS = 2, 3
 # the MoE phases: dbrx-132b and qwen3-moe-235b-a22b served cut to 4
 # layers, their f32 cuts (1 layer, a 64-token prompt, 8 decode steps)
 # against the plain CPU path; qwen3-moe's training loss and gradients cut
@@ -496,6 +532,9 @@ REPORT_CELLS = (("yi-6b", "decode_32k"), ("yi-6b", "prefill_32k"),
 # TP_TRAIN_STEPS steps, its f32 cut's gradient shards within TP_GRAD_TOL
 # of each leaf's largest
 TP_MODEL = 2
+# yi-6b's depth in phase 9: 32 (full) until phase 10 came, cut to keep the
+# run within its time
+TP_SERVE_LAYERS = 4
 TP_PLAIN = dict(layers=2, prompt=64, steps=8)
 TP_PLAIN_ATOL = 1e-3
 # the split bf16 logits lie within TP_BF16_BOUND times the one-process
@@ -503,6 +542,42 @@ TP_PLAIN_ATOL = 1e-3
 TP_BF16_BOUND = 2.0
 TP_TIMED_STEPS = 8
 TP_TRAIN_LAYERS, TP_TRAIN_STEPS, TP_GRAD_TOL = 2, 3, 1e-4
+# phase 10: the "model" axis for the recurrent models, RNN_TP_MODEL
+# processes: rwkv6-7b and recurrentgemma-9b served split at full width and
+# depth (10a, 10b); their f32 cuts (10c) and phi3-medium-14b's over
+# PHI3_TP_MODEL processes (10d), each of ``layers`` layers, served split
+# (``serve_batch`` sequences of ``prompt`` tokens, CUT_STEPS greedy steps;
+# logits within TP_PLAIN_ATOL) and their loss and gradient shards over
+# ``grad_batch`` sequences of ``grad_seq`` tokens (within ``grad_tol`` of
+# each leaf's largest: the recurrent cuts' GRAD_TOL, as phases 5b's and
+# 5c's) against the plain CPU path
+RNN_TP_MODEL = TP_MODEL        # its ranks run in phase 9's world
+PHI3_TP_MODEL = 4
+RNN_TP_ARCHS = ("rwkv6-7b", "recurrentgemma-9b")
+CUT_STEPS = 8
+TP10_CUTS = {
+    "rwkv6-7b": dict(layers=2, serve_batch=2, prompt=64, grad_batch=1,
+                     grad_seq=GRAD_SEQ, grad_tol=GRAD_TOL),
+    # one super-layer (rec, rec, attn)
+    "recurrentgemma-9b": dict(layers=3, serve_batch=2, prompt=64,
+                              grad_batch=1, grad_seq=GRAD_SEQ,
+                              grad_tol=GRAD_TOL),
+    "phi3-medium-14b": dict(layers=2, serve_batch=2, prompt=64, grad_batch=2,
+                            grad_seq=64, grad_tol=TP_GRAD_TOL)}
+# phase 10's split bf16 logits lie within these of rank 0's one-process
+# bf16 logits, max abs difference over max abs: twice the one-process
+# bf16 logits' own distance from the f32 ones on the H100 (0.0793 and
+# 0.0443 of the max; flat logits under random weights)
+RNN_TP_BF16_BOUND = {"rwkv6-7b": 0.16, "recurrentgemma-9b": 0.09}
+# the kernels' shapes on a rank of phase 10's two-way split: half of
+# rwkv6-7b's 64 heads of 64, half of recurrentgemma-9b's 4096 channels,
+# its attention's 8 of 16 query heads over the gathered kv head (D 256,
+# window 2048)
+TP10_SHAPES = {"rwkv6_prefill": (BATCH, 32, PROMPT, 64),
+               "rwkv6_decode": (BATCH, 32, 1, 64),
+               "rglru_prefill": (BATCH, PROMPT, 2048),
+               "rglru_decode": (BATCH, 1, 2048),
+               "flash_d256": (BATCH, 8, 1, PROMPT, PROMPT, 256, True, 2048)}
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -957,13 +1032,6 @@ def serve_main_path(cfg, params, device, batch_size=BATCH, prompt=PROMPT,
             res["profile_decode_8"] = profile_window(
                 lambda: engine.decode_greedy(cache, out[:, :1], 8))
         client.finalize()
-    # decode again once the cluster's threads have stopped
-    _, cache = engine.prefill(batch)
-    sync()
-    t0 = time.monotonic()
-    engine.decode_greedy(cache, out[:, :1], gen - 1)
-    res["decode_ms_per_token_no_cluster"] = \
-        (time.monotonic() - t0) * 1e3 / (gen - 1)
     res["tokens"] = out
     return res
 
@@ -1060,8 +1128,6 @@ def serve_model_phase(cfg, device, card, line, n_params, want, *,
         **({"reduced": reduced} if reduced else {}),
         "prefill_ms": res["prefill_ms"],
         "decode_ms_per_token": res["decode_ms_per_token"],
-        "decode_ms_per_token_no_cluster":
-            res["decode_ms_per_token_no_cluster"],
         "output_tokens_per_s": BATCH * GEN / res["generate_s"],
         "generate_wall_s": res["generate_s"],
         "commit_wall_s": res["commit_s"],
@@ -3392,52 +3458,20 @@ def tp_config(arch: str, rehearse: bool = False):
     return get_config(arch)
 
 
+def tp_serve_config(rehearse: bool = False):
+    """Phase 9's served config: yi-6b cut to TP_SERVE_LAYERS layers (its
+    tiny config in a rehearsal)."""
+    cfg = tp_config("yi-6b", rehearse)
+    if rehearse:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=TP_SERVE_LAYERS)
+
+
 def _tp_sizes(rehearse: bool) -> dict:
     """Phase 9's sizes: the card's, or a CPU rehearsal's (tiny configs)."""
     if rehearse:
         return dict(batch=2, prompt=16, gen=4, seq=64)
     return dict(batch=BATCH, prompt=PROMPT, gen=GEN, seq=TRAIN_SEQ)
-
-
-def tp_rank_main(rank, world, store, out_dir, rehearse=False) -> None:
-    """One rank of phase 9's world: ``world`` processes on the one card
-    over gloo (``init_world(..., "cuda:gloo", ...)``: NCCL refuses two
-    ranks on one card), a ("data", "model") mesh of 1 x ``world``.  Its
-    results go to ``out_dir``.  ``rehearse``: tiny configs in a CPU gloo
-    world, to try the phase without a card."""
-    sys.path[:0] = [str(SRC), str(ROOT / "tests")]
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.sharding import init_world, make_tp_mesh
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if rehearse:
-        torch.set_num_threads(1)
-    init_world(rank, world, "gloo" if rehearse else "cuda:gloo", store)
-    try:
-        mesh = make_tp_mesh(1, world)
-        device = torch.device("cpu") if rehearse else torch.device(
-            "cuda", torch.cuda.current_device())
-        sz = _tp_sizes(rehearse)
-        t0 = time.monotonic()
-        res = {"serve": tp_serve_rank(
-            tp_config("yi-6b", rehearse), mesh, device, sz["batch"],
-            sz["prompt"], sz["gen"])}
-        res["serve"]["phase_s"] = time.monotonic() - t0
-        gc.collect()
-        _card_reset_peak(device)
-        t0 = time.monotonic()
-        res["train"] = tp_train_rank(tp_config("qwen2.5-3b", rehearse), mesh,
-                                     device, sz["seq"])
-        res["train"]["phase_s"] = time.monotonic() - t0
-        res["backend"] = dist.get_backend()
-        res["mesh"] = repr(mesh)
-        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
-        dist.barrier()
-    finally:
-        dist.destroy_process_group()
 
 
 def _rel(a, b) -> float:
@@ -3451,16 +3485,17 @@ def _vocab_whole(parts):
     return [torch.cat(step, dim=-1) for step in zip(*parts)]
 
 
-def tp_phase(cfg, tcfg, device, card, rehearse=False) -> dict:
-    """Phase 9: ``tp_rank_main`` on TP_MODEL processes (their kernels
-    already built), then, in this process, the checks that need the
-    whole model: the f32 cuts against the plain CPU path, and the bf16
-    logits against this card's one-process runs in bf16 and in f32, fed
-    the split run's tokens.  ``rehearse``: all of it on the CPU with the
-    tiny configs (``cfg``, ``tcfg`` and ``device`` given so)."""
+def tp_phase(cfg, tcfg, device, card, rehearse=False, ranks=None,
+             children_s=None) -> dict:
+    """Phase 9: ``tp_world_main``'s "tp9" part on TP_MODEL processes
+    (their kernels already built; ``ranks``: their results, when the
+    world has run already), then, in this process, the checks that need
+    the whole model: the f32 cuts against the plain CPU path, and the
+    bf16 logits against this card's one-process runs in bf16 and in f32,
+    fed the split run's tokens.  ``rehearse``: all of it on the CPU with
+    the tiny configs (``cfg``, ``tcfg`` and ``device`` given so)."""
     import numpy as np
     import torch
-    import torch.multiprocessing as mp
 
     from repro_torch.models import init_params
     from repro_torch.serve import ServeEngine, serve_max_len
@@ -3468,19 +3503,12 @@ def tp_phase(cfg, tcfg, device, card, rehearse=False) -> dict:
 
     sz = _tp_sizes(rehearse)
     batch_size, prompt, gen = sz["batch"], sz["prompt"], sz["gen"]
-    gc.collect()
-    _card_reset_peak(device)
-    store = Path(tempfile.mkdtemp(prefix="chip-smoke-tp-"))
-    t0 = time.monotonic()
-    try:
-        mp.start_processes(tp_rank_main, args=(TP_MODEL, str(store / "w"),
-                                               str(store), rehearse),
-                           nprocs=TP_MODEL, join=True, start_method="spawn")
-        ranks = [torch.load(store / f"rank{r}.pt", weights_only=False)
-                 for r in range(TP_MODEL)]
-    finally:
-        shutil.rmtree(store, ignore_errors=True)
-    children_s = time.monotonic() - t0
+    if ranks is None:
+        gc.collect()
+        _card_reset_peak(device)
+        t0 = time.monotonic()
+        ranks = spawn_tp_world(("tp9",), TP_MODEL, rehearse)
+        children_s = time.monotonic() - t0
     sv = [r["serve"] for r in ranks]
     tr = [r["train"] for r in ranks]
     out = sv[0]["tokens"]
@@ -3621,7 +3649,11 @@ def tp_phase(cfg, tcfg, device, card, rehearse=False) -> dict:
         "check_s": check_s,
         "reduced": {"ranks": f"{TP_MODEL} processes on one card over gloo "
                     f"(NCCL takes one card a rank): every all-reduce is "
-                    f"staged through the host"}}
+                    f"staged through the host",
+                    **({} if rehearse else {
+                        "num_layers": f"32 -> {cfg.num_layers}: cut when "
+                        f"the recurrent models' 'model' axis phase came, to "
+                        f"keep the whole run within its time"})}}
     train = {
         "card": card, "ranks": TP_MODEL, "layers": TP_TRAIN_LAYERS,
         "seq": sz["seq"], "step_ms": t0r["step_ms"], "losses": t0r["losses"],
@@ -3639,6 +3671,687 @@ def tp_phase(cfg, tcfg, device, card, rehearse=False) -> dict:
                     f" loss and gradients of a cut, as phase 5d's",
                     "global_batch": f"one sequence of {sz['seq']} tokens"}}
     return {"serve_tp": serve, "train_tp": train}
+
+
+# --------------------------------------------------------------------------
+# phase 10: the "model" axis for the recurrent models, and at 4 ranks
+# --------------------------------------------------------------------------
+def _cut_inputs(small, cut, device) -> tuple:
+    """The requests of an f32 cut's serving check (``cut``'s
+    ``serve_batch`` sequences of ``prompt`` tokens, seed 1) and the batch
+    of its gradient check (``grad_batch`` of ``grad_seq`` tokens, seed 2,
+    each its own labels), as numpy and tensors on ``device``."""
+    import numpy as np
+    import torch
+
+    requests = request_batch(small, np.random.default_rng(1),
+                             cut["serve_batch"], cut["prompt"])
+    toks = torch.from_numpy(request_batch(
+        small, np.random.default_rng(2), cut["grad_batch"],
+        cut["grad_seq"])["tokens"].astype(np.int64)).to(device)
+    return requests, {"tokens": toks, "labels": toks}
+
+
+def cut_split_rank(arch, cfg, mesh, device) -> dict:
+    """An f32 cut of ``cfg`` (``TP10_CUTS[arch]``) at full width, drawn
+    cut from the seed (as the parent draws it) and split over ``mesh`` on
+    this rank: its logits over the rank's vocab columns and greedy tokens
+    after a prefill and CUT_STEPS steps, then its loss and gradient shards
+    (the rank's boxes of each leaf as rows of an int tensor), with the
+    kernels' launches of each."""
+    import torch
+
+    from repro_torch.models import (init_params, map_axes, param_axes,
+                                    param_specs)
+    from repro_torch.models.params import local_box, shard_params
+    from repro_torch.serve import ServeEngine, serve_max_len
+    from repro_torch.sharding import NamedSharding, get_rules, use_rules
+    from repro_torch.train.step import compute_grads
+
+    cut = TP10_CUTS[arch]
+    small = cut_config(cfg, cut["layers"])
+    params = init_params(small, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    requests, batch = _cut_inputs(small, cut, device)
+    eng = ServeEngine(small, params,
+                      max_len=serve_max_len(small, cut["prompt"], CUT_STEPS),
+                      device=device, mesh=mesh)
+    reset_counts()
+    res = {}
+    res["plain_cut_logits"], res["plain_cut_tokens"] = _greedy_run(
+        eng, requests, CUT_STEPS)
+    res["plain_cut_serve_launches"] = read_counts()
+    del eng
+    rules = get_rules(small.rules)
+    axes = param_axes(small)
+    res["boxes"] = dict(_named(map_axes(
+        lambda ax, s, t: torch.tensor([(sl.start, sl.stop) for sl in
+                                       local_box(NamedSharding(mesh, s),
+                                                 t.shape)]).reshape(-1, 2),
+        axes, param_specs(axes, rules, mesh, params), params)))
+    shards = shard_params(params, small, mesh)
+    del params
+    reset_counts()
+    with use_rules(mesh, rules):
+        loss, _, grads = compute_grads(small, shards, batch)
+    _sync(device)
+    res["plain_cut_launches"] = read_counts()
+    res["plain_cut_loss"] = float(loss)
+    res["plain_cut_grads"] = {n: g.cpu() for n, g in _named(grads)}
+    res["max_memory_allocated"] = _card_mem(device)
+    return res
+
+
+def _plain_reference(arch, small, params) -> dict:
+    """The plain CPU path of an f32 cut ``small`` of ``arch`` (``params``
+    whole, on the CPU), on ``cut_split_rank``'s inputs: its logits and
+    greedy tokens, its loss and gradient, and each gradient leaf's
+    largest magnitude."""
+    from repro_torch.serve import ServeEngine, serve_max_len
+    from repro_torch.train.step import compute_grads
+
+    cut = TP10_CUTS[arch]
+    requests, batch = _cut_inputs(small, cut, "cpu")
+    cpu = ServeEngine(small, params,
+                      max_len=serve_max_len(small, cut["prompt"], CUT_STEPS),
+                      device="cpu")
+    logits, toks = _greedy_run(cpu, requests, CUT_STEPS)
+    loss, _, grads = compute_grads(small, params, batch)
+    grads = dict(_named(grads))
+    return {"logits": logits, "tokens": toks, "loss": float(loss),
+            "grads": grads,
+            "grad_max": {n: g.abs().max().item() for n, g in grads.items()}}
+
+
+def _check_cut(arch, ref, tp_ranks) -> dict:
+    """Each rank's split f32 cut (``cut_split_rank``) against the plain
+    CPU path's ``ref``: the tokens equal, the logits within
+    TP_PLAIN_ATOL, the loss within LOSS_RTOL, every gradient shard within
+    the cut's ``grad_tol`` of its leaf's largest value."""
+    import numpy as np
+
+    tol = TP10_CUTS[arch]["grad_tol"]
+    got = _vocab_whole([r["plain_cut_logits"] for r in tp_ranks])
+    err = max((g - w).abs().max().item() for g, w in zip(got, ref["logits"]))
+    if not (np.array_equal(tp_ranks[0]["plain_cut_tokens"], ref["tokens"])
+            and err <= TP_PLAIN_ATOL):
+        raise AssertionError(f"{arch} split f32 cut: tokens "
+                             f"{tp_ranks[0]['plain_cut_tokens']} against the "
+                             f"CPU's {ref['tokens']}, logits max abs err "
+                             f"{err} (atol {TP_PLAIN_ATOL})")
+    worst, worst_leaf = 0.0, None
+    for r in tp_ranks:
+        for name, g in r["plain_cut_grads"].items():
+            w = ref["grads"][name][tuple(slice(a, b) for a, b in
+                                         r["boxes"][name].tolist())]
+            e = (g - w).abs().max().item() / max(ref["grad_max"][name],
+                                                 1e-30)
+            if e > worst:
+                worst, worst_leaf = e, name
+    loss_err = max(abs(r["plain_cut_loss"] - ref["loss"]) / abs(ref["loss"])
+                   for r in tp_ranks)
+    grads = {"worst_leaf": worst_leaf, "worst_leaf_err_of_max": worst,
+             "loss_rel_err": loss_err}
+    if not (loss_err <= LOSS_RTOL and worst <= tol):
+        raise AssertionError(f"{arch} split f32 cut's gradients: {grads} "
+                             f"(leaf at most {tol} of its largest, loss "
+                             f"rtol {LOSS_RTOL})")
+    return {"plain_cut_layers": TP10_CUTS[arch]["layers"],
+            "plain_cut_max_abs_err": err, "plain_cut_grads": grads,
+            "plain_cut_serve_launches": tp_ranks[0]["plain_cut_serve_launches"],
+            "plain_cut_launches": tp_ranks[0]["plain_cut_launches"]}
+
+
+def rnn_tp_serve_rank(arch, cfg, mesh, device, batch_size, prompt,
+                      gen) -> dict:
+    """Phase 10a / 10b (and 10c) on one rank for a recurrent model.
+
+    10c first: its f32 cut split (``cut_split_rank``), whose backward runs
+    K6's or K7's and K4's backwards at the rank's widths.  Then the
+    whole model: the ranks draw it in turn
+    (phase 4's seed), each casting its f32 draw to bf16 leaf by leaf, so
+    the card holds one f32 draw at a time; served split through
+    ``ServeEngine(mesh=)``, the state committed after prefill on rank 0,
+    restored on the mesh (bit-equal to a second prefill, decoding to the
+    live tokens), and restored whole on rank 0 alone, which decodes from
+    it in one process and then serves the batch in one process, fed the
+    split run's tokens (the logits the split ones are held to); the collectives counted, and timed alone (between
+    synchronizations) in the second prefill and the restored decode.  The
+    second prefill's logits and the restored decode's (fed the live
+    tokens, which it reproduces) go to the parent's one-process runs."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import ICheckClient, ICheckCluster
+    from repro_torch.core.snapshot import _flatten, dtensor_sharding
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine, serve_max_len
+
+    rank = dist.get_rank()
+    res = cut_split_rank(arch, cfg, mesh, device)
+    gc.collect()
+    _card_reset_peak(device)
+
+    full = None
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            full = init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(0), device=device)
+            cast_leaves_(full, torch.bfloat16)
+            _sync(device)
+            gc.collect()
+            _card_reset_peak(device)      # the f32 draw's blocks go back
+        dist.barrier()
+    max_len = serve_max_len(cfg, prompt, gen)
+    engine = ServeEngine(cfg, full, max_len=max_len, device=device,
+                         mesh=mesh)
+    if rank != 0:
+        full = None       # rank 0 keeps its draw for the one-rank restore
+    gc.collect()
+    _card_reset_peak(device)
+    res["weights_bytes"] = _card_mem(device, "memory_allocated")
+    batch = request_batch(cfg, np.random.default_rng(0), batch_size, prompt)
+    cluster = ICheckCluster(n_icheck_nodes=1) if rank == 0 else None
+    try:
+        client = ICheckClient(f"serve_tp_{cfg.mixer}",
+                              cluster.controller).init() \
+            if rank == 0 else None
+        reset_counts()
+        _sync(device)
+        with CountedAllReduce() as ar:
+            t0 = time.monotonic()
+            out = engine.generate(batch, gen_len=gen,
+                                  checkpoint_client=client)
+            _sync(device)
+            res["generate_s"] = time.monotonic() - t0
+        res["launches"] = read_counts()
+        res["all_reduces_generate"] = ar.calls
+        res["tokens"] = out
+        if rank == 0:
+            t0 = time.monotonic()
+            engine.last_commit.wait(timeout=600)
+            res["commit_wait_s"] = time.monotonic() - t0
+            res["drain_wait_s"] = settle(cluster)
+            res["parts"] = {n: r.partition.num_parts
+                            for n, r in client.regions.items()}
+            res["committed_bytes"] = sum(r.nbytes
+                                         for r in client.regions.values())
+        dist.barrier()
+        t0 = time.monotonic()
+        restored = engine.restore_serving_state(client, batch_size)
+        _sync(device)
+        res["restore_s"] = time.monotonic() - t0
+        reset_counts()
+        # each collective timed between synchronizations: the share of a
+        # prefill the RG-LRU's gate partial sums, reduce-scattered, take
+        with CountedAllReduce(timed=True) as ar:
+            _sync(device)
+            t0 = time.monotonic()
+            logits, fresh = engine.prefill(batch)
+            _sync(device)
+            res["prefill_ms"] = (time.monotonic() - t0) * 1e3
+        res["prefill_launches"] = read_counts()
+        res["all_reduces_prefill"] = ar.calls
+        res["all_reduce_host_ms_prefill"] = ar.ms
+        steps = [logits]
+        res["restored_equal"] = all(
+            torch.equal(a, b) for (_, a), (_, b) in
+            zip(_flatten(restored), _flatten(fresh)))
+        res["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for _, t in _flatten(fresh))
+        # each leaf's box on the mesh and the rank's restored part of it
+        res["restored_boxes"] = {
+            n: [(s.start, s.stop) for s in dtensor_sharding(t)
+                .devices_indices_map(tuple(t.shape))[rank]]
+            for n, t in _named(engine._on_mesh(restored, batch_size))}
+        # copies: decode writes into the state in place
+        res["restored"] = {n: t.to("cpu", copy=True)
+                           for n, t in _named(restored)}
+        del fresh
+        # the restored state decoded as ``decode_greedy`` does, each
+        # step's logits kept on the card until the steps are timed; gloo
+        # copies each CUDA tensor it reduces to the host, so the
+        # synchronizations around the collectives add little to a step
+        reset_counts()
+        tok = torch.as_tensor(out[:, :1], device=device)
+        toks = []
+        with CountedAllReduce(timed=True) as ar:
+            _sync(device)
+            t0 = time.monotonic()
+            for _ in range(gen - 1):
+                logits, restored = engine.step(restored, tok)
+                tok = engine.greedy(logits)
+                steps.append(logits)
+                toks.append(tok)
+            _sync(device)
+            res["decode_ms_per_token"] = \
+                (time.monotonic() - t0) * 1e3 / (gen - 1)
+        res["decode_launches"] = read_counts()
+        res["all_reduces_decode_step"] = ar.calls / (gen - 1)
+        res["all_reduce_host_ms_per_step"] = ar.ms / (gen - 1)
+        cont = torch.cat(toks, dim=1).cpu().numpy()
+        res["restored_decode_equal"] = bool(np.array_equal(cont, out[:, 1:]))
+        res["logits"] = [x.float().cpu() for x in steps]
+        del steps, logits, restored
+        res["max_memory_allocated"] = _card_mem(device)
+        dist.barrier()
+        del engine
+        gc.collect()
+        if rank == 0:
+            # the committed state restored whole on this rank alone, and
+            # decoded from in one process
+            one = ServeEngine(cfg, full, max_len=max_len, device=device)
+            t0 = time.monotonic()
+            whole = one.restore_serving_state(client, batch_size)
+            _sync(device)
+            res["whole_restore_s"] = time.monotonic() - t0
+            res["whole"] = {n: t.to("cpu", copy=True)
+                            for n, t in _named(whole)}
+            res["whole_decode"] = one.decode_greedy(whole, out[:, :1],
+                                                    gen - 1)
+            del whole
+            # the one-process bf16 run the split logits are held to, fed
+            # the split run's tokens
+            res["one_logits"], _ = _greedy_run(one, batch, gen - 1,
+                                               feed=out)
+            del one
+            client.finalize()
+        full = None
+        gc.collect()
+        dist.barrier()
+    finally:
+        if cluster is not None:
+            cluster.close()
+    return res
+
+
+def tp_world_main(rank, world, store, out_dir, parts, rehearse=False) -> None:
+    """One rank of a world over gloo on the one card (NCCL refuses two
+    ranks on one card), a ("data", "model") mesh of 1 x ``world``; or,
+    with ``rehearse``, a CPU gloo world with tiny configs.  ``parts``, in
+    order: "tp9" serves yi-6b and trains qwen2.5-3b split (phase 9),
+    "rnn" serves rwkv6-7b then recurrentgemma-9b split two ways with
+    their f32 cuts (10a-10c), "phi3" runs phi3-medium-14b's cut split
+    (10d).  Its results go to ``out_dir``."""
+    sys.path[:0] = [str(SRC), str(ROOT / "tests")]
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.sharding import init_world, make_tp_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if rehearse:
+        torch.set_num_threads(1)
+    init_world(rank, world, "gloo" if rehearse else "cuda:gloo", store)
+    try:
+        mesh = make_tp_mesh(1, world)
+        device = torch.device("cpu") if rehearse else torch.device(
+            "cuda", torch.cuda.current_device())
+        res = {}
+        if "tp9" in parts:
+            sz = _tp_sizes(rehearse)
+            t0 = time.monotonic()
+            res["serve"] = tp_serve_rank(
+                tp_serve_config(rehearse), mesh, device, sz["batch"],
+                sz["prompt"], sz["gen"])
+            res["serve"]["phase_s"] = time.monotonic() - t0
+            gc.collect()
+            _card_reset_peak(device)
+            t0 = time.monotonic()
+            res["train"] = tp_train_rank(tp_config("qwen2.5-3b", rehearse),
+                                         mesh, device, sz["seq"])
+            res["train"]["phase_s"] = time.monotonic() - t0
+            gc.collect()
+            _card_reset_peak(device)
+        if "rnn" in parts:
+            sz = _tp10_sizes(rehearse)
+            for arch in RNN_TP_ARCHS:
+                t0 = time.monotonic()
+                res[arch] = rnn_tp_serve_rank(
+                    arch, tp_config(arch, rehearse), mesh, device,
+                    sz["batch"], sz["prompt"][arch], sz["gen"])
+                res[arch]["phase_s"] = time.monotonic() - t0
+                gc.collect()
+                _card_reset_peak(device)
+        if "phi3" in parts:
+            t0 = time.monotonic()
+            res["phi3"] = cut_split_rank(
+                "phi3-medium-14b", tp_config("phi3-medium-14b", rehearse),
+                mesh, device)
+            res["phi3"]["phase_s"] = time.monotonic() - t0
+        res["backend"] = dist.get_backend()
+        res["mesh"] = repr(mesh)
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp10_sizes(rehearse: bool) -> dict:
+    """Phase 10's serving sizes: the card's, or a CPU rehearsal's (tiny
+    configs; recurrentgemma-9b's prompt rolls its window of 16)."""
+    if rehearse:
+        return dict(batch=2, gen=4, prompt={"rwkv6-7b": 16,
+                                             "recurrentgemma-9b": 20})
+    return dict(batch=BATCH, gen=GEN,
+                prompt={arch: PROMPT for arch in RNN_TP_ARCHS})
+
+
+def spawn_tp_world(parts, world, rehearse) -> list:
+    """``tp_world_main`` on ``world`` processes; their results."""
+    import torch
+    import torch.multiprocessing as mp
+
+    store = Path(tempfile.mkdtemp(prefix="chip-smoke-tp-"))
+    try:
+        mp.start_processes(tp_world_main, args=(world, str(store / "w"),
+                                                str(store), tuple(parts),
+                                                rehearse),
+                           nprocs=world, join=True, start_method="spawn")
+        return [torch.load(store / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def rnn_tp_all_reduces(cfg) -> int:
+    """All-reduces of one split decode step at "model" 2: RWKV-6 three a
+    layer (the time-mix's and the FFN's row-split outputs, the receptance
+    gather), the RG-LRU three (its gates' reduce-scatter, its output and
+    the FFN's), recurrentgemma-9b's attention four (K and V gathered: its
+    one kv head splits inside; its output and the FFN's); the embedding's
+    one and the greedy argmax's two over the vocab shards."""
+    from repro_torch.models import stack_plan
+
+    plan = stack_plan(cfg)
+    kinds = list(plan["scan_kinds"]) * plan["scan_len"] + list(
+        plan["tail_kinds"])
+    per = {"rwkv": 3, "rec": 3, "attn": 4}
+    return sum(per[k] for k in kinds) + 3
+
+
+def _check_rnn_tp(cfg, sv, gen) -> dict:
+    """The split serving run's checks that need no model: every rank's
+    tokens equal, the restored state equal to a second prefill and
+    decoding to the live tokens, the whole state restored on rank 0 equal
+    to every rank's box, one committed part a distinct box, and the
+    collectives counted.  Returns the counts."""
+    import numpy as np
+    import torch
+
+    out = sv[0]["tokens"]
+    for r, s in enumerate(sv):
+        if not np.array_equal(s["tokens"], out):
+            raise AssertionError(f"{cfg.name}: rank {r}'s tokens differ "
+                                 f"from rank 0's")
+        if not (s["restored_equal"] and s["restored_decode_equal"]):
+            raise AssertionError(f"{cfg.name} rank {r}: the restored split "
+                                 f"state {s['restored_equal']}, its decode "
+                                 f"{s['restored_decode_equal']}")
+        for name, part in s["restored"].items():
+            box = tuple(slice(a, b) for a, b in s["restored_boxes"][name])
+            if not torch.equal(sv[0]["whole"][name][box], part):
+                raise AssertionError(f"{cfg.name}: {name} restored whole on "
+                                     f"one rank differs from rank {r}'s box")
+    parts = {}
+    for name in sv[0]["restored"]:
+        parts[name] = len({tuple(map(tuple, s["restored_boxes"][name]))
+                           for s in sv})
+    if sv[0]["parts"] != parts:
+        raise AssertionError(f"{cfg.name}: committed parts {sv[0]['parts']}"
+                             f", want one a distinct box {parts}")
+    per_step = rnn_tp_all_reduces(cfg)
+    counts = (sv[0]["all_reduces_prefill"], sv[0]["all_reduces_decode_step"],
+              sv[0]["all_reduces_generate"])
+    if counts != (per_step - 2, per_step, per_step * gen):
+        raise AssertionError(f"{cfg.name}: all-reduces (prefill, decode "
+                             f"step, generate) {counts}, want "
+                             f"{per_step - 2}, {per_step}, {per_step * gen}")
+    return {"per_step": per_step, "parts": parts}
+
+
+def _rnn_tp_want(cfg, gen) -> dict:
+    """K6's or K7's and K4's launches on a rank in the split generate,
+    prefill and decode (as phases 4b and 4d: the chunked / TMA kernel in
+    prefill, the sequential / register one a decode step)."""
+    from repro_torch.models import stack_plan
+
+    plan = stack_plan(cfg)
+    kinds = list(plan["scan_kinds"]) * plan["scan_len"] + list(
+        plan["tail_kinds"])
+    if cfg.mixer == "rwkv6":
+        n = kinds.count("rwkv")
+        return {"launches": {"rwkv6_sm90": n, "rwkv6": n * (gen - 1),
+                             "flash_fwd": 0},
+                "prefill_launches": {"rwkv6_sm90": n, "rwkv6": 0},
+                "decode_launches": {"rwkv6": n * (gen - 1), "rwkv6_sm90": 0}}
+    n_rec, n_attn = kinds.count("rec"), kinds.count("attn")
+    return {"launches": {"rglru_sm90": n_rec, "rglru": n_rec * (gen - 1),
+                         "flash_fwd": n_attn},
+            "prefill_launches": {"rglru_sm90": n_rec, "rglru": 0,
+                                 "flash_fwd": n_attn},
+            "decode_launches": {"rglru": n_rec * (gen - 1), "rglru_sm90": 0,
+                                "flash_fwd": 0}}
+
+
+def _draw_cuts(device, rehearse) -> dict:
+    """Phase 10's f32 cuts, drawn on ``device`` from the seed as the ranks
+    draw them and moved to the host: arch -> (cut config, params)."""
+    import torch
+
+    from repro_torch.models import init_params
+
+    cuts = {}
+    for arch, cut in TP10_CUTS.items():
+        small = cut_config(tp_config(arch, rehearse), cut["layers"])
+        cuts[arch] = (small, _map(lambda t: t.cpu(), init_params(
+            small, torch.Generator(device=device).manual_seed(0),
+            device=device)))
+    gc.collect()
+    _card_reset_peak(device)
+    return cuts
+
+
+def _bf16_hold(arch, cfg, sv, batch_size, gen) -> dict:
+    """The split bf16 logits (every rank's vocab columns joined) against
+    rank 0's one-process bf16 run on the card, fed the split run's
+    tokens: max abs difference over max abs, every step, within
+    RNN_TP_BF16_BOUND; the equal greedy tokens counted."""
+    split = _vocab_whole([s["logits"] for s in sv])
+    one = sv[0]["one_logits"]
+    vocab = cfg.vocab_size
+    tp_rel = max(_rel(a[:, :vocab], b[:, :vocab]) for a, b in zip(split, one))
+    bound = RNN_TP_BF16_BOUND[arch]
+    if not tp_rel <= bound:
+        raise AssertionError(f"{arch} split bf16 logits {tp_rel} of their "
+                             f"max from one process's, beyond {bound}")
+    return {"logits_rel_err_vs_one_process_bf16": tp_rel,
+            "logits_bound": bound,
+            "greedy_equal_to_one_process": sum(
+                int((a.argmax(-1) == b.argmax(-1)).sum())
+                for a, b in zip(split, one)),
+            "greedy_tokens": batch_size * gen}
+
+
+def _rnn_tp_line(arch, sv, card, ranks, sz, hold) -> dict:
+    """Phase 10a's or 10b's line from its ranks' results."""
+    s0, gen, batch_size = sv[0], sz["gen"], sz["batch"]
+    return {
+        "card": card, "ranks": RNN_TP_MODEL, "backend": ranks[0]["backend"],
+        "mesh": ranks[0]["mesh"], "batch": batch_size,
+        "prompt": sz["prompt"][arch], "gen": gen,
+        "prefill_ms": s0["prefill_ms"],
+        "decode_ms_per_token": s0["decode_ms_per_token"],
+        "output_tokens_per_s": batch_size * gen / s0["generate_s"],
+        "generate_wall_s": s0["generate_s"],
+        "all_reduces_generate": s0["all_reduces_generate"],
+        "all_reduces_prefill": s0["all_reduces_prefill"],
+        "all_reduces_decode_step": s0["all_reduces_decode_step"],
+        "all_reduce_host_ms_per_step": s0["all_reduce_host_ms_per_step"],
+        "all_reduce_share": s0["all_reduce_host_ms_per_step"]
+        / s0["decode_ms_per_token"],
+        "all_reduce_host_ms_prefill": s0["all_reduce_host_ms_prefill"],
+        "all_reduce_share_prefill": s0["all_reduce_host_ms_prefill"]
+        / s0["prefill_ms"],
+        "commit_wait_s": s0["commit_wait_s"],
+        "restore_wall_s": s0["restore_s"],
+        "whole_restore_wall_s": s0["whole_restore_s"],
+        "parts": s0["parts"], "committed_bytes": s0["committed_bytes"],
+        "state_bytes_per_rank": [s["cache_bytes"] for s in sv],
+        "weights_bytes_per_rank": [s["weights_bytes"] for s in sv],
+        "max_memory_allocated_per_rank": [s["max_memory_allocated"]
+                                          for s in sv],
+        "launches": s0["launches"], "prefill_launches": s0["prefill_launches"],
+        "decode_launches": s0["decode_launches"], **hold,
+        "whole_decode_equal_tokens": int(
+            (s0["whole_decode"] == s0["tokens"][:, 1:]).sum()),
+        "rank_phase_s": s0["phase_s"],
+        "reduced": {"ranks": f"{RNN_TP_MODEL} processes on one card over "
+                    f"gloo (NCCL takes one card a rank): every all-reduce "
+                    f"is staged through the host"}}
+
+
+def tp10_phase(device, card, rehearse=False, ranks=None, cuts=None,
+               rnn_children_s=None) -> dict:
+    """Phase 10.  ``tp_world_main``'s "rnn" part on RNN_TP_MODEL processes
+    (10a-10c; ``ranks``: their results, when the world has run already,
+    and ``cuts`` the f32 cuts ``_draw_cuts`` drew before it started), and
+    its checks; then its "phi3" part on PHI3_TP_MODEL processes (10d),
+    while a thread of this process runs the plain CPU path of every cut;
+    each cut's split run against it.  ``rehearse``: all of it on the CPU
+    with the tiny configs.  Returns the lines ``serve_tp_rwkv6``,
+    ``serve_tp_recurrentgemma`` and ``tp_phi3``."""
+    import threading
+
+    import numpy as np
+
+    sz = _tp10_sizes(rehearse)
+    gen, batch_size = sz["gen"], sz["batch"]
+    t0 = time.monotonic()
+    if cuts is None:
+        gc.collect()
+        _card_reset_peak(device)
+        cuts = _draw_cuts(device, rehearse)
+    if ranks is None:
+        ranks = spawn_tp_world(("rnn",), RNN_TP_MODEL, rehearse)
+        rnn_children_s = time.monotonic() - t0
+    lines = {}
+    for arch in RNN_TP_ARCHS:
+        cfg = tp_config(arch, rehearse)
+        sv = [r[arch] for r in ranks]
+        counts = _check_rnn_tp(cfg, sv, gen)
+        if device.type == "cuda":
+            for key, want in _rnn_tp_want(cfg, gen).items():
+                _check_launches(sv[0][key], want, f"{arch} split {key}")
+        hold = _bf16_hold(arch, cfg, sv, batch_size, gen)
+        lines[arch] = {**_rnn_tp_line(arch, sv, card, ranks, sz, hold),
+                       **counts}
+
+    # the plain CPU path of every cut, beside 10d's processes on the card
+    refs, failed = {}, []
+
+    def plain_refs():
+        try:
+            for arch in list(cuts):
+                small, params = cuts.pop(arch)
+                refs[arch] = _plain_reference(arch, small, params)
+                del params
+        except BaseException as e:          # re-raised below
+            failed.append(e)
+    t0 = time.monotonic()
+    thread = threading.Thread(target=plain_refs)
+    thread.start()
+    try:
+        phi3_ranks = spawn_tp_world(("phi3",), PHI3_TP_MODEL, rehearse)
+        phi3_children_s = time.monotonic() - t0
+    finally:
+        thread.join()
+        cpu_s = time.monotonic() - t0
+    if failed:
+        raise failed[0]
+    for arch in RNN_TP_ARCHS:
+        lines[arch].update(_check_cut(arch, refs[arch],
+                                      [r[arch] for r in ranks]))
+    pcfg = tp_config("phi3-medium-14b", rehearse)
+    sv = [r["phi3"] for r in phi3_ranks]
+    for r, s in enumerate(sv):
+        if not np.array_equal(s["plain_cut_tokens"],
+                              sv[0]["plain_cut_tokens"]):
+            raise AssertionError(f"phi3 rank {r}'s tokens differ")
+    cut = TP10_CUTS["phi3-medium-14b"]
+    hq = pcfg.num_heads // PHI3_TP_MODEL
+    g = pcfg.num_heads // pcfg.num_kv_heads
+    phi3 = {"card": card, "ranks": PHI3_TP_MODEL,
+            "serve_batch": cut["serve_batch"], "prompt": cut["prompt"],
+            "decode_steps": CUT_STEPS, "grad_batch": cut["grad_batch"],
+            "grad_seq": cut["grad_seq"],
+            # each rank's query heads and the kv heads of their groups
+            "query_heads_per_rank": hq,
+            "kv_heads_per_rank": [
+                len({h // g for h in range(r * hq, (r + 1) * hq)})
+                for r in range(PHI3_TP_MODEL)],
+            **_check_cut("phi3-medium-14b", refs["phi3-medium-14b"], sv),
+            "max_memory_allocated_per_rank": [s["max_memory_allocated"]
+                                              for s in sv],
+            "rank_phase_s": sv[0]["phase_s"],
+            "children_wall_s": phi3_children_s,
+            "reduced": {"num_layers": f"{pcfg.num_layers} -> "
+                        f"{cut['layers']}: four whole f32 draws of the "
+                        f"model (56 GB each) do not fit one card",
+                        "ranks": f"{PHI3_TP_MODEL} processes on one card "
+                        f"over gloo"}}
+    walls = {"rnn_children_s": rnn_children_s,
+             "phi3_children_s": phi3_children_s, "cpu_path_s": cpu_s}
+    for arch in RNN_TP_ARCHS:
+        lines[arch]["walls"] = walls
+    return {"serve_tp_rwkv6": lines["rwkv6-7b"],
+            "serve_tp_recurrentgemma": lines["recurrentgemma-9b"],
+            "tp_phi3": phi3}
+
+
+def local_kernel_numbers(device) -> dict:
+    """K6, K7 and K4 at the rank's local shapes of phase 10's two-way
+    split, each against its plain version (max abs error) and timed
+    beside its bound: K6's chunked kernel at rwkv6-7b's prefill and its
+    sequential one at its decode step, K7's TMA kernel at
+    recurrentgemma-9b's prefill and its register one at its decode step,
+    K4 at the hybrid's attention (8 query heads over the gathered kv
+    head, D 256, window 2048)."""
+    import torch
+
+    from repro_torch.kernels.rglru import rglru_chunked
+    from repro_torch.kernels.rglru.kernel import rglru_cuda, rglru_sm90_cuda
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_cuda, rwkv6_sm90_cuda
+
+    out = {}
+    for name, run, case in (
+            ("rwkv6_sm90", rwkv6_sm90_cuda, TP10_SHAPES["rwkv6_prefill"]),
+            ("rwkv6", rwkv6_cuda, TP10_SHAPES["rwkv6_decode"])):
+        inputs = _rwkv_inputs(3, case, "bfloat16", device)
+        err = _rwkv_err(run(*inputs), rwkv6_chunked(*inputs), "bfloat16",
+                        f"{name} {case} bfloat16")
+        out[name] = {**rwkv6_numbers(case, device, name),
+                     "max_abs_err": err, "shape": list(case)}
+    for name, run, case in (
+            ("rglru_sm90", rglru_sm90_cuda, TP10_SHAPES["rglru_prefill"]),
+            ("rglru", rglru_cuda, TP10_SHAPES["rglru_decode"])):
+        la, g, h0 = _rglru_inputs(3, case, "bfloat16", device)
+        err = _rglru_err(run(la, g, h0), rglru_chunked(la, g, h0),
+                         "bfloat16", f"{name} {case} bfloat16")
+        out[name] = {**rglru_numbers(case, device, name),
+                     "max_abs_err": err, "shape": list(case)}
+    case = TP10_SHAPES["flash_d256"]
+    err = check_attention_case(case, "bfloat16", device)
+    out["flash_fwd_d256"] = {**attention_numbers(case, device),
+                             "max_abs_err": err, "shape": list(case)}
+    torch.cuda.synchronize()
+    for name, v in out.items():
+        log(f"  {name} {tuple(v['shape'])} bfloat16 (a rank's of the "
+            f"two-way split): max abs err {v['max_abs_err']:.3e}")
+    return out
 
 
 def main() -> int:
@@ -3714,7 +4427,8 @@ def main() -> int:
                       xcfg.num_patches + TRAIN_SEQ,
                       xcfg.num_patches + TRAIN_SEQ, xcfg.resolved_head_dim,
                       True, xcfg.window)
-    w_gu = tcfg.num_layers * 2 * tcfg.d_model * tcfg.d_ff
+    # the training path's largest leaf: phase 5's stacked w_gu
+    w_gu = TRAIN_LAYERS * 2 * tcfg.d_model * tcfg.d_ff
     t_start = time.monotonic()
 
     log("phase 2: build")
@@ -3788,6 +4502,10 @@ def main() -> int:
                                 determinism=True)
     log(f"  flash_bwd {tp_train_case} bfloat16: max abs err "
         f"{tp_bwd_err:.3e}; two runs bit-equal")
+    # K6, K7 and K4 at a rank's shapes of the recurrent models' two-way
+    # split (phase 10), checked and timed
+    tp10 = local_kernel_numbers(device)
+    log(json.dumps({"tp10_kernels": tp10}))
     torch.cuda.empty_cache()
     log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
 
@@ -3980,8 +4698,9 @@ def main() -> int:
         "pfs_free_bytes": tr["pfs_free_bytes"],
         "reduced": {"num_layers": (
             f"{tcfg.num_layers} -> {TRAIN_LAYERS}: 36 until the report's "
-            f"phase came, 18 until the 'model' axis's phase came, cut to "
-            f"keep the whole run within its time")},
+            f"phase came, 18 until the 'model' axis's phase came, 12 until "
+            f"the recurrent models' 'model' axis phase came, cut to keep "
+            f"the whole run within its time")},
     }
     log(card)
     log(json.dumps({"train": train}))
@@ -4000,7 +4719,7 @@ def main() -> int:
     # ones
     rw_train, rw_cut = train_recurrent_phase(
         "train_rwkv6", dataclasses.replace(rcfg, num_layers=n), device, card,
-        1_413_697_536,
+        975_286_272,
         {"rwkv6_sm90": 2 * n * steps, "rwkv6_bwd_sm90": n * steps,
          "rwkv6_bwd": 0, "rwkv6": 0, "flash_fwd": 0, "flash_bwd": 0,
          "flash_bwd_sm90": 0},
@@ -4008,7 +4727,8 @@ def main() -> int:
          f"weights, AdamW moments, gradients and codes (about 23 B a "
          f"parameter, 174 GB for {count_params(rcfg)}) do not fit the "
          f"card's 80 GB; 8 layers until pixtral-12b's training phase came, "
-         f"{n} since, to keep the whole run within its time",
+         f"4 until the recurrent models' 'model' axis phase came, {n} "
+         f"since, to keep the whole run within its time",
          "global_batch": f"one sequence of {TRAIN_SEQ} tokens a step"},
         dict(layers=2))
     log(f"  phase 5b done at {time.monotonic() - t_start:.1f} s")
@@ -4141,17 +4861,46 @@ def main() -> int:
     log(f"  phase 8 done at {time.monotonic() - t_start:.1f} s")
 
     log(f"phase 9: the mesh's \"model\" axis: {TP_MODEL} processes on the "
-        f"card over gloo; {cfg.name} served split ({cfg.num_layers} layers, "
+        f"card over gloo; {cfg.name} served split ({TP_SERVE_LAYERS} layers, "
         f"{BATCH} x {PROMPT} prompt tokens, {GEN} new, the cache committed "
         f"and restored), {tcfg.name} cut to {TP_TRAIN_LAYERS} layers trained "
         f"split ({TP_TRAIN_STEPS} steps of {TRAIN_SEQ} tokens)")
     t9 = time.monotonic()
-    tp = tp_phase(cfg, tcfg, device, card)
+    # phase 10's f32 cuts are drawn while the card is free, and one world
+    # of processes runs phase 9's ranks and then phase 10a-c's
+    cuts = _draw_cuts(device, False)
+    t_world = time.monotonic()
+    tp_ranks = spawn_tp_world(("tp9", "rnn"), TP_MODEL, False)
+    world_s = time.monotonic() - t_world
+    log(f"  the ranks of phases 9 and 10a-c done in {world_s:.1f} s")
+    tp = tp_phase(tp_serve_config(), tcfg, device, card, ranks=tp_ranks,
+                  children_s=world_s)
     tp["serve_tp"]["phase_s"] = time.monotonic() - t9
     log(card)
     log(json.dumps({"serve_tp": tp["serve_tp"]}))
     log(json.dumps({"train_tp": tp["train_tp"]}))
     log(f"  phase 9 done at {time.monotonic() - t_start:.1f} s")
+
+    log(f"phase 10: the \"model\" axis for the recurrent models: "
+        f"{RNN_TP_MODEL} processes on the card over gloo; {rcfg.name} and "
+        f"{gcfg.name} served split at full width and depth ({BATCH} x "
+        f"{PROMPT} prompt tokens, {GEN} new, the state committed and "
+        f"restored on the mesh and on one rank), their f32 cuts served and "
+        f"trained split against the plain CPU path; then {pcfg.name} cut "
+        f"to {TP10_CUTS[pcfg.name]['layers']} layers over {PHI3_TP_MODEL} "
+        f"processes")
+    t10 = time.monotonic()
+    tp10_lines = tp10_phase(device, card, ranks=tp_ranks, cuts=cuts,
+                            rnn_children_s=world_s)
+    del tp_ranks
+    log(card)
+    for name, line in tp10_lines.items():
+        log(json.dumps({name: line}))
+    rnn = {"rwkv6-7b": tp10_lines["serve_tp_rwkv6"],
+           "recurrentgemma-9b": tp10_lines["serve_tp_recurrentgemma"]}
+    phi3_tp = tp10_lines["tp_phi3"]
+    log(f"  phase 10 done at {time.monotonic() - t_start:.1f} s "
+        f"({time.monotonic() - t10:.1f} s)")
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
     paths = {"serve": yi_launches, "serve_rwkv6": rw_launches,
@@ -4173,6 +4922,12 @@ def main() -> int:
              "train_pixtral": px_train, "train_pixtral_f32_cut": px_cut,
              "serve_tp": tp["serve_tp"]["launches"],
              "train_tp": tp["train_tp"]["launches"],
+             "serve_tp_rwkv6": rnn["rwkv6-7b"]["launches"],
+             "serve_tp_recurrentgemma": rnn["recurrentgemma-9b"]["launches"],
+             "grad_tp_rwkv6_f32_cut": rnn["rwkv6-7b"]["plain_cut_launches"],
+             "grad_tp_recurrentgemma_f32_cut":
+                 rnn["recurrentgemma-9b"]["plain_cut_launches"],
+             "grad_tp_phi3_f32_cut": phi3_tp["plain_cut_launches"],
              "rs_encode_check": rs["launches"]}
 
     def counts(name, path):
@@ -4185,7 +4940,8 @@ def main() -> int:
         beside it); ``shapes`` are its numbers at other shapes, with
         their max abs error where the script checks them there."""
         def times(x):
-            return {k: x[k] for k in TIME_KEYS + ("max_abs_err",) if k in x}
+            return {k: x[k] for k in TIME_KEYS + ("max_abs_err", "shape")
+                    if k in x}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/{source}",
                 "replaces": f"src/repro/kernels/{replaces}", **launches,
@@ -4235,7 +4991,8 @@ def main() -> int:
         row("flash_fwd_d256", fa + "flash_fwd_sm90.cu",
             "flash_attention/kernel.py:95",
             counts("flash_fwd", "serve_recurrentgemma"), d256_err,
-            rg_num["flash_fwd_d256_prefill_shape"]),
+            rg_num["flash_fwd_d256_prefill_shape"],
+            tp_serve_shape=tp10["flash_fwd_d256"]),
         row("flash_bwd", fa + "flash_bwd_sm90.cu",
             "flash_attention/ops.py:94",
             counts("flash_bwd_sm90", "train"), bwd_err, bwd,
@@ -4258,13 +5015,17 @@ def main() -> int:
         # sequential one its one-token decode steps (and every f32 call);
         # the sequential kernel's prefill-shape time is the yardstick of
         # the earlier design
+        # (tp_*_shape: a rank's heads of phase 10's two-way split,
+        # ``launches_by_path``'s serve_tp_rwkv6)
         row("rwkv6_sm90", "rwkv6/csrc/rwkv6_sm90.cu", "rwkv6/kernel.py:86",
             counts("rwkv6_sm90", "serve_rwkv6"), rwkv_errs["rwkv6_sm90"],
-            rw_num["rwkv6_sm90_prefill_shape"]),
+            rw_num["rwkv6_sm90_prefill_shape"],
+            tp_prefill_shape=tp10["rwkv6_sm90"]),
         row("rwkv6", "rwkv6/csrc/rwkv6.cu", "rwkv6/kernel.py:86",
             counts("rwkv6", "serve_rwkv6"), rwkv_errs["rwkv6"],
             rw_num["rwkv6_decode_shape"],
-            prefill_shape=rw_num["rwkv6_prefill_shape"]),
+            prefill_shape=rw_num["rwkv6_prefill_shape"],
+            tp_decode_shape=tp10["rwkv6"]),
         # no serving or training path runs K5: its launches are its check's
         row("rs_encode", "ckpt_codec/csrc/rs.cu",
             "ckpt_codec/rs_kernel.py:87",
@@ -4276,12 +5037,14 @@ def main() -> int:
         row("rglru_sm90", "rglru/csrc/rglru_sm90.cu", "rglru/kernel.py:58",
             counts("rglru_sm90", "serve_recurrentgemma"),
             rglru_errs["rglru_sm90"], rg_num["rglru_sm90_prefill_shape"],
-            ring_shape=rg_num["rglru_sm90_ring_shape"]),
+            ring_shape=rg_num["rglru_sm90_ring_shape"],
+            tp_prefill_shape=tp10["rglru_sm90"]),
         row("rglru", "rglru/csrc/rglru.cu", "rglru/kernel.py:58",
             counts("rglru", "serve_recurrentgemma"), rglru_errs["rglru"],
             rg_num["rglru_decode_shape"],
             prefill_shape=rg_num["rglru_prefill_shape"],
-            ring_shape=rg_num["rglru_ring_shape"]),
+            ring_shape=rg_num["rglru_ring_shape"],
+            tp_decode_shape=tp10["rglru"]),
         # the backwards of the recurrent training phases: K6's and K7's,
         # which the reference runs as the vjp of its chunked form and as
         # its analytic reverse scan, and K4's at head dim 256.  K6's

@@ -18,11 +18,17 @@ The int8 cache (``cfg.kv_quant``) holds int8 codes with one f16 scale per
 to f32 (``_dq``) before its products, as the reference does.  Quantizing
 and dequantizing are elementwise tensor ops, XLA in the reference too.
 
-Under a mesh with a "model" axis each rank holds its heads' columns of
-``wq`` / ``wkv`` (and biases) and their rows of ``wo``
-(``models.params.shard_params``): the head counts are read from the
-shards, so the kernel and the cache see the rank's local heads, and
-``o @ wo`` is summed over the model ranks (``sharding/tp.py``).  The
+Under a mesh with a "model" axis each rank holds its box of ``wq`` /
+``wkv`` (and biases) and of ``wo``'s rows (``models.params.shard_params``),
+which may end inside a head: the boxes split the flattened width.  The
+q and k / v sites (``act_heads``, ``act_kv_heads``) split the heads only
+where the size divides them; elsewhere the projection is gathered whole
+(``_layout``, ``sharding/tp.py``).  A rank whose query heads are split
+over whole K/V takes the K/V heads of its heads' GQA groups
+(``_group_kv``), and a whole ``o`` is sliced to ``wo``'s row box before
+the product, which is summed over the model ranks.  So the kernel and
+the cache see the rank's heads, or all of them where they are whole; the
+cache is whole on every model rank where the kv heads do not split.  The
 ``num_heads`` / ``num_kv_heads`` arguments are the model's.
 """
 from __future__ import annotations
@@ -123,24 +129,89 @@ def _project_kv(params, xkv: torch.Tensor):
     return k, v
 
 
-def local_heads(params, head_dim: int):
-    """(query heads, KV heads) of a rank's shards of ``params``."""
-    return (params["wq"].shape[-1] // head_dim,
-            params["wkv"].shape[-1] // head_dim)
+class _Layout(NamedTuple):
+    """How a rank holds an attention layer under the active "model" axis:
+    ``wq`` / ``wkv``, whether those leaves (and ``wo``'s rows) are column
+    boxes; ``q`` / ``kv``, whether the q and k / v sites split the heads
+    (``act_heads`` / ``act_kv_heads`` resolved on the model's counts)."""
+    wq: bool
+    q: bool
+    wkv: bool
+    kv: bool
 
 
-def _project_qkv(params, x, xkv, head_dim):
+def _layout(params, num_heads: int, num_kv_heads: int,
+            head_dim: int) -> _Layout:
+    wq = tp.is_split(params["wq"].shape[-1], num_heads * head_dim)
+    wkv = tp.is_split(params["wkv"].shape[-1], num_kv_heads * head_dim)
+    q = wq and tp.site_split(("batch", "act_heads", "seq", None),
+                             (1, num_heads, 1, head_dim))
+    kv = wkv and tp.site_split(("batch", "act_kv_heads", "kv_seq", None),
+                               (1, num_kv_heads, 1, head_dim))
+    return _Layout(wq, q, wkv, kv)
+
+
+def _project_qkv(params, x, xkv, head_dim, lay: _Layout, kv: bool = True):
+    """q (B, Hq, T, D) and k / v (B, Hkv, S, D) at their sites' layouts:
+    the rank's heads where a site splits them, else all of them (a
+    column box gathered).  ``xkv`` None: self-attention over ``x``;
+    ``kv=False``: q alone (k / v None)."""
     b, t, _ = x.shape
-    num_heads, num_kv_heads = local_heads(params, head_dim)
-    s = xkv.shape[1]
-    q = x @ params["wq"].to(x.dtype)
+    xq = tp.enter(x) if lay.wq else x
+    if xkv is None:
+        src = xq if lay.wkv == lay.wq else (tp.enter(x) if lay.wkv else x)
+    else:
+        src = tp.enter(xkv) if lay.wkv else xkv
+    s = src.shape[1]
+    q = xq @ params["wq"].to(x.dtype)
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
-    k, v = _project_kv(params, xkv)
-    q = q.reshape(b, t, num_heads, head_dim).transpose(1, 2)
-    k = k.reshape(b, s, num_kv_heads, head_dim).transpose(1, 2)
-    v = v.reshape(b, s, num_kv_heads, head_dim).transpose(1, 2)
+    if lay.wq and not lay.q:
+        q = tp.gather(q)
+    q = q.reshape(b, t, -1, head_dim).transpose(1, 2)
+    if not kv:
+        return q, None, None
+    k, v = _project_kv(params, src)
+    if lay.wkv and not lay.kv:
+        k, v = tp.gather(k), tp.gather(v)
+    k = k.reshape(b, s, -1, head_dim).transpose(1, 2)
+    v = v.reshape(b, s, -1, head_dim).transpose(1, 2)
     return q, k, v
+
+
+def _group_kv(k: torch.Tensor, v: torch.Tensor, lay: _Layout,
+              num_heads: int, num_kv_heads: int):
+    """K/V (B, Hkv, S, D) for the rank's query heads: as they are where
+    both sites split the heads (the groups align) or neither does; where
+    the queries are split over whole K/V, the K/V heads of the rank's
+    query heads' GQA groups, a slice where those heads fill whole groups
+    or lie in one, else one K/V head per query head (a rank's heads can
+    straddle groups unevenly, and the kernel takes one group size).  The
+    whole K/V's gradient is summed over the model ranks."""
+    if lay.q == lay.kv:
+        return k, v
+    ax = tp.model_axis()
+    hq = num_heads // ax.size
+    lo, hi = ax.rank * hq, (ax.rank + 1) * hq
+    g = num_heads // num_kv_heads
+    k, v = tp.enter(k), tp.enter(v)
+    if lo % g == 0 and hq % g == 0:
+        return k[:, lo // g:hi // g], v[:, lo // g:hi // g]
+    if lo // g == (hi - 1) // g:
+        return k[:, lo // g:lo // g + 1], v[:, lo // g:lo // g + 1]
+    idx = torch.arange(lo, hi, device=k.device) // g
+    return k.index_select(1, idx), v.index_select(1, idx)
+
+
+def _out_proj(params, o: torch.Tensor, lay: _Layout) -> torch.Tensor:
+    """``o @ wo``: summed over the model ranks where ``wo`` holds a row
+    box, ``o`` sliced to it first where ``o`` is whole."""
+    wo = params["wo"].to(o.dtype)
+    if not lay.wq:
+        return o @ wo
+    if not lay.q:
+        o = tp.scatter(o)
+    return tp.reduce(o @ wo)
 
 
 def attn_apply(params, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
@@ -158,9 +229,8 @@ def attn_apply(params, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
     """
     b, t, _ = x.shape
     self_attn = xkv is None
-    x = tp.enter(x)
-    xkv = x if xkv is None else xkv
-    q, k, v = _project_qkv(params, x, xkv, head_dim)
+    lay = _layout(params, num_heads, num_kv_heads, head_dim)
+    q, k, v = _project_qkv(params, x, xkv, head_dim, lay)
     if use_rope and self_attn:
         if positions is None:
             positions = torch.arange(t, device=x.device).expand(b, t)
@@ -169,10 +239,10 @@ def attn_apply(params, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
     q = constrain(q, "batch", "act_heads", "seq", None)
     k = constrain(k, "batch", "act_kv_heads", "kv_seq", None)
     v = constrain(v, "batch", "act_kv_heads", "kv_seq", None)
-    o = flash_attention(q, k, v, causal=causal and self_attn, window=window)
+    kg, vg = _group_kv(k, v, lay, num_heads, num_kv_heads)
+    o = flash_attention(q, kg, vg, causal=causal and self_attn, window=window)
     o = o.transpose(1, 2).reshape(b, t, q.shape[1] * head_dim)
-    out = constrain(tp.reduce(o @ params["wo"].to(x.dtype)), "batch", "seq",
-                    "act_embed")
+    out = constrain(_out_proj(params, o, lay), "batch", "seq", "act_embed")
     if return_cache:
         return out, KVCache(k=k, v=v)
     return out
@@ -235,21 +305,15 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
     """
     b = x.shape[0]
     s = cache.k.shape[2]
-    num_heads, num_kv_heads = local_heads(params, head_dim)
+    lay = _layout(params, num_heads, num_kv_heads, head_dim)
     if scale is None:
         scale = head_dim ** -0.5
-    x = tp.enter(x)
-    q = x @ params["wq"].to(x.dtype)
-    if "bq" in params:
-        q = q + params["bq"].to(x.dtype)
-    q = q.reshape(b, 1, num_heads, head_dim).transpose(1, 2)
+    q, k_new, v_new = _project_qkv(params, x, None, head_dim, lay,
+                                   kv=not cross)
     pos = idx.to(torch.int32).reshape(1, 1).expand(b, 1)
     if use_rope:
         q = apply_rope(q, pos, rope_theta)
     if not cross:
-        k_new, v_new = _project_kv(params, x)
-        k_new = k_new.reshape(b, 1, num_kv_heads, head_dim).transpose(1, 2)
-        v_new = v_new.reshape(b, 1, num_kv_heads, head_dim).transpose(1, 2)
         if use_rope:
             k_new = apply_rope(k_new, pos, rope_theta)
         slot = idx.reshape(1).long()
@@ -268,9 +332,10 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
         kf, vf = _dq(cache.k, cache.ks), _dq(cache.v, cache.vs)
     else:
         kf, vf = cache.k.float(), cache.v.float()
+    kf, vf = _group_kv(kf, vf, lay, num_heads, num_kv_heads)
 
-    g = num_heads // num_kv_heads
-    qg = q.reshape(b, num_kv_heads, g, head_dim).float() * scale
+    hkv = kf.shape[1]
+    qg = q.reshape(b, hkv, q.shape[1] // hkv, head_dim).float() * scale
     scores = torch.matmul(qg, kf.transpose(-1, -2))          # (B,Hkv,G,S)
     if not cross:
         kpos = torch.arange(s, device=x.device)
@@ -281,6 +346,6 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
         scores = torch.where(valid, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     o = torch.matmul(p, vf)                                   # (B,Hkv,G,D)
-    o = o.reshape(b, 1, num_heads * head_dim).to(x.dtype)
-    out = tp.reduce(o @ params["wo"].to(x.dtype))
+    o = o.reshape(b, 1, q.shape[1] * head_dim).to(x.dtype)
+    out = _out_proj(params, o, lay)
     return constrain(out, "batch", None, "act_embed"), cache

@@ -11,10 +11,13 @@ Beside each ``*_init`` a ``*_axes`` gives the logical axes of its leaves,
 leaf for leaf the ``axes`` half of the reference's ``(params, axes)``;
 ``constrain`` calls stand where the reference's do (no-ops on plain
 tensors, ``repro_torch/sharding``).  Under a mesh with a "model" axis the
-parameters are a rank's shards (``models.params.shard_params``) and the
+parameters are a rank's boxes (``models.params.shard_params``) and the
 collectives of ``sharding/tp.py`` stand where GSPMD would put them: the
-FFN is column- then row-parallel, the embedding and the LM head split
-the padded vocab.
+FFN is column- then row-parallel where the size divides d_ff, the
+embedding and the LM head split the padded vocab where it divides that;
+a leaf it does not divide is whole, and its product runs whole on every
+rank.  Each such function takes the whole width (``d_ff``, ``vocab``) to
+tell its box from the whole leaf.
 
 As in the reference, every weight is cast to the activation dtype where it
 is used (``w.to(x.dtype)``).  A caller may cast the weights once up front
@@ -138,19 +141,23 @@ def ffn_axes():
     return {"w_gu": ("stack", "embed", "ff"), "w_down": ("ff", "embed")}
 
 
-def ffn_apply(params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
-    """Split over "model": w_gu by columns, w_down by rows, the output
-    summed over the model ranks."""
+def ffn_apply(params, x: torch.Tensor, kind: str = "swiglu",
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """Split over "model" where ``w_gu``'s columns (of ``d_ff``, the
+    whole width) are: ``w_down`` by rows, the output summed over the
+    model ranks."""
     wgu = params["w_gu"].to(x.dtype)
     wd = params["w_down"].to(x.dtype)
-    x = tp.enter(x)
+    split = tp.is_split(wgu.shape[-1], d_ff)
+    if split:
+        x = tp.enter(x)
     gate, up = x @ wgu[0], x @ wgu[1]
     if kind == "swiglu":
         act = F.silu(gate)
     else:                        # jax.nn.gelu defaults to the tanh form
         act = F.gelu(gate, approximate="tanh")
     h = constrain(act * up, "batch", "seq", "act_ff")
-    return tp.reduce(h @ wd)
+    return tp.reduce(h @ wd) if split else h @ wd
 
 
 # --------------------------------------------------------------------------
@@ -164,15 +171,17 @@ def embed_axes():
     return {"table": ("vocab", "embed")}
 
 
-def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
-    """Split over "model" by vocab rows: each rank looks up the tokens its
-    rows hold, zeros for the others, and the ranks' rows are summed."""
+def embed_apply(params, tokens: torch.Tensor,
+                vocab: Optional[int] = None) -> torch.Tensor:
+    """Split over "model" by vocab rows where the table holds fewer than
+    the padded vocab's ``vocab``: each rank looks up the tokens its rows
+    hold, zeros for the others, and the ranks' rows are summed."""
     table = params["table"]
     tokens = tokens.long()
-    if tp.model_axis() is None:
+    if not tp.is_split(table.shape[0], vocab):
         out = F.embedding(tokens, table)
     else:
-        local = tokens - tp.vocab_offset(table.shape[0])
+        local = tokens - tp.vocab_offset(table.shape[0], vocab)
         mine = (local >= 0) & (local < table.shape[0])
         out = F.embedding(torch.where(mine, local, 0), table)
         out = tp.reduce(out * mine[..., None].to(out.dtype))
@@ -187,15 +196,20 @@ def lm_head_axes():
     return {"w": ("embed", "vocab")}
 
 
-def lm_head_apply(params, x: torch.Tensor, valid_vocab: int = 0):
+def lm_head_apply(params, x: torch.Tensor, valid_vocab: int = 0,
+                  vocab: Optional[int] = None):
     """valid_vocab > 0: the head is padded; the tail logits are set to
     -1e30 in the logits' dtype so they are inert in softmax / argmax.
-    Split over "model" by vocab columns, each rank's logits are those of
-    its columns, masked by their global index (only the last shard holds
-    the padded tail)."""
-    logits = tp.enter(x) @ params["w"].to(x.dtype)
+    Split over "model" by vocab columns where it holds fewer than the
+    padded vocab's ``vocab``, each rank's logits are those of its
+    columns, masked by their global index (only the last shard holds the
+    padded tail)."""
+    w = params["w"]
+    if tp.is_split(w.shape[-1], vocab):
+        x = tp.enter(x)
+    logits = x @ w.to(x.dtype)
     vl = logits.shape[-1]
-    lo = tp.vocab_offset(vl)
+    lo = tp.vocab_offset(vl, vocab)
     if valid_vocab and valid_vocab < lo + vl:
         ok = torch.arange(lo, lo + vl, device=logits.device) < valid_vocab
         logits = torch.where(ok, logits, logits.new_full((), -1e30))

@@ -119,10 +119,17 @@ def shard_params(params, cfg: ModelConfig, mesh, rules: Optional[Rules] = None,
     the box ``NamedSharding(mesh, param_specs(...))`` gives it, so the
     split is the reference's (``TP_RULES``: wq / bq on heads, wkv / bkv on
     kv heads, wo's rows, w_gu's columns, w_down's rows, the embedding's
-    rows and the LM head's columns on the padded vocab; norm scales
-    whole).  ``copy=False`` returns views (a whole leaf is returned as it
-    is either way).  Raises ``ValueError`` where ``cfg`` does not split
-    over the mesh's "model" axis (``sharding.tp.check_model_axis``)."""
+    rows and the LM head's columns on the padded vocab, RWKV-6's and the
+    RG-LRU's "rnn" leaves on their state width; norm scales whole).  The
+    reference tests divisibility on a leaf's flattened width, so a box
+    may end inside a head: yi-6b's ``wkv`` (512 columns, 4 kv heads of
+    128) at "model" 8 gives each rank 64 columns, half a head;
+    recurrentgemma-9b's one kv head splits at every size; RWKV-6's ``u``,
+    ``gn_scale`` and ``gn_bias`` (H, head_dim) split over head_dim.  A
+    leaf whose width the size does not divide is whole on every rank.
+    ``copy=False`` returns views (a whole leaf is returned as it is
+    either way).  Raises ``ValueError`` where ``cfg`` does not split over
+    the mesh's "model" axis (``sharding.tp.check_model_axis``)."""
     from ..sharding import get_rules, tp
     from .transformer import param_axes
 

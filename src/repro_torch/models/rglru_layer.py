@@ -14,6 +14,15 @@ carried ``h`` stay f32.
 State carried for decode, per block:
   ``conv``: (B, conv_width - 1, rnn_width) -- past inputs, compute dtype
   ``h``: (B, rnn_width) f32 -- the recurrent state.
+
+Split over a mesh's "model" axis (``TP_RULES``' "rnn", ``sharding/tp.py``)
+a rank holds the column box of ``w_ig`` and the rank's channels of the
+convolution and ``lam``: the recurrence is per channel, so the conv and
+the scan (K7) run at the rank's width, and so does the state.  ``w_ai``
+splits over its contraction rows, so ``y @ w_ai`` is a partial sum of
+the whole width: it is reduce-scattered to the rank's channels.
+``w_out``'s rows are the rank's channels, its product summed over the
+model ranks.
 """
 from __future__ import annotations
 
@@ -23,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rglru import rglru as rglru_core
-from ..sharding import constrain
+from ..sharding import constrain, tp
 from .layers import _dense_init, _normal
 
 RGLRU_C = 8.0  # Griffin's fixed recurrence-sharpness constant
@@ -84,21 +93,31 @@ def recurrent_apply(params, x: torch.Tensor, state: RGLRUState):
     """x: (B, T, d_model) -> (out (B, T, d_model), new state)."""
     dt = x.dtype
     w_ig = params["w_ig"].to(dt)
+    w_ai = params["w_ai"].float()
+    # the rank's channels of the whole width (w_ai's columns)
+    split = tp.is_split(w_ig.shape[-1], w_ai.shape[-1])
+    if split:
+        x = tp.enter(x)
     y = constrain(x @ w_ig[0], "batch", "seq", "act_rnn")
     gate = F.gelu(x @ w_ig[1], approximate="tanh")   # jax.nn.gelu's form
     y, conv_state = _causal_conv(y, params["conv_w"], params["conv_b"],
                                  state.conv)
     yf = y.float()
-    w_ai = params["w_ai"].float()
-    r = torch.sigmoid(yf @ w_ai[0])
-    i = torch.sigmoid(yf @ w_ai[1])
+    if split:
+        # partial sums over the whole width, reduced to the rank's columns
+        ai = tp.reduce_scatter(torch.stack([yf @ w_ai[0], yf @ w_ai[1]]))
+        r, i = torch.sigmoid(ai[0]), torch.sigmoid(ai[1])
+    else:
+        r = torch.sigmoid(yf @ w_ai[0])
+        i = torch.sigmoid(yf @ w_ai[1])
     log_a = -RGLRU_C * F.softplus(params["lam"].float()) * r  # (B, T, N) <= 0
     a2 = torch.exp(2.0 * log_a)
     g = torch.sqrt(torch.clamp_min(1.0 - a2, 1e-12)) * i * yf
     h, h_last = rglru_core(log_a, g.to(dt), state.h)
     h = constrain(h, "batch", "seq", "act_rnn")
     out = (gate * h.to(dt)) @ params["w_out"].to(dt)
-    out = constrain(out, "batch", "seq", "act_embed")
+    out = constrain(tp.reduce(out) if split else out, "batch", "seq",
+                    "act_embed")
     return out, RGLRUState(conv=conv_state.to(state.conv.dtype), h=h_last)
 
 

@@ -12,16 +12,28 @@ the kernel) and ``gn_scale`` / ``gn_bias`` (applied in f32 by
 State carried for decode, per block:
   ``shift_tm`` / ``shift_cm``: (B, d_model) -- previous token's activations
   ``wkv``: (B, H, Dh, Dh) f32 -- the linear-attention state.
+
+Split over a mesh's "model" axis (``TP_RULES``' "rnn", ``sharding/tp.py``)
+a rank holds the column box of ``w_rkvg``, ``wB`` and ``w0`` and the row
+box of ``wo``: its heads, whole, since the size must divide the heads
+(``tp.check_model_axis``).  The recurrence (K6) runs on them at the
+rank's width, and its ``wkv`` state holds them; the shift states stay
+whole.  ``u``, ``gn_scale`` and ``gn_bias`` split over head_dim, not
+heads: ``own_heads`` gathers them and keeps the rank's heads' rows (the
+engine once, the training step in each forward).  The channel-mix splits
+``wk``'s columns and ``wv``'s rows over d_ff (where the size divides it)
+and ``wr``'s columns over d_model, whose output is gathered before it
+gates the whole ``kv``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.rwkv6 import rwkv6 as rwkv6_core
-from ..sharding import constrain
+from ..sharding import constrain, tp
 from .layers import _dense_init, _normal, groupnorm_heads
 
 LORA_RANK = 32
@@ -75,6 +87,23 @@ def timemix_axes():
             "gn_scale": (None, "rnn"), "gn_bias": (None, "rnn")}
 
 
+# the leaves the "rnn" axis splits over head_dim
+HEAD_LEAVES = ("u", "gn_scale", "gn_bias")
+
+
+def own_heads(leaf: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """``u`` / ``gn_scale`` / ``gn_bias`` (..., H, Dh) as the rank's
+    ``heads`` heads, each whole: a head_dim box is gathered and the
+    rank's rows are kept (``tp.gather`` then ``tp.scatter``, so the
+    gradient sums into each rank's box).  A leaf that is already so is
+    returned as it is."""
+    if leaf.shape[-1] != head_dim:
+        leaf = tp.gather(leaf, -1)
+    if leaf.shape[-2] != heads:
+        leaf = tp.scatter(leaf, -2)
+    return leaf
+
+
 def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     """x: (B, T, D); last: (B, D) previous token (zeros at sequence
     start)."""
@@ -84,9 +113,12 @@ def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
 def timemix_apply(params, x: torch.Tensor, state_tm: torch.Tensor,
                   wkv_state: torch.Tensor, head_dim: int):
     """Returns (out (B, T, D), the last token's x (B, D), the new wkv
-    state (B, H, Dh, Dh) f32)."""
+    state (B, H, Dh, Dh) f32), H the rank's heads under a "model"
+    axis."""
     b, t, d = x.shape
-    h = d // head_dim
+    w = params["w_rkvg"].shape[-1]        # the rank's width of the heads
+    split = tp.is_split(w, d)
+    h = w // head_dim
     dt = x.dtype
     delta = _token_shift(x, state_tm) - x
     # data-dependent interpolation (RWKV-6 "ddlerp")
@@ -96,23 +128,28 @@ def timemix_apply(params, x: torch.Tensor, state_tm: torch.Tensor,
     xr, xk, xv, xw, xg = [x + delta * mix[:, :, i] for i in range(5)]
 
     xs4 = torch.stack([xr, xk, xv, xg]).reshape(4, b * t, d)
-    rkvg = torch.matmul(xs4, params["w_rkvg"].to(dt)).reshape(4, b, t, d)
+    lw = torch.tanh(xw @ params["wA"].to(dt))
+    if split:           # the column-split products' inputs
+        xs4, lw = tp.enter(xs4), tp.enter(lw)
+    rkvg = torch.matmul(xs4, params["w_rkvg"].to(dt)).reshape(4, b, t, w)
     r, k, v, g = rkvg[0], rkvg[1], rkvg[2], rkvg[3]
     # w0 is f32: the sum promotes to f32, as in the reference
-    wlog = params["w0"] + torch.tanh(xw @ params["wA"].to(dt)) \
-        @ params["wB"].to(dt)
-    log_w = -torch.exp(wlog.float())                     # (B, T, D) <= 0
+    wlog = params["w0"] + lw @ params["wB"].to(dt)
+    log_w = -torch.exp(wlog.float())                     # (B, T, W) <= 0
 
     def heads(z):
         return z.reshape(b, t, h, head_dim).transpose(1, 2)
 
     r_ = constrain(heads(r), "batch", "act_rnn", "seq", None)
-    o, wkv_new = rwkv6_core(r_, heads(k), heads(v), heads(log_w),
-                            params["u"], wkv_state)
-    o = groupnorm_heads(o.transpose(1, 2), params["gn_scale"],
-                        params["gn_bias"])
-    o = o.reshape(b, t, d) * F.silu(g)
-    out = constrain(o @ params["wo"].to(dt), "batch", "seq", "act_embed")
+    u, gn_scale, gn_bias = (own_heads(params[n], h, head_dim)
+                            for n in HEAD_LEAVES)
+    o, wkv_new = rwkv6_core(r_, heads(k), heads(v), heads(log_w), u,
+                            wkv_state)
+    o = groupnorm_heads(o.transpose(1, 2), gn_scale, gn_bias)
+    o = o.reshape(b, t, w) * F.silu(g)
+    out = o @ params["wo"].to(dt)
+    out = constrain(tp.reduce(out) if split else out, "batch", "seq",
+                    "act_embed")
     return out, x[:, -1, :], wkv_new
 
 
@@ -132,23 +169,35 @@ def chanmix_axes():
             "wr": ("embed", "rnn"), "mu": ("stack", "embed")}
 
 
-def chanmix_apply(params, x: torch.Tensor, state_cm: torch.Tensor):
-    """Returns (out (B, T, D), the last token's x (B, D))."""
+def chanmix_apply(params, x: torch.Tensor, state_cm: torch.Tensor,
+                  d_ff: Optional[int] = None):
+    """Returns (out (B, T, D), the last token's x (B, D)).  ``d_ff``: the
+    whole width, which tells ``wk``'s box under a "model" axis."""
     dt = x.dtype
     delta = _token_shift(x, state_cm) - x
     mu = params["mu"].to(dt)
     xk = x + delta * mu[0]
     xr = x + delta * mu[1]
-    k = torch.square(F.relu(xk @ params["wk"].to(dt)))
+    ff_split = tp.is_split(params["wk"].shape[-1], d_ff)
+    r_split = tp.is_split(params["wr"].shape[-1], x.shape[-1])
+    k = torch.square(F.relu((tp.enter(xk) if ff_split else xk)
+                            @ params["wk"].to(dt)))
     k = constrain(k, "batch", "seq", "act_ff")
     kv = k @ params["wv"].to(dt)
-    out = torch.sigmoid(xr @ params["wr"].to(dt)) * kv
+    if ff_split:
+        kv = tp.reduce(kv)
+    r = torch.sigmoid((tp.enter(xr) if r_split else xr)
+                      @ params["wr"].to(dt))
+    out = (tp.gather(r) if r_split else r) * kv
     return constrain(out, "batch", "seq", "act_embed"), x[:, -1, :]
 
 
 def init_state(batch: int, d_model: int, head_dim: int, dtype, *,
-               lead: Sequence[int] = (), device=None) -> RWKVState:
-    h = d_model // head_dim
+               lead: Sequence[int] = (), device=None,
+               width: Optional[int] = None) -> RWKVState:
+    """Zeros; ``width``: the rank's width of the heads under a "model"
+    axis (the state's heads; default d_model)."""
+    h = (width or d_model) // head_dim
     return RWKVState(
         shift_tm=torch.zeros((*lead, batch, d_model), dtype=dtype,
                              device=device),

@@ -39,11 +39,14 @@ RG-LRU hybrid (``mixer="rglru_hybrid"``, Griffin / RecurrentGemma).
 A Python loop over the stacked layers takes the place of ``lax.scan``.
 The reference's sharding constraints stand where it has them; on plain
 tensors they are no-ops.  Under a mesh with a "model" axis
-(``use_rules(mesh, rules)``) the params are a rank's shards
-(``params.shard_params``), the layers sum their row-parallel outputs over
-the model ranks (``sharding/tp.py``), the logits are the rank's vocab
-columns, ``loss_fn`` reduces its log-sum-exp and target logits over
-them, and ``init_cache(..., model_parts=)`` holds the rank's KV heads.
+(``use_rules(mesh, rules)``) the params are a rank's boxes
+(``params.shard_params``) and the layers call the collectives of
+``sharding/tp.py`` between them and the reference's activation layouts;
+where the size divides the padded vocab the logits are the rank's vocab
+columns and ``loss_fn`` reduces its log-sum-exp and target logits over
+them.  ``init_cache(..., mesh=)`` gives every leaf the rank's box of its
+``cache_axes`` under the rules: the rank's heads or channels where the
+size divides them, else the whole leaf.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..sharding import constrain, tp
+from ..sharding import constrain, get_rules, tp
 from . import attention as attn
 from . import moe as moe_lib
 from . import rglru_layer as rglru
@@ -199,7 +202,7 @@ def _ffn_or_moe(cfg: ModelConfig, p: Params, h):
             experts_per_token=cfg.experts_per_token,
             capacity_factor=cfg.capacity_factor,
             aux_coef=cfg.router_aux_coef)
-    return ffn_apply(p["ffn"], h, kind=cfg.ffn), None
+    return ffn_apply(p["ffn"], h, kind=cfg.ffn, d_ff=cfg.d_ff), None
 
 
 def _rwkv_block(cfg: ModelConfig, p: Params, x, state):
@@ -209,13 +212,13 @@ def _rwkv_block(cfg: ModelConfig, p: Params, x, state):
     written into ``state``'s tensors in place.  Returns (x, state)."""
     st = state if state is not None else rwkv.init_state(
         x.shape[0], cfg.d_model, cfg.rwkv_head_dim, x.dtype,
-        device=x.device)
+        device=x.device, width=p["tm"]["w_rkvg"].shape[-1])
     y, shift_tm, wkv = rwkv.timemix_apply(p["tm"], rmsnorm(p["norm1"], x),
                                           st.shift_tm, st.wkv,
                                           cfg.rwkv_head_dim)
     x = x + y
     y, shift_cm = rwkv.chanmix_apply(p["cm"], rmsnorm(p["norm2"], x),
-                                     st.shift_cm)
+                                     st.shift_cm, d_ff=cfg.d_ff)
     x = x + y
     if state is not None:
         state.shift_tm.copy_(shift_tm)
@@ -230,11 +233,12 @@ def _rec_block(cfg: ModelConfig, p: Params, x, state):
     (``repro/models/transformer.py:182-190,256-260``).  The new state is
     written into ``state``'s tensors in place.  Returns (x, state)."""
     st = state if state is not None else rglru.init_state(
-        x.shape[0], cfg.resolved_rnn_width, cfg.conv1d_width, x.dtype,
+        x.shape[0], p["rec"]["w_ig"].shape[-1], cfg.conv1d_width, x.dtype,
         device=x.device)
     y, new = rglru.recurrent_apply(p["rec"], rmsnorm(p["norm1"], x), st)
     x = x + y
-    x = x + ffn_apply(p["ffn"], rmsnorm(p["norm2"], x), kind=cfg.ffn)
+    x = x + ffn_apply(p["ffn"], rmsnorm(p["norm2"], x), kind=cfg.ffn,
+                      d_ff=cfg.d_ff)
     if state is not None:
         state.conv.copy_(new.conv)
         state.h.copy_(new.h)
@@ -424,7 +428,8 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
     positions, prefix length)."""
     tokens = batch["tokens"]
     b = tokens.shape[0]
-    x = embed_apply(params["embed"], tokens).to(_dtype(cfg))
+    x = embed_apply(params["embed"], tokens,
+                    vocab=cfg.padded_vocab).to(_dtype(cfg))
     prefix = 0
     if cfg.frontend == "patches":
         pe = frontend_apply(params["frontend"],
@@ -522,7 +527,8 @@ def forward(cfg: ModelConfig, params, batch):
     x = rmsnorm(params["final_norm"], x)
     if prefix:
         x = x[:, prefix:, :]
-    logits = lm_head_apply(params["lm_head"], x, valid_vocab=cfg.vocab_size)
+    logits = lm_head_apply(params["lm_head"], x, valid_vocab=cfg.vocab_size,
+                           vocab=cfg.padded_vocab)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux
@@ -542,12 +548,12 @@ def loss_fn(cfg: ModelConfig, params, batch, *,
     labels = batch["labels"]
     logits = logits[:, :-1, :].float()
     targets = labels[:, 1:].long()
-    if tp.model_axis() is None:
+    if not tp.is_split(logits.shape[-1], cfg.padded_vocab):
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             targets.clamp_min(0)[..., None])[..., 0]
     else:
-        logz, gold = _vocab_parallel_xent(logits, targets)
+        logz, gold = _vocab_parallel_xent(logits, targets, cfg.padded_vocab)
     mask = (targets >= 0).float()
     count = mask.sum() if token_total is None else token_total
     xent = torch.sum((logz - gold) * mask) / torch.clamp_min(count, 1.0)
@@ -555,14 +561,14 @@ def loss_fn(cfg: ModelConfig, params, batch, *,
     return loss, {"xent": xent, "aux": aux}
 
 
-def _vocab_parallel_xent(logits, targets):
-    """(logsumexp, target logit) of vocab-sharded f32 ``logits``: the max
-    and the sums of exp and of the target's logit (held by one shard)
-    taken over the model ranks."""
+def _vocab_parallel_xent(logits, targets, vocab: int):
+    """(logsumexp, target logit) of vocab-sharded f32 ``logits`` (of the
+    padded ``vocab``): the max and the sums of exp and of the target's
+    logit (held by one shard) taken over the model ranks."""
     top = tp.all_max(logits.amax(dim=-1))
     logz = top + torch.log(tp.reduce(
         torch.exp(logits - top[..., None]).sum(dim=-1)))
-    local = targets - tp.vocab_offset(logits.shape[-1])
+    local = targets - tp.vocab_offset(logits.shape[-1], vocab)
     mine = (local >= 0) & (local < logits.shape[-1])
     gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
     gold = tp.reduce(torch.where(mine, gold[..., 0], 0.0))
@@ -573,12 +579,11 @@ def _vocab_parallel_xent(logits, targets):
 # serving: cache init / prefill / decode
 # ==========================================================================
 def _kind_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype, lead, device, model_parts: int = 1):
+                     dtype, lead, device):
     """One layer's (or, with ``lead``, a stack's) zero cache of ``kind``
-    (``repro/models/transformer.py:462-485``), its KV heads a
-    ``model_parts``-th of the model's."""
+    (``repro/models/transformer.py:462-485``)."""
     def kv_cache(s):
-        kv = attn.init_kv_cache(batch, cfg.num_kv_heads // model_parts, s,
+        kv = attn.init_kv_cache(batch, cfg.num_kv_heads, s,
                                 cfg.resolved_head_dim, dtype,
                                 quant=cfg.kv_quant, lead=lead, device=device)
         if lead and kv.ks is not None:
@@ -607,23 +612,31 @@ def _kind_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device="cuda", model_parts: int = 1) -> Dict[str, Any]:
+               device="cuda", mesh=None) -> Dict[str, Any]:
     """Decode cache for a batch of ``batch`` sequences: a KV cache of
     ``max_len`` slots (a ring of ``min(max_len, window)`` for a
     sliding-window layer), or a recurrent state, whose size does not
-    depend on ``max_len``.  ``model_parts``: the size of the "model" axis
-    the KV heads are split over (a rank's cache)."""
-    if model_parts > 1:
-        tp.check_model_axis(cfg, model_parts)
+    depend on ``max_len``.  ``mesh``: a mesh whose "model" axis the cache
+    is split over, each leaf the rank's box of its ``cache_axes`` under
+    the config's rules (``batch`` is the rank's rows already): a rank's
+    cache, zeros, as its prefill fills it."""
+    size = tp.axis_size(mesh)
+    if size > 1:
+        rules = get_rules(cfg.rules)
+        tp.check_model_axis(cfg, size, rules)
+        whole = init_cache(cfg, batch, max_len, dtype, "meta")
+        return map_axes(lambda ax, t: torch.zeros(
+            tp.local_shape(ax, t.shape, rules, size), dtype=t.dtype,
+            device=device), cache_axes(cfg), whole)
     dtype = dtype or _dtype(cfg)
     plan = stack_plan(cfg)
     lead = (plan["scan_len"],)
     return {
         "stack": {f"b{i}": _kind_cache_init(cfg, kind, batch, max_len, dtype,
-                                            lead, device, model_parts)
+                                            lead, device)
                   for i, kind in enumerate(plan["scan_kinds"])},
         "tails": [_kind_cache_init(cfg, kind, batch, max_len, dtype, (),
-                                   device, model_parts)
+                                   device)
                   for kind in plan["tail_kinds"]],
         "idx": torch.zeros((), dtype=torch.int32, device=device),
     }
@@ -663,7 +676,8 @@ def prefill(cfg: ModelConfig, params, batch, cache):
                       enc_out=_encode(cfg, params, batch))
     x = rmsnorm(params["final_norm"], x)
     logits = lm_head_apply(params["lm_head"], x[:, -1:, :],
-                           valid_vocab=cfg.vocab_size)[:, 0, :]
+                           valid_vocab=cfg.vocab_size,
+                           vocab=cfg.padded_vocab)[:, 0, :]
     idx = torch.full((), x.shape[1], dtype=torch.int32, device=x.device)
     return logits, dict(cache, idx=idx)
 
@@ -671,11 +685,13 @@ def prefill(cfg: ModelConfig, params, batch, cache):
 def decode_step(cfg: ModelConfig, params, cache, tokens):
     """One decoding step. tokens: (B, 1) -> (logits (B, vocab), cache),
     the cache written in place and its ``idx`` advanced."""
-    x = embed_apply(params["embed"], tokens).to(_dtype(cfg))
+    x = embed_apply(params["embed"], tokens,
+                    vocab=cfg.padded_vocab).to(_dtype(cfg))
     idx = cache["idx"]
     for kind, lp, st in _layers(cfg, params, cache):
         x, _ = _block_decode(cfg, lp, x, idx, kind=kind, state=st)
     x = rmsnorm(params["final_norm"], x)
     logits = lm_head_apply(params["lm_head"], x,
-                           valid_vocab=cfg.vocab_size)[:, 0, :]
+                           valid_vocab=cfg.vocab_size,
+                           vocab=cfg.padded_vocab)[:, 0, :]
     return logits, dict(cache, idx=idx + 1)

@@ -16,12 +16,18 @@ the mesh; on plain tensors they change nothing.
 
 On a mesh with a "model" axis (tensor parallelism, ``sharding/tp.py``)
 every rank of the mesh builds the engine from the whole parameter tree
-and keeps its shards (``models.shard_params``); each "data" rank serves
-its rows of the batch.  Its cache holds its rows and its KV heads, and
-the greedy argmax is reduced over the vocab shards.  ``generate`` and
-``decode_greedy`` return the whole batch's tokens on every rank.  A
-commit snapshots the cache as DTensor views on the mesh (``Shard`` over
-batch and KV heads): one part a box, which the ranks send to rank 0,
+and keeps its boxes (``models.shard_params``); each "data" rank serves
+its rows of the batch.  An RWKV-6 model's ``u`` / ``gn_scale`` /
+``gn_bias``, split over head_dim, are turned into the rank's heads once
+here (``rwkv6_layer.own_heads``).  Its cache holds its rows and, leaf by
+leaf, its box of the reference's layout (``init_cache(mesh=)``): the KV
+heads where the size divides them, else the whole K/V on every model
+rank; RWKV-6's ``wkv`` heads beside its whole shift states; the RG-LRU's
+channels.  The greedy argmax is reduced over the vocab shards where the
+vocab splits.  ``generate`` and ``decode_greedy`` return the whole
+batch's tokens on every rank.  A commit snapshots the cache as DTensor
+views on the mesh (``Shard`` where a leaf splits, ``Replicate`` where it
+is whole): one part a distinct box, which the ranks send to rank 0,
 where the iCheck client lives.  ``restore_serving_state`` on a mesh
 fetches each rank's box through ``redistribute_mesh``, on one rank the
 whole cache.
@@ -42,6 +48,7 @@ from ..core.snapshot import (_flatten, _leaf_name, _unflatten,
                              snapshot_pytree)
 from ..core.types import PartitionDesc, PartitionScheme
 from ..models.params import map_axes, shard_params
+from ..models.rwkv6_layer import HEAD_LEAVES, own_heads
 from ..models.transformer import (cache_axes, cast_params, decode_step,
                                   init_cache, prefill)
 from ..sharding import get_rules, placements, spec, tp, use_rules
@@ -84,8 +91,20 @@ class ServeEngine:
             # the rank's boxes were views: each is cast (or copied) into a
             # tensor of its own, so the engine holds no whole leaf
             self.params = _unflatten(self.params, lambda name, t: _own(t))
+            if cfg.mixer == "rwkv6":
+                self._own_heads()
         self.max_len = max_len
         self.last_commit = None     # CommitHandle of the newest cache commit
+
+    @torch.no_grad()
+    def _own_heads(self) -> None:
+        """RWKV-6's head_dim boxes as the rank's heads, once."""
+        tm = self.params["stack"]["b0"]["tm"]
+        heads = tm["w_rkvg"].shape[-1] // self.cfg.rwkv_head_dim
+        with use_rules(self.mesh, self.rules):
+            for name in HEAD_LEAVES:
+                tm[name] = own_heads(tm[name], heads,
+                                     self.cfg.rwkv_head_dim)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens), dtype=torch.int32,
@@ -108,7 +127,7 @@ class ServeEngine:
                                               dtype=torch.float32,
                                               device=self.device)[rows]
         cache = init_cache(self.cfg, inputs["tokens"].shape[0], self.max_len,
-                           device=self.device, model_parts=self.model_parts)
+                           device=self.device, mesh=self.mesh)
         with use_rules(self.mesh, self.rules):
             return prefill(self.cfg, self.params, inputs, cache)
 
@@ -124,7 +143,8 @@ class ServeEngine:
         """The greedy tokens (B, 1) int32 of ``prefill`` / ``step`` logits,
         the argmax over every vocab shard."""
         with use_rules(self.mesh, self.rules):
-            return tp.argmax(logits)[:, None].to(torch.int32)
+            return tp.argmax(logits, self.cfg.padded_vocab)[:, None].to(
+                torch.int32)
 
     def _decode(self, cache, tok: torch.Tensor, steps: int) -> torch.Tensor:
         out = []
@@ -190,8 +210,9 @@ class ServeEngine:
     def _on_mesh(self, cache, batch: int):
         """``cache`` (this rank's, of a global batch of ``batch``) as
         DTensor views on the mesh, each leaf placed as the reference
-        shards it (``cache_axes`` under the rules: batch over "data", KV
-        heads over "model")."""
+        shards it (``cache_axes`` under the rules: batch over "data",
+        heads or channels over "model" where the size divides them,
+        ``Replicate`` where it does not)."""
         from torch.distributed.tensor import DTensor
 
         whole = init_cache(self.cfg, batch, self.max_len, device="meta")
@@ -232,7 +253,7 @@ class ServeEngine:
             return None
         rows = tp.data_rows(batch_size, self.mesh)
         cache = init_cache(self.cfg, rows.stop - rows.start, self.max_len,
-                           device=self.device, model_parts=self.model_parts)
+                           device=self.device, mesh=self.mesh)
         for path, leaf in _flatten(self._on_mesh(cache, batch_size)):
             name = _leaf_name(path)
             meta = parts = None

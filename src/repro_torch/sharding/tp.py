@@ -1,21 +1,36 @@
 """Tensor parallelism over the mesh's "model" axis: the reference's
-``TP_RULES`` splits of heads, kv_heads, ff and the padded vocab, with
-plain local shards and explicit collectives.
+``TP_RULES`` splits at every mesh size, with plain local shards and
+explicit collectives.
 
 The reference names a sharding and lets GSPMD partition the step.  Here
 each rank holds plain tensors, its box of every parameter leaf
 (``models.params.shard_params``: the boxes of
 ``NamedSharding(mesh, param_specs(...))``), and the model code calls the
-collective that GSPMD would insert where the reference constrains an
-activation:
+collective that GSPMD would insert between a leaf's box and the layout
+that the reference's ``constrain`` sites give an activation.  Whether a
+leaf or an activation is split is read from its resolved spec
+(``site_split``) or from its local width against the config's
+(``is_split``), never from whether a "model" axis exists: a leaf the
+size does not divide stays whole, and its product runs whole on every
+rank.
+
+The collectives, each with its gradient (a whole activation carries its
+whole gradient on every rank, a split one its box's):
 
 * ``enter(x)``: identity forward, all-reduce backward (Megatron's ``f``),
-  on the replicated input of a column-parallel product (q / k / v, gate /
-  up, the LM head), whose backward gives each rank a partial dx;
+  on the whole input of a column-split product (q / k / v, gate / up, the
+  LM head, RWKV-6's r / k / v / g), whose backward gives each rank a
+  partial dx;
 * ``reduce(x)``: all-reduce forward, identity backward (Megatron's
-  ``g``), on the partial sums a rank holds: a row-parallel product's
-  output (``o @ wo``, ``h @ w_down``), the vocab-parallel embedding, the
+  ``g``), on the partial sums a rank holds: a row-split product's output
+  (``o @ wo``, ``h @ w_down``), the vocab-split embedding, the
   cross-entropy's sums over vocab shards;
+* ``gather(x, dim)``: a column box to the whole (a zero-padded
+  all-reduce); its backward is the slice;
+* ``scatter(x, dim)``: the slice from the whole to the rank's box; its
+  backward is the gather (Megatron's scatter / gather pair);
+* ``reduce_scatter(x, dim)``: partial sums to the rank's box of their
+  sum (an all-reduce, then the slice); its backward is the gather;
 * ``all_max`` and ``argmax``: the max and the greedy argmax over vocab
   shards (the argmax takes the lowest index among equal maxima, as
   ``torch.argmax`` does).
@@ -24,21 +39,22 @@ Every collective is an ``all_reduce``: gloo on CUDA tensors (several
 ranks on one card) offers ``all_reduce`` and ``broadcast`` only.  All are
 the identity when no mesh with a "model" axis of more than one rank is
 active (``use_rules(mesh, rules)``), so the one-process path is unchanged.
-The model reads its local head counts from the shards' shapes.
 
-Only the dense token decoders are split (``check_model_axis``); the
-reference's kv_seq fallback, MoE experts, the recurrent "rnn" axis, the
-encoder-decoder, the frontends, ``FSDP_RULES``, the int8 cache and
-compressed gradients under "model" raise.
+``check_model_axis`` raises for what is not split yet: MoE experts, the
+encoder-decoder and the frames / patches frontends, rules other than
+``TP_RULES``, the int8 cache, and an RWKV-6 "rnn" split that would cut
+inside a head's recurrence (compressed gradients raise in
+``train.make_train_step``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import types
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-from .rules import active_rules
+from .rules import active_rules, spec
 
 AXIS = "model"
 
@@ -80,19 +96,18 @@ def model_axis() -> Optional[ModelAxis]:
 
 
 def check_model_axis(cfg, size: int, rules=None) -> None:
-    """Raise ``ValueError`` unless ``cfg`` splits over a "model" axis of
-    ``size`` ranks: a dense attention decoder over tokens with a bf16 / f32
-    cache under ``TP_RULES``, whose heads, kv heads, d_ff and padded vocab
-    the size divides.  (The reference would fall back, e.g. to splitting
-    the cache over kv_seq when the kv heads do not divide; those are later
-    slices.)"""
+    """Raise ``ValueError`` where ``cfg`` is not split over a "model"
+    axis of ``size`` ranks: MoE experts, the encoder-decoder and the
+    frames / patches frontends, the int8 KV cache, rules other than
+    ``TP_RULES``, and an RWKV-6 model whose state width the size divides
+    but whose heads it does not (the "rnn" split would cut inside a
+    head's recurrence, and the reference's state is then whole).  Every
+    other size runs: a leaf the size does not divide stays whole."""
     if size == 1:
         return
     from .rules import TP_RULES
 
     later = []
-    if cfg.mixer != "attention":
-        later.append(f"the {cfg.mixer} mixer")
     if cfg.ffn == "moe":
         later.append("MoE experts")
     if cfg.is_encdec or cfg.frontend != "token":
@@ -104,19 +119,89 @@ def check_model_axis(cfg, size: int, rules=None) -> None:
     if later:
         raise ValueError(f"{cfg.name}: the 'model' axis is not split for "
                          f"{', '.join(later)}")
-    for what, n in (("heads", cfg.num_heads), ("kv heads", cfg.num_kv_heads),
-                    ("d_ff", cfg.d_ff), ("padded vocab", cfg.padded_vocab)):
-        if n % size:
-            raise ValueError(f"{cfg.name}: a 'model' axis of {size} does not "
-                             f"divide its {n} {what}")
+    if cfg.mixer == "rwkv6":
+        heads = cfg.d_model // cfg.rwkv_head_dim
+        if cfg.d_model % size == 0 and heads % size:
+            raise ValueError(
+                f"{cfg.name}: a 'model' axis of {size} splits the "
+                f"{cfg.d_model}-wide 'rnn' axis inside its {heads} heads of "
+                f"{cfg.rwkv_head_dim}: an RWKV-6 head's recurrence is not "
+                f"split")
 
 
 # --------------------------------------------------------------------------
-# the two collectives with their gradients
+# what is split
+# --------------------------------------------------------------------------
+def _model_spec(axes, dims, rules, size: int):
+    """``axes`` of a tensor of ``dims`` resolved on a mesh of the "model"
+    axis alone (no other axis competes with it for a dim)."""
+    return spec(axes, rules, types.SimpleNamespace(shape={AXIS: size}), dims)
+
+
+def on_axis(entry) -> bool:
+    """Whether a ``PartitionSpec`` entry splits its dim over "model"."""
+    return AXIS in ((entry,) if isinstance(entry, str) else tuple(entry or ()))
+
+
+def is_split(local: int, full: Optional[int]) -> bool:
+    """Whether a dim of ``full`` entries held as ``local`` is split over
+    the active "model" axis (a leaf the size does not divide is whole).
+    Under a "model" axis the whole width must be given."""
+    if model_axis() is None:
+        return False
+    if full is None:
+        raise ValueError("under a 'model' axis a split is told from the "
+                         "whole width: give it")
+    return local != full
+
+
+def site_split(axes: Sequence[Optional[str]], dims: Sequence[int],
+               rules=None) -> bool:
+    """Whether the active rules (or ``rules``) resolve an activation of
+    whole shape ``dims`` with logical ``axes`` to a split over "model"
+    (a ``constrain`` site's layout)."""
+    pair = active_rules()
+    ax = model_axis()
+    if ax is None:
+        return False
+    return any(on_axis(a)
+               for a in _model_spec(axes, dims, rules or pair[1], ax.size))
+
+
+def local_shape(axes: Sequence[Optional[str]], dims: Sequence[int],
+                rules, size: int) -> tuple:
+    """The rank's box shape of a tensor of whole shape ``dims`` and
+    logical ``axes`` on a "model" axis of ``size`` ranks (other mesh
+    axes left out: a rank's rows of the batch are its own already)."""
+    if size == 1:
+        return tuple(dims)
+    out = list(dims)
+    for d, a in enumerate(_model_spec(axes, dims, rules, size)):
+        if on_axis(a):
+            out[d] //= size
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# the collectives with their gradients
 # --------------------------------------------------------------------------
 def _all_reduce_(x: torch.Tensor, group, op=None) -> torch.Tensor:
     dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=group)
     return x
+
+
+def _gather(x: torch.Tensor, dim: int, ax: ModelAxis) -> torch.Tensor:
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * ax.size
+    full = x.new_zeros(shape)
+    full.narrow(dim, ax.rank * n, n).copy_(x)
+    return _all_reduce_(full, ax.group)
+
+
+def _part(x: torch.Tensor, dim: int, ax: ModelAxis) -> torch.Tensor:
+    n = x.shape[dim] // ax.size
+    return x.narrow(dim, ax.rank * n, n).contiguous()
 
 
 class _Enter(torch.autograd.Function):
@@ -140,11 +225,48 @@ class _Reduce(torch.autograd.Function):
         return dy, None
 
 
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _gather(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _part(dy, ctx.dim, ctx.ax), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _part(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _gather(dy.contiguous(), ctx.dim, ctx.ax), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _part(_all_reduce_(x.contiguous().clone(), ax.group), dim, ax)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _gather(dy.contiguous(), ctx.dim, ctx.ax), None, None
+
+
+def _grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def enter(x: torch.Tensor) -> torch.Tensor:
-    """The input of a column-parallel product: x as it is, its gradient
+    """The input of a column-split product: x as it is, its gradient
     summed over the model ranks."""
     ax = model_axis()
-    if ax is None or not (torch.is_grad_enabled() and x.requires_grad):
+    if ax is None or not _grad(x):
         return x
     return _Enter.apply(x, ax.group)
 
@@ -156,9 +278,46 @@ def reduce(x: torch.Tensor) -> torch.Tensor:
     ax = model_axis()
     if ax is None:
         return x
-    if torch.is_grad_enabled() and x.requires_grad:
+    if _grad(x):
         return _Reduce.apply(x, ax.group)
     return _all_reduce_(x if x.is_contiguous() else x.contiguous(), ax.group)
+
+
+def gather(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The whole tensor from every model rank's box of it along ``dim``
+    (boxes in rank order); the gradient is sliced back to the box."""
+    ax = model_axis()
+    if ax is None:
+        return x
+    dim = dim % x.dim()
+    if _grad(x):
+        return _Gather.apply(x, dim, ax)
+    return _gather(x, dim, ax)
+
+
+def scatter(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's box along ``dim`` of a whole ``x``; the gradient is
+    gathered from every rank's, so the whole ``x`` gets its whole
+    gradient."""
+    ax = model_axis()
+    if ax is None:
+        return x
+    dim = dim % x.dim()
+    if _grad(x):
+        return _Scatter.apply(x, dim, ax)
+    return _part(x, dim, ax)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's box along ``dim`` of the sum of every model rank's
+    ``x`` (partial sums); the gradient is the box's gathered."""
+    ax = model_axis()
+    if ax is None:
+        return x
+    dim = dim % x.dim()
+    if _grad(x):
+        return _ReduceScatter.apply(x, dim, ax)
+    return _part(_all_reduce_(x.contiguous(), ax.group), dim, ax)
 
 
 def all_max(x: torch.Tensor) -> torch.Tensor:
@@ -170,18 +329,20 @@ def all_max(x: torch.Tensor) -> torch.Tensor:
     return _all_reduce_(x.contiguous().clone(), ax.group, dist.ReduceOp.MAX)
 
 
-def vocab_offset(local: int) -> int:
-    """The global index of this rank's first vocab row (``local`` rows a
-    rank, the padded vocab split in order over the model ranks)."""
+def vocab_offset(local: int, full: int) -> int:
+    """The global index of this rank's first vocab row (``local`` of the
+    padded vocab's ``full`` rows a rank, split in order over the model
+    ranks; 0 when the vocab is whole)."""
     ax = model_axis()
-    return 0 if ax is None else ax.rank * local
+    return ax.rank * local if is_split(local, full) else 0
 
 
-def argmax(logits: torch.Tensor) -> torch.Tensor:
-    """The greedy argmax over the last axis of vocab-sharded ``logits``
-    (global indices), the lowest index among equal maxima."""
+def argmax(logits: torch.Tensor, full: int) -> torch.Tensor:
+    """The greedy argmax over the last axis of ``logits``, vocab-split
+    when they hold fewer than the padded vocab's ``full`` columns (global
+    indices), the lowest index among equal maxima."""
     ax = model_axis()
-    if ax is None:
+    if not is_split(logits.shape[-1], full):
         return torch.argmax(logits, -1)
     local_max, local_idx = torch.max(logits, -1)
     top = _all_reduce_(local_max.clone(), ax.group, dist.ReduceOp.MAX)

@@ -96,9 +96,8 @@ def model_split(cfg: ModelConfig, mesh, rules=None):
     rules = rules or get_rules(cfg.rules)
     shapes, axes = abstract_params(cfg)
     specs = param_specs(axes, rules, mesh, shapes)
-    return map_axes(lambda ax, s: any(
-        tp.AXIS in ((a,) if isinstance(a, str) else tuple(a or ()))
-        for a in s), axes, specs)
+    return map_axes(lambda ax, s: any(tp.on_axis(a) for a in s), axes,
+                    specs)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,

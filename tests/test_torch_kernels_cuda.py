@@ -185,6 +185,26 @@ def test_bwd_kernel_at_model_split_training_shape(card):
         assert torch.equal(g, g2)
 
 
+# K4 at recurrentgemma-9b's attention on a rank of a two-way "model"
+# split: 8 of its 16 query heads over its one kv head, gathered whole
+# (D 256, window 2048), at its prefill and at its training shape
+TP_D256_CASES = [(4, 8, 1, 512, 512, 256, True, 2048),
+                 (1, 8, 1, 4096, 4096, 256, True, 2048)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", TP_D256_CASES)
+def test_kernel_matches_plain_at_recurrent_model_split_shapes(card, case,
+                                                              dtype):
+    test_kernel_matches_plain(card, case, dtype)
+
+
+def test_bwd_kernel_at_recurrent_model_split_training_shape(card):
+    got, run = _check_bwd(card, TP_D256_CASES[1], "bfloat16")
+    for g, g2 in zip(got, run()):
+        assert torch.equal(g, g2)
+
+
 def test_rows_without_allowed_key_are_zero(card):
     q, k, v = _mk(card, 3, 1, 2, 1, 16, 8, 64, "float32")
     out, lse = attention(q, k, v, causal=True, return_lse=True)
@@ -794,6 +814,31 @@ def test_rwkv6_kernel_rejects_what_it_does_not_take(card):
         rwkv6(r, k, v, lw, u[:1], s0)
 
 
+# rwkv6-7b's prefill and decode shapes on a rank of a two-way "model"
+# split: 32 of its 64 heads; (b, h, t, d)
+RWKV_TP_CASES = [(4, 32, 512, 64), (4, 32, 1, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RWKV_TP_CASES)
+def test_rwkv6_kernel_matches_plain_at_model_split_shapes(card, case, dtype):
+    test_rwkv6_kernel_matches_plain(card, case, dtype)
+
+
+def test_rwkv6_kernels_at_model_split_shapes_route_as_on_one_rank(card):
+    """The split prefill's bf16 call takes the chunked kernel, the decode
+    step's the sequential one."""
+    from repro_torch.kernels.rwkv6 import rwkv6
+
+    for case, sm90 in zip(RWKV_TP_CASES, (1, 0)):
+        inputs = _rwkv_inputs(card, 3, *case, "bfloat16")
+        n0 = _rwkv_counts()
+        rwkv6(*inputs)
+        torch.cuda.synchronize()
+        n1 = _rwkv_counts()
+        assert (n1[0] - n0[0], n1[1] - n0[1]) == (1 - sm90, sm90)
+
+
 @pytest.mark.parametrize("t", [1, 7, 16, 63, 64, 65, 130, 512])
 @pytest.mark.parametrize("d", [16, 32, 64])
 def test_rwkv6_sm90_matches_plain(card, d, t):
@@ -1046,6 +1091,21 @@ def test_rglru_sm90_kernel_matches_plain_and_register_kernel(
     _rglru_check(got, rglru_chunked(la, g, h0), dtype)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     assert all(torch.equal(x, y) for x, y in zip(got, rglru_cuda(la, g, h0)))
+
+
+# recurrentgemma-9b's prefill, decode and training shapes on a rank of a
+# two-way "model" split: 2048 of its 4096 channels; (b, t, d)
+RGLRU_TP_CASES = [(4, 512, 2048), (4, 1, 2048), (1, 4096, 2048)]
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_TP_CASES)
+def test_rglru_kernels_match_plain_at_model_split_shapes(card, case, dtype,
+                                                         with_h0):
+    test_rglru_kernel_matches_plain(card, case, dtype, with_h0)
+    test_rglru_sm90_kernel_matches_plain_and_register_kernel(
+        card, case, dtype, with_h0)
 
 
 @pytest.mark.parametrize("case,stages", [

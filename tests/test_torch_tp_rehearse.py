@@ -1,0 +1,67 @@
+"""``chip_smoke.py``'s phase 10 rehearsed on the CPU: gloo worlds of 2
+and 4 processes over the tiny configs computing in bf16, as the card run
+computes at full width (``rehearse=True``).  rwkv6-7b and
+recurrentgemma-9b (a 20-token prompt over its window of 16) are served
+split two ways: the state committed, restored on the mesh equal to a
+second prefill and decoding to the live tokens, restored whole on one
+rank equal to every rank's box, one committed part a distinct box, the
+all-reduces counted (``rnn_tp_all_reduces``); their f32 cuts' logits,
+greedy tokens, loss and gradient shards held to the one-process plain
+path (logits within ``TP_PLAIN_ATOL``, every leaf within ``GRAD_TOL`` of
+its largest); the split bf16 logits within ``TP_BF16_BOUND`` times
+bf16's own distance from f32.  phi3-medium-14b's f32 cut is split four
+ways the same (its 5 heads do not divide 4: q is gathered whole and
+``o`` sliced to ``wo``'s rows).  The phase raises on any failed check;
+these tests read its numbers."""
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+LINES = {"rwkv6-7b": "serve_tp_rwkv6",
+         "recurrentgemma-9b": "serve_tp_recurrentgemma"}
+
+
+@pytest.fixture(scope="module")
+def lines():
+    return chip_smoke.tp10_phase(CPU, "cpu", rehearse=True)
+
+
+@pytest.mark.parametrize("arch", chip_smoke.RNN_TP_ARCHS)
+def test_rehearsed_recurrent_split_serving(lines, arch):
+    line = lines[LINES[arch]]
+    cfg = chip_smoke.tp_config(arch, rehearse=True)
+    sizes = chip_smoke._tp10_sizes(True)
+    per_step = chip_smoke.rnn_tp_all_reduces(cfg)
+    assert (line["all_reduces_prefill"], line["all_reduces_decode_step"],
+            line["all_reduces_generate"]) == (per_step - 2, per_step,
+                                              per_step * sizes["gen"])
+    # the state's leaves split over "model" commit as two parts, the
+    # whole ones (the shift states, the ring caches, the index) as one
+    assert line["parts"]["idx"] == 1
+    assert set(line["parts"].values()) == {1, 2}
+    assert line["whole_decode_equal_tokens"] == sizes["batch"] * (
+        sizes["gen"] - 1)
+    assert line["plain_cut_max_abs_err"] <= chip_smoke.TP_PLAIN_ATOL
+    assert line["plain_cut_grads"]["worst_leaf_err_of_max"] <= \
+        chip_smoke.GRAD_TOL
+    assert line["logits_rel_err_vs_one_process_bf16"] <= line["logits_bound"]
+
+
+def test_rehearsed_phi3_split_four_ways(lines):
+    phi3 = lines["tp_phi3"]
+    assert phi3["ranks"] == 4
+    assert phi3["plain_cut_max_abs_err"] <= chip_smoke.TP_PLAIN_ATOL
+    assert phi3["plain_cut_grads"]["worst_leaf_err_of_max"] <= \
+        chip_smoke.TP_GRAD_TOL
+    assert phi3["plain_cut_grads"]["loss_rel_err"] <= chip_smoke.LOSS_RTOL

@@ -424,17 +424,23 @@ def tp_serve(rank, world, tmp, data, model, cases):
             if cluster is not None:
                 cluster.close()
         out.append(res)
-    # a "model" axis that does not divide a model's heads raises
-    from repro_torch.configs import get_config
+    # an RWKV-6 split that would cut inside a head raises: tiny rwkv6-7b
+    # with one head of 64 (its parameters on "meta": the check comes
+    # first)
+    import dataclasses
 
-    phi3 = get_config("phi3-medium-14b", tiny=True)
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    rwkv = dataclasses.replace(get_config("rwkv6-7b", tiny=True),
+                               rwkv_head_dim=64)
     try:
-        ServeEngine(phi3, params_from_numpy(cases[0]["phi3_params"], "cpu"),
-                    max_len=8, device="cpu", mesh=mesh)
+        ServeEngine(rwkv, init_params(rwkv, None, "meta"), max_len=8,
+                    device="cpu", mesh=mesh)
         raised = None
     except ValueError as e:
         raised = str(e)
-    return {"cases": _gathered(out), "phi3_raised": raised}
+    return {"cases": _gathered(out), "rwkv_raised": raised}
 
 
 def tp_train(rank, world, tmp, data, model, cases, steps):
