@@ -344,6 +344,56 @@ Phases, in order; any failure raises and the script exits non-zero:
    path (each leaf within 1e-4).  Phase 3 checks and times K6, K7 and K4
    at the ranks' shapes.  The ``serve_tp_rwkv6``,
    ``serve_tp_recurrentgemma`` and ``tp_phi3`` lines give the numbers.
+11. Mixture-of-Experts under ``FSDP_RULES``, as the MoE configurations
+   name them.  11a: two processes (a new world, as phase 9's) on a 1 x 2
+   mesh serve dbrx-132b and qwen3-moe-235b-a22b at full width cut to 4
+   layers (as phases 4g and 4h were before it came): 8 and 64 experts a rank, 24 and 32
+   query heads over 4 and 2 kv heads (K4 4 times a prefill at (4, 24, 4,
+   512, 512, 128) and (4, 32, 2, 512, 512, 64), never in decode); the
+   router, dispatch and combine whole on every rank, the dispatch buffer
+   sliced to the rank's experts and their outputs gathered (126 MB a
+   layer in dbrx's prefill, 168 MB in qwen3-moe's, the prefill's largest
+   all-reduce, checked).  The ranks draw the whole f32 model in turn
+   (dbrx's is 57 GB), the others' bf16 boxes waiting on the host.  4 x
+   512 prompt tokens, 32 new; the cache committed, restored on the mesh
+   (bit-equal to a second prefill, decoding to the live tokens) and
+   whole on rank 0 (equal to every rank's box, decoding there); the
+   collectives counted by mesh axis (2 a layer, the embedding's, the
+   argmax's two: 11 a decode step) and timed.  Rank 0 then serves the
+   batch in one process in f32 and in bf16, fed the split run's tokens
+   and routed by its expert ids (``replaying_routes``; a near tie that
+   the split's rounding tips would otherwise change a sequence's logits
+   from then on): the split bf16 logits lie within twice the one-process
+   bf16 logits' own distance from the f32 ones, the split's router
+   probabilities within twice bf16's own distance from f32, no choice
+   of the split's routers reverses two experts that one process ranks
+   further apart than twice that bound, and the tokens it routes
+   otherwise than one process number at most twice those one process's
+   bf16 routers route otherwise than its f32 ones.  11b: four processes on a ("data" 2, "model" 2)
+   mesh run qwen3-moe's f32 cut at full width, one layer (3,697,815,552
+   params, as phase 5d), drawn whole in turn: 64 experts a rank over
+   "model", every leaf's embed rows over "data", gathered a layer at a
+   time (11 gathers a forward, one broadcast a data rank each, counted)
+   with their gradients reduce-scattered; logits and 8 greedy tokens
+   over 2 x 64 prompt tokens (within 1e-3), the loss (rtol 1e-5) and
+   every gradient box over 2 x 64 tokens (within 1e-4 of each leaf's
+   largest) against the plain CPU path, which this process runs
+   meanwhile.  The
+   ``serve_tp_moe`` (one a model) and ``fsdp_qwen3_moe`` lines give the
+   numbers; phase 3 checks K4 at both local shapes and phase 7 times
+   them.
+
+Each phase's wall seconds (from the end of the one before) and the total
+are printed as the ``phase_wall_s`` line.
+
+Since phase 11 came, phases 4b, 4d, 4e, 4f and 4j and phase 10's
+served models run cut to 8 layers (``SERVE_LAYERS``; recurrentgemma-9b
+two super-layers and both tail layers), 4g and 4h to 2 layers, phase 5
+to 2 layers (``TRAIN_LAYERS``), 5b, 5f and 6 to 1 (``RWKV_TRAIN_LAYERS``,
+``PIX_TRAIN_LAYERS``, ``CUT_LAYERS``): the depths, layer counts,
+parameter counts and state bytes above are those before the cuts, the
+launch counts scale with the layers, and each line's ``reduced`` names
+its cut.
 
 The last line is ``{"ok": true, "device": {...}}``.  f32 matmuls run in full
 f32 (``allow_tf32`` is False).  A kernel's ``ms``, ``plain_ms`` and
@@ -399,14 +449,16 @@ BWD_TOL = {"float32": (1e-4, 1e-4)}
 # the second's delta frames)
 # the cut phase (6) runs qwen2.5-3b cut to CUT_LAYERS layers (8 until the
 # encoder-decoder's phases came, 4 until pixtral-12b's training phase
-# came, 2 since, to keep the run within its time)
-TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 4, 2, 2
-# the training path (phase 5) cut to 4 of qwen2.5-3b's 36 layers since
-# the recurrent models' "model" axis phase (10) came, 12 since the
-# "model" axis's phase (9) came, 18 since the report's phase (8) came, to
-# keep the run within its time: the restart's host decode of the whole
-# f32 state (136 s at 36 layers) and the two commits scale with the depth
-TRAIN_LAYERS = 4
+# came, 2 until the MoE models' FSDP phase came, 1 since, to keep the run
+# within its time)
+TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 4, 2, 1
+# the training path (phase 5) cut to 2 of qwen2.5-3b's 36 layers since
+# the MoE models' FSDP phase (11) came, 4 since the recurrent models'
+# "model" axis phase (10) came, 12 since the "model" axis's phase (9)
+# came, 18 since the report's phase (8) came, to keep the run within its
+# time: the restart's host decode of the whole f32 state (136 s at 36
+# layers) and the two commits scale with the depth
+TRAIN_LAYERS = 2
 # the cut phase's overlap resize must complete within this wall time
 RESIZE_WAIT_S = 300
 CODEC_NS = [1, 255, 256, 257, 4096, 100_000]
@@ -467,17 +519,19 @@ Q8_SCALE_SHARE = Q8_SHARE * 2 ** 11 / 127
 Q8_SCALE_STEP = 127 * 2 ** -10
 CODEC_DTYPES = ("float32", "bfloat16", "float16")
 # the recurrent training phases (5b, 5c): TRAIN_SEQ tokens a step, steps
-# and q8-delta commit interval; rwkv6-7b cut to 2 layers (8 until
+# and q8-delta commit interval; rwkv6-7b cut to 1 layer (8 until
 # pixtral-12b's training phase came, 4 until the recurrent models'
-# "model" axis phase came), recurrentgemma-9b to one
+# "model" axis phase came, 2 until the MoE models' FSDP phase came),
+# recurrentgemma-9b to one
 # super-layer (rec, rec, attn) without its two tail layers
 TRAIN_REC_STEPS, TRAIN_REC_COMMIT = 4, 2
-RWKV_TRAIN_LAYERS, HYBRID_TRAIN_LAYERS = 2, 3
-# the MoE phases: dbrx-132b and qwen3-moe-235b-a22b served cut to 4
-# layers, their f32 cuts (1 layer, a 64-token prompt, 8 decode steps)
+RWKV_TRAIN_LAYERS, HYBRID_TRAIN_LAYERS = 1, 3
+# the MoE phases: dbrx-132b and qwen3-moe-235b-a22b served cut to 2
+# layers (4 until the MoE models' FSDP phase came), their f32 cuts (1
+# layer, a 64-token prompt, 8 decode steps)
 # against the plain CPU path; qwen3-moe's training loss and gradients cut
 # to 1 layer, timed over 3 calls
-MOE_SERVE_LAYERS = 4
+MOE_SERVE_LAYERS = 2
 MOE_PLAIN = dict(layers=1, prompt=64, steps=8)
 MOE_GRAD_CALLS = 3
 # their f32 cuts against the plain CPU path: one sequence of GRAD_SEQ
@@ -510,10 +564,11 @@ D160_BWD_SWEEP = [(1, 4, 2, 100, 130, 160, True, None),
                   (1, 2, 2, 72, 200, 160, False, None),
                   (2, 4, 4, 100, 37, 160, False, None),
                   (1, 8, 2, 520, 520, 160, True, None)] + D160_SWEEP
-# pixtral-12b trained (phase 5f): cut to 2 of its 40 layers; its f32 cut
-# of 1 layer against the plain CPU path, every gradient leaf within
-# PIX_GRAD_TOL of its largest element
-PIX_TRAIN_LAYERS, PIX_PLAIN_LAYERS, PIX_GRAD_TOL = 2, 1, 1e-4
+# pixtral-12b trained (phase 5f): cut to 1 of its 40 layers (2 until the
+# MoE models' FSDP phase came); its f32 cut of 1 layer against the plain
+# CPU path, every gradient leaf within PIX_GRAD_TOL of its largest
+# element
+PIX_TRAIN_LAYERS, PIX_PLAIN_LAYERS, PIX_GRAD_TOL = 1, 1, 1e-4
 # the encoder-decoder (seamless-m4t-medium): its served and trained
 # layers (12 + 12) and one TRAIN_SEQ-token sequence with its frames a
 # training step; its f32 cuts (1 + 1 layers) against the plain CPU path
@@ -524,6 +579,11 @@ SEAMLESS_PLAIN_LAYERS = 1
 # backward 25 GB) of the card's 85.0 GB
 REPORT_CELLS = (("yi-6b", "decode_32k"), ("yi-6b", "prefill_32k"),
                 ("qwen2.5-3b", "train_4k"))
+# the serving phases 4b, 4d, 4e, 4f and 4j and phase 10's served
+# models, at full depth until the MoE models' FSDP phase (11) came, run
+# cut to SERVE_LAYERS layers (recurrentgemma-9b: two super-layers and its
+# two tail layers) to keep the whole run within its time
+SERVE_LAYERS = 8
 # phase 9: the mesh's "model" axis on the one card: TP_MODEL processes
 # over gloo; yi-6b served split at full width and depth, its f32 cut
 # (TP_PLAIN, as ``check_against_plain``'s, within TP_PLAIN_ATOL) against
@@ -578,6 +638,28 @@ TP10_SHAPES = {"rwkv6_prefill": (BATCH, 32, PROMPT, 64),
                "rglru_prefill": (BATCH, PROMPT, 2048),
                "rglru_decode": (BATCH, 1, 2048),
                "flash_d256": (BATCH, 8, 1, PROMPT, PROMPT, 256, True, 2048)}
+# phase 11: Mixture-of-Experts under FSDP_RULES.  11a: dbrx-132b and
+# qwen3-moe-235b-a22b cut to MOE_TP_LAYERS layers (as phases 4g and 4h
+# were until this phase came)
+# served split over phase 9's TP_MODEL processes (experts and heads over
+# "model"), the split bf16 logits within MOE_TP_BF16_BOUND times the
+# one-process bf16 logits' own distance from the f32 ones.  11b:
+# FSDP_ARCH's f32 cut (FSDP_CUT, one layer as phase 5d's) on a FSDP_MESH
+# ("data", "model") mesh of processes (experts over "model", every
+# leaf's embed rows over "data"): a prefill and CUT_STEPS_FSDP greedy
+# steps (8 tokens), loss and gradient boxes, against the plain CPU path
+MOE_TP_ARCHS = ("dbrx-132b", "qwen3-moe-235b-a22b")
+MOE_TP_LAYERS = 4
+MOE_TP_BF16_BOUND = TP_BF16_BOUND
+FSDP_ARCH = "qwen3-moe-235b-a22b"
+FSDP_MESH = (2, 2)
+FSDP_CUT = dict(layers=1, serve_batch=2, prompt=64, grad_batch=2,
+                grad_seq=64, grad_tol=TP_GRAD_TOL)
+CUT_STEPS_FSDP = 7
+# 11b's ranks draw the whole f32 cut (14.8 GB) this many at a time, the
+# others' boxes (7.4 GB a rank, the engine's and the training shards)
+# held meanwhile
+FSDP_DRAWS = 2
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -1290,6 +1372,31 @@ def recording_routes(out: list):
         out.append((probs.detach().float().cpu(), ids.cpu()))
         return probs, top_p, ids
     moe.route = recorded
+    try:
+        yield out
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def replaying_routes(ids: list, out: list):
+    """Within the block, the i-th ``moe.route`` call routes by the i-th of
+    ``ids`` (another run's ``recording_routes``: (probabilities, expert
+    ids)), its weights gathered from its own probabilities at them, and
+    appends its own probabilities and choice of experts to ``out``."""
+    import torch
+
+    from repro_torch.models import moe
+
+    route = moe.route
+    calls = iter(ids)
+
+    def replayed(params, x, k):
+        probs, _, own = route(params, x, k)
+        out.append((probs.detach().float().cpu(), own.cpu()))
+        forced = next(calls)[1].to(own.device)
+        return probs, torch.gather(probs, -1, forced), forced
+    moe.route = replayed
     try:
         yield out
     finally:
@@ -2265,10 +2372,11 @@ def gate_product_ms(gcfg, device, tokens) -> float:
     return device_ms(lambda: (yf @ w[0], yf @ w[1]), iters=10)
 
 
-def serve_recurrentgemma_phase(gcfg, device, card):
-    """recurrentgemma-9b through ``serve_model_phase``: K7's and K4's
-    launches asserted (26 of the TMA kernel and 12 a prefill, 26 of the
-    register kernel a decode step), the
+def serve_recurrentgemma_phase(gcfg, device, card, reduced=None):
+    """recurrentgemma-9b (cut to SERVE_LAYERS layers) through
+    ``serve_model_phase``: K7's and K4's launches asserted (the TMA
+    kernel once an RG-LRU layer and K4 once an attention layer a
+    prefill, the register kernel once an RG-LRU layer a decode step), the
     committed state's size, the ring sub-phase (one prompt longer than the
     window), the 5-layer f32 cut (one super-layer and both tail layers)
     against the plain CPU path, and again with a cut window that the
@@ -2312,13 +2420,13 @@ def serve_recurrentgemma_phase(gcfg, device, card):
 
     window, prompt, steps = RING_CUT
     runs, nums = serve_model_phase(
-        gcfg, device, card, "serve_recurrentgemma", 10_444_771_328, want,
-        state_bytes=30_998_532,
-        subruns=[("ring", 1, RING_PROMPT, RING_GEN, 26_230_788)],
+        gcfg, device, card, "serve_recurrentgemma", 3_879_948_288, want,
+        state_bytes=5_439_492,
+        subruns=[("ring", 1, RING_PROMPT, RING_GEN, 4_440_068)],
         plain={"plain_cut": dict(layers=5, atol=1e-4),
                "plain_ring_cut": dict(layers=5, atol=1e-4, window=window,
                                       prompt=prompt, steps=steps)},
-        numbers=numbers)
+        numbers=numbers, reduced=reduced)
     ring_k = runs["ring"]["state_leaves"]["stack/b2/self/k"]
     if ring_k != [plan["scan_len"], 1, gcfg.num_kv_heads, gcfg.window,
                   gcfg.resolved_head_dim]:
@@ -2855,7 +2963,7 @@ def train_pixtral_mesh_phase(xcfg, device, card, steps=TRAIN_REC_STEPS):
     dist.all_reduce = counted
     try:
         return train_recurrent_phase(
-            "train_pixtral", cut, device, card, 1_939_891_200,
+            "train_pixtral", cut, device, card, 1_654_144_000,
             # each layer's forward twice a step (remat), its backward once,
             # all on the bf16 wgmma libraries
             {"flash_fwd": 2 * n * steps, "flash_bwd_sm90": n * steps,
@@ -2863,7 +2971,9 @@ def train_pixtral_mesh_phase(xcfg, device, card, steps=TRAIN_REC_STEPS):
             {"num_layers": f"{xcfg.num_layers} -> {n}: the whole model's "
              f"f32 weights, AdamW moments, gradients and codes (about 23 B "
              f"a parameter, 294 GB for 12,798,284,800) do not fit the "
-             f"card's 80 GB", "global_batch": f"one sequence of "
+             f"card's 80 GB; 2 layers until the MoE models' FSDP phase "
+             f"came, {n} since, to keep the whole run within its time",
+             "global_batch": f"one sequence of "
              f"{TRAIN_SEQ} tokens after {xcfg.num_patches} patches a step"},
             dict(layers=PIX_PLAIN_LAYERS, tol=PIX_GRAD_TOL),
             on_trainer=on_trainer, extra=extra)
@@ -3167,33 +3277,55 @@ class CountedAllReduce:
     """Within the block, every ``torch.distributed.all_reduce`` is
     counted; with ``timed`` the card is synchronized before and after
     each, and the host wall time between is summed (``ms``): the
-    collective's own cost, with no queued work of the card in it."""
+    collective's own cost, with no queued work of the card in it.
+    ``groups`` (name -> process group): the all-reduces and broadcasts,
+    bytes, largest tensor's bytes and ms of each group apart (``by``;
+    "other" for a group not named); ``calls`` counts all-reduces only."""
 
-    def __init__(self, timed: bool = False):
+    def __init__(self, timed: bool = False, groups=None):
         self.timed, self.calls, self.ms = timed, 0, 0.0
+        self.groups, self.by = dict(groups or {}), {}
 
     def __enter__(self):
         import torch.distributed as dist
 
-        self.real = real = dist.all_reduce
+        self.real = dist.all_reduce, dist.broadcast
 
-        def counted(tensor, *a, **k):
-            if self.timed:
-                _sync(tensor.device)
-                t0 = time.perf_counter()
-            out = real(tensor, *a, **k)
-            if self.timed:
-                _sync(tensor.device)
-                self.ms += (time.perf_counter() - t0) * 1e3
-            self.calls += 1
-            return out
-        dist.all_reduce = counted
+        def counting(real, kind):
+            def counted(tensor, *a, **k):
+                if self.timed:
+                    _sync(tensor.device)
+                    t0 = time.perf_counter()
+                out = real(tensor, *a, **k)
+                ms = 0.0
+                if self.timed:
+                    _sync(tensor.device)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    self.ms += ms
+                if kind == "calls":
+                    self.calls += 1
+                if self.groups:
+                    group = k.get("group", a[1] if len(a) > 1 else None)
+                    name = next((n for n, g in self.groups.items()
+                                 if g is group), "other")
+                    rec = self.by.setdefault(name, {
+                        "calls": 0, "broadcasts": 0, "bytes": 0,
+                        "largest_bytes": 0, "ms": 0.0})
+                    nbytes = tensor.numel() * tensor.element_size()
+                    rec[kind] += 1
+                    rec["bytes"] += nbytes
+                    rec["largest_bytes"] = max(rec["largest_bytes"], nbytes)
+                    rec["ms"] += ms
+                return out
+            return counted
+        dist.all_reduce = counting(self.real[0], "calls")
+        dist.broadcast = counting(self.real[1], "broadcasts")
         return self
 
     def __exit__(self, *exc):
         import torch.distributed as dist
 
-        dist.all_reduce = self.real
+        dist.all_reduce, dist.broadcast = self.real
         return False
 
 
@@ -3456,6 +3588,22 @@ def tp_config(arch: str, rehearse: bool = False):
         return dataclasses.replace(get_config(arch, tiny=True),
                                    dtype="bfloat16")
     return get_config(arch)
+
+
+def serve_cut(cfg):
+    """``cfg`` cut to SERVE_LAYERS layers for its serving phase, and the
+    line's ``reduced`` entry."""
+    return (dataclasses.replace(cfg, num_layers=SERVE_LAYERS),
+            {"num_layers": f"{cfg.num_layers} -> {SERVE_LAYERS}: full "
+             f"depth until the MoE models' FSDP phase (11) came, cut to "
+             f"keep the whole run within its time"})
+
+
+def rnn_tp_config(arch: str, rehearse: bool = False):
+    """Phase 10's served config of ``arch``: ``tp_config``'s, cut to
+    SERVE_LAYERS layers on the card."""
+    cfg = tp_config(arch, rehearse)
+    return cfg if rehearse else serve_cut(cfg)[0]
 
 
 def tp_serve_config(rehearse: bool = False):
@@ -3742,20 +3890,22 @@ def cut_split_rank(arch, cfg, mesh, device) -> dict:
     return res
 
 
-def _plain_reference(arch, small, params) -> dict:
+def _plain_reference(arch, small, params, cut=None,
+                     steps=CUT_STEPS) -> dict:
     """The plain CPU path of an f32 cut ``small`` of ``arch`` (``params``
-    whole, on the CPU), on ``cut_split_rank``'s inputs: its logits and
+    whole, on the CPU), on ``cut_split_rank``'s inputs (``cut``, default
+    ``TP10_CUTS[arch]``, and ``steps`` greedy steps): its logits and
     greedy tokens, its loss and gradient, and each gradient leaf's
     largest magnitude."""
     from repro_torch.serve import ServeEngine, serve_max_len
     from repro_torch.train.step import compute_grads
 
-    cut = TP10_CUTS[arch]
+    cut = cut or TP10_CUTS[arch]
     requests, batch = _cut_inputs(small, cut, "cpu")
     cpu = ServeEngine(small, params,
-                      max_len=serve_max_len(small, cut["prompt"], CUT_STEPS),
+                      max_len=serve_max_len(small, cut["prompt"], steps),
                       device="cpu")
-    logits, toks = _greedy_run(cpu, requests, CUT_STEPS)
+    logits, toks = _greedy_run(cpu, requests, steps)
     loss, _, grads = compute_grads(small, params, batch)
     grads = dict(_named(grads))
     return {"logits": logits, "tokens": toks, "loss": float(loss),
@@ -3973,7 +4123,9 @@ def tp_world_main(rank, world, store, out_dir, parts, rehearse=False) -> None:
     order: "tp9" serves yi-6b and trains qwen2.5-3b split (phase 9),
     "rnn" serves rwkv6-7b then recurrentgemma-9b split two ways with
     their f32 cuts (10a-10c), "phi3" runs phi3-medium-14b's cut split
-    (10d).  Its results go to ``out_dir``."""
+    (10d), "moe" serves dbrx-132b and qwen3-moe-235b-a22b split over
+    "model" (11a), "fsdp" runs qwen3-moe's f32 cut on a FSDP_MESH
+    ("data", "model") mesh (11b).  Its results go to ``out_dir``."""
     sys.path[:0] = [str(SRC), str(ROOT / "tests")]
     import torch
     import torch.distributed as dist
@@ -4010,7 +4162,7 @@ def tp_world_main(rank, world, store, out_dir, parts, rehearse=False) -> None:
             for arch in RNN_TP_ARCHS:
                 t0 = time.monotonic()
                 res[arch] = rnn_tp_serve_rank(
-                    arch, tp_config(arch, rehearse), mesh, device,
+                    arch, rnn_tp_config(arch, rehearse), mesh, device,
                     sz["batch"], sz["prompt"][arch], sz["gen"])
                 res[arch]["phase_s"] = time.monotonic() - t0
                 gc.collect()
@@ -4021,6 +4173,21 @@ def tp_world_main(rank, world, store, out_dir, parts, rehearse=False) -> None:
                 "phi3-medium-14b", tp_config("phi3-medium-14b", rehearse),
                 mesh, device)
             res["phi3"]["phase_s"] = time.monotonic() - t0
+        if "moe" in parts:
+            sz = _moe_sizes(rehearse)
+            for arch in MOE_TP_ARCHS:
+                t0 = time.monotonic()
+                res[arch] = moe_tp_serve_rank(
+                    moe_tp_config(arch, rehearse), mesh, device, sz["batch"],
+                    sz["prompt"], sz["gen"])
+                res[arch]["phase_s"] = time.monotonic() - t0
+                gc.collect()
+                _card_reset_peak(device)
+        if "fsdp" in parts:
+            t0 = time.monotonic()
+            res["fsdp"] = fsdp_cut_rank(moe_tp_config(FSDP_ARCH, rehearse),
+                                        make_tp_mesh(*FSDP_MESH), device)
+            res["fsdp"]["phase_s"] = time.monotonic() - t0
         res["backend"] = dist.get_backend()
         res["mesh"] = repr(mesh)
         torch.save(res, Path(out_dir) / f"rank{rank}.pt")
@@ -4039,21 +4206,37 @@ def _tp10_sizes(rehearse: bool) -> dict:
                 prompt={arch: PROMPT for arch in RNN_TP_ARCHS})
 
 
-def spawn_tp_world(parts, world, rehearse) -> list:
-    """``tp_world_main`` on ``world`` processes; their results."""
+def spawn_tp_world(parts, world, rehearse, each=None) -> list:
+    """``tp_world_main`` on ``world`` processes; their results, or with
+    ``each`` what ``each(rank, result)`` returns of each, the results
+    loaded one at a time."""
     import torch
     import torch.multiprocessing as mp
 
+    _trim_host()
     store = Path(tempfile.mkdtemp(prefix="chip-smoke-tp-"))
     try:
         mp.start_processes(tp_world_main, args=(world, str(store / "w"),
                                                 str(store), tuple(parts),
                                                 rehearse),
                            nprocs=world, join=True, start_method="spawn")
-        return [torch.load(store / f"rank{r}.pt", weights_only=False)
-                for r in range(world)]
+        return [(each or (lambda r, res: res))(
+            r, torch.load(store / f"rank{r}.pt", weights_only=False))
+            for r in range(world)]
     finally:
         shutil.rmtree(store, ignore_errors=True)
+
+
+def _trim_host() -> None:
+    """Hand this process's freed heap back to the system (glibc keeps it
+    otherwise) before a world of processes starts beside it."""
+    import ctypes
+
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
 
 
 def rnn_tp_all_reduces(cfg) -> int:
@@ -4072,7 +4255,7 @@ def rnn_tp_all_reduces(cfg) -> int:
     return sum(per[k] for k in kinds) + 3
 
 
-def _check_rnn_tp(cfg, sv, gen) -> dict:
+def _check_rnn_tp(cfg, sv, gen, per_step=None) -> dict:
     """The split serving run's checks that need no model: every rank's
     tokens equal, the restored state equal to a second prefill and
     decoding to the live tokens, the whole state restored on rank 0 equal
@@ -4102,7 +4285,7 @@ def _check_rnn_tp(cfg, sv, gen) -> dict:
     if sv[0]["parts"] != parts:
         raise AssertionError(f"{cfg.name}: committed parts {sv[0]['parts']}"
                              f", want one a distinct box {parts}")
-    per_step = rnn_tp_all_reduces(cfg)
+    per_step = per_step or rnn_tp_all_reduces(cfg)
     counts = (sv[0]["all_reduces_prefill"], sv[0]["all_reduces_decode_step"],
               sv[0]["all_reduces_generate"])
     if counts != (per_step - 2, per_step, per_step * gen):
@@ -4239,7 +4422,7 @@ def tp10_phase(device, card, rehearse=False, ranks=None, cuts=None,
         rnn_children_s = time.monotonic() - t0
     lines = {}
     for arch in RNN_TP_ARCHS:
-        cfg = tp_config(arch, rehearse)
+        cfg = rnn_tp_config(arch, rehearse)
         sv = [r[arch] for r in ranks]
         counts = _check_rnn_tp(cfg, sv, gen)
         if device.type == "cuda":
@@ -4248,6 +4431,8 @@ def tp10_phase(device, card, rehearse=False, ranks=None, cuts=None,
         hold = _bf16_hold(arch, cfg, sv, batch_size, gen)
         lines[arch] = {**_rnn_tp_line(arch, sv, card, ranks, sz, hold),
                        **counts}
+        if not rehearse:
+            lines[arch]["reduced"].update(serve_cut(tp_config(arch))[1])
 
     # the plain CPU path of every cut, beside 10d's processes on the card
     refs, failed = {}, []
@@ -4309,6 +4494,620 @@ def tp10_phase(device, card, rehearse=False, ranks=None, cuts=None,
     return {"serve_tp_rwkv6": lines["rwkv6-7b"],
             "serve_tp_recurrentgemma": lines["recurrentgemma-9b"],
             "tp_phi3": phi3}
+
+
+# --------------------------------------------------------------------------
+# phase 11: Mixture-of-Experts under FSDP_RULES
+# --------------------------------------------------------------------------
+def moe_tp_config(arch: str, rehearse: bool = False):
+    """Phase 11a's config of ``arch``: the published one cut to
+    MOE_TP_LAYERS layers, or for a CPU rehearsal its tiny one computing
+    in bf16, under ``FSDP_RULES`` as the published one names them."""
+    if rehearse:
+        return dataclasses.replace(tp_config(arch, True), rules="fsdp")
+    return dataclasses.replace(tp_config(arch), num_layers=MOE_TP_LAYERS)
+
+
+def _moe_sizes(rehearse: bool) -> dict:
+    """Phase 11a's serving sizes: the card's, or a CPU rehearsal's."""
+    if rehearse:
+        return dict(batch=2, prompt=16, gen=4)
+    return dict(batch=BATCH, prompt=PROMPT, gen=GEN)
+
+
+def _mesh_groups(mesh) -> dict:
+    return {name: mesh.get_group(name) for name in mesh.mesh_dim_names}
+
+
+def _engine_in_turn(cfg, mesh, device, max_len):
+    """``ServeEngine(mesh=)`` of ``cfg`` on every rank, the ranks drawing
+    the whole f32 model (phase 4's seed) in turn: the others' boxes wait
+    on the host meanwhile, so the card holds one f32 draw and one rank's
+    bf16 boxes at a time where the draw and every rank's boxes would not
+    fit (dbrx-132b x 4's draw is 57 GB, its boxes 14.3 GB a rank); the
+    last rank to draw keeps its boxes on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    from repro_torch.models import count_params
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    # the f32 draw and every rank's bf16 boxes, against the card
+    n = count_params(cfg)
+    offload = device.type == "cuda" and rank < world - 1 and 6 * n > 0.85 \
+        * torch.cuda.get_device_properties(device).total_memory
+    engine = None
+    for r in range(world):
+        if r == rank:
+            full = init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(0), device=device)
+            engine = ServeEngine(cfg, full, max_len=max_len, device=device,
+                                 mesh=mesh)
+            del full
+            gc.collect()
+            if offload:
+                engine.params = _map(lambda t: t.cpu(), engine.params)
+            _card_reset_peak(device)
+        dist.barrier()
+    if offload:
+        engine.params = _map(lambda t: t.to(device), engine.params)
+    _sync(device)
+    return engine
+
+
+def moe_tp_serve_rank(cfg, mesh, device, batch_size, prompt, gen) -> dict:
+    """Phase 11a on one rank: ``cfg`` (a MoE model) served split over the
+    "model" axis through ``ServeEngine(mesh=)`` (``_engine_in_turn``):
+    the rank's experts and heads, the router, dispatch and combine whole.
+    The cache is committed after prefill on rank 0, restored on the mesh
+    (bit-equal to a second prefill, decoding to the live tokens); the
+    collectives are counted by group, and timed alone in the second
+    prefill and the restored decode.  Then rank 0 alone serves the batch
+    in one process in f32 and in bf16, fed the split run's tokens and
+    routed by its expert ids (``replaying_routes``: the logits the split
+    ones are held to, and each router's own choice beside the split
+    run's), and restores the committed cache whole and decodes from
+    it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import ICheckClient, ICheckCluster
+    from repro_torch.core.snapshot import _flatten, dtensor_sharding
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine, serve_max_len
+
+    rank = dist.get_rank()
+    max_len = serve_max_len(cfg, prompt, gen)
+    res = {}
+    t0 = time.monotonic()
+    engine = _engine_in_turn(cfg, mesh, device, max_len)
+    res["draw_s"] = time.monotonic() - t0
+    res["weights_bytes"] = _card_mem(device, "memory_allocated")
+    groups = _mesh_groups(mesh)
+    batch = request_batch(cfg, np.random.default_rng(0), batch_size, prompt)
+    cluster = ICheckCluster(n_icheck_nodes=1) if rank == 0 else None
+    try:
+        client = ICheckClient(f"serve_tp_{cfg.name}",
+                              cluster.controller).init() \
+            if rank == 0 else None
+        reset_counts()
+        _sync(device)
+        with CountedAllReduce() as ar:
+            t0 = time.monotonic()
+            out = engine.generate(batch, gen_len=gen,
+                                  checkpoint_client=client)
+            _sync(device)
+            res["generate_s"] = time.monotonic() - t0
+        res["launches"] = read_counts()
+        res["all_reduces_generate"] = ar.calls
+        res["tokens"] = out
+        if rank == 0:
+            t0 = time.monotonic()
+            engine.last_commit.wait(timeout=600)
+            res["commit_wait_s"] = time.monotonic() - t0
+            res["drain_wait_s"] = settle(cluster)
+            res["parts"] = {n: r.partition.num_parts
+                            for n, r in client.regions.items()}
+            res["committed_bytes"] = sum(r.nbytes
+                                         for r in client.regions.values())
+        dist.barrier()
+        t0 = time.monotonic()
+        restored = engine.restore_serving_state(client, batch_size)
+        _sync(device)
+        res["restore_s"] = time.monotonic() - t0
+        reset_counts()
+        # the expert ids of the second prefill and the restored decode,
+        # for the parent's comparison with one process's
+        res["routes"] = routes = []
+        with CountedAllReduce(timed=True, groups=groups) as ar, \
+                recording_routes(routes):
+            _sync(device)
+            t0 = time.monotonic()
+            logits, fresh = engine.prefill(batch)
+            _sync(device)
+            res["prefill_ms"] = (time.monotonic() - t0) * 1e3
+        res["prefill_launches"] = read_counts()
+        res["all_reduces_prefill"] = ar.calls
+        res["all_reduce_host_ms_prefill"] = ar.ms
+        res["prefill_collectives"] = ar.by
+        steps = [logits]
+        res["restored_equal"] = all(
+            torch.equal(a, b) for (_, a), (_, b) in
+            zip(_flatten(restored), _flatten(fresh)))
+        res["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for _, t in _flatten(fresh))
+        res["restored_boxes"] = {
+            n: [(s.start, s.stop) for s in dtensor_sharding(t)
+                .devices_indices_map(tuple(t.shape))[rank]]
+            for n, t in _named(engine._on_mesh(restored, batch_size))}
+        res["restored"] = {n: t.to("cpu", copy=True)
+                           for n, t in _named(restored)}
+        del fresh
+        reset_counts()
+        tok = torch.as_tensor(out[:, :1], device=device)
+        toks = []
+        with CountedAllReduce(timed=True, groups=groups) as ar, \
+                recording_routes(routes):
+            _sync(device)
+            t0 = time.monotonic()
+            for _ in range(gen - 1):
+                logits, restored = engine.step(restored, tok)
+                tok = engine.greedy(logits)
+                steps.append(logits)
+                toks.append(tok)
+            _sync(device)
+            res["decode_ms_per_token"] = \
+                (time.monotonic() - t0) * 1e3 / (gen - 1)
+        res["decode_launches"] = read_counts()
+        res["all_reduces_decode_step"] = ar.calls / (gen - 1)
+        res["all_reduce_host_ms_per_step"] = ar.ms / (gen - 1)
+        res["decode_collectives"] = ar.by
+        cont = torch.cat(toks, dim=1).cpu().numpy()
+        res["restored_decode_equal"] = bool(np.array_equal(cont, out[:, 1:]))
+        res["logits"] = [x.float().cpu() for x in steps]
+        del steps, logits, restored
+        res["max_memory_allocated"] = _card_mem(device)
+        del engine
+        gc.collect()
+        _card_reset_peak(device)
+        dist.barrier()
+        if rank == 0:
+            # one process on the card: f32, then bf16 (the draw cast leaf
+            # by leaf), both fed the split run's tokens; the bf16 engine
+            # restores the committed cache whole and decodes from it
+            full = init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(0), device=device)
+            f32 = ServeEngine(dataclasses.replace(cfg, dtype="float32"),
+                              full, max_len=max_len, device=device)
+            res["one_f32_routes"] = []
+            with replaying_routes(routes, res["one_f32_routes"]):
+                res["one_f32_logits"], _ = _greedy_run(f32, batch, gen - 1,
+                                                       feed=out)
+            del f32
+            cast_leaves_(full, torch.bfloat16)
+            one = ServeEngine(cfg, full, max_len=max_len, device=device)
+            del full
+            t0 = time.monotonic()
+            whole = one.restore_serving_state(client, batch_size)
+            _sync(device)
+            res["whole_restore_s"] = time.monotonic() - t0
+            res["whole"] = {n: t.to("cpu", copy=True)
+                            for n, t in _named(whole)}
+            res["whole_decode"] = one.decode_greedy(whole, out[:, :1],
+                                                    gen - 1)
+            del whole
+            res["one_routes"] = []
+            with replaying_routes(routes, res["one_routes"]):
+                res["one_logits"], _ = _greedy_run(one, batch, gen - 1,
+                                                   feed=out)
+            del one
+            client.finalize()
+        gc.collect()
+        _card_reset_peak(device)
+        dist.barrier()
+    finally:
+        if cluster is not None:
+            cluster.close()
+    return res
+
+
+def fsdp_cut_rank(cfg, mesh, device) -> dict:
+    """Phase 11b on one rank of a ("data", "model") mesh: ``cfg``'s f32
+    cut (FSDP_CUT) at full width, drawn whole from the seed FSDP_DRAWS
+    ranks at a time (each keeping its boxes), served split (``CUT_STEPS_FSDP`` greedy
+    steps after a prefill of the rank's rows), then its loss and gradient
+    boxes over the rank's rows of FSDP_CUT's batch (``_dp_grads``: the
+    "data"-split leaves' gradients reduce-scattered by their gathers, the
+    rest all-reduced), the collectives counted by group."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import (init_params, map_axes, param_axes,
+                                    param_specs, param_split)
+    from repro_torch.models.params import local_box, shard_params
+    from repro_torch.serve import ServeEngine, serve_max_len
+    from repro_torch.sharding import NamedSharding, get_rules, tp, use_rules
+    from repro_torch.train.step import _dp_grads
+
+    cut = FSDP_CUT
+    small = cut_config(cfg, cut["layers"])
+    rules = get_rules(small.rules)
+    requests, batch = _cut_inputs(small, cut, device)
+    rank = dist.get_rank()
+    res = {"coord": (mesh.get_local_rank("data"),
+                     mesh.get_local_rank("model"))}
+    for first in range(0, dist.get_world_size(), FSDP_DRAWS):
+        if first <= rank < first + FSDP_DRAWS:
+            params = init_params(small, torch.Generator(device=device)
+                                 .manual_seed(0), device=device)
+            axes = param_axes(small)
+            res["boxes"] = dict(_named(map_axes(
+                lambda ax, s, t: torch.tensor(
+                    [(sl.start, sl.stop) for sl in local_box(
+                        NamedSharding(mesh, s), t.shape)]).reshape(-1, 2),
+                axes, param_specs(axes, rules, mesh, params), params)))
+            eng = ServeEngine(small, params, max_len=serve_max_len(
+                small, cut["prompt"], CUT_STEPS_FSDP), device=device,
+                mesh=mesh)
+            shards = shard_params(params, small, mesh)
+            del params
+            gc.collect()
+            _card_reset_peak(device)
+        dist.barrier()
+    groups = _mesh_groups(mesh)
+    reset_counts()
+    with CountedAllReduce(groups=groups) as ar:
+        t0 = time.monotonic()
+        res["plain_cut_logits"], res["plain_cut_tokens"] = _greedy_run(
+            eng, requests, CUT_STEPS_FSDP)
+        _sync(device)
+        res["serve_s"] = time.monotonic() - t0
+    res["plain_cut_serve_launches"] = read_counts()
+    res["serve_collectives"] = ar.by
+    del eng
+    gc.collect()
+    rows = tp.data_rows(batch["tokens"].shape[0], mesh)
+    mine = {k: v[rows] for k, v in batch.items()}
+    reset_counts()
+    with use_rules(mesh, rules), CountedAllReduce(groups=groups) as ar:
+        t0 = time.monotonic()
+        loss, _, grads = _dp_grads(small, shards, mine,
+                                   mesh.get_group("data"),
+                                   param_split(small, mesh, rules))
+        _sync(device)
+        res["grad_s"] = time.monotonic() - t0
+    res["grad_collectives"] = ar.by
+    res["plain_cut_launches"] = read_counts()
+    res["plain_cut_loss"] = float(loss)
+    res["plain_cut_grads"] = {n: g.cpu() for n, g in _named(grads)}
+    res["max_memory_allocated"] = _card_mem(device)
+    return res
+
+
+def _fsdp_gathers(cfg, mesh_shape) -> int:
+    """The leaves one forward of ``cfg`` gathers over "data" on a
+    ("data", "model") mesh of ``mesh_shape``: each layer's split leaves
+    and the embedding's, the final norm's and the LM head's."""
+    import types
+
+    from repro_torch.models import param_split
+    from repro_torch.models.params import tree_paths
+
+    split = param_split(cfg, types.SimpleNamespace(
+        shape=dict(zip(("data", "model"), mesh_shape))))
+    return sum((cfg.num_layers if path[0] == "stack" else 1)
+               for path, axes in tree_paths(split) if "data" in axes)
+
+
+def _route_flips(split, one, one_f32) -> dict:
+    """The split run's routers (``recording_routes``: probabilities and
+    expert ids a call) against one process's on the same inputs and
+    routes in bf16 (``one``) and f32 (``one_f32``; ``replaying_routes``'
+    own), and the checks on them.  A token's margin is the largest
+    probability by which one process ranks an expert above another that
+    the split ranked first (among its k, or into its k over an expert
+    left out); the split can reverse such a pair only where its
+    probabilities moved by at least half the margin.  So the split's
+    probabilities must lie within MOE_TP_BF16_BOUND times bf16's own
+    distance from f32 (max abs, as the logits' bound), every margin
+    within twice that, and the tokens it routes otherwise than one
+    process within MOE_TP_BF16_BOUND times those bf16 routes otherwise
+    than f32: a split that routes to other experts than its own
+    probabilities choose, or whose router reads another input, fails."""
+    import torch
+
+    if not len(split) == len(one) == len(one_f32):
+        raise AssertionError(f"{len(split)} router calls split, {len(one)} "
+                             f"and {len(one_f32)} in one process")
+    n = flipped = bf16_flipped = 0
+    split_err = bf16_err = margin = 0.0
+    for (ps, g), (p, w), (pf, wf) in zip(split, one, one_f32):
+        n += int(w[..., 0].numel())
+        flipped += int((g != w).any(-1).sum())
+        bf16_flipped += int((wf != w).any(-1).sum())
+        split_err = max(split_err, float((ps - p).abs().max()))
+        bf16_err = max(bf16_err, float((p - pf).abs().max()))
+        pg = p.gather(-1, g)                              # (B, T, k)
+        inside = (pg.unsqueeze(-2) - pg.unsqueeze(-1)).triu(1)
+        left = p.scatter(-1, g, float("-inf")).max(-1).values
+        margin = max(margin, float(inside.amax((-2, -1)).max()),
+                     float((left - pg.min(-1).values).max()))
+    out = {"tokens_routed": n, "flipped_tokens": flipped,
+           "flipped_tokens_bf16_vs_f32": bf16_flipped,
+           "router_err_split_vs_one": split_err,
+           "router_err_bf16_vs_f32": bf16_err,
+           "router_err_bound": MOE_TP_BF16_BOUND * bf16_err,
+           "largest_margin_reversed": margin,
+           "margin_bound": 2 * MOE_TP_BF16_BOUND * bf16_err}
+    if not split_err <= out["router_err_bound"]:
+        raise AssertionError(f"split router probabilities {split_err} from "
+                             f"one process's, beyond {MOE_TP_BF16_BOUND} x "
+                             f"bf16's own {bf16_err}: {out}")
+    if not flipped <= MOE_TP_BF16_BOUND * bf16_flipped:
+        raise AssertionError(f"{flipped} tokens routed otherwise split than "
+                             f"in one process, beyond {MOE_TP_BF16_BOUND} x "
+                             f"bf16's own {bf16_flipped}: {out}")
+    if not margin <= out["margin_bound"]:
+        raise AssertionError(f"the split reversed one process's ranking of "
+                             f"two experts {margin} apart, beyond "
+                             f"{out['margin_bound']}: {out}")
+    return out
+
+
+def _mesh_whole(parts, data):
+    """Each step's logits of every rank (rank order on a (``data``,
+    model) mesh) joined whole: the model ranks' vocab columns, then the
+    data ranks' rows."""
+    import torch
+
+    model = len(parts) // data
+    return [torch.cat([torch.cat(step[d * model:(d + 1) * model], dim=-1)
+                       for d in range(data)], dim=0)
+            for step in zip(*parts)]
+
+
+def _check_moe_tp(arch, cfg, sv, sz, card, world_s, on_card) -> dict:
+    """Phase 11a's checks of one model from its ranks' results, and its
+    line: the ranks' tokens equal, the restored cache equal to a second
+    prefill and decoding to the live tokens, the whole cache restored on
+    rank 0 equal to every rank's box, one committed part a distinct box,
+    the all-reduces counted (two a layer: the attention's output and the
+    experts' gather; the embedding's; the argmax's two), K4 once a layer
+    in prefill and never in decode on the card, the split bf16 logits
+    within MOE_TP_BF16_BOUND times the one-process bf16 logits' own
+    distance from the f32 ones."""
+    gen, batch_size = sz["gen"], sz["batch"]
+    per_step = 2 * cfg.num_layers + 3
+    counts = _check_rnn_tp(cfg, sv, gen, per_step=per_step)
+    if on_card:
+        n = cfg.num_layers
+        for key, want in (("launches", {"flash_fwd": n}),
+                          ("prefill_launches", {"flash_fwd": n}),
+                          ("decode_launches", {"flash_fwd": 0})):
+            _check_launches(sv[0][key], want, f"{arch} split {key}")
+    split = _vocab_whole([s["logits"] for s in sv])
+    vocab = cfg.vocab_size
+    one, one_f32 = sv[0]["one_logits"], sv[0]["one_f32_logits"]
+    # a token routed to other experts (a near tie that the rounding of
+    # the split products tips) changes its sequence's logits from then on
+    # by more than rounding: the one-process runs take the split run's
+    # routes, and the routers are held to theirs (``_route_flips``)
+    flips = _route_flips(sv[0]["routes"], sv[0]["one_routes"],
+                         sv[0]["one_f32_routes"])
+
+    def rel(xs, ys):
+        return max(_rel(a[:, :vocab], b[:, :vocab]) for a, b in zip(xs, ys))
+    tp_rel, bf16_rel = rel(split, one), rel(one, one_f32)
+    if not tp_rel <= MOE_TP_BF16_BOUND * bf16_rel:
+        raise AssertionError(f"{arch} split bf16 logits {tp_rel} of their "
+                             f"max from one process's, beyond "
+                             f"{MOE_TP_BF16_BOUND} x bf16's own {bf16_rel}"
+                             f" (route flips {flips})")
+    s0 = sv[0]
+    e, k = cfg.num_experts, cfg.experts_per_token
+    from repro_torch.models.moe import capacity
+
+    cap = capacity(sz["prompt"], e, k, cfg.capacity_factor)
+    ye_bytes = batch_size * e * cap * cfg.d_model * 2
+    gathered = s0["prefill_collectives"]["model"]["largest_bytes"]
+    if gathered != ye_bytes:
+        raise AssertionError(f"{arch}: the largest all-reduce of a split "
+                             f"prefill moved {gathered} bytes, the experts' "
+                             f"gather {ye_bytes}")
+    return {
+        "card": card, "arch": cfg.name, "layers": cfg.num_layers,
+        "rules": cfg.rules, "ranks": len(sv), "mesh": [1, len(sv)],
+        "local_experts": e // len(sv),
+        "local_heads": [cfg.num_heads // len(sv),
+                        cfg.num_kv_heads // len(sv)],
+        "batch": batch_size, "prompt": sz["prompt"], "gen": gen,
+        "prefill_ms": s0["prefill_ms"],
+        "decode_ms_per_token": s0["decode_ms_per_token"],
+        "output_tokens_per_s": batch_size * gen / s0["generate_s"],
+        "generate_wall_s": s0["generate_s"],
+        "all_reduces_generate": s0["all_reduces_generate"],
+        "all_reduces_prefill": s0["all_reduces_prefill"],
+        "all_reduces_decode_step": s0["all_reduces_decode_step"],
+        "all_reduce_host_ms_prefill": s0["all_reduce_host_ms_prefill"],
+        "all_reduce_share_prefill": s0["all_reduce_host_ms_prefill"]
+        / s0["prefill_ms"],
+        "all_reduce_host_ms_per_step": s0["all_reduce_host_ms_per_step"],
+        "all_reduce_share": s0["all_reduce_host_ms_per_step"]
+        / s0["decode_ms_per_token"],
+        "prefill_collectives": s0["prefill_collectives"],
+        "decode_collectives": s0["decode_collectives"],
+        "ye_gather_bytes_per_layer_prefill": ye_bytes,
+        "ye_slots": [batch_size, e, cap],
+        "commit_wait_s": s0["commit_wait_s"],
+        "restore_wall_s": s0["restore_s"],
+        "whole_restore_wall_s": s0["whole_restore_s"],
+        "parts": s0["parts"], "committed_bytes": s0["committed_bytes"],
+        "cache_bytes_per_rank": [s["cache_bytes"] for s in sv],
+        "weights_bytes_per_rank": [s["weights_bytes"] for s in sv],
+        "max_memory_allocated_per_rank": [s["max_memory_allocated"]
+                                          for s in sv],
+        "launches": s0["launches"], "prefill_launches": s0["prefill_launches"],
+        "decode_launches": s0["decode_launches"],
+        "logits_rel_err_vs_one_process_bf16": tp_rel,
+        "bf16_rel_err_vs_f32": bf16_rel,
+        "logits_rel_err_vs_one_process_f32": rel(split, one_f32),
+        "logits_bound": MOE_TP_BF16_BOUND * bf16_rel,
+        "route_flips_vs_one_process": flips,
+        "greedy_equal_to_one_process": sum(
+            int((a.argmax(-1) == b.argmax(-1)).sum())
+            for a, b in zip(split, one)),
+        "greedy_tokens": batch_size * gen,
+        "whole_decode_equal_tokens": int(
+            (s0["whole_decode"] == s0["tokens"][:, 1:]).sum()),
+        "draw_s": s0["draw_s"], "rank_phase_s": s0["phase_s"],
+        "world_wall_s": world_s, **counts,
+        "reduced": {"num_layers": f"{tp_config(arch).num_layers} -> "
+                    f"{cfg.num_layers}, as phases 4g and 4h were until "
+                    f"phase 11 came ({MOE_SERVE_LAYERS} since)",
+                    "ranks": f"{len(sv)} processes on one card over gloo "
+                    f"(NCCL takes one card a rank): every all-reduce is "
+                    f"staged through the host"}}
+
+
+def moe_phase(device, card, rehearse=False) -> dict:
+    """Phase 11.  11a: ``tp_world_main``'s "moe" part on TP_MODEL
+    processes (a 1 x TP_MODEL mesh) and its checks (``_check_moe_tp``).
+    11b: its "fsdp" part on FSDP_MESH's processes, while a thread of this
+    process runs the plain CPU path of the f32 cut (drawn on ``device``
+    first, as the ranks draw it); every rank's tokens, logits, loss and
+    gradient boxes against it, and the "data" axis's gathers counted.
+    ``rehearse``: all of it on the CPU with the tiny configs.  Returns
+    the ``serve_tp_moe`` and ``fsdp_qwen3_moe`` lines."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import init_params
+
+    sz = _moe_sizes(rehearse)
+    gc.collect()
+    _card_reset_peak(device)
+    t0 = time.monotonic()
+    ranks = spawn_tp_world(("moe",), TP_MODEL, rehearse)
+    world_s = time.monotonic() - t0
+    log(f"  11a: the ranks done in {world_s:.1f} s; host "
+        f"{json.dumps(host_rss())}")
+    serve = {arch: _check_moe_tp(arch, moe_tp_config(arch, rehearse),
+                                 [r[arch] for r in ranks], sz, card,
+                                 world_s, device.type == "cuda")
+             for arch in MOE_TP_ARCHS}
+    del ranks
+
+    # 11b: the f32 cut on FSDP_MESH against the plain CPU path
+    arch = FSDP_ARCH
+    cfg = moe_tp_config(arch, rehearse)
+    small = cut_config(cfg, FSDP_CUT["layers"])
+    # the thread takes the parameters, so they go once it has run
+    refs, failed = {"params": _map(lambda t: t.cpu(), init_params(
+        small, torch.Generator(device=device).manual_seed(0),
+        device=device))}, []
+    gc.collect()
+    _card_reset_peak(device)
+    host_start = host_rss()
+
+    def plain_ref():
+        try:
+            refs[arch] = _plain_reference(arch, small, refs.pop("params"),
+                                          FSDP_CUT, CUT_STEPS_FSDP)
+        except BaseException as e:          # re-raised below
+            failed.append(e)
+
+    def grad_err(r, res):
+        """Rank ``r``'s result with its gradient boxes held to the plain
+        path's (its worst leaf) in place of the boxes, so the ranks'
+        results are not all held at once."""
+        thread.join()
+        cpu_s.append(time.monotonic() - t0)
+        if failed:
+            raise failed[0]
+        s = res["fsdp"]
+        worst, leaf = 0.0, None
+        for name, g in s.pop("plain_cut_grads").items():
+            w = refs[arch]["grads"][name][tuple(
+                slice(a, b) for a, b in s["boxes"][name].tolist())]
+            e = (g - w).abs().max().item() / max(
+                refs[arch]["grad_max"][name], 1e-30)
+            if e > worst:
+                worst, leaf = e, name
+        s["grad_worst"] = (worst, leaf)
+        return s
+    t0, cpu_s = time.monotonic(), []
+    thread = threading.Thread(target=plain_ref)
+    thread.start()
+    try:
+        world = FSDP_MESH[0] * FSDP_MESH[1]
+        fr = spawn_tp_world(("fsdp",), world, rehearse, each=grad_err)
+        children_s = time.monotonic() - t0
+    finally:
+        thread.join()
+    ref = refs[arch]
+    toks = np.concatenate([fr[d * FSDP_MESH[1]]["plain_cut_tokens"]
+                           for d in range(FSDP_MESH[0])])
+    for r, s in enumerate(fr):
+        d = s["coord"][0]
+        if not np.array_equal(s["plain_cut_tokens"],
+                              fr[d * FSDP_MESH[1]]["plain_cut_tokens"]):
+            raise AssertionError(f"fsdp rank {r}'s tokens differ from its "
+                                 f"data row's")
+    got = _mesh_whole([s["plain_cut_logits"] for s in fr], FSDP_MESH[0])
+    err = max((g - w).abs().max().item() for g, w in zip(got, ref["logits"]))
+    if not (np.array_equal(toks, ref["tokens"]) and err <= TP_PLAIN_ATOL):
+        raise AssertionError(f"{arch} f32 cut on {FSDP_MESH}: tokens {toks} "
+                             f"against the CPU's {ref['tokens']}, logits max "
+                             f"abs err {err} (atol {TP_PLAIN_ATOL})")
+    worst, worst_leaf = max((s["grad_worst"] for s in fr), key=lambda w: w[0])
+    loss_err = max(abs(s["plain_cut_loss"] - ref["loss"]) / abs(ref["loss"])
+                   for s in fr)
+    if not (loss_err <= LOSS_RTOL and worst <= FSDP_CUT["grad_tol"]):
+        raise AssertionError(f"{arch} f32 cut on {FSDP_MESH}: worst leaf "
+                             f"{worst_leaf} {worst} of its largest (at most "
+                             f"{FSDP_CUT['grad_tol']}), loss rel err "
+                             f"{loss_err} (rtol {LOSS_RTOL})")
+    # one forward gathers every "data"-split leaf once, one broadcast a
+    # data rank: the serving run is a prefill and CUT_STEPS_FSDP steps
+    per_fwd = _fsdp_gathers(small, FSDP_MESH)
+    data = fr[0]["serve_collectives"]["data"]
+    if (data["broadcasts"], data["calls"]) != (
+            per_fwd * FSDP_MESH[0] * (CUT_STEPS_FSDP + 1), 0):
+        raise AssertionError(f"{arch}: 'data' collectives serving the cut "
+                             f"{data}, want {per_fwd} gathers a forward of "
+                             f"{FSDP_MESH[0]} broadcasts each")
+    fsdp = {
+        "card": card, "arch": small.name, "rules": small.rules,
+        "mesh": list(FSDP_MESH), "layers": FSDP_CUT["layers"],
+        "serve_batch": FSDP_CUT["serve_batch"], "prompt": FSDP_CUT["prompt"],
+        "decode_steps": CUT_STEPS_FSDP, "grad_batch": FSDP_CUT["grad_batch"],
+        "grad_seq": FSDP_CUT["grad_seq"],
+        "plain_cut_max_abs_err": err,
+        "plain_cut_grads": {"worst_leaf": worst_leaf,
+                            "worst_leaf_err_of_max": worst,
+                            "loss_rel_err": loss_err},
+        "data_gathers_per_forward": per_fwd,
+        "serve_collectives": fr[0]["serve_collectives"],
+        "grad_collectives": fr[0]["grad_collectives"],
+        "serve_s": fr[0]["serve_s"], "grad_s": fr[0]["grad_s"],
+        "plain_cut_serve_launches": fr[0]["plain_cut_serve_launches"],
+        "plain_cut_launches": fr[0]["plain_cut_launches"],
+        "max_memory_allocated_per_rank": [s["max_memory_allocated"]
+                                          for s in fr],
+        "rank_phase_s": fr[0]["phase_s"], "children_wall_s": children_s,
+        "cpu_path_s": cpu_s[0], "host_rss_at_start": host_start,
+        "host_rss_at_end": host_rss(),
+        "reduced": {"num_layers": f"{tp_config(arch).num_layers} -> "
+                    f"{FSDP_CUT['layers']} in f32, as phase 5d: four ranks "
+                    f"on one card",
+                    "ranks": f"{world} processes on one card over gloo"}}
+    return {"serve_tp_moe": serve, "fsdp_qwen3_moe": fsdp}
 
 
 def local_kernel_numbers(device) -> dict:
@@ -4427,13 +5226,27 @@ def main() -> int:
                       xcfg.num_patches + TRAIN_SEQ,
                       xcfg.num_patches + TRAIN_SEQ, xcfg.resolved_head_dim,
                       True, xcfg.window)
+    # the serving phases' configs at SERVE_LAYERS, and their lines'
+    # ``reduced`` entries (phase 4's yi-6b keeps its full depth)
+    (rcfg_s, rw_red), (gcfg_s, rg_red), (dcfg_s, ds_red), \
+        (pcfg_s, ph_red), (xcfg_s, px_red) = (
+            serve_cut(c) for c in (rcfg, gcfg, dcfg, pcfg, xcfg))
     # the training path's largest leaf: phase 5's stacked w_gu
     w_gu = TRAIN_LAYERS * 2 * tcfg.d_model * tcfg.d_ff
     t_start = time.monotonic()
+    # each phase's wall seconds, from the end of the one before
+    walls, last = {}, [t_start]
+
+    def done(phase):
+        now = time.monotonic()
+        walls[phase] = now - last[0]
+        last[0] = now
+        return now - t_start
 
     log("phase 2: build")
     build_kernels()
     torch.cuda.synchronize()
+    log(f"  phase 2 done at {done('2'):.1f} s")
 
     log("phase 3: kernels against their plain versions")
     path_err = check_kernels(path_case, device)
@@ -4502,16 +5315,24 @@ def main() -> int:
                                 determinism=True)
     log(f"  flash_bwd {tp_train_case} bfloat16: max abs err "
         f"{tp_bwd_err:.3e}; two runs bit-equal")
+    # and of the MoE models' two-way split (phase 11a): dbrx-132b's 24 of
+    # 48 query heads over 4 of 8 kv heads at D 128, qwen3-moe's 32 of 64
+    # over 2 of 4 at D 64
+    moe_tp_cases = {"dbrx": tp_case(bcfg, BATCH, PROMPT),
+                    "qwen3_moe": tp_case(qcfg, BATCH, PROMPT)}
+    for case in moe_tp_cases.values():
+        tp_errs[case] = check_attention_case(case, "bfloat16", device)
+        log(f"  flash_fwd {case} bfloat16: max abs err {tp_errs[case]:.3e}")
     # K6, K7 and K4 at a rank's shapes of the recurrent models' two-way
     # split (phase 10), checked and timed
     tp10 = local_kernel_numbers(device)
     log(json.dumps({"tp10_kernels": tp10}))
     torch.cuda.empty_cache()
-    log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
+    log(f"  phase 3 done at {done('3'):.1f} s")
 
-    log(f"phase 4: serving, {cfg.name} {cfg.num_layers} layers "
-        f"d_model {cfg.d_model} {cfg.dtype}, {BATCH} x {PROMPT} prompt "
-        f"tokens, {GEN} new tokens")
+    log(f"phase 4: serving, {cfg.name} {cfg.num_layers} layers d_model "
+        f"{cfg.d_model} {cfg.dtype}, {BATCH} x {PROMPT} prompt tokens, "
+        f"{GEN} new tokens")
     runs, num = serve_model_phase(
         cfg, device, card, "serve", 6_061_035_520, dense_want(cfg),
         numbers=lambda: {"flash_fwd_serve_shape": attention_numbers(
@@ -4519,22 +5340,22 @@ def main() -> int:
     yi_launches = runs["serve"]["launches"]
     num = num["flash_fwd_serve_shape"]
     del runs
-    log(f"  phase 4 done at {time.monotonic() - t_start:.1f} s; weights "
+    log(f"  phase 4 done at {done('4'):.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
-    log(f"phase 4b: serving, {rcfg.name} {rcfg.num_layers} layers d_model "
-        f"{rcfg.d_model} {rcfg.dtype}, {BATCH} x {PROMPT} prompt tokens, "
-        f"{GEN} new tokens")
-    n = rcfg.num_layers
+    log(f"phase 4b: serving, {rcfg.name} cut to {rcfg_s.num_layers} of "
+        f"{rcfg.num_layers} layers d_model {rcfg.d_model} {rcfg.dtype}, "
+        f"{BATCH} x {PROMPT} prompt tokens, {GEN} new tokens")
+    n = rcfg_s.num_layers
     runs, rw_num = serve_model_phase(
-        rcfg, device, card, "serve_rwkv6", 7_551_455_232,
+        rcfg_s, device, card, "serve_rwkv6", 2_290_520_064,
         # prefill through the chunked kernel, each one-token decode step
         # through the sequential one
         lambda gen: {"generate": {"rwkv6_sm90": n, "rwkv6": n * (gen - 1),
                                   "flash_fwd": 0},
                      "prefill": {"rwkv6_sm90": n, "rwkv6": 0},
                      "decode": {"rwkv6": n * (gen - 1), "rwkv6_sm90": 0}},
-        state_bytes=136_314_884,
+        state_bytes=34_078_724, reduced=rw_red,
         numbers=lambda: {
             **{f"{kernel}_{name}_shape": rwkv6_numbers(
                 (BATCH, rh, t, rcfg.rwkv_head_dim), device, kernel)
@@ -4547,67 +5368,69 @@ def main() -> int:
     rw_launches = runs["serve"]["launches"]
     rw_payload = runs["serve"].pop("state_payload")
     del runs
-    log(f"  phase 4b done at {time.monotonic() - t_start:.1f} s; weights "
+    log(f"  phase 4b done at {done('4b'):.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
     log("phase 4c: Reed-Solomon encode against the host codec")
     rs = check_rs(device, rw_payload)
     del rw_payload
     log(json.dumps({"rs_encode_state": rs["numbers"]}))
-    log(f"  phase 4c done at {time.monotonic() - t_start:.1f} s")
+    log(f"  phase 4c done at {done('4c'):.1f} s")
 
-    log(f"phase 4d: serving, {gcfg.name} {gcfg.num_layers} layers d_model "
+    log(f"phase 4d: serving, {gcfg.name} cut to {gcfg_s.num_layers} of "
+        f"{gcfg.num_layers} layers d_model "
         f"{gcfg.d_model} {gcfg.dtype}, {BATCH} x {PROMPT} prompt tokens, "
         f"{GEN} new tokens; then 1 x {RING_PROMPT}, {RING_GEN} new tokens")
-    runs, rg_num = serve_recurrentgemma_phase(gcfg, device, card)
+    runs, rg_num = serve_recurrentgemma_phase(gcfg_s, device, card, rg_red)
     rg_launches = {name: r["launches"] for name, r in runs.items()}
     del runs
-    log(f"  phase 4d done at {time.monotonic() - t_start:.1f} s; weights "
+    log(f"  phase 4d done at {done('4d'):.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
-    log(f"phase 4e: serving, {dcfg.name} {dcfg.num_layers} layers d_model "
-        f"{dcfg.d_model} {dcfg.dtype}, {BATCH} x {PROMPT} prompt tokens, "
-        f"{GEN} new tokens; then the same with the int8 KV cache")
+    log(f"phase 4e: serving, {dcfg.name} cut to {dcfg_s.num_layers} of "
+        f"{dcfg.num_layers} layers d_model {dcfg.d_model} {dcfg.dtype}, "
+        f"{BATCH} x {PROMPT} prompt tokens, {GEN} new tokens; then the same "
+        f"with the int8 KV cache")
     runs, ds_num = serve_model_phase(
-        dcfg, device, card, "serve_deepseek", 6_910_365_696,
-        dense_want(dcfg), state_bytes=1_069_547_524,
-        subruns=[("int8", BATCH, PROMPT, GEN, 802_160_644,
-                  dataclasses.replace(dcfg, kv_quant=True))],
+        dcfg_s, device, card, "serve_deepseek", 2_457_931_776,
+        dense_want(dcfg_s), state_bytes=285_212_676, reduced=ds_red,
+        subruns=[("int8", BATCH, PROMPT, GEN, 213_909_508,
+                  dataclasses.replace(dcfg_s, kv_quant=True))],
         plain={"plain_cut": {},
                "plain_int8_cut": dict(kv_quant=True, steps=INT8_CUT_STEPS)},
         numbers=lambda: {"flash_fwd_serve_shape": attention_numbers(
             serve_case(dcfg), device)})
     ds_launches = {name: r["launches"] for name, r in runs.items()}
     del runs
-    log(f"  phase 4e done at {time.monotonic() - t_start:.1f} s; weights "
+    log(f"  phase 4e done at {done('4e'):.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
-    log(f"phase 4f: serving, {pcfg.name} {pcfg.num_layers} layers d_model "
-        f"{pcfg.d_model} {pcfg.dtype}, "
+    log(f"phase 4f: serving, {pcfg.name} cut to {pcfg_s.num_layers} of "
+        f"{pcfg.num_layers} layers d_model {pcfg.d_model} {pcfg.dtype}, "
         f"{BATCH} x {PROMPT} prompt tokens, {GEN} new tokens")
     runs, ph_num = serve_model_phase(
-        pcfg, device, card, "serve_phi3", 14_659_507_200, dense_want(pcfg),
-        state_bytes=445_644_804,
+        pcfg_s, device, card, "serve_phi3", 3_753_989_120,
+        dense_want(pcfg_s), state_bytes=89_128_964, reduced=ph_red,
         numbers=lambda: {"flash_fwd_serve_shape": attention_numbers(
             serve_case(pcfg), device)})
     ph_launches = runs["serve"]["launches"]
     del runs
-    log(f"  phase 4f done at {time.monotonic() - t_start:.1f} s; weights "
+    log(f"  phase 4f done at {done('4f'):.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
     moe_launches, moe_nums = {}, {}
     # the MoE phases take one profile window, over a prefill of 4g, to
     # keep the run within its time budget
     for phase, line, c, n_params, profile in (
-            ("4g", "serve_dbrx", bcfg, 14_269_470_720, ("prefill",)),
-            ("4h", "serve_qwen3_moe", qcfg, 11_054_125_056, ())):
+            ("4g", "serve_dbrx", bcfg, 7_751_301_120, ("prefill",)),
+            ("4h", "serve_qwen3_moe", qcfg, 6_149_918_720, ())):
         log(f"phase {phase}: serving, {c.name} cut to {MOE_SERVE_LAYERS} of "
             f"{c.num_layers} layers d_model {c.d_model}, {c.num_experts} "
             f"experts top-{c.experts_per_token}, {c.dtype}, {BATCH} x "
             f"{PROMPT} prompt tokens, {GEN} new tokens")
         moe_launches[line], moe_nums[line] = serve_moe_phase(
             c, device, card, line, n_params, profile)
-        log(f"  phase {phase} done at {time.monotonic() - t_start:.1f} s; "
+        log(f"  phase {phase} done at {done(phase):.1f} s; "
             f"weights freed, {torch.cuda.memory_allocated()} bytes "
             f"allocated")
 
@@ -4634,22 +5457,23 @@ def main() -> int:
                                                            device)})
     sm_launches = {name: r["launches"] for name, r in runs.items()}
     del runs
-    log(f"  phase 4i done at {time.monotonic() - t_start:.1f} s; weights "
+    log(f"  phase 4i done at {done('4i'):.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
-    log(f"phase 4j: serving, {xcfg.name} {xcfg.num_layers} layers d_model "
+    log(f"phase 4j: serving, {xcfg.name} cut to {xcfg_s.num_layers} of "
+        f"{xcfg.num_layers} layers d_model "
         f"{xcfg.d_model} {xcfg.dtype}, {xcfg.num_heads} heads of "
         f"{xcfg.resolved_head_dim} over {xcfg.num_kv_heads} KV heads, "
         f"{BATCH} x ({xcfg.num_patches} patches + {PROMPT} prompt tokens), "
         f"{GEN} new tokens")
     runs, px_num = serve_model_phase(
-        xcfg, device, card, "serve_pixtral", 12_798_284_800, dense_want(xcfg),
-        state_bytes=655_360_004,
+        xcfg_s, device, card, "serve_pixtral", 3_654_374_400,
+        dense_want(xcfg_s), state_bytes=131_072_004, reduced=px_red,
         numbers=lambda: {"flash_fwd_d160_serve_shape": attention_numbers(
             pix_case, device)})
     px_launches = runs["serve"]["launches"]
     del runs
-    log(f"  phase 4j done at {time.monotonic() - t_start:.1f} s; weights "
+    log(f"  phase 4j done at {done('4j'):.1f} s; weights "
         f"freed, {torch.cuda.memory_allocated()} bytes allocated")
 
     pcfg5 = dataclasses.replace(tcfg, num_layers=TRAIN_LAYERS)
@@ -4699,13 +5523,14 @@ def main() -> int:
         "reduced": {"num_layers": (
             f"{tcfg.num_layers} -> {TRAIN_LAYERS}: 36 until the report's "
             f"phase came, 18 until the 'model' axis's phase came, 12 until "
-            f"the recurrent models' 'model' axis phase came, cut to keep "
-            f"the whole run within its time")},
+            f"the recurrent models' 'model' axis phase came, 4 until the "
+            f"MoE models' FSDP phase came, cut to keep the whole run within "
+            f"its time")},
     }
     log(card)
     log(json.dumps({"train": train}))
     log(json.dumps({"profile_train_step": tr["profile_step"]}))
-    log(f"  phase 5 done at {time.monotonic() - t_start:.1f} s; "
+    log(f"  phase 5 done at {done('5'):.1f} s; "
         f"{tr['allocated_after']} bytes still allocated")
 
     steps = TRAIN_REC_STEPS
@@ -4719,7 +5544,7 @@ def main() -> int:
     # ones
     rw_train, rw_cut = train_recurrent_phase(
         "train_rwkv6", dataclasses.replace(rcfg, num_layers=n), device, card,
-        975_286_272,
+        756_080_640,
         {"rwkv6_sm90": 2 * n * steps, "rwkv6_bwd_sm90": n * steps,
          "rwkv6_bwd": 0, "rwkv6": 0, "flash_fwd": 0, "flash_bwd": 0,
          "flash_bwd_sm90": 0},
@@ -4727,11 +5552,12 @@ def main() -> int:
          f"weights, AdamW moments, gradients and codes (about 23 B a "
          f"parameter, 174 GB for {count_params(rcfg)}) do not fit the "
          f"card's 80 GB; 8 layers until pixtral-12b's training phase came, "
-         f"4 until the recurrent models' 'model' axis phase came, {n} "
+         f"4 until the recurrent models' 'model' axis phase came, 2 until "
+         f"the MoE models' FSDP phase came, {n} "
          f"since, to keep the whole run within its time",
          "global_batch": f"one sequence of {TRAIN_SEQ} tokens a step"},
         dict(layers=2))
-    log(f"  phase 5b done at {time.monotonic() - t_start:.1f} s")
+    log(f"  phase 5b done at {done('5b'):.1f} s")
 
     n = HYBRID_TRAIN_LAYERS
     gcut = dataclasses.replace(gcfg, num_layers=n)
@@ -4761,7 +5587,7 @@ def main() -> int:
     other = "rglru_bwd" if cut_bwd == "rglru_bwd_sm90" else "rglru_bwd_sm90"
     _check_launches(rg_cut, {cut_bwd: 4, other: 0},
                     "train_recurrentgemma f32 cut")
-    log(f"  phase 5c done at {time.monotonic() - t_start:.1f} s")
+    log(f"  phase 5c done at {done('5c'):.1f} s")
 
     log(f"phase 5d: {qcfg.name} cut to 1 layer d_model {qcfg.d_model}, "
         f"{qcfg.num_experts} experts top-{qcfg.experts_per_token}: loss and "
@@ -4769,7 +5595,7 @@ def main() -> int:
         f"calls, no optimizer")
     moe_grad, moe_grad_cut = grad_moe_phase(qcfg, device, card,
                                             3_697_815_552)
-    log(f"  phase 5d done at {time.monotonic() - t_start:.1f} s")
+    log(f"  phase 5d done at {done('5d'):.1f} s")
 
     log(f"phase 5e: training, {scfg.name} {scfg.encoder_layers} + "
         f"{scfg.num_layers} layers d_model {scfg.d_model}, {TRAIN_SEQ} "
@@ -4785,7 +5611,7 @@ def main() -> int:
         {"global_batch": f"256 -> 1: one sequence of {TRAIN_SEQ} tokens "
          f"over {scfg.num_frames} frames a step"},
         dict(layers=SEAMLESS_PLAIN_LAYERS))
-    log(f"  phase 5e done at {time.monotonic() - t_start:.1f} s")
+    log(f"  phase 5e done at {done('5e'):.1f} s")
 
     n = PIX_TRAIN_LAYERS
     log(f"phase 5f: training, {xcfg.name} cut to {n} of {xcfg.num_layers} "
@@ -4797,7 +5623,7 @@ def main() -> int:
     # library once
     _check_launches(px_cut, {"flash_bwd": PIX_PLAIN_LAYERS,
                              "flash_bwd_sm90": 0}, "train_pixtral f32 cut")
-    log(f"  phase 5f done at {time.monotonic() - t_start:.1f} s")
+    log(f"  phase 5f done at {done('5f'):.1f} s")
 
     cut_cfg = dataclasses.replace(tcfg, num_layers=CUT_LAYERS)
     log(f"phase 6: {tcfg.name} cut to {CUT_LAYERS} layers, compressed "
@@ -4807,10 +5633,11 @@ def main() -> int:
         f"{tcfg.num_layers} -> {CUT_LAYERS}: the phase shows compressed "
         f"gradients and an overlap resize, whose wait grows with the "
         f"state; 8 layers until the encoder-decoder's phases were added, "
-        f"4 until pixtral-12b's training phase was, {CUT_LAYERS} since, to "
-        f"keep the whole run within its time")}
+        f"4 until pixtral-12b's training phase was, 2 until the MoE "
+        f"models' FSDP phase was, {CUT_LAYERS} since, to keep the whole "
+        f"run within its time")}
     log(json.dumps({"train_cut": cut}))
-    log(f"  phase 6 done at {time.monotonic() - t_start:.1f} s")
+    log(f"  phase 6 done at {done('6'):.1f} s")
 
     log("phase 7: numbers")
     bwd = bwd_numbers(train_case, device)
@@ -4829,6 +5656,8 @@ def main() -> int:
     tp_fwd_serve = attention_numbers(tp_serve_case, device)
     tp_fwd_train = attention_numbers(tp_train_case, device)
     tp_bwd_train = bwd_numbers(tp_train_case, device)
+    tp_moe_fwd = {name: attention_numbers(case, device)
+                  for name, case in moe_tp_cases.items()}
     torch.cuda.synchronize()
     log(json.dumps({"flash_fwd_train_shape": fwd_train,
                     "flash_bwd_train_shape": bwd, "codec_w_gu": codec,
@@ -4845,8 +5674,10 @@ def main() -> int:
                     "flash_bwd_d160_train_shape": d160_bwd,
                     "flash_fwd_tp_serve_shape": tp_fwd_serve,
                     "flash_fwd_tp_train_shape": tp_fwd_train,
-                    "flash_bwd_tp_train_shape": tp_bwd_train}))
-    log(f"  phase 7 done at {time.monotonic() - t_start:.1f} s")
+                    "flash_bwd_tp_train_shape": tp_bwd_train,
+                    **{f"flash_fwd_tp_{name}_serve_shape": v
+                       for name, v in tp_moe_fwd.items()}}))
+    log(f"  phase 7 done at {done('7'):.1f} s")
 
     log("phase 8: report cells on the card against their meta traces")
     t8 = time.monotonic()
@@ -4858,7 +5689,7 @@ def main() -> int:
                            "max_memory_allocated", "peak_ratio",
                            "k4_launches")} for m in cells],
         "phase_s": time.monotonic() - t8}))
-    log(f"  phase 8 done at {time.monotonic() - t_start:.1f} s")
+    log(f"  phase 8 done at {done('8'):.1f} s")
 
     log(f"phase 9: the mesh's \"model\" axis: {TP_MODEL} processes on the "
         f"card over gloo; {cfg.name} served split ({TP_SERVE_LAYERS} layers, "
@@ -4879,11 +5710,12 @@ def main() -> int:
     log(card)
     log(json.dumps({"serve_tp": tp["serve_tp"]}))
     log(json.dumps({"train_tp": tp["train_tp"]}))
-    log(f"  phase 9 done at {time.monotonic() - t_start:.1f} s")
+    log(f"  phase 9 done at {done('9'):.1f} s")
 
     log(f"phase 10: the \"model\" axis for the recurrent models: "
         f"{RNN_TP_MODEL} processes on the card over gloo; {rcfg.name} and "
-        f"{gcfg.name} served split at full width and depth ({BATCH} x "
+        f"{gcfg.name} served split at full width cut to {SERVE_LAYERS} "
+        f"layers ({BATCH} x "
         f"{PROMPT} prompt tokens, {GEN} new, the state committed and "
         f"restored on the mesh and on one rank), their f32 cuts served and "
         f"trained split against the plain CPU path; then {pcfg.name} cut "
@@ -4899,8 +5731,25 @@ def main() -> int:
     rnn = {"rwkv6-7b": tp10_lines["serve_tp_rwkv6"],
            "recurrentgemma-9b": tp10_lines["serve_tp_recurrentgemma"]}
     phi3_tp = tp10_lines["tp_phi3"]
-    log(f"  phase 10 done at {time.monotonic() - t_start:.1f} s "
+    log(f"  phase 10 done at {done('10'):.1f} s "
         f"({time.monotonic() - t10:.1f} s)")
+
+    log(f"phase 11: Mixture-of-Experts under FSDP_RULES: {bcfg.name} and "
+        f"{qcfg.name} cut to {MOE_TP_LAYERS} layers served split over "
+        f"{TP_MODEL} processes ({BATCH} x {PROMPT} prompt tokens, {GEN} "
+        f"new, the cache committed and restored); {qcfg.name}'s f32 cut "
+        f"({FSDP_CUT['layers']} layer) on a {FSDP_MESH} ('data', 'model') "
+        f"mesh of processes against the plain CPU path")
+    moe_lines = moe_phase(device, card)
+    log(card)
+    log(json.dumps({"serve_tp_moe": moe_lines["serve_tp_moe"]}))
+    log(json.dumps({"fsdp_qwen3_moe": moe_lines["fsdp_qwen3_moe"]}))
+    moe_tp = moe_lines["serve_tp_moe"]
+    fsdp = moe_lines["fsdp_qwen3_moe"]
+    log(f"  phase 11 done at {done('11'):.1f} s")
+    log(card)
+    log(json.dumps({"phase_wall_s": walls,
+                    "total_s": time.monotonic() - t_start}))
     # ``launches`` is the count from the run of the path named by
     # ``launches_path``; ``launches_by_path`` gives every path's count
     paths = {"serve": yi_launches, "serve_rwkv6": rw_launches,
@@ -4928,6 +5777,9 @@ def main() -> int:
              "grad_tp_recurrentgemma_f32_cut":
                  rnn["recurrentgemma-9b"]["plain_cut_launches"],
              "grad_tp_phi3_f32_cut": phi3_tp["plain_cut_launches"],
+             "serve_tp_dbrx": moe_tp["dbrx-132b"]["launches"],
+             "serve_tp_qwen3_moe": moe_tp["qwen3-moe-235b-a22b"]["launches"],
+             "grad_fsdp_qwen3_moe_f32_cut": fsdp["plain_cut_launches"],
              "rs_encode_check": rs["launches"]}
 
     def counts(name, path):
@@ -4979,7 +5831,13 @@ def main() -> int:
             tp_serve_shape={**tp_fwd_serve,
                             "max_abs_err": tp_errs[tp_serve_case]},
             tp_train_shape={**tp_fwd_train,
-                            "max_abs_err": tp_errs[tp_train_case]}),
+                            "max_abs_err": tp_errs[tp_train_case]},
+            # a rank's heads of the MoE models' two-way split (phase 11a,
+            # ``launches_by_path``'s serve_tp_dbrx and serve_tp_qwen3_moe)
+            **{f"tp_{name}_serve_shape": {
+                **tp_moe_fwd[name],
+                "max_abs_err": tp_errs[moe_tp_cases[name]]}
+               for name in moe_tp_cases}),
         # its head-dim-160 instance, on pixtral-12b's path
         row("flash_fwd_d160", fa + "flash_fwd_sm90.cu",
             "flash_attention/kernel.py:95",

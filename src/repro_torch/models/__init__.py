@@ -1,5 +1,5 @@
 from .params import (count_params, map_axes, param_shardings, param_specs,
-                     shard_params)
+                     param_split, shard_params)
 from .transformer import (abstract_params, cache_axes, cast_params,
                           decode_step, forward, init_cache, init_params,
                           loss_fn, param_axes, prefill, stack_plan)
@@ -7,4 +7,4 @@ from .transformer import (abstract_params, cache_axes, cast_params,
 __all__ = ["init_params", "cast_params", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step", "stack_plan", "count_params",
            "param_axes", "abstract_params", "cache_axes", "param_specs",
-           "param_shardings", "map_axes", "shard_params"]
+           "param_shardings", "param_split", "map_axes", "shard_params"]

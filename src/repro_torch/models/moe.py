@@ -19,8 +19,19 @@ leading batch dimension):
   5. each assignment's output gathered back, weighted, and a token's k
      contributions (contiguous, token-major) summed over a (T, k, D) view.
 
-Also returns the switch-style load-balancing auxiliary loss.  On one
-device the reference's sharding constraints are no-ops and are left out.
+Also returns the switch-style load-balancing auxiliary loss.
+
+Expert parallel over a mesh's "model" axis (``sharding/tp.py``) where the
+size divides the experts, as the reference's ``act_experts`` and
+``experts`` rules split them: the router, the dispatch and the combine
+run whole on every model rank; the (B, E, C, D) buffer is sliced to the
+rank's experts at the reference's ``act_experts`` site (``tp.scatter``,
+whose backward gathers), the expert products run on the rank's
+``w_gu`` / ``w_down`` boxes, and their outputs are gathered whole at the
+reference's whole ``ye`` site (``tp.gather``, whose backward slices).
+Where the size does not divide the experts (dbrx-132b's 16 at 3) both
+sites resolve whole and so do the weights.  Decode (one slot an expert)
+takes the same path.
 """
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from ..sharding import constrain
+from ..sharding import constrain, tp
 from .layers import _dense_init, _normal
 
 
@@ -119,14 +130,23 @@ def moe_apply(params, x: torch.Tensor, *, num_experts: int,
     xe = x.new_zeros((b, e * cap + 1, d)).index_put((rows, slot), src)
     xe = constrain(xe[:, :-1].reshape(b, e, cap, d), "batch", "act_experts",
                    None, None)
-    # (B, E, C, D) -> (E, B*C, D): one batched product per weight
-    xe = xe.transpose(0, 1).reshape(e, b * cap, d)
+    split = tp.site_split(("batch", "act_experts", None, None), xe.shape)
+    if split:
+        xe = tp.scatter(xe, 1)                   # the rank's experts
     w_gu = params["w_gu"].to(x.dtype)
+    el = xe.shape[1]
+    if w_gu.shape[-3] != el:
+        raise ValueError(f"w_gu holds {w_gu.shape[-3]} experts, the "
+                         f"dispatch buffer {el}")
+    # (B, E, C, D) -> (E, B*C, D): one batched product per weight
+    xe = xe.transpose(0, 1).reshape(el, b * cap, d)
     h = F.silu(torch.bmm(xe, w_gu[0])) * torch.bmm(xe, w_gu[1])
     h = constrain(h, "act_experts", None, None)
-    ye = torch.bmm(h, params["w_down"].to(x.dtype))             # (E, B*C, D)
-    ye = constrain(ye.reshape(e, b, cap, d).transpose(0, 1),
-                   "batch", None, None, None).reshape(b, e * cap, d)
+    ye = torch.bmm(h, params["w_down"].to(x.dtype))            # (E, B*C, D)
+    ye = ye.reshape(el, b, cap, d).transpose(0, 1)
+    if split:
+        ye = tp.gather(ye, 1)                    # every expert, whole
+    ye = constrain(ye, "batch", None, None, None).reshape(b, e * cap, d)
     flat = torch.cat([ye, ye.new_zeros((b, 1, d))], dim=1)
     wk = (keep * top_w.reshape(b, t * k)).to(x.dtype)
     contrib = flat[rows, slot] * wk[..., None]                  # (B, T*k, D)

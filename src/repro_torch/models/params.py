@@ -20,13 +20,21 @@ from ..sharding import spec as axes_spec
 _EXPERT_KEYS = ("w_gu", "w_down")
 
 
-def _leaves(tree, path=()):
-    """(keys from the root, tensor) for every leaf."""
+def tree_paths(tree, path=()):
+    """(keys from the root, leaf) for every leaf of a tree of dicts, in
+    its order."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _leaves(v, path + (k,))
-    elif isinstance(tree, torch.Tensor):
+            yield from tree_paths(v, path + (k,))
+    else:
         yield path, tree
+
+
+def tree_at(tree, path):
+    """The subtree of a tree of dicts at ``path`` (keys from the root)."""
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -40,7 +48,7 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     frac = (cfg.experts_per_token / cfg.num_experts) if cfg.num_experts \
         else 1.0
     total = 0
-    for path, leaf in _leaves(init_params(cfg, None, "meta")):
+    for path, leaf in tree_paths(init_params(cfg, None, "meta")):
         n = leaf.numel()
         if active_only and cfg.num_experts and "moe" in path and any(
                 k in _EXPERT_KEYS for k in path):
@@ -112,6 +120,20 @@ def _take(leaf, box, copy: bool):
     return np.array(part, copy=True)
 
 
+def param_split(cfg: ModelConfig, mesh, rules: Optional[Rules] = None):
+    """A tree of the params' layout: the mesh axes of more than one rank
+    that split each leaf (``sharding.tp.split_axes`` of its resolved
+    spec): ("data",), ("model",), both, or () for a whole leaf.  ``mesh``
+    may be a stand-in with a ``shape`` mapping."""
+    from ..sharding import get_rules, tp
+    from .transformer import abstract_params
+
+    rules = rules or get_rules(cfg.rules)
+    shapes, axes = abstract_params(cfg)
+    specs = param_specs(axes, rules, mesh, shapes)
+    return map_axes(lambda ax, s: tp.split_axes(s, mesh), axes, specs)
+
+
 def shard_params(params, cfg: ModelConfig, mesh, rules: Optional[Rules] = None,
                  copy: bool = True):
     """This rank's box of every leaf of a whole parameter tree (numpy
@@ -127,14 +149,22 @@ def shard_params(params, cfg: ModelConfig, mesh, rules: Optional[Rules] = None,
     recurrentgemma-9b's one kv head splits at every size; RWKV-6's ``u``,
     ``gn_scale`` and ``gn_bias`` (H, head_dim) split over head_dim.  A
     leaf whose width the size does not divide is whole on every rank.
+    Under ``FSDP_RULES`` every leaf with an ``"embed"`` axis (norm scales,
+    the router, wq / wkv / wo, w_gu / w_down, dense and expert, the
+    embedding table and the LM head) has its rows on that axis split over
+    "data" as well, where the data ranks divide d_model: tiny dbrx-132b's
+    ``w_gu`` (2, 2, 4, 64, 96) is a box of (2, 2, 2, 32, 96) on a (2, 2)
+    mesh, its embedding (256, 64) one of (128, 32); the model gathers
+    them at their use (``tp.gather_param``).
     ``copy=False`` returns views (a whole leaf is returned as it is
     either way).  Raises ``ValueError`` where ``cfg`` does not split over
-    the mesh's "model" axis (``sharding.tp.check_model_axis``)."""
+    the mesh (``sharding.tp.check_model_axis``)."""
     from ..sharding import get_rules, tp
     from .transformer import param_axes
 
     rules = rules or get_rules(cfg.rules)
-    tp.check_model_axis(cfg, tp.axis_size(mesh), rules)
+    tp.check_model_axis(cfg, tp.axis_size(mesh), rules,
+                        tp.axis_size(mesh, "data"))
     axes = param_axes(cfg)
     specs = param_specs(axes, rules, mesh, params)
     return map_axes(lambda ax, s, leaf: _take(

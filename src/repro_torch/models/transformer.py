@@ -47,16 +47,26 @@ columns and ``loss_fn`` reduces its log-sum-exp and target logits over
 them.  ``init_cache(..., mesh=)`` gives every leaf the rank's box of its
 ``cache_axes`` under the rules: the rank's heads or channels where the
 size divides them, else the whole leaf.
+
+Under ``FSDP_RULES`` a leaf with an ``"embed"`` axis is also split over
+the mesh's "data" axis (ZeRO-3).  Each layer gathers its own such leaves
+first thing (``_gathered``), inside the remat ``checkpoint``, so the
+backward gathers them again and reduce-scatters their gradients
+(``tp.gather_param``); the embedding, the frontend, the final norms and
+the LM head are gathered at their use.  A leaf the layer casts to the
+compute dtype is cast before its gather.
 """
 from __future__ import annotations
 
+import functools
+import types
 from typing import Any, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..sharding import constrain, get_rules, tp
+from ..sharding import active_rules, constrain, get_rules, spec, tp
 from . import attention as attn
 from . import moe as moe_lib
 from . import rglru_layer as rglru
@@ -191,6 +201,69 @@ def _attn_kw(cfg: ModelConfig):
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
 
 
+# leaves gathered in their own dtype: those used in f32 (``cast_params``
+# keeps them) and the embedding table, whose lookup is cast after it
+_GATHER_AS_IS = ("scale", "table") + rwkv.F32_LEAVES + rglru.F32_LEAVES
+
+
+@functools.lru_cache(maxsize=None)
+def _data_dims(cfg: ModelConfig, kind: Optional[str], rules, data: int,
+               model: int):
+    """(dim, whole width) of each leaf of one layer of ``kind`` (None:
+    the leaves outside the layers) where the rules split that dim over a
+    "data" axis of ``data`` ranks on a ("data", "model") mesh, or None
+    where they keep it whole over "data" (a tree of the layer's
+    layout)."""
+    mesh = types.SimpleNamespace(shape={"data": data, "model": model})
+    if kind is None:
+        shapes, axes = init_params(cfg, None, "meta"), param_axes(cfg)
+        shapes = {k: v for k, v in shapes.items()
+                  if k not in ("stack", "enc") and not k.startswith("tail")}
+        axes = {k: axes[k] for k in shapes}
+    else:
+        shapes = _block_init(None, cfg, kind, lead=(), device="meta")
+        axes = _block_axes(cfg, kind)
+
+    return map_axes(lambda ax, t: next(
+        ((d, t.shape[d]) for d, entry in enumerate(
+            spec(ax, rules, mesh, t.shape)) if tp.on_axis(entry, "data")),
+        None), axes, shapes)
+
+
+def _gathered(cfg: ModelConfig, kind: Optional[str], p: Params, dtype):
+    """``p`` (a layer's params, or with ``kind`` None the leaves outside
+    the layers) with every leaf that is a "data" box of the active mesh
+    gathered whole (``tp.gather_param``), cast to ``dtype`` first unless
+    the model uses it in its own dtype.  A leaf is a box where the rules
+    split its dim over "data" and its width there is less than the
+    whole's (as ``tp.is_split`` reads "model"): a caller that keeps the
+    leaves whole on a "data" mesh (``ElasticTrainer``) gathers nothing."""
+    ax = tp.data_axis()
+    if ax is None:
+        return p
+    mesh, rules = active_rules()
+    dims = _data_dims(cfg, kind, rules, ax.size, tp.axis_size(mesh))
+
+    def walk(tree, dims):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, dims[k])
+            elif dims[k] is None or v.shape[dims[k][0]] == dims[k][1]:
+                out[k] = v
+            else:
+                out[k] = tp.gather_param(
+                    v, dims[k][0], None if k in _GATHER_AS_IS else dtype)
+        return out
+    return walk(p, dims)
+
+
+def _top(cfg: ModelConfig, params: Params, key: str, dtype) -> Params:
+    """The leaves under ``params[key]`` (outside the layers), gathered
+    over "data" where the mesh splits them."""
+    return _gathered(cfg, None, {key: params[key]}, dtype)[key]
+
+
 def _ffn_or_moe(cfg: ModelConfig, p: Params, h):
     """An attention layer's FFN: (y, aux), aux the MoE layer's f32 aux
     loss or None for a gated FFN (``repro/models/transformer.py:114-120``,
@@ -255,6 +328,7 @@ def _block_apply(cfg: ModelConfig, p: Params, x, *, kind: str, positions,
     prefill fills its cross cache from ``enc_out`` (int8 codes and scales
     for an int8 cache).  Returns (x, aux, state), aux None but for a MoE
     layer."""
+    p = _gathered(cfg, kind, p, x.dtype)
     if kind in ("rwkv", "rec"):
         block = _rwkv_block if kind == "rwkv" else _rec_block
         x, state = block(cfg, p, x, state)
@@ -325,6 +399,7 @@ def _write_prefill_cache(cache: attn.KVCache, kvc: attn.KVCache, window):
 def _block_decode(cfg: ModelConfig, p: Params, x, idx, *, kind: str,
                   state):
     """One-token decode of one layer. x: (B, 1, D). Returns (x, state)."""
+    p = _gathered(cfg, kind, p, x.dtype)
     if kind == "rwkv":
         return _rwkv_block(cfg, p, x, state)
     if kind == "rec":
@@ -428,11 +503,11 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
     positions, prefix length)."""
     tokens = batch["tokens"]
     b = tokens.shape[0]
-    x = embed_apply(params["embed"], tokens,
+    x = embed_apply(_top(cfg, params, "embed", _dtype(cfg)), tokens,
                     vocab=cfg.padded_vocab).to(_dtype(cfg))
     prefix = 0
     if cfg.frontend == "patches":
-        pe = frontend_apply(params["frontend"],
+        pe = frontend_apply(_top(cfg, params, "frontend", _dtype(cfg)),
                             batch["patches"].to(_dtype(cfg)))
         x = torch.cat([pe, x], dim=1)
         prefix = pe.shape[1]
@@ -467,7 +542,8 @@ def _run_encoder(cfg: ModelConfig, params, batch):
     """The encoder over the projected frames: non-causal layers with RoPE
     at positions 0..S-1, each recomputed in the backward as the decoder's
     are, then ``enc_norm`` (``repro/models/transformer.py:358-371``)."""
-    e = frontend_apply(params["frontend"], batch["frames"].to(_dtype(cfg)))
+    e = frontend_apply(_top(cfg, params, "frontend", _dtype(cfg)),
+                       batch["frames"].to(_dtype(cfg)))
     b, s, _ = e.shape
     epos = torch.arange(s, device=e.device).expand(b, s)
     remat = _remat(cfg)
@@ -481,7 +557,7 @@ def _run_encoder(cfg: ModelConfig, params, batch):
         else:
             e = _block_apply(cfg, lp, e, kind="attn", positions=epos,
                              state=None, causal=False)[0]
-    return rmsnorm(params["enc_norm"], e)
+    return rmsnorm(_top(cfg, params, "enc_norm", e.dtype), e)
 
 
 def _run_stack(cfg: ModelConfig, params, x, positions, caches=None,
@@ -524,10 +600,11 @@ def forward(cfg: ModelConfig, params, batch):
     x, positions, prefix = _embed_inputs(cfg, params, batch)
     x, aux = _run_stack(cfg, params, x, positions,
                         enc_out=_encode(cfg, params, batch))
-    x = rmsnorm(params["final_norm"], x)
+    x = rmsnorm(_top(cfg, params, "final_norm", x.dtype), x)
     if prefix:
         x = x[:, prefix:, :]
-    logits = lm_head_apply(params["lm_head"], x, valid_vocab=cfg.vocab_size,
+    logits = lm_head_apply(_top(cfg, params, "lm_head", x.dtype), x,
+                           valid_vocab=cfg.vocab_size,
                            vocab=cfg.padded_vocab)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -623,7 +700,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     size = tp.axis_size(mesh)
     if size > 1:
         rules = get_rules(cfg.rules)
-        tp.check_model_axis(cfg, size, rules)
+        tp.check_model_axis(cfg, size, rules, tp.axis_size(mesh, "data"))
         whole = init_cache(cfg, batch, max_len, dtype, "meta")
         return map_axes(lambda ax, t: torch.zeros(
             tp.local_shape(ax, t.shape, rules, size), dtype=t.dtype,
@@ -674,9 +751,9 @@ def prefill(cfg: ModelConfig, params, batch, cache):
     x, positions, _ = _embed_inputs(cfg, params, batch)
     x, _ = _run_stack(cfg, params, x, positions, caches=cache,
                       enc_out=_encode(cfg, params, batch))
-    x = rmsnorm(params["final_norm"], x)
-    logits = lm_head_apply(params["lm_head"], x[:, -1:, :],
-                           valid_vocab=cfg.vocab_size,
+    x = rmsnorm(_top(cfg, params, "final_norm", x.dtype), x)
+    logits = lm_head_apply(_top(cfg, params, "lm_head", x.dtype),
+                           x[:, -1:, :], valid_vocab=cfg.vocab_size,
                            vocab=cfg.padded_vocab)[:, 0, :]
     idx = torch.full((), x.shape[1], dtype=torch.int32, device=x.device)
     return logits, dict(cache, idx=idx)
@@ -685,13 +762,13 @@ def prefill(cfg: ModelConfig, params, batch, cache):
 def decode_step(cfg: ModelConfig, params, cache, tokens):
     """One decoding step. tokens: (B, 1) -> (logits (B, vocab), cache),
     the cache written in place and its ``idx`` advanced."""
-    x = embed_apply(params["embed"], tokens,
+    x = embed_apply(_top(cfg, params, "embed", _dtype(cfg)), tokens,
                     vocab=cfg.padded_vocab).to(_dtype(cfg))
     idx = cache["idx"]
     for kind, lp, st in _layers(cfg, params, cache):
         x, _ = _block_decode(cfg, lp, x, idx, kind=kind, state=st)
-    x = rmsnorm(params["final_norm"], x)
-    logits = lm_head_apply(params["lm_head"], x,
+    x = rmsnorm(_top(cfg, params, "final_norm", x.dtype), x)
+    logits = lm_head_apply(_top(cfg, params, "lm_head", x.dtype), x,
                            valid_vocab=cfg.vocab_size,
                            vocab=cfg.padded_vocab)[:, 0, :]
     return logits, dict(cache, idx=idx + 1)

@@ -14,12 +14,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
 from ..kernels.ckpt_codec import BLOCK, dequantize, quantize
+from ..models.params import tree_at, tree_paths
 
 
 class AdamWState(NamedTuple):
@@ -58,19 +59,11 @@ def _map(fn, *trees):
     return fn(*trees)
 
 
-def _paths(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
-    if isinstance(tree, dict):
-        for k in tree:
-            yield from _paths(tree[k], path + (k,))
-    else:
-        yield path, tree
-
-
 def adamw_init(params, compress: bool = False) -> AdamWState:
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     count = torch.zeros((), dtype=torch.int32,
-                        device=next(_paths(params))[1].device)
+                        device=next(tree_paths(params))[1].device)
     return AdamWState(mu=_map(zeros, params), nu=_map(zeros, params),
                       count=count,
                       err=_map(zeros, params) if compress else None)
@@ -90,22 +83,23 @@ def _slices(path, *leaves):
         yield leaves
 
 
-def _global_norm(grads, split=None, group=None) -> torch.Tensor:
-    """The f32 L2 norm of every gradient leaf.  Leaves split over the
-    model ranks (``split``: a tree of bools, ``group`` their process
-    group) hold a part of the gradient each: their squares are summed over
-    the group; a whole leaf, equal on every rank, counts once."""
-    total, parts = None, None
-    split_leaves = None if split is None else (s for _, s in _paths(split))
-    for _, g in _paths(grads):
+def _global_norm(grads, split=None, groups=None) -> torch.Tensor:
+    """The f32 L2 norm of every gradient leaf.  A leaf split over mesh
+    axes (``split``: a tree of the axes that split each leaf,
+    ``models.param_split``; ``groups``: each axis's process group) holds
+    a box of the gradient on each rank: the squares of the leaves split
+    over the same axes are summed, then over each of those axes' groups; a
+    whole leaf, equal on every rank, counts once."""
+    sums = {}
+    for path, g in tree_paths(grads):
+        axes = () if split is None else tree_at(split, path)
         sq = torch.linalg.vector_norm(g, dtype=torch.float32).square()
-        if split_leaves is not None and next(split_leaves):
-            parts = sq if parts is None else parts + sq
-        else:
-            total = sq if total is None else total + sq
-    if parts is not None:
-        dist.all_reduce(parts, group=group)
-        total = parts if total is None else total + parts
+        sums[axes] = sq if axes not in sums else sums[axes] + sq
+    total = None
+    for axes, sq in sums.items():
+        for a in axes:
+            dist.all_reduce(sq, group=groups[a])
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
@@ -122,20 +116,20 @@ def _compress_decompress_(g: torch.Tensor, err: torch.Tensor) -> None:
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
                  schedule: Optional[Callable] = None, split=None,
-                 group=None):
+                 groups=None):
     """One AdamW step on f32 ``params``, in place; ``grads`` (f32) are
     clipped (and compressed) in place.  Returns (params, new_state,
-    metrics), the same tensors as given.  ``split`` / ``group``: the
-    leaves split over the "model" axis and its process group, for the
+    metrics), the same tensors as given.  ``split`` / ``groups``: the
+    mesh axes that split each leaf and their process groups, for the
     clip's global norm (``_global_norm``)."""
     count = state.count + 1
-    gnorm = _global_norm(grads, split, group)
+    gnorm = _global_norm(grads, split, groups)
     if cfg.grad_clip:
         clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-        for _, g in _paths(grads):
+        for _, g in tree_paths(grads):
             g.mul_(clip)
     if cfg.compress_grads and state.err is not None:
-        for (path, g), (_, e) in zip(_paths(grads), _paths(state.err)):
+        for (path, g), (_, e) in zip(tree_paths(grads), tree_paths(state.err)):
             for gs, es in _slices(path, g, e):
                 _compress_decompress_(gs, es)
 
@@ -145,7 +139,7 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
     b2c = 1 - torch.pow(torch.full_like(countf, cfg.b2), countf)
 
     trees = (params, state.mu, state.nu, grads)
-    for leaves in zip(*(_paths(t) for t in trees)):
+    for leaves in zip(*(tree_paths(t) for t in trees)):
         path = leaves[0][0]
         for p, m, n, g in _slices(path, *(t for _, t in leaves)):
             m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)

@@ -14,12 +14,15 @@ up to the window.  With a ``mesh`` prefill and decode run under
 (``repro/serve/engine.py:26-45``), so the models' ``constrain`` calls see
 the mesh; on plain tensors they change nothing.
 
-On a mesh with a "model" axis (tensor parallelism, ``sharding/tp.py``)
-every rank of the mesh builds the engine from the whole parameter tree
-and keeps its boxes (``models.shard_params``); each "data" rank serves
-its rows of the batch.  An RWKV-6 model's ``u`` / ``gn_scale`` /
-``gn_bias``, split over head_dim, are turned into the rank's heads once
-here (``rwkv6_layer.own_heads``).  Its cache holds its rows and, leaf by
+On a mesh whose axes split the parameters (the "model" axis, tensor and
+expert parallelism, and under ``FSDP_RULES`` the "data" axis on the
+params' embed rows; ``sharding/tp.py``) every rank of the mesh builds
+the engine from the whole parameter tree and keeps its boxes
+(``models.shard_params``); each "data" rank serves its rows of the
+batch, and the layers gather their "data"-split leaves at their use.
+An RWKV-6 model's ``u`` / ``gn_scale`` / ``gn_bias``, split over
+head_dim, are turned into the rank's heads once here
+(``rwkv6_layer.own_heads``).  Its cache holds its rows and, leaf by
 leaf, its box of the reference's layout (``init_cache(mesh=)``): the KV
 heads where the size divides them, else the whole K/V on every model
 rank; RWKV-6's ``wkv`` heads beside its whole shift states; the RG-LRU's
@@ -47,7 +50,7 @@ from ..core.snapshot import (_flatten, _leaf_name, _unflatten,
                              dtensor_sharding, load_leaf_, restore_pytree,
                              snapshot_pytree)
 from ..core.types import PartitionDesc, PartitionScheme
-from ..models.params import map_axes, shard_params
+from ..models.params import map_axes, param_split, shard_params, tree_paths
 from ..models.rwkv6_layer import HEAD_LEAVES, own_heads
 from ..models.transformer import (cache_axes, cast_params, decode_step,
                                   init_cache, prefill)
@@ -80,18 +83,20 @@ class ServeEngine:
         self.mesh = mesh
         self.rules = get_rules(cfg.rules)
         self.model_parts = tp.axis_size(mesh)
+        split = mesh is not None and any(
+            a for _, a in tree_paths(param_split(cfg, mesh, self.rules)))
         # the reference casts each weight to the compute dtype where it is
         # used; casting once here gives the same bits and saves the
         # per-step casts
         dtype = getattr(torch, cfg.dtype)
-        if self.model_parts > 1:
+        if split:
             params = shard_params(params, cfg, mesh, self.rules, copy=False)
         self.params = cast_params(params, dtype)
-        if self.model_parts > 1:
+        if split:
             # the rank's boxes were views: each is cast (or copied) into a
             # tensor of its own, so the engine holds no whole leaf
             self.params = _unflatten(self.params, lambda name, t: _own(t))
-            if cfg.mixer == "rwkv6":
+            if cfg.mixer == "rwkv6" and self.model_parts > 1:
                 self._own_heads()
         self.max_len = max_len
         self.last_commit = None     # CommitHandle of the newest cache commit

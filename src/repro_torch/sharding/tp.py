@@ -1,5 +1,6 @@
-"""Tensor parallelism over the mesh's "model" axis: the reference's
-``TP_RULES`` splits at every mesh size, with plain local shards and
+"""Tensor parallelism over the mesh's "model" axis and parameter
+sharding over its "data" axis (ZeRO-3): the reference's ``TP_RULES`` and
+``FSDP_RULES`` split at every mesh size, with plain local shards and
 explicit collectives.
 
 The reference names a sharding and lets GSPMD partition the step.  Here
@@ -9,13 +10,14 @@ each rank holds plain tensors, its box of every parameter leaf
 collective that GSPMD would insert between a leaf's box and the layout
 that the reference's ``constrain`` sites give an activation.  Whether a
 leaf or an activation is split is read from its resolved spec
-(``site_split``) or from its local width against the config's
-(``is_split``), never from whether a "model" axis exists: a leaf the
-size does not divide stays whole, and its product runs whole on every
-rank.
+(``site_split``, ``split_axes``) or from its local width against the
+config's (``is_split``, over "model" only), never from whether an axis
+exists: a leaf the size does not divide stays whole, and its product runs
+whole on every rank.
 
-The collectives, each with its gradient (a whole activation carries its
-whole gradient on every rank, a split one its box's):
+The "model" axis's collectives, each with its gradient (a whole
+activation carries its whole gradient on every rank, a split one its
+box's):
 
 * ``enter(x)``: identity forward, all-reduce backward (Megatron's ``f``),
   on the whole input of a column-split product (q / k / v, gate / up, the
@@ -26,25 +28,38 @@ whole gradient on every rank, a split one its box's):
   (``o @ wo``, ``h @ w_down``), the vocab-split embedding, the
   cross-entropy's sums over vocab shards;
 * ``gather(x, dim)``: a column box to the whole (a zero-padded
-  all-reduce); its backward is the slice;
+  all-reduce); its backward is the slice (the MoE layer's expert outputs
+  at the reference's whole ``ye`` site);
 * ``scatter(x, dim)``: the slice from the whole to the rank's box; its
-  backward is the gather (Megatron's scatter / gather pair);
+  backward is the gather (Megatron's scatter / gather pair; the MoE
+  layer's dispatch buffer at the ``act_experts`` site);
 * ``reduce_scatter(x, dim)``: partial sums to the rank's box of their
   sum (an all-reduce, then the slice); its backward is the gather;
 * ``all_max`` and ``argmax``: the max and the greedy argmax over vocab
   shards (the argmax takes the lowest index among equal maxima, as
   ``torch.argmax`` does).
 
-Every collective is an ``all_reduce``: gloo on CUDA tensors (several
-ranks on one card) offers ``all_reduce`` and ``broadcast`` only.  All are
-the identity when no mesh with a "model" axis of more than one rank is
-active (``use_rules(mesh, rules)``), so the one-process path is unchanged.
+The "data" axis splits parameters only under ``FSDP_RULES``, whose param
+``embed`` axis goes over ("pod", "data"), "all-gathered per scanned
+layer": ``gather_param(x, dim, dtype)`` casts a leaf's box to the
+compute dtype (the same bits as casting after the gather, half the bytes
+at bf16) and gathers its rows from the data ranks, one broadcast a rank;
+its backward is the reduce-scatter, the data ranks' gradients summed in
+the leaf's own dtype (an all-reduce) and cut to the rank's rows.  Such a
+leaf's gradient is then the whole batch's already, and the train step's
+all-reduce over "data" skips it.
 
-``check_model_axis`` raises for what is not split yet: MoE experts, the
-encoder-decoder and the frames / patches frontends, rules other than
-``TP_RULES``, the int8 cache, and an RWKV-6 "rnn" split that would cut
-inside a head's recurrence (compressed gradients raise in
-``train.make_train_step``).
+Every collective is an ``all_reduce`` but the parameter gather's
+broadcasts: gloo on CUDA tensors (several ranks on one card) offers
+``all_reduce`` and ``broadcast`` only.  All are
+the identity when the active mesh (``use_rules(mesh, rules)``) has no
+such axis of more than one rank, so the one-process path is unchanged.
+
+``check_model_axis`` raises for what is not split yet: the
+encoder-decoder and the frames / patches frontends, the int8 cache,
+rules other than ``TP_RULES`` and ``FSDP_RULES`` (``SEQ_RULES``), and an
+RWKV-6 "rnn" split that would cut inside a head's recurrence (compressed
+gradients raise in ``train.make_train_step``).
 """
 from __future__ import annotations
 
@@ -54,9 +69,10 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from .rules import active_rules, spec
+from .rules import active_rules, mesh_shape, spec
 
 AXIS = "model"
+DATA = "data"
 
 
 class ModelAxis(NamedTuple):
@@ -81,12 +97,13 @@ def axis_rank(mesh, name: str = AXIS) -> int:
     return int(mesh.get_local_rank(name))
 
 
-def mesh_axis(mesh) -> Optional[ModelAxis]:
-    """``mesh``'s "model" axis, or None when it has none or one rank."""
-    size = axis_size(mesh)
+def mesh_axis(mesh, name: str = AXIS) -> Optional[ModelAxis]:
+    """``mesh``'s axis ``name`` (default "model"), or None when it has
+    none or one rank."""
+    size = axis_size(mesh, name)
     if size == 1:
         return None
-    return ModelAxis(mesh.get_group(AXIS), size, axis_rank(mesh))
+    return ModelAxis(mesh.get_group(name), size, axis_rank(mesh, name))
 
 
 def model_axis() -> Optional[ModelAxis]:
@@ -95,30 +112,36 @@ def model_axis() -> Optional[ModelAxis]:
     return None if pair is None else mesh_axis(pair[0])
 
 
-def check_model_axis(cfg, size: int, rules=None) -> None:
-    """Raise ``ValueError`` where ``cfg`` is not split over a "model"
-    axis of ``size`` ranks: MoE experts, the encoder-decoder and the
-    frames / patches frontends, the int8 KV cache, rules other than
-    ``TP_RULES``, and an RWKV-6 model whose state width the size divides
-    but whose heads it does not (the "rnn" split would cut inside a
-    head's recurrence, and the reference's state is then whole).  Every
-    other size runs: a leaf the size does not divide stays whole."""
-    if size == 1:
-        return
-    from .rules import TP_RULES
+def data_axis() -> Optional[ModelAxis]:
+    """The "data" axis of the active mesh (``use_rules``), or None."""
+    pair = active_rules()
+    return None if pair is None else mesh_axis(pair[0], DATA)
 
+
+def check_model_axis(cfg, size: int, rules=None, data: int = 1) -> None:
+    """Raise ``ValueError`` where ``cfg`` is not split over a ("data"
+    ``data``, "model" ``size``) mesh: the encoder-decoder and the frames /
+    patches frontends, the int8 KV cache, rules other than ``TP_RULES``
+    and ``FSDP_RULES``, and an RWKV-6 model whose state width the size
+    divides but whose heads it does not (the "rnn" split would cut inside
+    a head's recurrence, and the reference's state is then whole).  Every
+    other size runs: a leaf the size does not divide stays whole.  With
+    one model rank it checks only under ``FSDP_RULES``, whose parameters
+    the data ranks split."""
+    from .rules import FSDP_RULES, TP_RULES
+
+    if size == 1 and (data == 1 or rules != FSDP_RULES):
+        return
     later = []
-    if cfg.ffn == "moe":
-        later.append("MoE experts")
     if cfg.is_encdec or cfg.frontend != "token":
         later.append(f"the {cfg.frontend} frontend")
     if cfg.kv_quant:
         later.append("the int8 KV cache")
-    if rules is not None and rules != TP_RULES:
-        later.append("rules other than TP_RULES")
+    if rules is not None and rules not in (TP_RULES, FSDP_RULES):
+        later.append("rules other than TP_RULES and FSDP_RULES")
     if later:
-        raise ValueError(f"{cfg.name}: the 'model' axis is not split for "
-                         f"{', '.join(later)}")
+        raise ValueError(f"{cfg.name}: a ('data' {data}, 'model' {size}) "
+                         f"mesh is not split for {', '.join(later)}")
     if cfg.mixer == "rwkv6":
         heads = cfg.d_model // cfg.rwkv_head_dim
         if cfg.d_model % size == 0 and heads % size:
@@ -138,9 +161,18 @@ def _model_spec(axes, dims, rules, size: int):
     return spec(axes, rules, types.SimpleNamespace(shape={AXIS: size}), dims)
 
 
-def on_axis(entry) -> bool:
-    """Whether a ``PartitionSpec`` entry splits its dim over "model"."""
-    return AXIS in ((entry,) if isinstance(entry, str) else tuple(entry or ()))
+def on_axis(entry, axis: str = AXIS) -> bool:
+    """Whether a ``PartitionSpec`` entry splits its dim over ``axis``
+    (default "model")."""
+    return axis in ((entry,) if isinstance(entry, str) else tuple(entry or ()))
+
+
+def split_axes(pspec, mesh) -> tuple:
+    """The axes of ``mesh`` (of more than one rank, in the mesh's order)
+    that split a leaf whose resolved spec is ``pspec``: ("data",),
+    ("model",), both, or none."""
+    return tuple(a for a, n in mesh_shape(mesh).items()
+                 if n > 1 and any(on_axis(e, a) for e in pspec))
 
 
 def is_split(local: int, full: Optional[int]) -> bool:
@@ -258,6 +290,37 @@ class _ReduceScatter(torch.autograd.Function):
         return _gather(dy.contiguous(), ctx.dim, ctx.ax), None, None
 
 
+def _broadcast_gather(x: torch.Tensor, dim: int, ax: ModelAxis
+                      ) -> torch.Tensor:
+    """The whole tensor from every rank's box of it along ``dim``: one
+    broadcast a rank, each box sent once (a zero-padded all-reduce would
+    move the whole tensor from every rank)."""
+    x = x.contiguous()
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * ax.size
+    full = x.new_empty(shape)
+    for r in range(ax.size):
+        box = x if r == ax.rank else torch.empty_like(x)
+        dist.broadcast(box, src=dist.get_global_rank(ax.group, r),
+                       group=ax.group)
+        full.narrow(dim, r * n, n).copy_(box)
+    return full
+
+
+class _ParamGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax, dtype):
+        ctx.dim, ctx.ax, ctx.dtype = dim, ax, x.dtype
+        return _broadcast_gather(x.to(dtype), dim, ax)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = dy.contiguous().to(ctx.dtype, copy=True)
+        return _part(_all_reduce_(dx, ctx.ax.group), ctx.dim, ctx.ax), \
+            None, None, None
+
+
 def _grad(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -318,6 +381,22 @@ def reduce_scatter(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     if _grad(x):
         return _ReduceScatter.apply(x, dim, ax)
     return _part(_all_reduce_(x.contiguous(), ax.group), dim, ax)
+
+
+def gather_param(x: torch.Tensor, dim: int, dtype=None) -> torch.Tensor:
+    """A parameter leaf whole from every data rank's box of it along
+    ``dim`` (its rows under ``FSDP_RULES``), cast to ``dtype`` before the
+    gather; its gradient is summed over the data ranks in ``x``'s dtype
+    and cut to the box (the reduce-scatter).  ``x`` as it is without a
+    "data" axis of more than one rank."""
+    ax = data_axis()
+    if ax is None:
+        return x
+    dtype = dtype or x.dtype
+    dim = dim % x.dim()
+    if _grad(x):
+        return _ParamGather.apply(x, dim, ax, dtype)
+    return _broadcast_gather(x.to(dtype), dim, ax)
 
 
 def all_max(x: torch.Tensor) -> torch.Tensor:

@@ -18,12 +18,14 @@ clipping and compression, which the optimizer applies to the global
 gradient, so every rank takes the same update and the replicas stay
 bit-equal.  The reported loss is the all-reduced one.
 
-Split over a mesh's "model" axis too (``mesh``, ``sharding/tp.py``): the
-params, moments and gradients are the rank's shards
-(``models.shard_params``), the loss runs under ``use_rules(mesh,
-rules)`` (its collectives over the model ranks), the gradients are
-all-reduced over the "data" axis only, and the clip's global norm sums
-the split leaves' squares over the model ranks, the whole ones' once.
+Split over a mesh too (``mesh``, ``sharding/tp.py``): the params,
+moments and gradients are the rank's boxes (``models.shard_params``), the
+loss runs under ``use_rules(mesh, rules)`` (its collectives over the
+model ranks, and under ``FSDP_RULES`` each layer's gathers of its
+"data"-split leaves, whose backward reduce-scatters their gradients over
+the data ranks), the other gradients are all-reduced over the "data"
+axis, and the clip's global norm sums each leaf's squares over the axes
+that split it, a whole leaf's once (``models.param_split``).
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ import torch
 import torch.distributed as dist
 
 from ..configs.base import ModelConfig
-from ..models import abstract_params, loss_fn, map_axes, param_specs
+from ..models import loss_fn, param_split
+from ..models.params import tree_at, tree_paths
 from ..optim import AdamWConfig, adamw_update
 from ..sharding import get_rules, tp, use_rules
 from .state import TrainState
@@ -76,28 +79,22 @@ def compute_grads(cfg: ModelConfig, params, batch, grads=None, **loss_kw):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def _dp_grads(cfg: ModelConfig, params, batch, group):
+def _dp_grads(cfg: ModelConfig, params, batch, group, split=None):
     """This rank's share of the global batch's loss and gradient, then
-    the gradient and the loss all-reduced over ``group``."""
+    the gradient and the loss all-reduced over ``group``.  A leaf that
+    ``split`` (``models.param_split``) marks split over "data" holds the
+    data ranks' summed gradient of its box already (its gather's backward
+    reduce-scattered it) and is not all-reduced again."""
     ranks = dist.get_world_size(group)
     count = (batch["labels"][:, 1:] >= 0).sum().float()
     dist.all_reduce(count, group=group)
     loss, metrics, grads = compute_grads(cfg, params, batch,
                                          token_total=count, ranks=ranks)
-    for g in _leaves(grads):
-        dist.all_reduce(g, group=group)
+    for path, g in tree_paths(grads):
+        if split is None or "data" not in tree_at(split, path):
+            dist.all_reduce(g, group=group)
     dist.all_reduce(loss, group=group)
     return loss, metrics, grads
-
-
-def model_split(cfg: ModelConfig, mesh, rules=None):
-    """A tree of the params' layout: True where the leaf is split over
-    ``mesh``'s "model" axis."""
-    rules = rules or get_rules(cfg.rules)
-    shapes, axes = abstract_params(cfg)
-    specs = param_specs(axes, rules, mesh, shapes)
-    return map_axes(lambda ax, s: any(tp.on_axis(a) for a in s), axes,
-                    specs)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
@@ -110,17 +107,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     the rank's shards."""
     opt_cfg = opt_cfg or AdamWConfig()
     rules = get_rules(cfg.rules)
-    axis = split = None
+    split = groups = None
     if mesh is not None:
         if group is not None:
             raise ValueError("give a group or a mesh, not both")
-        tp.check_model_axis(cfg, tp.axis_size(mesh), rules)
-        axis = tp.mesh_axis(mesh)
-        if axis is not None:
-            if opt_cfg.compress_grads:
-                raise ValueError("compressed gradients are not split over "
-                                 "the 'model' axis")
-            split = model_split(cfg, mesh, rules)
+        tp.check_model_axis(cfg, tp.axis_size(mesh), rules,
+                            tp.axis_size(mesh, "data"))
+        split = param_split(cfg, mesh, rules)
+        if opt_cfg.compress_grads and any(a for _, a in tree_paths(split)):
+            raise ValueError("compressed gradients are not split over "
+                             "the mesh's axes")
+        groups = {a: mesh.get_group(a) for a in mesh.mesh_dim_names
+                  if tp.axis_size(mesh, a) > 1}
         if tp.axis_size(mesh, "data") > 1:
             group = mesh.get_group("data")
     if group is not None and microbatches > 1:
@@ -147,17 +145,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                 loss, _, grads = compute_grads(cfg, params, mb, grads)
                 lsum = lsum + loss
             with torch.no_grad():
-                for g in _leaves(grads):
+                for _, g in tree_paths(grads):
                     g.div_(microbatches)
             loss = lsum / microbatches
             metrics = {}
         elif group is not None:
-            loss, metrics, grads = _dp_grads(cfg, params, batch, group)
+            loss, metrics, grads = _dp_grads(cfg, params, batch, group,
+                                             split)
         else:
             loss, metrics, grads = compute_grads(cfg, params, batch)
         _, new_opt, opt_metrics = adamw_update(
             grads, state.opt, params, opt_cfg, schedule, split=split,
-            group=None if axis is None else axis.group)
+            groups=groups)
         del grads
         new_state = TrainState(params=params, opt=new_opt,
                                step=state.step + 1)
@@ -165,10 +164,3 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
 
     return train_step
 
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree

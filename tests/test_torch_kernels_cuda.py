@@ -205,6 +205,20 @@ def test_bwd_kernel_at_recurrent_model_split_training_shape(card):
         assert torch.equal(g, g2)
 
 
+# K4 at the MoE models' prefill on a rank of a two-way "model" split
+# (their experts over "model" too): dbrx-132b's 24 of 48 query heads over
+# 4 of 8 kv heads at D 128, qwen3-moe-235b-a22b's 32 of 64 over 2 of 4 at
+# D 64
+TP_MOE_CASES = [(4, 24, 4, 512, 512, 128, True, None),
+                (4, 32, 2, 512, 512, 64, True, None)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", TP_MOE_CASES)
+def test_kernel_matches_plain_at_moe_model_split_shapes(card, case, dtype):
+    test_kernel_matches_plain(card, case, dtype)
+
+
 def test_rows_without_allowed_key_are_zero(card):
     q, k, v = _mk(card, 3, 1, 2, 1, 16, 8, 64, "float32")
     out, lse = attention(q, k, v, causal=True, return_lse=True)

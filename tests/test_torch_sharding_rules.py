@@ -253,3 +253,24 @@ def test_train_state_specs_equal_the_reference(compress):
         # the moments are FSDP-sharded on the embed axis where the params
         # are not
         assert got["opt/mu/embed/table"] != got["params/embed/table"]
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "qwen3-moe-235b-a22b"])
+def test_moe_train_state_specs_equal_the_reference(arch):
+    """The MoE configurations name ``FSDP_RULES``: their params' specs
+    split the experts over "model" and the embed rows over ("pod",
+    "data"), as the moments' do, at both production meshes."""
+    jstate, jaxes = jax_abstract_train_state(jax_get_config(arch),
+                                             JaxAdamWConfig())
+    state, axes = abstract_train_state(get_config(arch), AdamWConfig())
+    assert flat(axes) == flat(jaxes)
+    for mesh in MESHES.values():
+        m = fake_mesh(mesh)
+        want = flat(jax_train_state_specs(jax_get_config(arch), m, jstate,
+                                          jaxes))
+        got = flat(train_state_specs(get_config(arch), m, state, axes))
+        assert got == want
+        w_gu = "stack/b0/moe/w_gu"
+        assert got[f"params/{w_gu}"] == got[f"opt/mu/{w_gu}"]
+        assert got[f"params/{w_gu}"][2:4] == (
+            "model", ("pod", "data") if "pod" in mesh else "data")

@@ -1,6 +1,8 @@
-"""The port's "model" axis (tensor parallelism, ``sharding/tp.py``) held
-against the JAX reference in gloo worlds of 2 ranks ("model" 2), 4 ranks
-("data" 2 x "model" 2) and 4 ranks ("model" 4), ``torch_dp_workers.py``:
+"""The port's "model" axis (tensor and expert parallelism,
+``sharding/tp.py``) and, under ``FSDP_RULES``, its parameters' "data"
+axis, held against the JAX reference in gloo worlds of 2 ranks ("model"
+2), 4 ranks ("data" 2 x "model" 2), 4 ranks ("model" 4) and 2 ranks
+("data" 2, FSDP alone), ``torch_dp_workers.py``:
 
 * tiny yi-6b (GQA 4 / 2), qwen2.5-3b (QKV bias, a 200-word vocab padded
   to 256, so only the last vocab shard masks, and full remat: every layer
@@ -16,11 +18,17 @@ against the JAX reference in gloo worlds of 2 ranks ("model" 2), 4 ranks
   window of 16 rolls the ring) in every world but the first's dense
   ones: the "rnn" axis, RWKV-6's ``u`` / ``gn_scale`` / ``gn_bias`` over
   head_dim, the RG-LRU's ``w_ai`` over its contraction rows;
+* tiny dbrx-132b (4 experts, top 2) and qwen3-moe (8 experts, top 2,
+  full remat: each layer's gathers recomputed in the backward) under
+  ``FSDP_RULES``, as their full configs name them, in every world: the
+  experts split over "model" (one a rank for dbrx at "model" 4), every
+  leaf's embed rows over "data" (gathered a layer at a time, their
+  gradients reduce-scattered);
 
 and for each:
 
 * each rank's param shards are its boxes of the reference's
-  ``param_specs`` under ``TP_RULES`` (exact);
+  ``param_specs`` under the case's rules (exact);
 * prefill logits and every cache / state leaf, each rank's its box of the
   reference's ``cache_axes`` under the rules: rtol 1e-5, atol 1e-6 of the
   leaf's largest value (the padded vocab's logits exactly -1e30); the
@@ -32,18 +40,20 @@ and for each:
 * the loss (rtol 1e-5) and every gradient leaf (rtol 1e-5, atol 1e-6 of
   its largest value, ``test_torch_train_dp.py``'s; 1e-4 for the
   recurrent models, ``GRAD_ATOL``), and two train
-  steps' losses and clip norms (the split leaves' squares summed over the
-  model ranks) against the reference's jitted train step (rtol 1e-5; the
-  recurrent models' norms 1e-4, ``NORM_RTOL``);
+  steps' losses and clip norms (each leaf's squares summed over the axes
+  that split it) against the reference's jitted train step (rtol 1e-5;
+  the recurrent models' norms 1e-4, ``NORM_RTOL``);
 * what still raises ``ValueError``: an RWKV-6 split inside its heads
-  (tiny rwkv6 with one head of 64 on each world's mesh), MoE, the
-  encoder-decoder and frontends, the int8 cache; and the resolved
-  layout where a size does not divide the heads (yi-6b at 8,
-  phi3-medium-14b at 3, qwen2.5-3b at 16).
+  (tiny rwkv6 with one head of 64 on each "model" world's mesh), the
+  encoder-decoder and frontends, the int8 cache, ``SEQ_RULES``; and the
+  resolved layout where a size does not divide the heads (yi-6b at 8,
+  phi3-medium-14b at 3, qwen2.5-3b at 16) or the experts (dbrx-132b's
+  16 at 3 stay whole; qwen3-moe's 128 at 8 give 16 a rank).
 
-Then the reference's own run under ("data", "model") meshes of (2, 2)
-and (1, 4) forced host devices (a subprocess): its prefill logits and
-loss equal its one-device run's, which the port's are held to above.
+Then the reference's own run under ("data", "model") meshes of (2, 2),
+(1, 4) and, for the MoE models under ``FSDP_RULES``, (2, 1) forced host
+devices (a subprocess): its prefill logits and loss equal its one-device
+run's, which the port's are held to above.
 """
 import dataclasses
 import pickle
@@ -71,13 +81,14 @@ from repro.models import abstract_params as jax_abstract_params  # noqa: E402
 from repro.optim import AdamWConfig as JaxAdamWConfig  # noqa: E402
 from repro.optim import warmup_cosine as jax_warmup_cosine  # noqa: E402
 from repro.serve import ServeEngine as JaxServeEngine  # noqa: E402
-from repro.sharding import TP_RULES as JAX_TP_RULES  # noqa: E402
+from repro.sharding import get_rules as jax_get_rules  # noqa: E402
 from repro.sharding import spec as jax_spec  # noqa: E402
 from repro.train import make_train_state as jax_make_train_state  # noqa: E402
 from repro.train import make_train_step as jax_make_train_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import init_cache  # noqa: E402
 from repro_torch.serve import serve_max_len  # noqa: E402
+from repro_torch.sharding import FSDP_RULES, SEQ_RULES  # noqa: E402
 from repro_torch.sharding import TP_RULES, NamedSharding  # noqa: E402
 from repro_torch.sharding.tp import check_model_axis, local_shape  # noqa: E402
 
@@ -91,9 +102,15 @@ CASES = {"yi-6b": ({}, 12),
          "phi3-medium-14b": ({}, 12),
          "rwkv6-7b": ({"remat_policy": "full"}, 12),
          # a prompt longer than the window of 16 rolls the ring
-         "recurrentgemma-9b": ({}, 20)}
+         "recurrentgemma-9b": ({}, 20),
+         # the MoE models under the rules their full configs name (the
+         # tiny ones name "tp")
+         "dbrx-132b": ({"rules": "fsdp"}, 12),
+         "qwen3-moe-235b-a22b": ({"rules": "fsdp", "remat_policy": "full"},
+                                 12)}
 B, GEN, STEPS = 4, 5, 2
 RECURRENT = ["rwkv6-7b", "recurrentgemma-9b"]
+MOE = ["dbrx-132b", "qwen3-moe-235b-a22b"]
 # each gradient leaf's atol, relative to its largest element: on this
 # batch the recurrent models' one-process gradients lie up to 2.6e-5 of
 # it from the reference's (rwkv6-7b's wA; f32 sums through the
@@ -104,10 +121,12 @@ GRAD_ATOL = {arch: 1e-4 if arch in RECURRENT else 1e-6 for arch in CASES}
 NORM_RTOL = {arch: 1e-4 if arch in RECURRENT else 1e-5 for arch in CASES}
 # world -> ((data, model), its archs)
 WORLDS = {"model2": ((1, 2), ["yi-6b", "qwen2.5-3b", "deepseek-7b",
-                              "phi3-medium-14b"] + RECURRENT),
+                              "phi3-medium-14b"] + RECURRENT + MOE),
           "data2_model2": ((2, 2), ["yi-6b", "qwen2.5-3b", "deepseek-7b"]
-                           + RECURRENT),
-          "model4": ((1, 4), ["yi-6b", "qwen2.5-3b"] + RECURRENT)}
+                           + RECURRENT + MOE),
+          "model4": ((1, 4), ["yi-6b", "qwen2.5-3b"] + RECURRENT + MOE),
+          # FSDP alone: the MoE models' params split over "data" only
+          "data2": ((2, 1), MOE)}
 CELLS = [(w, a) for w in sorted(WORLDS) for a in WORLDS[w][1]]
 CELL_IDS = [f"{w}-{a}" for w, a in CELLS]
 
@@ -232,11 +251,16 @@ def _jax_mesh(data, model):
     return types.SimpleNamespace(shape={"data": data, "model": model})
 
 
-def _reference_boxes(ref, data, model):
+def _jax_rules(arch):
+    """The reference's rules of ``arch``'s case."""
+    return jax_get_rules(_cfgs(arch)[0].rules)
+
+
+def _reference_boxes(ref, data, model, arch):
     """leaf name -> rank -> box of the reference's ``param_specs`` under
-    ``TP_RULES`` on a (data, model) mesh, for its params."""
+    the case's rules on a (data, model) mesh, for its params."""
     shapes = ref["params"]
-    specs = jax_param_specs(ref["axes"], JAX_TP_RULES,
+    specs = jax_param_specs(ref["axes"], _jax_rules(arch),
                             _jax_mesh(data, model), shapes)
     flat_specs = dict(_names(specs))
     out = {}
@@ -246,10 +270,11 @@ def _reference_boxes(ref, data, model):
     return out
 
 
-def _site_boxes(axes, shape, data, model):
+def _site_boxes(axes, shape, data, model, arch):
     """rank -> box of an activation of whole ``shape`` with logical
-    ``axes`` under the reference's ``spec`` on a (data, model) mesh."""
-    s = jax_spec(axes, JAX_TP_RULES, _jax_mesh(data, model), shape)
+    ``axes`` under the reference's ``spec`` (the case's rules) on a
+    (data, model) mesh."""
+    s = jax_spec(axes, _jax_rules(arch), _jax_mesh(data, model), shape)
     return NamedSharding(_mesh(data, model), tuple(s)).devices_indices_map(
         shape)
 
@@ -272,7 +297,7 @@ def _cell(world, arch):
 @pytest.mark.parametrize("world, arch", CELLS, ids=CELL_IDS)
 def test_param_shards_are_the_reference_boxes(worlds, reference, world, arch):
     data, model, i, out = _cell(worlds(world), arch)
-    boxes = _reference_boxes(reference[arch], data, model)
+    boxes = _reference_boxes(reference[arch], data, model, arch)
     full = dict(_names(reference[arch]["params"]))
     for res in out["train"]:
         r = _rank(res[i]["coord"], model)
@@ -300,7 +325,7 @@ def test_prefill_logits_and_cache_match_reference(worlds, reference, world, arch
     ranks = out["serve"]["cases"]
     vocab = _cfgs(arch)[1].vocab_size
     lboxes = _site_boxes(("batch", "act_vocab"), ref["logits"].shape, data,
-                         model)
+                         model, arch)
     for res in ranks:
         r = _rank(res[i]["coord"], model)
         got, want = res[i]["logits"], ref["logits"][lboxes[r]]
@@ -314,7 +339,7 @@ def test_prefill_logits_and_cache_match_reference(worlds, reference, world, arch
         if name == "idx":
             continue
         boxes = _site_boxes(ref["cache_axes"][name], want.shape, data,
-                            model)
+                            model, arch)
         # the whole cache restored on one rank is the reference's, and
         # each rank's leaf its box of it
         _close(whole[name], want, name)
@@ -341,7 +366,7 @@ def test_greedy_tokens_and_restored_decode(worlds, reference, world, arch):
     parts = {name: len({tuple((sl.start, sl.stop) for sl in box)
                         for box in _site_boxes(
                             ref["cache_axes"][name], leaf.shape, data,
-                            model).values()})
+                            model, arch).values()})
              for name, leaf in ref["cache"].items()}
     assert ranks[0][i]["parts"] == parts
     assert parts["idx"] == 1
@@ -351,7 +376,7 @@ def test_greedy_tokens_and_restored_decode(worlds, reference, world, arch):
 def test_loss_grads_and_steps_match_reference(worlds, reference, world, arch):
     data, model, i, out = _cell(worlds(world), arch)
     ref = reference[arch]
-    boxes = _reference_boxes(ref, data, model)
+    boxes = _reference_boxes(ref, data, model, arch)
     for res in out["train"]:
         r = _rank(res[i]["coord"], model)
         np.testing.assert_allclose(res[i]["loss"], ref["loss"], rtol=1e-5)
@@ -366,7 +391,8 @@ def test_loss_grads_and_steps_match_reference(worlds, reference, world, arch):
                                    rtol=NORM_RTOL[arch])
 
 
-@pytest.mark.parametrize("world", sorted(WORLDS))
+@pytest.mark.parametrize("world", sorted(w for w in WORLDS
+                                         if WORLDS[w][0][1] > 1))
 def test_model_axis_that_does_not_divide_raises(worlds, world):
     """A "model" axis that divides RWKV-6's width but not its heads would
     cut a head's recurrence: tiny rwkv6-7b with one head of 64 raises on
@@ -377,16 +403,32 @@ def test_model_axis_that_does_not_divide_raises(worlds, world):
 
 @pytest.mark.parametrize("arch, size, what", [
     ("yi-6b", 8, "4 kv heads"), ("phi3-medium-14b", 3, "40 heads"),
-    ("qwen2.5-3b", 16, "2 kv heads")])
+    ("qwen2.5-3b", 16, "2 kv heads"), ("dbrx-132b", 3, "16 experts"),
+    ("qwen3-moe-235b-a22b", 8, "128 experts")])
 def test_check_model_axis_names_the_axis(arch, size, what):
     """A size that divides a leaf's flattened width but not the heads
     (``what``) is taken, as the reference's engine takes it: the leaf
     splits inside a head, its site resolves whole, and so does the
-    cache; a size that divides neither leaves both whole."""
+    cache; a size that divides neither leaves both whole.  The experts
+    (under the MoE configs' ``FSDP_RULES``) split where the size divides
+    them, leaf and ``act_experts`` site alike, and are whole where it
+    does not: dbrx-132b's 16 at 3, qwen3-moe's 128 at 8 (16 a rank)."""
     cfg = get_config(arch)
-    check_model_axis(cfg, size)
-    check_model_axis(cfg, 2)
+    rules = FSDP_RULES if cfg.rules == "fsdp" else TP_RULES
+    check_model_axis(cfg, size, rules)
+    check_model_axis(cfg, 2, rules)
     n, hd = int(what.split()[0]), cfg.resolved_head_dim
+    if "experts" in what:
+        assert n == cfg.num_experts
+        local = n // size if n % size == 0 else n
+        leaf = local_shape(("stack", "experts", "embed", "expert_ff"),
+                           (2, n, cfg.d_model, cfg.resolved_moe_d_ff),
+                           rules, size)
+        site = local_shape(("batch", "act_experts", None, None),
+                           (1, n, 4, cfg.d_model), rules, size)
+        assert leaf[1] == site[1] == local
+        assert local == (16 if arch.startswith("qwen3") else n)
+        return
     assert n % size
     kv = "kv" in what
     width = n * hd
@@ -404,11 +446,22 @@ def test_check_model_axis_names_the_axis(arch, size, what):
                                   "recurrentgemma-9b", "seamless-m4t-medium",
                                   "pixtral-12b"])
 def test_later_slices_raise(arch):
-    """MoE, the encoder-decoder and the frontends still raise; the
-    recurrent models split over "rnn" and raise only where RWKV-6's heads
-    would be cut (64 heads of 64 over 128 ranks) or for the int8 cache."""
+    """The encoder-decoder, the frontends, ``SEQ_RULES`` and the int8
+    cache still raise; MoE splits under both rule sets, and so over
+    "data" alone under ``FSDP_RULES``; the recurrent models split over
+    "rnn" and raise only where RWKV-6's heads would be cut (64 heads of
+    64 over 128 ranks) or for the int8 cache."""
     cfg = get_config(arch)
-    if arch in RECURRENT:
+    if arch == "dbrx-132b":
+        for rules in (TP_RULES, FSDP_RULES):
+            check_model_axis(cfg, 2, rules)
+            check_model_axis(cfg, 4, rules)
+            check_model_axis(cfg, 2, rules, data=2)
+        check_model_axis(cfg, 1, FSDP_RULES, data=2)
+        for data in (1, 2):
+            with pytest.raises(ValueError, match="not split"):
+                check_model_axis(cfg, 2, SEQ_RULES, data)
+    elif arch in RECURRENT:
         check_model_axis(cfg, 2)
         check_model_axis(cfg, 4)
         if arch == "rwkv6-7b":
@@ -419,9 +472,14 @@ def test_later_slices_raise(arch):
     else:
         with pytest.raises(ValueError, match="not split"):
             check_model_axis(cfg, 2)
+        # FSDP alone splits every param's embed rows over "data"
+        with pytest.raises(ValueError, match="not split"):
+            check_model_axis(cfg, 1, FSDP_RULES, data=2)
     cfg = dataclasses.replace(get_config("yi-6b"), kv_quant=True)
     with pytest.raises(ValueError, match="int8"):
         check_model_axis(cfg, 2)
+    with pytest.raises(ValueError, match="int8"):
+        check_model_axis(cfg, 1, FSDP_RULES, data=2)
 
 
 REFERENCE_MESH = r"""
@@ -435,24 +493,25 @@ from jax.sharding import Mesh, NamedSharding
 sys.path.insert(0, "src")
 from repro.configs import get_config
 from repro.models import init_cache, init_params, loss_fn, param_specs, prefill
-from repro.sharding import TP_RULES, use_rules
+from repro.sharding import get_rules, use_rules
 
 out = sys.argv[1]
 with open(out, "rb") as f:
     cases = pickle.load(f)
 res = {}
 for shape, arch, over, params, batch, max_len, probe in cases:
-    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(shape),
-                ("data", "model"))
+    mesh = Mesh(np.asarray(jax.devices()[:shape[0] * shape[1]]).reshape(
+        shape), ("data", "model"))
     cfg = dataclasses.replace(get_config(arch, tiny=True), **over)
-    specs = param_specs(init_params(cfg, jax.random.key(0))[1], TP_RULES,
+    rules = get_rules(cfg.rules)
+    specs = param_specs(init_params(cfg, jax.random.key(0))[1], rules,
                         mesh, params)
     sharded = jax.tree.map(lambda a, s: jax.device_put(
         a, NamedSharding(mesh, s)), params, specs)
 
     @jax.jit
     def run(p, b):
-        with use_rules(mesh, TP_RULES):
+        with use_rules(mesh, rules):
             logits, _ = prefill(cfg, p, {"tokens": b["tokens"]},
                                 init_cache(cfg, b["tokens"].shape[0],
                                            max_len))
@@ -474,18 +533,24 @@ PROBES = {"yi-6b": ("stack", "b0", "attn", "wq"),
           "qwen2.5-3b": ("stack", "b0", "attn", "wq"),
           "deepseek-7b": ("stack", "b0", "attn", "wq"),
           "rwkv6-7b": ("stack", "b0", "tm", "w_rkvg"),
-          "recurrentgemma-9b": ("stack", "b0", "rec", "w_ig")}
+          "recurrentgemma-9b": ("stack", "b0", "rec", "w_ig"),
+          # experts over "model", embed rows over "data"
+          "dbrx-132b": ("stack", "b0", "moe", "w_gu"),
+          "qwen3-moe-235b-a22b": ("stack", "b0", "moe", "w_gu")}
 # qwen2.5-3b's split at 4 (kv heads inside a head) is yi-6b's
 REFERENCE_MESHES = [((2, 2), a) for a in WORLDS["data2_model2"][1]] + [
-    ((1, 4), a) for a in ["yi-6b"] + RECURRENT]
+    ((1, 4), a) for a in ["yi-6b"] + RECURRENT + MOE] + [
+    ((2, 1), a) for a in MOE]
 
 
 def test_reference_under_a_mesh_matches_its_one_device_run(reference,
                                                            tmp_path):
-    """The reference partitioned by GSPMD under ``TP_RULES`` on (2, 2) and
-    (1, 4) meshes gives the logits and loss of its one-device run, which
-    the port's split run is held to above: the split changes no
-    answer."""
+    """The reference partitioned by GSPMD under its case's rules on (2, 2)
+    and (1, 4) meshes, and the MoE models under ``FSDP_RULES`` on (2, 1),
+    gives the logits and loss of its one-device run, which the port's
+    split run is held to above: the split changes no answer.  Each probe
+    leaf's shard is its box of the reference's specs (tiny dbrx-132b's
+    ``w_gu`` (2, 2, 4, 64, 96) a box of (2, 2, 2, 32, 96) at (2, 2))."""
     out = tmp_path / "mesh.pkl"
     cases = [(shape, arch, CASES[arch][0], reference[arch]["params"],
               reference[arch]["batch"],
@@ -506,8 +571,9 @@ def test_reference_under_a_mesh_matches_its_one_device_run(reference,
         for k in PROBES[arch]:
             leaf = leaf[k]
         g = got[(shape, arch)]
-        assert g["probe_shard"] == (*leaf.shape[:-1],
-                                    leaf.shape[-1] // shape[1])
+        box = _reference_boxes(ref, *shape, arch)["/".join(PROBES[arch])][0]
+        assert g["probe_shard"] == tuple(sl.stop - sl.start for sl in box)
+        assert g["probe_shard"] != leaf.shape
         _close(g["logits"][:, :vocab], ref["logits"][:, :vocab],
                f"{arch} logits on {shape}")
         np.testing.assert_allclose(g["loss"], ref["loss"], rtol=1e-5)

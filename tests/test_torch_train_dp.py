@@ -2,7 +2,10 @@
 CPU processes in a gloo world, ``torch_dp_workers.py``) held against the
 reference ``ElasticTrainer`` on 2 forced host devices (a subprocess).
 
-* Tiny qwen2.5-3b and tiny qwen3-moe-235b-a22b, global batch 4, from the
+* Tiny qwen2.5-3b and tiny qwen3-moe-235b-a22b, the latter also under
+  ``FSDP_RULES`` as its full config names (``"qwen3-moe-235b-a22b:fsdp"``:
+  the trainer keeps every leaf whole on its "data" mesh, as the
+  reference's does, so nothing is gathered), global batch 4, from the
   reference's initial state (carried across by leaf name): 3 steps on 1
   rank, a resize to 2 ranks (rank 1 joins and receives the state from
   rank 0), 3 steps, a resize back to 1 (rank 1 frees its state), 3 steps,
@@ -52,6 +55,8 @@ import torch_dp_workers as workers  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen2.5-3b", "qwen3-moe-235b-a22b"]
+# an arch, or "arch:rules" for its tiny config under other rules
+TRAINER_CASES = ARCHS + ["qwen3-moe-235b-a22b:fsdp"]
 # (steps, resize to after them)
 PLAN = [(3, 2), (3, 1), (3, None)]
 COMMIT_EVERY = 2
@@ -60,7 +65,7 @@ COMMIT_EVERY = 2
 STEPS_LR = sum(1e-3 * min(s / 20, 1.0) for s in range(1, 10))
 
 REFERENCE = r"""
-import os, pickle, sys
+import dataclasses, os, pickle, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 import numpy as np
 import jax
@@ -83,8 +88,12 @@ def arrays(state):
 
 
 for arch in archs:
+    name, _, rules = arch.partition(":")
+    cfg = get_config(name, tiny=True)
+    if rules:
+        cfg = dataclasses.replace(cfg, rules=rules)
     with ICheckCluster(n_icheck_nodes=2) as cluster:
-        t = ElasticTrainer(get_config(arch, tiny=True),
+        t = ElasticTrainer(cfg,
                            ShapeConfig("t", "train", seq, gb), cluster,
                            app_id="app", ranks=1, seed=0,
                            opt_cfg=AdamWConfig(lr=1e-3), probe_every=0,
@@ -109,7 +118,7 @@ print("REFERENCE_OK")
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     out = tmp_path_factory.mktemp("ref") / "ref.pkl"
-    arg = pickle.dumps((str(out), ARCHS, PLAN, COMMIT_EVERY, workers.SEQ,
+    arg = pickle.dumps((str(out), TRAINER_CASES, PLAN, COMMIT_EVERY, workers.SEQ,
                         workers.GLOBAL_BATCH)).hex()
     proc = subprocess.run([sys.executable, "-c", REFERENCE, arg],
                           capture_output=True, text=True, cwd=ROOT,
@@ -123,7 +132,7 @@ def _assert_state_close(got, want, arch, steps_lr, prefixes=("params",
                                                              "opt/mu",
                                                              "opt/nu")):
     """``tests/test_torch_train.py``'s train-step tolerance, leaf by leaf."""
-    dense = get_config(arch, tiny=True).family == "dense"
+    dense = get_config(arch.partition(":")[0], tiny=True).family == "dense"
     for name, w in want.items():
         if not name.startswith(prefixes):
             continue
@@ -136,7 +145,7 @@ def _assert_state_close(got, want, arch, steps_lr, prefixes=("params",
         np.testing.assert_allclose(g, w, atol=steps_lr, err_msg=name)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRAINER_CASES)
 def test_dp_trainer_with_resizes_matches_reference(reference, arch,
                                                    tmp_path):
     ref = reference[arch]

@@ -219,11 +219,19 @@ def _shape():
 
 
 def _trainer(arch, cluster, seed, ranks, **kw):
+    """``arch``: a name, or "name:rules" for its tiny config under other
+    rules."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import ElasticTrainer
 
-    return ElasticTrainer(get_config(arch, tiny=True), _shape(), cluster,
+    name, _, rules = arch.partition(":")
+    cfg = get_config(name, tiny=True)
+    if rules:
+        cfg = dataclasses.replace(cfg, rules=rules)
+    return ElasticTrainer(cfg, _shape(), cluster,
                           app_id="app", ranks=ranks, seed=seed,
                           opt_cfg=AdamWConfig(lr=1e-3), probe_every=0,
                           global_batch=GLOBAL_BATCH, device="cpu", **kw)
@@ -450,6 +458,7 @@ def tp_train(rank, world, tmp, data, model, cases, steps):
     the losses and clip norms of ``steps`` train steps.  Returns every
     rank's results."""
     from repro_torch.convert import params_from_numpy
+    from repro_torch.models import param_split
     from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
     from repro_torch.sharding import get_rules, make_tp_mesh, use_rules
     from repro_torch.train import TrainState, make_train_step
@@ -470,7 +479,8 @@ def tp_train(rank, world, tmp, data, model, cases, steps):
         with use_rules(mesh, get_rules(cfg.rules)):
             if data > 1:
                 loss, _, grads = _dp_grads(cfg, params, mine,
-                                           mesh.get_group("data"))
+                                           mesh.get_group("data"),
+                                           param_split(cfg, mesh))
             else:
                 loss, _, grads = compute_grads(cfg, params, mine)
         res["loss"] = float(loss)
