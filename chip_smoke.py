@@ -279,12 +279,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``max_memory_allocated`` (after ``reset_peak_memory_stats``) over a
    timed run within 0.8-1.25x of the report's peak; the
    ``report`` line gives the measured ms beside ``bound_s``.
+8b. the KV cache over its sequence (``launch.specs.cell_rules``' kv_seq
+   fallback): qwen2.5-3b's decode_32k and prefill_32k as rank 0 of a
+   ("data" 16, "model" 4) mesh, whose 4 "model" ranks do not divide the
+   2 kv heads, at full width and a data rank's 8 and 2 sequences, decode
+   at full depth and prefill cut to KV_SEQ_PREFILL_LAYERS of 36 layers.
+   The report traces the rank on ``meta`` in this process (a 256-rank
+   world on the ``fake`` backend); the rank runs beside its 3
+   "model" peers as processes on the card over gloo, each holding a
+   quarter of the cache's slots (decode's over a cache drawn from a
+   seed, filled to its last slot).  Held: the run's FLOPs, bytes,
+   collectives and kernel records equal to the trace's, the peak within
+   ``PEAK_BAND``, K4 once a layer in prefill at (2, 4, 1, 32768, 32768,
+   128)
+   (phase 3 holds K4 at that shape against its plain version, taken
+   KV_SEQ_REF_ROWS query rows at a time); the split decode's logits and
+   the split prefill's last token's within twice bf16's own distance of
+   one process's whole-cache bf16 run of the same inputs (bf16's own:
+   its distance from the one-process f32 run); a 2-layer f32 cut's
+   logits and greedy tokens (a 64-token prompt in 256 slots: two ranks'
+   slots masked throughout) against the plain CPU path within 1e-5.  The
+   ``serve_kv_seq`` line gives the numbers, the all-reduces' share of a
+   decode step among them.
 9. the mesh's "model" axis (``sharding/tp.py``): two processes on the
    one card in a gloo world (``init_world(..., "cuda:gloo", ...)``; NCCL
    refuses two ranks on one card, so every all-reduce is staged through
    the host), a ("data", "model") mesh of 1 x 2.  Each draws yi-6b cut
-   to 4 of its 32 layers (phase 4's seed; full depth until phase 10
-   came) and serves it split at full width through
+   to TP_SERVE_LAYERS of its 32 layers (phase 4's seed) and serves it
+   split at full width through
    ``ServeEngine(mesh=)``: 16 of the 32 heads and 2 of the 4 KV heads a
    rank (K4 4 times a prefill at (4, 16, 2, 512, 512, 128), never in
    decode), 4 x 512 prompt tokens and 32 new, 11 all-reduces a decode
@@ -346,8 +368,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``serve_tp_recurrentgemma`` and ``tp_phi3`` lines give the numbers.
 11. Mixture-of-Experts under ``FSDP_RULES``, as the MoE configurations
    name them.  11a: two processes (a new world, as phase 9's) on a 1 x 2
-   mesh serve dbrx-132b and qwen3-moe-235b-a22b at full width cut to 4
-   layers (as phases 4g and 4h were before it came): 8 and 64 experts a rank, 24 and 32
+   mesh serve dbrx-132b and qwen3-moe-235b-a22b at full width cut to
+   MOE_TP_LAYERS layers (as phases 4g and 4h are): 8 and 64 experts a
+   rank, 24 and 32
    query heads over 4 and 2 kv heads (K4 4 times a prefill at (4, 24, 4,
    512, 512, 128) and (4, 32, 2, 512, 512, 64), never in decode); the
    router, dispatch and combine whole on every rank, the dispatch buffer
@@ -374,7 +397,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    params, as phase 5d), drawn whole in turn: 64 experts a rank over
    "model", every leaf's embed rows over "data", gathered a layer at a
    time (11 gathers a forward, one broadcast a data rank each, counted)
-   with their gradients reduce-scattered; logits and 8 greedy tokens
+   with their gradients reduce-scattered; logits and 4 greedy tokens
    over 2 x 64 prompt tokens (within 1e-3), the loss (rtol 1e-5) and
    every gradient box over 2 x 64 tokens (within 1e-4 of each leaf's
    largest) against the plain CPU path, which this process runs
@@ -386,14 +409,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 Each phase's wall seconds (from the end of the one before) and the total
 are printed as the ``phase_wall_s`` line.
 
-Since phase 11 came, phases 4b, 4d, 4e, 4f and 4j and phase 10's
-served models run cut to 8 layers (``SERVE_LAYERS``; recurrentgemma-9b
-two super-layers and both tail layers), 4g and 4h to 2 layers, phase 5
-to 2 layers (``TRAIN_LAYERS``), 5b, 5f and 6 to 1 (``RWKV_TRAIN_LAYERS``,
-``PIX_TRAIN_LAYERS``, ``CUT_LAYERS``): the depths, layer counts,
-parameter counts and state bytes above are those before the cuts, the
-launch counts scale with the layers, and each line's ``reduced`` names
-its cut.
+To keep the whole run within its 1,200 s, phases 4b, 4d, 4e, 4f and 4j
+and phase 10's served models run cut to 4 layers (``SERVE_LAYERS``;
+recurrentgemma-9b one super-layer and both tail layers), 4g and 4h to 1
+layer, phase 9's yi-6b to 2 and its qwen2.5-3b to 1, phase 11a's MoE
+models to 1, phase 5 to 2 layers (``TRAIN_LAYERS``), 5b, 5f and 6 to 1
+(``RWKV_TRAIN_LAYERS``, ``PIX_TRAIN_LAYERS``, ``CUT_LAYERS``): the
+depths, layer counts, parameter counts and state bytes above are those
+before the cuts, the launch counts scale with the layers, and each
+line's ``reduced`` names its cut.
 
 The last line is ``{"ok": true, "device": {...}}``.  f32 matmuls run in full
 f32 (``allow_tf32`` is False).  A kernel's ``ms``, ``plain_ms`` and
@@ -445,19 +469,13 @@ ATOL = {"float32": 3e-5, "bfloat16": 3e-2}
 LSE_ATOL = 1e-4
 BWD_TOL = {"float32": (1e-4, 1e-4)}
 # the training path: qwen2.5-3b, one 4096-token sequence a step, 4 steps
-# (6 until pixtral-12b's training phase came: the third commit repeated
-# the second's delta frames)
-# the cut phase (6) runs qwen2.5-3b cut to CUT_LAYERS layers (8 until the
-# encoder-decoder's phases came, 4 until pixtral-12b's training phase
-# came, 2 until the MoE models' FSDP phase came, 1 since, to keep the run
-# within its time)
+# the cut phase (6) runs qwen2.5-3b cut to CUT_LAYERS layers, to keep the
+# whole run within its 1,200 s
 TRAIN_SEQ, TRAIN_STEPS, COMMIT_EVERY, CUT_LAYERS = 4096, 4, 2, 1
-# the training path (phase 5) cut to 2 of qwen2.5-3b's 36 layers since
-# the MoE models' FSDP phase (11) came, 4 since the recurrent models'
-# "model" axis phase (10) came, 12 since the "model" axis's phase (9)
-# came, 18 since the report's phase (8) came, to keep the run within its
-# time: the restart's host decode of the whole f32 state (136 s at 36
-# layers) and the two commits scale with the depth
+# the training path (phase 5) cut to 2 of qwen2.5-3b's 36 layers, to
+# keep the whole run within its 1,200 s: the restart's host decode of the
+# whole f32 state (136 s at 36 layers) and the two commits scale with the
+# depth
 TRAIN_LAYERS = 2
 # the cut phase's overlap resize must complete within this wall time
 RESIZE_WAIT_S = 300
@@ -519,19 +537,16 @@ Q8_SCALE_SHARE = Q8_SHARE * 2 ** 11 / 127
 Q8_SCALE_STEP = 127 * 2 ** -10
 CODEC_DTYPES = ("float32", "bfloat16", "float16")
 # the recurrent training phases (5b, 5c): TRAIN_SEQ tokens a step, steps
-# and q8-delta commit interval; rwkv6-7b cut to 1 layer (8 until
-# pixtral-12b's training phase came, 4 until the recurrent models'
-# "model" axis phase came, 2 until the MoE models' FSDP phase came),
-# recurrentgemma-9b to one
-# super-layer (rec, rec, attn) without its two tail layers
+# and q8-delta commit interval; rwkv6-7b cut to 1 layer,
+# recurrentgemma-9b to one super-layer (rec, rec, attn) without its two
+# tail layers
 TRAIN_REC_STEPS, TRAIN_REC_COMMIT = 4, 2
 RWKV_TRAIN_LAYERS, HYBRID_TRAIN_LAYERS = 1, 3
-# the MoE phases: dbrx-132b and qwen3-moe-235b-a22b served cut to 2
-# layers (4 until the MoE models' FSDP phase came), their f32 cuts (1
-# layer, a 64-token prompt, 8 decode steps)
+# the MoE phases: dbrx-132b and qwen3-moe-235b-a22b served cut to 1
+# layer, their f32 cuts (1 layer, a 64-token prompt, 8 decode steps)
 # against the plain CPU path; qwen3-moe's training loss and gradients cut
 # to 1 layer, timed over 3 calls
-MOE_SERVE_LAYERS = 2
+MOE_SERVE_LAYERS = 1
 MOE_PLAIN = dict(layers=1, prompt=64, steps=8)
 MOE_GRAD_CALLS = 3
 # their f32 cuts against the plain CPU path: one sequence of GRAD_SEQ
@@ -564,8 +579,8 @@ D160_BWD_SWEEP = [(1, 4, 2, 100, 130, 160, True, None),
                   (1, 2, 2, 72, 200, 160, False, None),
                   (2, 4, 4, 100, 37, 160, False, None),
                   (1, 8, 2, 520, 520, 160, True, None)] + D160_SWEEP
-# pixtral-12b trained (phase 5f): cut to 1 of its 40 layers (2 until the
-# MoE models' FSDP phase came); its f32 cut of 1 layer against the plain
+# pixtral-12b trained (phase 5f): cut to 1 of its 40 layers; its f32 cut
+# of 1 layer against the plain
 # CPU path, every gradient leaf within PIX_GRAD_TOL of its largest
 # element
 PIX_TRAIN_LAYERS, PIX_PLAIN_LAYERS, PIX_GRAD_TOL = 1, 1, 1e-4
@@ -580,10 +595,37 @@ SEAMLESS_PLAIN_LAYERS = 1
 REPORT_CELLS = (("yi-6b", "decode_32k"), ("yi-6b", "prefill_32k"),
                 ("qwen2.5-3b", "train_4k"))
 # the serving phases 4b, 4d, 4e, 4f and 4j and phase 10's served
-# models, at full depth until the MoE models' FSDP phase (11) came, run
-# cut to SERVE_LAYERS layers (recurrentgemma-9b: two super-layers and its
-# two tail layers) to keep the whole run within its time
-SERVE_LAYERS = 8
+# models run cut to SERVE_LAYERS layers (recurrentgemma-9b: one
+# super-layer and both tail layers) to keep the whole run within its
+# 1,200 s
+SERVE_LAYERS = 4
+# phase 8b: the KV cache split over its sequence across "model" (the
+# serving cells' kv_seq fallback, ``launch.specs.cell_rules``): KV_SEQ_ARCH's
+# serving cells on KV_SEQ_MESH, whose "model" axis of 4 does not divide
+# its 2 kv heads.  Rank 0 of the mesh runs with its "model" peers as
+# processes on the one card over gloo, at a data rank's rows (8 and 2
+# sequences), full width (decode at full depth, prefill cut to
+# KV_SEQ_PREFILL_LAYERS): decode over a cache drawn from
+# KV_SEQ_SEED and filled to its last slot, KV_SEQ_TIMED steps timed after
+# the counted one (the prefill timed by its counted run alone).  Its
+# f32 cut (KV_SEQ_PLAIN: a 64-token prompt in a cache of 256 slots, 64 a
+# rank: the prompt fills rank 0's, the decode steps write rank 1's, ranks
+# 2 and 3 stay masked) against the plain CPU path within KV_SEQ_RTOL of
+# each logit and of their max
+KV_SEQ_ARCH = "qwen2.5-3b"
+KV_SEQ_MESH = {"data": 16, "model": 4}
+KV_SEQ_CELLS = ("decode_32k", "prefill_32k")
+KV_SEQ_SEED = 3
+KV_SEQ_TIMED = 1
+KV_SEQ_PLAIN = dict(layers=2, batch=2, prompt=64, max_len=256, steps=8)
+# prefill_32k's depth in phase 8b (decode_32k's is full), cut to keep the
+# whole run within its 1,200 s: its four ranks' all-reduces go through
+# the host, and one process's f32 prefill of the same inputs holds them
+KV_SEQ_PREFILL_LAYERS = 18
+KV_SEQ_RTOL = 1e-5
+# phase 3 holds K4 at phase 8b's prefill shape against its plain version
+# taken this many query rows at a time
+KV_SEQ_REF_ROWS = 2048
 # phase 9: the mesh's "model" axis on the one card: TP_MODEL processes
 # over gloo; yi-6b served split at full width and depth, its f32 cut
 # (TP_PLAIN, as ``check_against_plain``'s, within TP_PLAIN_ATOL) against
@@ -592,16 +634,16 @@ SERVE_LAYERS = 8
 # TP_TRAIN_STEPS steps, its f32 cut's gradient shards within TP_GRAD_TOL
 # of each leaf's largest
 TP_MODEL = 2
-# yi-6b's depth in phase 9: 32 (full) until phase 10 came, cut to keep the
-# run within its time
-TP_SERVE_LAYERS = 4
+# yi-6b's depth in phase 9, cut to keep the whole run within its 1,200 s
+TP_SERVE_LAYERS = 2
 TP_PLAIN = dict(layers=2, prompt=64, steps=8)
 TP_PLAIN_ATOL = 1e-3
 # the split bf16 logits lie within TP_BF16_BOUND times the one-process
 # bf16 logits' own distance from the f32 ones (max abs over max abs)
 TP_BF16_BOUND = 2.0
 TP_TIMED_STEPS = 8
-TP_TRAIN_LAYERS, TP_TRAIN_STEPS, TP_GRAD_TOL = 2, 3, 1e-4
+# qwen2.5-3b's depth in phase 9b, cut as yi-6b's
+TP_TRAIN_LAYERS, TP_TRAIN_STEPS, TP_GRAD_TOL = 1, 3, 1e-4
 # phase 10: the "model" axis for the recurrent models, RNN_TP_MODEL
 # processes: rwkv6-7b and recurrentgemma-9b served split at full width and
 # depth (10a, 10b); their f32 cuts (10c) and phi3-medium-14b's over
@@ -640,22 +682,23 @@ TP10_SHAPES = {"rwkv6_prefill": (BATCH, 32, PROMPT, 64),
                "flash_d256": (BATCH, 8, 1, PROMPT, PROMPT, 256, True, 2048)}
 # phase 11: Mixture-of-Experts under FSDP_RULES.  11a: dbrx-132b and
 # qwen3-moe-235b-a22b cut to MOE_TP_LAYERS layers (as phases 4g and 4h
-# were until this phase came)
+# are)
 # served split over phase 9's TP_MODEL processes (experts and heads over
 # "model"), the split bf16 logits within MOE_TP_BF16_BOUND times the
 # one-process bf16 logits' own distance from the f32 ones.  11b:
 # FSDP_ARCH's f32 cut (FSDP_CUT, one layer as phase 5d's) on a FSDP_MESH
 # ("data", "model") mesh of processes (experts over "model", every
 # leaf's embed rows over "data"): a prefill and CUT_STEPS_FSDP greedy
-# steps (8 tokens), loss and gradient boxes, against the plain CPU path
+# steps (4 tokens), loss and gradient boxes,
+# against the plain CPU path
 MOE_TP_ARCHS = ("dbrx-132b", "qwen3-moe-235b-a22b")
-MOE_TP_LAYERS = 4
+MOE_TP_LAYERS = 1
 MOE_TP_BF16_BOUND = TP_BF16_BOUND
 FSDP_ARCH = "qwen3-moe-235b-a22b"
 FSDP_MESH = (2, 2)
 FSDP_CUT = dict(layers=1, serve_batch=2, prompt=64, grad_batch=2,
                 grad_seq=64, grad_tol=TP_GRAD_TOL)
-CUT_STEPS_FSDP = 7
+CUT_STEPS_FSDP = 3
 # 11b's ranks draw the whole f32 cut (14.8 GB) this many at a time, the
 # others' boxes (7.4 GB a rank, the engine's and the training shards)
 # held meanwhile
@@ -900,10 +943,33 @@ def _inputs(seed, b, hq, hkv, t, s, d, dtype, device):
         for shape in ((b, hq, t, d), (b, hkv, s, d), (b, hkv, s, d)))
 
 
-def check_attention_case(case, dtype, device) -> float:
+def _ref_by_rows(q, k, v, causal, window, rows):
+    """The plain version of a causal call, ``rows`` query rows at a time
+    (each over the keys up to its last row's), so that no (T, S) score
+    matrix lives whole."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    if not causal:
+        raise ValueError("query rows are cut only under the causal mask")
+    t, off = q.shape[2], k.shape[2] - q.shape[2]
+    outs, lses = [], []
+    for r0 in range(0, t, rows):
+        r1 = min(r0 + rows, t)
+        o, lse = attention_ref(q[:, :, r0:r1], k[:, :, :off + r1],
+                               v[:, :, :off + r1], causal=True,
+                               window=window)
+        outs.append(o)
+        lses.append(lse)
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def check_attention_case(case, dtype, device, rows=None) -> float:
     """Kernel against plain on one case; returns the max abs error of the
     output over rows with an allowed key.  bf16 also holds the output's
-    error norm to ``FWD_REL_BF16`` of the plain output's."""
+    error norm to ``FWD_REL_BF16`` of the plain output's.  ``rows``: the
+    plain version taken that many query rows at a time."""
     import torch
     from torch_flash_checks import FWD_REL_BF16, fwd_rel_err
 
@@ -914,7 +980,10 @@ def check_attention_case(case, dtype, device) -> float:
     q, k, v = _inputs(7, b, hq, hkv, t, s, d, dtype, device)
     out, lse = attention(q, k, v, causal=causal, window=window,
                          return_lse=True)
-    ref, rlse = attention_ref(q, k, v, causal=causal, window=window)
+    if rows is None:
+        ref, rlse = attention_ref(q, k, v, causal=causal, window=window)
+    else:
+        ref, rlse = _ref_by_rows(q, k, v, causal, window, rows)
     torch.cuda.synchronize()
     live = allowed_mask(t, s, causal, window, s - t, device).any(dim=1)
     err = (out.float() - ref.float())[:, :, live].abs().max().item()
@@ -2420,9 +2489,9 @@ def serve_recurrentgemma_phase(gcfg, device, card, reduced=None):
 
     window, prompt, steps = RING_CUT
     runs, nums = serve_model_phase(
-        gcfg, device, card, "serve_recurrentgemma", 3_879_948_288, want,
-        state_bytes=5_439_492,
-        subruns=[("ring", 1, RING_PROMPT, RING_GEN, 4_440_068)],
+        gcfg, device, card, "serve_recurrentgemma", 3_223_465_984, want,
+        state_bytes=2_883_588,
+        subruns=[("ring", 1, RING_PROMPT, RING_GEN, 2_260_996)],
         plain={"plain_cut": dict(layers=5, atol=1e-4),
                "plain_ring_cut": dict(layers=5, atol=1e-4, window=window,
                                       prompt=prompt, steps=steps)},
@@ -2971,8 +3040,7 @@ def train_pixtral_mesh_phase(xcfg, device, card, steps=TRAIN_REC_STEPS):
             {"num_layers": f"{xcfg.num_layers} -> {n}: the whole model's "
              f"f32 weights, AdamW moments, gradients and codes (about 23 B "
              f"a parameter, 294 GB for 12,798,284,800) do not fit the "
-             f"card's 80 GB; 2 layers until the MoE models' FSDP phase "
-             f"came, {n} since, to keep the whole run within its time",
+             f"card's 80 GB, and {n} keep the whole run within its 1,200 s",
              "global_batch": f"one sequence of "
              f"{TRAIN_SEQ} tokens after {xcfg.num_patches} patches a step"},
             dict(layers=PIX_PLAIN_LAYERS, tol=PIX_GRAD_TOL),
@@ -3136,6 +3204,400 @@ def report_phase(device, cells=REPORT_CELLS) -> list:
         out.append(m)
     served.clear()
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 8b: the KV cache over its sequence, a rank of the mesh on the card
+# --------------------------------------------------------------------------
+def kv_seq_config(rehearse: bool = False):
+    """Phase 8b's config: KV_SEQ_ARCH (its tiny one computing in bf16 in a
+    CPU rehearsal)."""
+    return tp_config(KV_SEQ_ARCH, rehearse)
+
+
+def kv_seq_cell_config(cfg, shape):
+    """Phase 8b's config of a cell: ``cfg``, its prefill cut to
+    KV_SEQ_PREFILL_LAYERS layers (a shallower config, as a rehearsal's,
+    to half its depth)."""
+    if shape.kind != "prefill":
+        return cfg
+    n = cfg.num_layers
+    return dataclasses.replace(cfg, num_layers=KV_SEQ_PREFILL_LAYERS if
+                               n > KV_SEQ_PREFILL_LAYERS else max(1, n // 2))
+
+
+def kv_seq_k4_case(cfg) -> tuple:
+    """K4's forward case in phase 8b's split prefill: a data rank's rows,
+    the rank's query heads over the kv head they read, the whole
+    prompt."""
+    from repro_torch.configs import get_shape
+
+    shape = get_shape(KV_SEQ_CELLS[1])
+    rows = shape.global_batch // KV_SEQ_MESH["data"]
+    hq = cfg.num_heads // KV_SEQ_MESH["model"]
+    return (rows, hq, max(1, hq * cfg.num_kv_heads // cfg.num_heads),
+            shape.seq_len, shape.seq_len, cfg.resolved_head_dim, True,
+            cfg.window)
+
+
+def kv_seq_cells(cfg, rehearse: bool = False) -> dict:
+    """Phase 8b's cells, name -> (shape, its rank's rows on KV_SEQ_MESH,
+    the rules): the report's ``decode_32k`` and ``prefill_32k``, or in a
+    rehearsal their tiny stand-ins (64 slots, a data rank's 2 rows)."""
+    from repro_torch.configs import get_shape
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import report, specs
+    from repro_torch.launch.mesh import production_mesh
+
+    mesh = production_mesh(False, KV_SEQ_MESH)
+    out = {}
+    for name in KV_SEQ_CELLS:
+        shape = get_shape(name)
+        if rehearse:
+            shape = ShapeConfig(name, shape.kind, 64,
+                                2 * KV_SEQ_MESH["data"])
+        rules = specs.cell_rules(cfg, shape, mesh)
+        out[name] = (shape, report.rank_rows(shape, mesh, rules), rules)
+    return out
+
+
+def _kv_layer_draw(cache_leaf_shape, seed, layer, which, start, n, dtype,
+                   device):
+    """Layer ``layer``'s whole K (``which`` 0) or V (1) of a cache drawn
+    from ``seed`` (normal, one generator a layer and leaf), its slots
+    [start, start + n) kept."""
+    import torch
+
+    b, h, s, d = cache_leaf_shape
+    g = torch.Generator(device=device).manual_seed(
+        seed * 100_003 + 2 * layer + which)
+    whole = torch.randn((b, h, s, d), generator=g, device=device,
+                        dtype=torch.float32)
+    return whole[:, :, start:start + n].to(dtype)
+
+
+def fill_kv_cache_(cache, slots: int, seed: int) -> None:
+    """Every slot of a dense model's KV cache (``{"stack": {"b0":
+    {"self": ...}}}``, whole or a rank's ``KVSeqShard`` of ``slots``
+    slots, under the active rules) drawn from ``seed``, layer by layer,
+    the same values at a slot whichever rank holds it."""
+    from repro_torch.models.attention import seq_box
+
+    kv = cache["stack"]["b0"]["self"]
+    _, start = seq_box(kv)
+    for which, leaf in enumerate((kv.k, kv.v)):
+        for i in range(leaf.shape[0]):
+            b, h, n, d = leaf[i].shape
+            leaf[i].copy_(_kv_layer_draw((b, h, slots, d), seed, i, which,
+                                         start, n, leaf.dtype, leaf.device))
+
+
+def _kv_seq_decode_inputs(cfg, shape, rows, params, device, mesh=None,
+                          rules=None):
+    """(params, cache, tokens) of the decode cell: the cache (the rank's
+    slots on ``mesh``, or whole) filled from KV_SEQ_SEED to its last
+    slot, the tokens from KV_SEQ_SEED + 1."""
+    import torch
+
+    from repro_torch.models import init_cache
+    from repro_torch.sharding import use_rules
+
+    cache = init_cache(cfg, rows, shape.seq_len, device=device, mesh=mesh,
+                       rules=rules)
+    with use_rules(mesh, rules):         # a rank's slots on the mesh
+        fill_kv_cache_(cache, shape.seq_len, KV_SEQ_SEED)
+    cache["idx"].fill_(shape.seq_len - 1)
+    g = torch.Generator(device=device).manual_seed(KV_SEQ_SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (rows, 1), generator=g,
+                         dtype=torch.int32, device=device)
+    return params, cache, toks
+
+
+def _kv_seq_cut_run(small, params, device, mesh=None, rules=None):
+    """The f32 cut served greedy (KV_SEQ_PLAIN): a prefill of its prompt
+    (seed 1) and its steps, the cache of ``max_len`` slots split over
+    its sequence on ``mesh`` under ``rules`` (the rank's logits: its
+    vocab columns), or whole.  Returns (logits a step on the CPU, the
+    greedy tokens)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.sharding import tp, use_rules
+
+    c = KV_SEQ_PLAIN
+    toks = torch.as_tensor(request_batch(small, np.random.default_rng(1),
+                                         c["batch"], c["prompt"])["tokens"],
+                           device=device)
+    cache = init_cache(small, c["batch"], c["max_len"], device=device,
+                       mesh=mesh, rules=rules)
+    out, greedy = [], []
+    with torch.no_grad(), use_rules(mesh, rules):
+        logits, cache = prefill(small, params, {"tokens": toks}, cache)
+        for i in range(c["steps"] + 1):
+            out.append(logits.float().cpu())
+            greedy.append(tp.argmax(logits, small.padded_vocab)[:, None]
+                          .to(torch.int32))
+            if i < c["steps"]:
+                logits, cache = decode_step(small, params, cache,
+                                            greedy[-1])
+    return out, torch.cat(greedy, dim=1).cpu().numpy()
+
+
+def kv_seq_rank(mesh, device, rehearse: bool = False) -> dict:
+    """Phase 8b on one rank of a ("data" 1, "model" m) world standing for
+    rank 0 of KV_SEQ_MESH and its "model" peers: the whole model drawn
+    (seed 0, f32) one rank at a time, the rank keeping its boxes of it in
+    bf16 and of its f32 cut; each cell's step under the counter and timed
+    (``report.measure_rank``, which keeps the counted run's logits):
+    decode over a cache drawn from the seed, then one more step with each
+    all-reduce timed alone; prefill, its K4 launches; then the f32 cut
+    served split, its cache over the sequence."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import report
+    from repro_torch.models import cast_params, init_params, shard_params
+    from repro_torch.sharding import use_rules
+    from repro_torch.models import decode_step
+
+    cfg = kv_seq_config(rehearse)
+    cells = kv_seq_cells(cfg, rehearse)
+    rules = cells[KV_SEQ_CELLS[0]][2]
+    small = cut_config(cfg, KV_SEQ_PLAIN["layers"])
+    rank = dist.get_rank()
+    params = cut = None
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            full = init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(0), device=device)
+            # the cut's boxes wait on the host while the cells run
+            cut = _map(lambda t: t.cpu(), shard_params(
+                cut_params(small, full), small, mesh, rules))
+            params = cast_params(shard_params(full, cfg, mesh, rules),
+                                 getattr(torch, cfg.dtype))
+            del full
+            gc.collect()
+            _card_reset_peak(device)
+        dist.barrier()
+    res = {"rank": rank}
+    for name, (shape, rows, cell_rules) in cells.items():
+        ccfg = kv_seq_cell_config(cfg, shape)
+        if ccfg.num_layers < cfg.num_layers:
+            # the cut's layers kept alone, so that the rank holds what
+            # its trace does
+            params = {k: _map(lambda t: t[:ccfg.num_layers].clone(), v)
+                      if k == "stack" else v for k, v in params.items()}
+        gc.collect()
+        _card_reset_peak(device)
+        t0 = time.monotonic()
+        if shape.kind == "decode":
+            inputs = _kv_seq_decode_inputs(ccfg, shape, rows, params,
+                                           device, mesh, cell_rules)
+        else:
+            inputs = report.step_inputs(
+                ccfg, shape, rows, device, torch.Generator(
+                    device=device).manual_seed(KV_SEQ_SEED + 2),
+                params=params, mesh=mesh, rules=cell_rules)
+        reset_counts()
+        # the prefill (~1 s a layer through gloo) is timed by its counted
+        # run
+        m = report.measure_rank(
+            ccfg, shape, mesh, cell_rules, rows, 1, device,
+            timed_runs=KV_SEQ_TIMED if shape.kind == "decode" else 0,
+            inputs=inputs)
+        m["kernel_launches"] = read_counts()
+        if shape.kind == "decode":
+            # one more step (the same slot rewritten with the same K/V),
+            # the all-reduces' own share of it, each timed alone
+            with torch.no_grad(), use_rules(mesh, cell_rules), \
+                    CountedAllReduce(timed=True) as ar:
+                _sync(device)
+                t1 = time.monotonic()
+                decode_step(cfg, *inputs)
+                _sync(device)
+                m["timed_step_ms"] = (time.monotonic() - t1) * 1e3
+                m["all_reduces"] = ar.calls
+                m["all_reduce_host_ms"] = ar.ms
+        m["wall_s"] = time.monotonic() - t0
+        m["cache_bytes"] = sum(t.numel() * t.element_size() for _, t in
+                               _named(inputs[1 if shape.kind == "decode"
+                                             else 2]))
+        res[name] = m
+        del inputs
+    del params
+    gc.collect()
+    _card_reset_peak(device)
+    res["cut_logits"], res["cut_tokens"] = _kv_seq_cut_run(
+        small, _map(lambda t: t.to(device), cut), device, mesh, rules)
+    return res
+
+
+def kv_seq_phase(device, card, rehearse: bool = False, ranks=None) -> dict:
+    """Phase 8b: rank 0 of KV_SEQ_MESH traced on ``meta`` by the report
+    (this process owns no other process group), then run by
+    ``kv_seq_rank`` on KV_SEQ_MESH["model"] processes (gloo; ``ranks``:
+    their results, when the world has run), and held: its counts against
+    the trace (``report.check_measure``: FLOPs, bytes, collectives,
+    kernel records, K4's launches, the peak within ``PEAK_BAND``), K4's
+    records in prefill at the rank's shape; each cell's split logits
+    (decode's, prefill's last token's) against this card's one-process
+    bf16 and f32 run of the same inputs (the whole cache), within
+    TP_BF16_BOUND times bf16's own distance; the f32 cut's logits and
+    tokens against the plain CPU path within KV_SEQ_RTOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch import report
+    from repro_torch.models import (cast_params, decode_step, init_params,
+                                    prefill)
+
+    cfg = kv_seq_config(rehearse)
+    cells = kv_seq_cells(cfg, rehearse)
+    world = KV_SEQ_MESH["model"]
+    arts = {}
+    for name, (shape, rows, rules) in cells.items():
+        t0 = time.monotonic()
+        arts[name] = report.report_cell(kv_seq_cell_config(cfg, shape),
+                                        shape, mesh_shape=KV_SEQ_MESH,
+                                        rules=rules)
+        arts[name]["wall_s"] = time.monotonic() - t0
+        if not (arts[name]["split"] and arts[name]["split"]["kv_seq"]):
+            raise AssertionError(f"{name}: not traced split over kv_seq: "
+                                 f"{arts[name]['split']}")
+    t0 = time.monotonic()
+    if ranks is None:
+        gc.collect()
+        _card_reset_peak(device)
+        ranks = spawn_tp_world(("kvseq",), world, rehearse,
+                               each=lambda r, res: res["kvseq"])
+    world_s = time.monotonic() - t0
+    r0 = ranks[0]
+    line = {"card": card, "arch": cfg.name, "mesh": KV_SEQ_MESH,
+            "ranks_on_card": world, "cells": {}}
+    for name, (shape, rows, rules) in cells.items():
+        ccfg = kv_seq_cell_config(cfg, shape)
+        m = report.hold_to_report(ccfg, shape, r0[name], arts[name])
+        report.check_measure(m)
+        k4 = report.k4_records(m["kernels"])
+        if shape.kind == "prefill" and device.type == "cuda":
+            # K4 at the rank's heads over the gathered K/V: (B, Hq / m,
+            # 1, T, T, D), once a layer
+            hq, d = cfg.num_heads // world, cfg.resolved_head_dim
+            want = fa.fwd_cost((rows, hq, shape.seq_len, d),
+                               (rows, 1, shape.seq_len, d), True, cfg.window,
+                               2)
+            rec = k4.get("flash_fwd_sm90")
+            if rec is None or rec["calls"] != ccfg.num_layers or \
+                    rec["flops"] != want[0] * ccfg.num_layers:
+                raise AssertionError(f"{name}: K4's records {k4}, want "
+                                     f"{ccfg.num_layers} calls of {want}")
+        # the counted run and the timed ones: K4 once a layer in prefill
+        runs = 1 + (KV_SEQ_TIMED if shape.kind == "decode" else 0)
+        if device.type == "cuda" and r0[name]["kernel_launches"][
+                "flash_fwd"] != (runs * ccfg.num_layers
+                                 if shape.kind == "prefill" else 0):
+            raise AssertionError(f"{name}: K4 launched "
+                                 f"{r0[name]['kernel_launches']}")
+        cell = {k: m[k] for k in ("sequences", "flops", "bytes",
+                                  "collectives", "meta_collectives",
+                                  "kernels", "k4_launches",
+                                  "report_peak_bytes",
+                                  "max_memory_allocated", "peak_ratio",
+                                  "ms", "bound_s")}
+        cell.update(shape=list(map(str, (shape.kind, shape.seq_len))),
+                    layers=ccfg.num_layers, wall_s=r0[name]["wall_s"],
+                    trace_s=arts[name]["trace_s"],
+                    cache_bytes_per_rank=[r[name]["cache_bytes"]
+                                          for r in ranks],
+                    peak_per_rank=[r[name]["peak"] for r in ranks])
+        if shape.kind == "decode":
+            cell.update(timed_step_ms=r0[name]["timed_step_ms"],
+                        all_reduces=r0[name]["all_reduces"],
+                        all_reduce_host_ms=r0[name]["all_reduce_host_ms"],
+                        all_reduce_share=r0[name]["all_reduce_host_ms"]
+                        / r0[name]["timed_step_ms"])
+        line["cells"][name] = cell
+
+    # each cell's split logits against one process's whole-cache run,
+    # bf16 and f32, of the same inputs
+    t0 = time.monotonic()
+    full = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device)
+    small = cut_config(cfg, KV_SEQ_PLAIN["layers"])
+    cpu_cut = _map(lambda t: t.detach().cpu().clone(),
+                   cut_params(small, full))
+    one = {name: {} for name in cells}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = full if dtype == "float32" else cast_params(
+            full, torch.bfloat16)
+        if dtype == "bfloat16":
+            del full
+        for name, (shape, rows, _) in cells.items():
+            cc = kv_seq_cell_config(c, shape)
+            if shape.kind == "decode":
+                inputs, step = _kv_seq_decode_inputs(
+                    cc, shape, rows, p, device), decode_step
+            else:
+                inputs, step = report.step_inputs(
+                    cc, shape, rows, device, torch.Generator(
+                        device=device).manual_seed(KV_SEQ_SEED + 2),
+                    params=cut_params(cc, p)), prefill
+            with torch.no_grad():
+                one[name][dtype] = step(cc, *inputs)[0].float().cpu()
+            del inputs
+            gc.collect()
+            _card_reset_peak(device)
+        del p
+    vocab = cfg.vocab_size
+    for name in cells:
+        split = torch.cat([r[name]["logits"] for r in ranks],
+                          dim=-1)[:, :vocab]
+        bf16, f32 = (one[name][d][:, :vocab]
+                     for d in ("bfloat16", "float32"))
+        kv_rel, bf16_rel = _rel(split, bf16), _rel(bf16, f32)
+        if not kv_rel <= TP_BF16_BOUND * bf16_rel:
+            raise AssertionError(
+                f"{name}: split logits {kv_rel} of their max from one "
+                f"process's, beyond {TP_BF16_BOUND} x bf16's own "
+                f"{bf16_rel}")
+        line["cells"][name].update(
+            logits_rel_err_vs_one_process_bf16=kv_rel,
+            bf16_rel_err_vs_f32=bf16_rel,
+            logits_rel_err_vs_one_process_f32=_rel(split, f32),
+            logits_bound=TP_BF16_BOUND * bf16_rel,
+            greedy_equal_to_one_process=int(
+                (split.argmax(-1) == bf16.argmax(-1)).sum()))
+    # the f32 cut against the plain CPU path
+    want, want_toks = _kv_seq_cut_run(small, cpu_cut, torch.device("cpu"))
+    got = _vocab_whole([r["cut_logits"] for r in ranks])
+    cut_err = 0.0
+    for g, w in zip(got, want):
+        err = ((g - w).abs() - KV_SEQ_RTOL * w.abs()).max().item() / max(
+            w.abs().max().item(), 1e-30)
+        cut_err = max(cut_err, err)
+    if not (np.array_equal(r0["cut_tokens"], want_toks)
+            and cut_err <= KV_SEQ_RTOL):
+        raise AssertionError(
+            f"split f32 cut: tokens {r0['cut_tokens']} against the CPU's "
+            f"{want_toks}; logits beyond rtol {KV_SEQ_RTOL} by {cut_err} of "
+            f"their max (at most {KV_SEQ_RTOL})")
+    line.update(
+        plain_cut_excess_of_max=cut_err, plain_cut_tokens_equal=True,
+        world_wall_s=world_s, check_s=time.monotonic() - t0,
+        reduced={"prefill_32k": f"{cfg.num_layers} -> "
+                 f"{line['cells']['prefill_32k']['layers']} layers: cut to "
+                 f"keep the whole run within its 1,200 s",
+                 "ranks": f"rank 0 of the ('data' {KV_SEQ_MESH['data']}, "
+                 f"'model' {world}) mesh and its {world - 1} 'model' peers "
+                 f"as processes on one card over gloo (NCCL takes one card "
+                 f"a rank): every all-reduce is staged through the host; "
+                 f"no 'data' peer runs, as the serving step issues no "
+                 f"collective over 'data'",
+                 "weights": "random, from seed 0"})
+    return line
 
 
 # --------------------------------------------------------------------------
@@ -3591,12 +4053,16 @@ def tp_config(arch: str, rehearse: bool = False):
 
 
 def serve_cut(cfg):
-    """``cfg`` cut to SERVE_LAYERS layers for its serving phase, and the
-    line's ``reduced`` entry."""
-    return (dataclasses.replace(cfg, num_layers=SERVE_LAYERS),
-            {"num_layers": f"{cfg.num_layers} -> {SERVE_LAYERS}: full "
-             f"depth until the MoE models' FSDP phase (11) came, cut to "
-             f"keep the whole run within its time"})
+    """``cfg`` cut to SERVE_LAYERS layers for its serving phase (the
+    RG-LRU hybrid to one super-layer and both tail layers, which its f32
+    cuts take), and the line's ``reduced`` entry."""
+    n = SERVE_LAYERS
+    if cfg.mixer == "rglru_hybrid":
+        n = len(cfg.pattern or ("rec", "rec", "attn")) + len(
+            cfg.tail_layers or ()) or n
+    return (dataclasses.replace(cfg, num_layers=n),
+            {"num_layers": f"{cfg.num_layers} -> {n}: cut to keep the "
+             f"whole run within its 1,200 s"})
 
 
 def rnn_tp_config(arch: str, rehearse: bool = False):
@@ -3799,9 +4265,8 @@ def tp_phase(cfg, tcfg, device, card, rehearse=False, ranks=None,
                     f"(NCCL takes one card a rank): every all-reduce is "
                     f"staged through the host",
                     **({} if rehearse else {
-                        "num_layers": f"32 -> {cfg.num_layers}: cut when "
-                        f"the recurrent models' 'model' axis phase came, to "
-                        f"keep the whole run within its time"})}}
+                        "num_layers": f"32 -> {cfg.num_layers}: cut "
+                        f"to keep the whole run within its 1,200 s"})}}
     train = {
         "card": card, "ranks": TP_MODEL, "layers": TP_TRAIN_LAYERS,
         "seq": sz["seq"], "step_ms": t0r["step_ms"], "losses": t0r["losses"],
@@ -4183,6 +4648,12 @@ def tp_world_main(rank, world, store, out_dir, parts, rehearse=False) -> None:
                 res[arch]["phase_s"] = time.monotonic() - t0
                 gc.collect()
                 _card_reset_peak(device)
+        if "kvseq" in parts:
+            t0 = time.monotonic()
+            res["kvseq"] = kv_seq_rank(mesh, device, rehearse)
+            res["kvseq"]["phase_s"] = time.monotonic() - t0
+            gc.collect()
+            _card_reset_peak(device)
         if "fsdp" in parts:
             t0 = time.monotonic()
             res["fsdp"] = fsdp_cut_rank(moe_tp_config(FSDP_ARCH, rehearse),
@@ -4720,7 +5191,7 @@ def fsdp_cut_rank(cfg, mesh, device) -> dict:
     cut (FSDP_CUT) at full width, drawn whole from the seed FSDP_DRAWS
     ranks at a time (each keeping its boxes), served split (``CUT_STEPS_FSDP`` greedy
     steps after a prefill of the rank's rows), then its loss and gradient
-    boxes over the rank's rows of FSDP_CUT's batch (``_dp_grads``: the
+    boxes over the rank's rows of FSDP_CUT's batch (``_grads``: the
     "data"-split leaves' gradients reduce-scattered by their gathers, the
     rest all-reduced), the collectives counted by group."""
     import torch
@@ -4731,7 +5202,7 @@ def fsdp_cut_rank(cfg, mesh, device) -> dict:
     from repro_torch.models.params import local_box, shard_params
     from repro_torch.serve import ServeEngine, serve_max_len
     from repro_torch.sharding import NamedSharding, get_rules, tp, use_rules
-    from repro_torch.train.step import _dp_grads
+    from repro_torch.train.step import _grads
 
     cut = FSDP_CUT
     small = cut_config(cfg, cut["layers"])
@@ -4775,7 +5246,7 @@ def fsdp_cut_rank(cfg, mesh, device) -> dict:
     reset_counts()
     with use_rules(mesh, rules), CountedAllReduce(groups=groups) as ar:
         t0 = time.monotonic()
-        loss, _, grads = _dp_grads(small, shards, mine,
+        loss, _, grads = _grads(small, shards, mine,
                                    mesh.get_group("data"),
                                    param_split(small, mesh, rules))
         _sync(device)
@@ -4966,8 +5437,7 @@ def _check_moe_tp(arch, cfg, sv, sz, card, world_s, on_card) -> dict:
         "draw_s": s0["draw_s"], "rank_phase_s": s0["phase_s"],
         "world_wall_s": world_s, **counts,
         "reduced": {"num_layers": f"{tp_config(arch).num_layers} -> "
-                    f"{cfg.num_layers}, as phases 4g and 4h were until "
-                    f"phase 11 came ({MOE_SERVE_LAYERS} since)",
+                    f"{cfg.num_layers}, as phases 4g and 4h are",
                     "ranks": f"{len(sv)} processes on one card over gloo "
                     f"(NCCL takes one card a rank): every all-reduce is "
                     f"staged through the host"}}
@@ -5323,6 +5793,15 @@ def main() -> int:
     for case in moe_tp_cases.values():
         tp_errs[case] = check_attention_case(case, "bfloat16", device)
         log(f"  flash_fwd {case} bfloat16: max abs err {tp_errs[case]:.3e}")
+    # K4 at a rank's shape of phase 8b's split prefill: its 4 of
+    # qwen2.5-3b's 16 query heads over the one kv head they read, the
+    # whole 32,768-token prompt of each of a data rank's 2 sequences
+    kv_seq_case = kv_seq_k4_case(tcfg)
+    tp_errs[kv_seq_case] = check_attention_case(
+        kv_seq_case, "bfloat16", device, rows=KV_SEQ_REF_ROWS)
+    log(f"  flash_fwd {kv_seq_case} bfloat16: max abs err "
+        f"{tp_errs[kv_seq_case]:.3e}")
+    torch.cuda.empty_cache()
     # K6, K7 and K4 at a rank's shapes of the recurrent models' two-way
     # split (phase 10), checked and timed
     tp10 = local_kernel_numbers(device)
@@ -5348,14 +5827,14 @@ def main() -> int:
         f"{BATCH} x {PROMPT} prompt tokens, {GEN} new tokens")
     n = rcfg_s.num_layers
     runs, rw_num = serve_model_phase(
-        rcfg_s, device, card, "serve_rwkv6", 2_290_520_064,
+        rcfg_s, device, card, "serve_rwkv6", 1_413_697_536,
         # prefill through the chunked kernel, each one-token decode step
         # through the sequential one
         lambda gen: {"generate": {"rwkv6_sm90": n, "rwkv6": n * (gen - 1),
                                   "flash_fwd": 0},
                      "prefill": {"rwkv6_sm90": n, "rwkv6": 0},
                      "decode": {"rwkv6": n * (gen - 1), "rwkv6_sm90": 0}},
-        state_bytes=34_078_724, reduced=rw_red,
+        state_bytes=17_039_364, reduced=rw_red,
         numbers=lambda: {
             **{f"{kernel}_{name}_shape": rwkv6_numbers(
                 (BATCH, rh, t, rcfg.rwkv_head_dim), device, kernel)
@@ -5392,9 +5871,9 @@ def main() -> int:
         f"{BATCH} x {PROMPT} prompt tokens, {GEN} new tokens; then the same "
         f"with the int8 KV cache")
     runs, ds_num = serve_model_phase(
-        dcfg_s, device, card, "serve_deepseek", 2_457_931_776,
-        dense_want(dcfg_s), state_bytes=285_212_676, reduced=ds_red,
-        subruns=[("int8", BATCH, PROMPT, GEN, 213_909_508,
+        dcfg_s, device, card, "serve_deepseek", 1_648_398_336,
+        dense_want(dcfg_s), state_bytes=142_606_340, reduced=ds_red,
+        subruns=[("int8", BATCH, PROMPT, GEN, 106_954_756,
                   dataclasses.replace(dcfg_s, kv_quant=True))],
         plain={"plain_cut": {},
                "plain_int8_cut": dict(kv_quant=True, steps=INT8_CUT_STEPS)},
@@ -5409,8 +5888,8 @@ def main() -> int:
         f"{pcfg.num_layers} layers d_model {pcfg.d_model} {pcfg.dtype}, "
         f"{BATCH} x {PROMPT} prompt tokens, {GEN} new tokens")
     runs, ph_num = serve_model_phase(
-        pcfg_s, device, card, "serve_phi3", 3_753_989_120,
-        dense_want(pcfg_s), state_bytes=89_128_964, reduced=ph_red,
+        pcfg_s, device, card, "serve_phi3", 2_390_799_360,
+        dense_want(pcfg_s), state_bytes=44_564_484, reduced=ph_red,
         numbers=lambda: {"flash_fwd_serve_shape": attention_numbers(
             serve_case(pcfg), device)})
     ph_launches = runs["serve"]["launches"]
@@ -5422,8 +5901,8 @@ def main() -> int:
     # the MoE phases take one profile window, over a prefill of 4g, to
     # keep the run within its time budget
     for phase, line, c, n_params, profile in (
-            ("4g", "serve_dbrx", bcfg, 7_751_301_120, ("prefill",)),
-            ("4h", "serve_qwen3_moe", qcfg, 6_149_918_720, ())):
+            ("4g", "serve_dbrx", bcfg, 4_492_216_320, ("prefill",)),
+            ("4h", "serve_qwen3_moe", qcfg, 3_697_815_552, ())):
         log(f"phase {phase}: serving, {c.name} cut to {MOE_SERVE_LAYERS} of "
             f"{c.num_layers} layers d_model {c.d_model}, {c.num_experts} "
             f"experts top-{c.experts_per_token}, {c.dtype}, {BATCH} x "
@@ -5467,8 +5946,8 @@ def main() -> int:
         f"{BATCH} x ({xcfg.num_patches} patches + {PROMPT} prompt tokens), "
         f"{GEN} new tokens")
     runs, px_num = serve_model_phase(
-        xcfg_s, device, card, "serve_pixtral", 3_654_374_400,
-        dense_want(xcfg_s), state_bytes=131_072_004, reduced=px_red,
+        xcfg_s, device, card, "serve_pixtral", 2_511_385_600,
+        dense_want(xcfg_s), state_bytes=65_536_004, reduced=px_red,
         numbers=lambda: {"flash_fwd_d160_serve_shape": attention_numbers(
             pix_case, device)})
     px_launches = runs["serve"]["launches"]
@@ -5521,11 +6000,8 @@ def main() -> int:
         "pre_restart_host": tr["pre_restart_rss"],
         "pfs_free_bytes": tr["pfs_free_bytes"],
         "reduced": {"num_layers": (
-            f"{tcfg.num_layers} -> {TRAIN_LAYERS}: 36 until the report's "
-            f"phase came, 18 until the 'model' axis's phase came, 12 until "
-            f"the recurrent models' 'model' axis phase came, 4 until the "
-            f"MoE models' FSDP phase came, cut to keep the whole run within "
-            f"its time")},
+            f"{tcfg.num_layers} -> {TRAIN_LAYERS}: cut to keep the whole "
+            f"run within its 1,200 s")},
     }
     log(card)
     log(json.dumps({"train": train}))
@@ -5551,10 +6027,7 @@ def main() -> int:
         {"num_layers": f"{rcfg.num_layers} -> {n}: the whole model's f32 "
          f"weights, AdamW moments, gradients and codes (about 23 B a "
          f"parameter, 174 GB for {count_params(rcfg)}) do not fit the "
-         f"card's 80 GB; 8 layers until pixtral-12b's training phase came, "
-         f"4 until the recurrent models' 'model' axis phase came, 2 until "
-         f"the MoE models' FSDP phase came, {n} "
-         f"since, to keep the whole run within its time",
+         f"card's 80 GB, and {n} keep the whole run within its 1,200 s",
          "global_batch": f"one sequence of {TRAIN_SEQ} tokens a step"},
         dict(layers=2))
     log(f"  phase 5b done at {done('5b'):.1f} s")
@@ -5632,10 +6105,7 @@ def main() -> int:
     cut["reduced"] = {"num_layers": (
         f"{tcfg.num_layers} -> {CUT_LAYERS}: the phase shows compressed "
         f"gradients and an overlap resize, whose wait grows with the "
-        f"state; 8 layers until the encoder-decoder's phases were added, "
-        f"4 until pixtral-12b's training phase was, 2 until the MoE "
-        f"models' FSDP phase was, {CUT_LAYERS} since, to keep the whole "
-        f"run within its time")}
+        f"state; cut to keep the whole run within its 1,200 s")}
     log(json.dumps({"train_cut": cut}))
     log(f"  phase 6 done at {done('6'):.1f} s")
 
@@ -5690,6 +6160,13 @@ def main() -> int:
                            "k4_launches")} for m in cells],
         "phase_s": time.monotonic() - t8}))
     log(f"  phase 8 done at {done('8'):.1f} s")
+
+    log(f"phase 8b: the KV cache over its sequence: {KV_SEQ_ARCH}'s "
+        f"{', '.join(KV_SEQ_CELLS)} as rank 0 of the "
+        f"{KV_SEQ_MESH['data']} x {KV_SEQ_MESH['model']} mesh, "
+        f"{KV_SEQ_MESH['model']} processes on the card")
+    log(json.dumps({"serve_kv_seq": kv_seq_phase(device, card)}))
+    log(f"  phase 8b done at {done('8b'):.1f} s")
 
     log(f"phase 9: the mesh's \"model\" axis: {TP_MODEL} processes on the "
         f"card over gloo; {cfg.name} served split ({TP_SERVE_LAYERS} layers, "

@@ -71,13 +71,15 @@ def on_meta(*tensors: torch.Tensor) -> bool:
 
 
 # callables (kernel name, flops, bytes) that each kernel call reports to
-cost_sinks: List[Callable[[str, float, float], None]] = []
+cost_sinks: List[Callable[[str, float, float, tuple], None]] = []
 
 
-def record_cost(name: str, flops: float, nbytes: float) -> None:
-    """Pass one kernel call's work to every sink in ``cost_sinks``."""
+def record_cost(name: str, flops: float, nbytes: float, *,
+                reads: tuple = ()) -> None:
+    """Pass one kernel call's work and the tensors it reads (None among
+    them skipped) to every sink in ``cost_sinks``."""
     for sink in cost_sinks:
-        sink(name, flops, nbytes)
+        sink(name, flops, nbytes, reads)
 
 
 def check_tensor(name: str, t: torch.Tensor, shape, dtypes, device) -> None:

@@ -213,7 +213,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           int(window is not None), int(window or 0), _DTYPES[q.dtype], stream)
     launches += 1
     record_cost(_library("fwd", q.dtype),
-                *fwd_cost(q.shape, k.shape, causal, window, q.element_size()))
+                *fwd_cost(q.shape, k.shape, causal, window, q.element_size()),
+                reads=(q, k, v))
     return out, lse
 
 
@@ -228,7 +229,7 @@ def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel():
         record_cost(_library("fwd", q.dtype),
                     *fwd_cost(q.shape, k.shape, causal, window,
-                              q.element_size()))
+                              q.element_size()), reads=(q, k, v))
     return out, lse
 
 
@@ -275,7 +276,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if name == "flash_bwd_sm90":
         bwd_sm90_launches += 1
     record_cost(name, *bwd_cost(q.shape, k.shape, causal, window,
-                                q.element_size()))
+                                q.element_size()),
+                reads=(q, k, v, out, lse, dout))
     return dq, dk, dv
 
 
@@ -302,5 +304,6 @@ def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor,
                            device=q.device))
     del scratch
     record_cost(name, *bwd_cost(q.shape, k.shape, causal, window,
-                                q.element_size()))
+                                q.element_size()),
+                reads=(q, k, v, out, lse, dout))
     return dq, dk, dv

@@ -185,7 +185,8 @@ def rglru_meta(name: str, log_a: torch.Tensor, g: torch.Tensor,
         return _empty(g, h0)
     h = torch.empty_like(g)
     h_final = torch.empty((b, d), dtype=torch.float32, device=g.device)
-    record_cost(name, *cost(name, b, t, d, g.element_size()))
+    record_cost(name, *cost(name, b, t, d, g.element_size()),
+                reads=(log_a, g, h0))
     return h, h_final
 
 
@@ -199,7 +200,8 @@ def rglru_bwd_meta(name: str, log_a: torch.Tensor, h: torch.Tensor,
         return _empty_bwd(log_a, h, h0, dh_last)
     out = (torch.empty_like(log_a), torch.empty_like(h),
            None if h0 is None else torch.empty_like(h0))
-    record_cost(name, *cost(name, b, t, d, h.element_size()))
+    record_cost(name, *cost(name, b, t, d, h.element_size()),
+                reads=(log_a, h, h0, dh, dh_last))
     return out
 
 
@@ -220,7 +222,8 @@ def rglru_cuda(log_a: torch.Tensor, g: torch.Tensor,
           h_final.data_ptr(), b, t, d, _DTYPES[g.dtype],
           torch.cuda.current_stream(g.device).cuda_stream)
     launches += 1
-    record_cost("rglru", *cost("rglru", b, t, d, g.element_size()))
+    record_cost("rglru", *cost("rglru", b, t, d, g.element_size()),
+                reads=(log_a, g, h0))
     return h, h_final
 
 
@@ -243,7 +246,8 @@ def rglru_sm90_cuda(log_a: torch.Tensor, g: torch.Tensor,
           h_final.data_ptr(), b, t, d, _DTYPES[g.dtype], tokens, stages,
           torch.cuda.current_stream(g.device).cuda_stream)
     sm90_launches += 1
-    record_cost("rglru_sm90", *cost("rglru_sm90", b, t, d, g.element_size()))
+    record_cost("rglru_sm90", *cost("rglru_sm90", b, t, d, g.element_size()),
+                reads=(log_a, g, h0))
     return h, h_final
 
 
@@ -295,7 +299,8 @@ def rglru_bwd_cuda(log_a: torch.Tensor, h: torch.Tensor,
         return _empty_bwd(log_a, h, h0, dh_last)
     out = _bwd("rglru_bwd", log_a, h, h0, dh, dh_last)
     bwd_launches += 1
-    record_cost("rglru_bwd", *cost("rglru_bwd", b, t, d, h.element_size()))
+    record_cost("rglru_bwd", *cost("rglru_bwd", b, t, d, h.element_size()),
+                reads=(log_a, h, h0, dh, dh_last))
     return out
 
 
@@ -316,5 +321,6 @@ def rglru_bwd_sm90_cuda(log_a: torch.Tensor, h: torch.Tensor,
                *plan(b, t, d, _sms(h.device.index)))
     bwd_sm90_launches += 1
     record_cost("rglru_bwd_sm90",
-                *cost("rglru_bwd_sm90", b, t, d, h.element_size()))
+                *cost("rglru_bwd_sm90", b, t, d, h.element_size()),
+                reads=(log_a, h, h0, dh, dh_last))
     return out

@@ -147,7 +147,8 @@ def rwkv6_meta(name: str, r: torch.Tensor, k: torch.Tensor,
     if t == 0 or b * h == 0:
         return o, s0.clone()
     sT = torch.empty_like(s0)
-    record_cost(name, *cost(name, b, h, t, d, r.element_size()))
+    record_cost(name, *cost(name, b, h, t, d, r.element_size()),
+                reads=(r, k, v, log_w, u, s0))
     return o, sT
 
 
@@ -178,7 +179,8 @@ def rwkv6_bwd_meta(name: str, r, k, v, log_w, u, s0, do, dsT=None):
                    torch.empty((b, h, BWD_CHUNK, d, d), **f32),
                    torch.empty((b, h, d), **f32))
     del scratch
-    record_cost(name, *cost(name, b, h, t, d, r.element_size()))
+    record_cost(name, *cost(name, b, h, t, d, r.element_size()),
+                reads=(r, k, v, log_w, u, s0, do, dsT))
     return dr, dk, dv, dlog_w, du, ds0
 
 
@@ -201,7 +203,8 @@ def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           torch.cuda.current_stream(r.device).cuda_stream)
     launches += 1
     record_cost("rwkv6",
-                *cost("rwkv6", b, h, t, d, r.element_size()))
+                *cost("rwkv6", b, h, t, d, r.element_size()),
+                reads=(r, k, v, log_w, u, s0))
     return o, sT
 
 
@@ -225,7 +228,8 @@ def rwkv6_sm90_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           torch.cuda.current_stream(r.device).cuda_stream)
     sm90_launches += 1
     record_cost("rwkv6_sm90",
-                *cost("rwkv6_sm90", b, h, t, d, r.element_size()))
+                *cost("rwkv6_sm90", b, h, t, d, r.element_size()),
+                reads=(r, k, v, log_w, u, s0))
     return o, sT
 
 
@@ -275,7 +279,8 @@ def rwkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           torch.cuda.current_stream(r.device).cuda_stream)
     bwd_launches += 1
     record_cost("rwkv6_bwd",
-                *cost("rwkv6_bwd", b, h, t, d, r.element_size()))
+                *cost("rwkv6_bwd", b, h, t, d, r.element_size()),
+                reads=(r, k, v, log_w, u, s0, do, dsT))
     return dr, dk, dv, dlog_w, du, ds0
 
 
@@ -323,5 +328,6 @@ def rwkv6_bwd_sm90_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           t, d, torch.cuda.current_stream(r.device).cuda_stream)
     bwd_sm90_launches += 1
     record_cost("rwkv6_bwd_sm90",
-                *cost("rwkv6_bwd_sm90", b, h, t, d, r.element_size()))
+                *cost("rwkv6_bwd_sm90", b, h, t, d, r.element_size()),
+                reads=(r, k, v, log_w, u, s0, do, dsT))
     return dr, dk, dv, dlog_w, du, ds0

@@ -27,6 +27,10 @@ Cost model per op (per device: the process's own step):
           ``track`` registers, or which the counter meets as operands)
           included; a storage counts from the op that makes it until it
           is freed.
+  inputs read (``was_read``, what a compiled step's arguments keep): a
+          storage that an op or a kernel (the tensors its wrapper
+          reports) takes as an operand before any op overwrites it
+          whole; a view reads nothing.
 
 ``top_ops`` is the twin of ``top_instructions``, ``roofline_terms`` a
 copy of the reference's.
@@ -89,6 +93,16 @@ _SCATTER = {"index_put", "scatter", "scatter_add", "scatter_reduce",
             "masked_scatter", "embedding_dense_backward"}
 
 
+# ops that overwrite their first operand without reading it
+_OVERWRITE = {"copy_", "fill_", "zero_"}
+
+
+def _whole(t: torch.Tensor) -> bool:
+    """Whether ``t`` spans its whole storage, densely."""
+    return t.is_contiguous() and t.storage_offset() == 0 and \
+        t.numel() * t.element_size() == t.untyped_storage().nbytes()
+
+
 def tensor_bytes(t: torch.Tensor) -> int:
     """Bytes of a tensor's distinct elements: a broadcast (stride-0)
     dimension counts once."""
@@ -112,10 +126,10 @@ def _tensors(x, out: List[torch.Tensor]) -> List[torch.Tensor]:
 _FUNCS: Dict[Any, Tuple[str, str, bool]] = {}
 
 
-def _info(func) -> Tuple[str, str, bool]:
-    """(op name, full name, whether the op moves no bytes) of an aten or
-    c10d op: an allocation, a metadata op or a view (its results aliased,
-    not written)."""
+def _info(func) -> Tuple[str, str, bool, bool]:
+    """(op name, full name, whether the op moves no bytes, whether it is
+    a view) of an aten or c10d op: an allocation, a metadata op or a view
+    (its results aliased, not written) moves none."""
     info = _FUNCS.get(func)
     if info is None:
         name = func.overloadpacket.__name__
@@ -123,7 +137,8 @@ def _info(func) -> Tuple[str, str, bool]:
         view = bool(rets) and all(r.alias_info is not None
                                   and not r.alias_info.is_write
                                   for r in rets)
-        info = _FUNCS[func] = (name, str(func), view or name in _NO_BYTES)
+        info = _FUNCS[func] = (name, str(func), view or name in _NO_BYTES,
+                               view)
     return info
 
 
@@ -162,6 +177,7 @@ class OpCounter(TorchDispatchMode):
         self.coll_rows: Dict[Tuple, List[float]] = {}
         self._live: Dict[int, int] = {}
         self._read: set = set()
+        self._fresh: set = set()
         self.live_bytes = 0
         self.peak_bytes = 0
         self.start_bytes: Optional[int] = None
@@ -185,10 +201,15 @@ class OpCounter(TorchDispatchMode):
         weakref.finalize(st, self._free, key)
         return key
 
+    def _mark_read(self, key: int) -> None:
+        if key not in self._fresh:
+            self._read.add(key)
+
     def was_read(self, t: torch.Tensor) -> bool:
         """Whether an op took ``t``'s storage (``t`` or a view of it) as
-        an operand: an input of the step that no op reads is one XLA
-        would prune from a compiled step's arguments."""
+        an operand before any op overwrote it whole: an input of the step
+        that no op reads is one XLA would prune from a compiled step's
+        arguments."""
         return t.untyped_storage()._cdata in self._read
 
     def track(self, *trees) -> "OpCounter":
@@ -198,7 +219,11 @@ class OpCounter(TorchDispatchMode):
         return self
 
     # ------------------------------------------------------------- kernels
-    def _on_kernel(self, name: str, flops: float, nbytes: float) -> None:
+    def _on_kernel(self, name: str, flops: float, nbytes: float,
+                   reads: tuple = ()) -> None:
+        for t in reads:
+            if t is not None:
+                self._mark_read(self._see(t))
         with self._lock:
             k = self.kernels.setdefault(name, {"calls": 0, "flops": 0,
                                                "bytes": 0})
@@ -221,14 +246,24 @@ class OpCounter(TorchDispatchMode):
     # ------------------------------------------------------------ dispatch
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        name, full, no_bytes, view = _info(func)
         ins = _tensors(list(args) + list(kwargs.values()), [])
+        # a view reads nothing; a storage that an op overwrites whole
+        # before any op reads it is not an input the step reads (XLA
+        # prunes such an argument)
+        dst = args[0] if name in _OVERWRITE and _whole(args[0]) else None
         for t in ins:
-            self._read.add(self._see(t))
+            key = self._see(t)
+            if view:
+                continue
+            if t is dst and key not in self._read:
+                self._fresh.add(key)
+            else:
+                self._mark_read(key)
         out = func(*args, **kwargs)
         outs = _tensors(out, [])
         for t in outs:
             self._see(t)
-        name, full, no_bytes = _info(func)
         flops = _flops(name, args, outs)
         nbytes = 0 if no_bytes else _bytes(name, args, ins, outs)
         if full.startswith("c10d.") and name in _C10D:

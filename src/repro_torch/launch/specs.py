@@ -19,6 +19,7 @@ from ..models import abstract_params, cache_axes, init_cache, map_axes
 from ..models import param_specs
 from ..optim import AdamWConfig
 from ..sharding import NamedSharding, Rules, get_rules, spec as axes_spec
+from ..sharding import tp
 from ..sharding.rules import mesh_shape
 from ..train import abstract_train_state, train_state_specs
 
@@ -35,8 +36,7 @@ def cell_rules(cfg: ModelConfig, shape: ShapeConfig, mesh,
     if shape.kind in ("prefill", "decode"):
         model = mesh_shape(mesh).get("model", 1)
         if cfg.num_kv_heads % model != 0:
-            rules = rules.with_rule("act_kv_heads", None) \
-                         .with_rule("kv_seq", "model")
+            rules = tp.kv_seq_rules(rules)
     return rules
 
 

@@ -30,6 +30,19 @@ the product, which is summed over the model ranks.  So the kernel and
 the cache see the rank's heads, or all of them where they are whole; the
 cache is whole on every model rank where the kv heads do not split.  The
 ``num_heads`` / ``num_kv_heads`` arguments are the model's.
+
+Under rules that map ``kv_seq`` to "model" (``launch/specs.cell_rules``
+where the kv heads do not divide the axis) a cache of S slots that the
+size m divides is split over its slots instead (``KVSeqShard``): rank r
+holds slots [r S/m, (r+1) S/m), of a ring too.  Prefill computes as
+above and keeps the rank's slots (``transformer._write_prefill_cache``).
+Decode (the reference's ``attention.py:1-8``: the softmax statistics and
+the PV contraction reduce over the split axis) gathers q's heads whole,
+lets the slot's owner alone write it, scores every head over the rank's
+slots at their global positions, and combines the ranks' partial
+softmaxes: the max over the ranks, then one all-reduce of the sums of
+``exp(s - max)`` beside their products with V.  A rank whose slots are
+all masked adds zeros.
 """
 from __future__ import annotations
 
@@ -49,6 +62,24 @@ class KVCache(NamedTuple):
     v: torch.Tensor
     ks: Optional[torch.Tensor] = None      # int8 mode: (B, Hkv, S, D/blk)
     vs: Optional[torch.Tensor] = None      # f16 scales (see _q8)
+
+
+class KVSeqShard(KVCache):
+    """A rank's box of a KV cache split over its slots on the "model"
+    axis: rank r of m holds slots [r s, (r+1) s) of the m s, s its
+    ``k.shape[-2]`` (``transformer.init_cache`` under rules that map
+    ``kv_seq`` to "model")."""
+    __slots__ = ()
+
+
+def seq_box(cache: KVCache):
+    """(global slots, the rank's first slot) of a ``KVSeqShard`` on the
+    active "model" axis; (slots, 0) of a whole cache."""
+    s = cache.k.shape[-2]
+    ax = tp.model_axis()
+    if not isinstance(cache, KVSeqShard) or ax is None:
+        return s, 0
+    return s * ax.size, s * ax.rank
 
 
 # one f16 scale per head, per position, per ``_Q8_SCALE_BLOCK`` contiguous
@@ -301,10 +332,12 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
     sliding-window layer's ring (the reference returns an updated copy;
     the same tensors come back here).  ``cross=True`` attends over a
     static, prefilled cache (cross-attention) without inserting, every
-    slot valid.
+    slot valid.  A ``KVSeqShard`` holds the rank's slots of the S
+    (module docstring).
     """
     b = x.shape[0]
-    s = cache.k.shape[2]
+    s, start = seq_box(cache)
+    split = s != cache.k.shape[2]
     lay = _layout(params, num_heads, num_kv_heads, head_dim)
     if scale is None:
         scale = head_dim ** -0.5
@@ -325,6 +358,8 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
                 codes, scales = _q8(new)
                 buf.index_copy_(2, slot, codes)
                 sbuf.index_copy_(2, slot, scales)
+        elif split:
+            _write_owned(cache, slot - start, k_new, v_new)
         else:
             cache.k.index_copy_(2, slot, k_new.to(cache.k.dtype))
             cache.v.index_copy_(2, slot, v_new.to(cache.v.dtype))
@@ -332,20 +367,58 @@ def attn_decode(params, x: torch.Tensor, cache: KVCache, idx: torch.Tensor, *,
         kf, vf = _dq(cache.k, cache.ks), _dq(cache.v, cache.vs)
     else:
         kf, vf = cache.k.float(), cache.v.float()
-    kf, vf = _group_kv(kf, vf, lay, num_heads, num_kv_heads)
+    if split:
+        # every head over the rank's slots: q whole, K/V whole already
+        # (their heads do not split where the slots do)
+        if lay.q:
+            q = tp.gather(q, 1)
+        lay = lay._replace(q=False)
+    else:
+        kf, vf = _group_kv(kf, vf, lay, num_heads, num_kv_heads)
 
     hkv = kf.shape[1]
     qg = q.reshape(b, hkv, q.shape[1] // hkv, head_dim).float() * scale
     scores = torch.matmul(qg, kf.transpose(-1, -2))          # (B,Hkv,G,S)
-    if not cross:
-        kpos = torch.arange(s, device=x.device)
+    if cross:
+        o = torch.matmul(torch.softmax(scores, dim=-1), vf)
+    else:
+        kpos = start + torch.arange(kf.shape[2], device=x.device)
         if window is not None:
             valid = kpos < torch.clamp(idx + 1, max=s)  # slots written
         else:
             valid = kpos <= idx
         scores = torch.where(valid, scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    o = torch.matmul(p, vf)                                   # (B,Hkv,G,D)
+        if split:
+            o = _split_softmax_pv(scores, valid, vf)
+        else:
+            o = torch.matmul(torch.softmax(scores, dim=-1), vf)
     o = o.reshape(b, 1, q.shape[1] * head_dim).to(x.dtype)
     out = _out_proj(params, o, lay)
     return constrain(out, "batch", None, "act_embed"), cache
+
+
+def _write_owned(cache: KVCache, local: torch.Tensor, k_new, v_new) -> None:
+    """Write the new K/V at local slot ``local`` (1,) of a ``KVSeqShard``
+    where the rank owns it (0 <= local < its slots); elsewhere the slot
+    it would clamp to is written back as it was.  No host sync."""
+    n = cache.k.shape[2]
+    own = (local >= 0) & (local < n)
+    at = local.clamp(0, n - 1)
+    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        cur = buf.index_select(2, at)
+        buf.index_copy_(2, at, torch.where(own, new.to(buf.dtype), cur))
+
+
+def _split_softmax_pv(scores: torch.Tensor, valid: torch.Tensor,
+                      vf: torch.Tensor) -> torch.Tensor:
+    """softmax(scores) @ V over slots split across the "model" ranks:
+    each rank's masked ``scores`` (B, Hkv, G, s) and ``vf`` (B, Hkv, s,
+    D) its slots'.  The max over every rank's slots, then the sums of
+    ``exp(scores - max)`` and their products with V, all-reduced in one
+    call; a rank without a valid slot adds zeros."""
+    m = tp.all_max(scores.amax(dim=-1, keepdim=True))
+    e = torch.where(valid, torch.exp(scores - m), 0.0)
+    d = vf.shape[-1]
+    acc = tp.reduce(torch.cat([torch.matmul(e, vf),
+                               e.sum(dim=-1, keepdim=True)], dim=-1))
+    return acc[..., :d] / acc[..., d:]

@@ -104,6 +104,21 @@ def own_heads(leaf: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
     return leaf
 
 
+@torch.no_grad()
+def own_head_leaves_(params, head_dim: int, mesh, rules) -> None:
+    """A served model's params (the rank's boxes on ``mesh`` under
+    ``rules``) with each layer stack's ``HEAD_LEAVES`` turned into the
+    rank's heads once, in place (``own_heads``), so decode steps gather
+    nothing."""
+    from ..sharding import use_rules
+
+    tm = params["stack"]["b0"]["tm"]
+    heads = tm["w_rkvg"].shape[-1] // head_dim
+    with use_rules(mesh, rules):
+        for name in HEAD_LEAVES:
+            tm[name] = own_heads(tm[name], heads, head_dim)
+
+
 def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     """x: (B, T, D); last: (B, D) previous token (zeros at sequence
     start)."""

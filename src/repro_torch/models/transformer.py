@@ -44,9 +44,11 @@ tensors they are no-ops.  Under a mesh with a "model" axis
 ``sharding/tp.py`` between them and the reference's activation layouts;
 where the size divides the padded vocab the logits are the rank's vocab
 columns and ``loss_fn`` reduces its log-sum-exp and target logits over
-them.  ``init_cache(..., mesh=)`` gives every leaf the rank's box of its
-``cache_axes`` under the rules: the rank's heads or channels where the
-size divides them, else the whole leaf.
+them.  ``init_cache(..., mesh=, rules=)`` gives every leaf the rank's box
+of its ``cache_axes`` under the rules: the rank's heads or channels where
+the size divides them, else the whole leaf; under the serving cells'
+rules (``kv_seq`` on "model") a KV cache's slots
+(``attention.KVSeqShard``).
 
 Under ``FSDP_RULES`` a leaf with an ``"embed"`` axis is also split over
 the mesh's "data" axis (ZeRO-3).  Each layer gathers its own such leaves
@@ -213,16 +215,20 @@ def _data_dims(cfg: ModelConfig, kind: Optional[str], rules, data: int,
     the leaves outside the layers) where the rules split that dim over a
     "data" axis of ``data`` ranks on a ("data", "model") mesh, or None
     where they keep it whole over "data" (a tree of the layer's
-    layout)."""
+    layout).  Its shapes are drawn on ``meta`` outside any dispatch mode:
+    an op counter around the step does not count them."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
     mesh = types.SimpleNamespace(shape={"data": data, "model": model})
-    if kind is None:
-        shapes, axes = init_params(cfg, None, "meta"), param_axes(cfg)
-        shapes = {k: v for k, v in shapes.items()
-                  if k not in ("stack", "enc") and not k.startswith("tail")}
-        axes = {k: axes[k] for k in shapes}
-    else:
-        shapes = _block_init(None, cfg, kind, lead=(), device="meta")
-        axes = _block_axes(cfg, kind)
+    with _disable_current_modes():
+        if kind is None:
+            shapes, axes = init_params(cfg, None, "meta"), param_axes(cfg)
+            shapes = {k: v for k, v in shapes.items() if k not in (
+                "stack", "enc") and not k.startswith("tail")}
+            axes = {k: axes[k] for k in shapes}
+        else:
+            shapes = _block_init(None, cfg, kind, lead=(), device="meta")
+            axes = _block_axes(cfg, kind)
 
     return map_axes(lambda ax, t: next(
         ((d, t.shape[d]) for d, entry in enumerate(
@@ -376,23 +382,27 @@ def _write_prefill_cache(cache: attn.KVCache, kvc: attn.KVCache, window):
     rotated so that absolute position p lives in slot p % S as decode's
     ring writes expect (the reference's ``_write_prefill_cache``,
     ``repro/models/transformer.py:193-222``).  An int8 cache takes the
-    K/V's codes and scales (``attn._q8``), rolled alike."""
-    s, t = cache.k.shape[2], kvc.k.shape[2]
+    K/V's codes and scales (``attn._q8``), rolled alike.  A
+    ``KVSeqShard`` keeps the rank's slots of the whole cache's."""
+    (s, start), n, t = attn.seq_box(cache), cache.k.shape[2], kvc.k.shape[2]
     pairs = [(cache.k, kvc.k), (cache.v, kvc.v)]
     if cache.ks is not None:                       # int8 cache
         (kq, ks), (vq, vs) = attn._q8(kvc.k), attn._q8(kvc.v)
         pairs = [(cache.k, kq), (cache.v, vq), (cache.ks, ks),
                  (cache.vs, vs)]
     if t <= s:
+        # a rank's slots [start, start + n) of the whole cache's [0, t)
+        m = min(max(t - start, 0), n)
         for buf, val in pairs:
-            buf[:, :, :t].copy_(val)
+            buf[:, :, :m].copy_(val[:, :, start:start + m])
         return cache
     if window is None:
         raise ValueError(f"prompt of {t} tokens exceeds the cache's {s} "
                          f"slots")
     shift = (t - s) % s
     for buf, val in pairs:
-        buf.copy_(torch.roll(val[:, :, t - s:], shift, dims=2))
+        buf.copy_(torch.roll(val[:, :, t - s:], shift,
+                             dims=2)[:, :, start:start + n])
     return cache
 
 
@@ -689,22 +699,25 @@ def _kind_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device="cuda", mesh=None) -> Dict[str, Any]:
+               device="cuda", mesh=None, rules=None) -> Dict[str, Any]:
     """Decode cache for a batch of ``batch`` sequences: a KV cache of
     ``max_len`` slots (a ring of ``min(max_len, window)`` for a
     sliding-window layer), or a recurrent state, whose size does not
     depend on ``max_len``.  ``mesh``: a mesh whose "model" axis the cache
     is split over, each leaf the rank's box of its ``cache_axes`` under
-    the config's rules (``batch`` is the rank's rows already): a rank's
-    cache, zeros, as its prefill fills it."""
+    ``rules`` (default the config's; ``batch`` is the rank's rows
+    already): a rank's cache, zeros, as its prefill fills it.  Under
+    rules that map ``kv_seq`` to "model" a KV cache whose slots the size
+    divides holds the rank's slots (``attention.KVSeqShard``); one it
+    does not divide is whole, as the reference's spec replicates it."""
     size = tp.axis_size(mesh)
     if size > 1:
-        rules = get_rules(cfg.rules)
+        rules = rules or get_rules(cfg.rules)
         tp.check_model_axis(cfg, size, rules, tp.axis_size(mesh, "data"))
         whole = init_cache(cfg, batch, max_len, dtype, "meta")
-        return map_axes(lambda ax, t: torch.zeros(
+        return _seq_shards(map_axes(lambda ax, t: torch.zeros(
             tp.local_shape(ax, t.shape, rules, size), dtype=t.dtype,
-            device=device), cache_axes(cfg), whole)
+            device=device), cache_axes(cfg), whole), whole)
     dtype = dtype or _dtype(cfg)
     plan = stack_plan(cfg)
     lead = (plan["scan_len"],)
@@ -717,6 +730,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                   for kind in plan["tail_kinds"]],
         "idx": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def _seq_shards(cache, whole):
+    """``cache`` (a rank's boxes of ``whole``) with each KV cache held
+    over fewer slots than the whole one typed ``attention.KVSeqShard``."""
+    if isinstance(cache, attn.KVCache):
+        if cache.k.shape[-2] != whole.k.shape[-2]:
+            return attn.KVSeqShard(*cache)
+        return cache
+    if isinstance(cache, dict):
+        return {k: _seq_shards(v, whole[k]) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [_seq_shards(v, w) for v, w in zip(cache, whole)]
+    return cache
 
 
 def _kind_cache_axes(kind: str, quant: bool = False):

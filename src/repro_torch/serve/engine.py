@@ -51,7 +51,7 @@ from ..core.snapshot import (_flatten, _leaf_name, _unflatten,
                              snapshot_pytree)
 from ..core.types import PartitionDesc, PartitionScheme
 from ..models.params import map_axes, param_split, shard_params, tree_paths
-from ..models.rwkv6_layer import HEAD_LEAVES, own_heads
+from ..models.rwkv6_layer import own_head_leaves_
 from ..models.transformer import (cache_axes, cast_params, decode_step,
                                   init_cache, prefill)
 from ..sharding import get_rules, placements, spec, tp, use_rules
@@ -97,19 +97,10 @@ class ServeEngine:
             # tensor of its own, so the engine holds no whole leaf
             self.params = _unflatten(self.params, lambda name, t: _own(t))
             if cfg.mixer == "rwkv6" and self.model_parts > 1:
-                self._own_heads()
+                own_head_leaves_(self.params, cfg.rwkv_head_dim, mesh,
+                                 self.rules)
         self.max_len = max_len
         self.last_commit = None     # CommitHandle of the newest cache commit
-
-    @torch.no_grad()
-    def _own_heads(self) -> None:
-        """RWKV-6's head_dim boxes as the rank's heads, once."""
-        tm = self.params["stack"]["b0"]["tm"]
-        heads = tm["w_rkvg"].shape[-1] // self.cfg.rwkv_head_dim
-        with use_rules(self.mesh, self.rules):
-            for name in HEAD_LEAVES:
-                tm[name] = own_heads(tm[name], heads,
-                                     self.cfg.rwkv_head_dim)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens), dtype=torch.int32,

@@ -57,7 +57,9 @@ such axis of more than one rank, so the one-process path is unchanged.
 
 ``check_model_axis`` raises for what is not split yet: the
 encoder-decoder and the frames / patches frontends, the int8 cache,
-rules other than ``TP_RULES`` and ``FSDP_RULES`` (``SEQ_RULES``), and an
+rules other than ``TP_RULES`` and ``FSDP_RULES`` and their serving
+cells' KV cache over its sequence (``kv_seq_rules``; ``SEQ_RULES``
+raises), and an
 RWKV-6 "rnn" split that would cut inside a head's recurrence (compressed
 gradients raise in ``train.make_train_step``).
 """
@@ -118,11 +120,24 @@ def data_axis() -> Optional[ModelAxis]:
     return None if pair is None else mesh_axis(pair[0], DATA)
 
 
+def kv_seq_rules(rules):
+    """``rules`` with the KV cache split over its sequence: ``act_kv_heads``
+    dropped and ``kv_seq`` on "model" (the serving cells' fallback of
+    ``launch/specs.cell_rules`` where the kv heads do not divide the
+    axis)."""
+    return rules.with_rule("act_kv_heads", None).with_rule("kv_seq", AXIS)
+
+
+def _split_rules(*bases) -> tuple:
+    return bases + tuple(kv_seq_rules(r) for r in bases)
+
+
 def check_model_axis(cfg, size: int, rules=None, data: int = 1) -> None:
     """Raise ``ValueError`` where ``cfg`` is not split over a ("data"
     ``data``, "model" ``size``) mesh: the encoder-decoder and the frames /
     patches frontends, the int8 KV cache, rules other than ``TP_RULES``
-    and ``FSDP_RULES``, and an RWKV-6 model whose state width the size
+    and ``FSDP_RULES`` (or either with ``kv_seq_rules``), and an RWKV-6
+    model whose state width the size
     divides but whose heads it does not (the "rnn" split would cut inside
     a head's recurrence, and the reference's state is then whole).  Every
     other size runs: a leaf the size does not divide stays whole.  With
@@ -130,15 +145,16 @@ def check_model_axis(cfg, size: int, rules=None, data: int = 1) -> None:
     the data ranks split."""
     from .rules import FSDP_RULES, TP_RULES
 
-    if size == 1 and (data == 1 or rules != FSDP_RULES):
+    if size == 1 and (data == 1 or rules not in _split_rules(FSDP_RULES)):
         return
     later = []
     if cfg.is_encdec or cfg.frontend != "token":
         later.append(f"the {cfg.frontend} frontend")
     if cfg.kv_quant:
         later.append("the int8 KV cache")
-    if rules is not None and rules not in (TP_RULES, FSDP_RULES):
-        later.append("rules other than TP_RULES and FSDP_RULES")
+    if rules is not None and rules not in _split_rules(TP_RULES, FSDP_RULES):
+        later.append("rules other than TP_RULES and FSDP_RULES (and their "
+                     "KV cache over 'kv_seq')")
     if later:
         raise ValueError(f"{cfg.name}: a ('data' {data}, 'model' {size}) "
                          f"mesh is not split for {', '.join(later)}")

@@ -18,6 +18,13 @@ clipping and compression, which the optimizer applies to the global
 gradient, so every rank takes the same update and the replicas stay
 bit-equal.  The reported loss is the all-reduced one.
 
+Microbatches are the reference's: the i-th is the i-th contiguous block
+of the global batch's rows, scored over its own unmasked targets, and the
+loss and gradient are the microbatches' mean.  Each rank runs its own
+rows in that many equal chunks (a device's work in each step of the
+reference's loop), each scored over the count of the microbatch that
+holds it.
+
 Split over a mesh too (``mesh``, ``sharding/tp.py``): the params,
 moments and gradients are the rank's boxes (``models.shard_params``), the
 loss runs under ``use_rules(mesh, rules)`` (its collectives over the
@@ -79,34 +86,59 @@ def compute_grads(cfg: ModelConfig, params, batch, grads=None, **loss_kw):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def _dp_grads(cfg: ModelConfig, params, batch, group, split=None):
-    """This rank's share of the global batch's loss and gradient, then
-    the gradient and the loss all-reduced over ``group``.  A leaf that
-    ``split`` (``models.param_split``) marks split over "data" holds the
-    data ranks' summed gradient of its box already (its gather's backward
-    reduce-scattered it) and is not all-reduced again."""
-    ranks = dist.get_world_size(group)
-    count = (batch["labels"][:, 1:] >= 0).sum().float()
-    dist.all_reduce(count, group=group)
-    loss, metrics, grads = compute_grads(cfg, params, batch,
-                                         token_total=count, ranks=ranks)
-    for path, g in tree_paths(grads):
-        if split is None or "data" not in tree_at(split, path):
-            dist.all_reduce(g, group=group)
-    dist.all_reduce(loss, group=group)
+def _grads(cfg: ModelConfig, params, batch, group=None, split=None,
+           microbatches: int = 1):
+    """The loss and gradient of this rank's rows of the global batch in
+    ``microbatches`` chunks, and with a ``group`` (data parallel) the
+    gradient and the loss all-reduced over it.  Chunk j of data rank r
+    holds the global rows from (r n + j) c on (c rows a chunk), in the
+    reference's microbatch (r n + j) // R of R ranks: it is scored over
+    that microbatch's unmasked targets (one all-reduce of the counts).
+    A leaf that ``split`` (``models.param_split``) marks split over
+    "data" holds the data ranks' summed gradient of its box already (its
+    gather's backward reduce-scattered it) and is not all-reduced
+    again."""
+    n = microbatches
+    b = batch["tokens"].shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} does not split into {n} microbatches")
+    ranks, rank = ((dist.get_world_size(group), dist.get_rank(group))
+                   if group is not None else (1, 0))
+    chunks = [({k: v.chunk(n)[j] for k, v in batch.items()},
+               (rank * n + j) // ranks) for j in range(n)]
+    counts = torch.zeros(n, device=batch["labels"].device)
+    for mb, i in chunks:
+        counts[i] += (mb["labels"][:, 1:] >= 0).sum()
+    if group is not None:
+        dist.all_reduce(counts, group=group)
+    grads, loss = None, 0.0
+    for mb, i in chunks:
+        mb_loss, metrics, grads = compute_grads(
+            cfg, params, mb, grads, token_total=counts[i], ranks=ranks)
+        loss = loss + mb_loss
+    if n > 1:
+        with torch.no_grad():
+            for _, g in tree_paths(grads):
+                g.div_(n)
+        loss, metrics = loss / n, {}
+    if group is not None:
+        for path, g in tree_paths(grads):
+            if split is None or "data" not in tree_at(split, path):
+                dist.all_reduce(g, group=group)
+        dist.all_reduce(loss, group=group)
     return loss, metrics, grads
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     schedule: Optional[Callable] = None,
                     microbatches: int = 1, group=None,
-                    mesh=None) -> Callable:
+                    mesh=None, rules=None) -> Callable:
     """``group``: the process group the step is data parallel over (None:
     one rank).  ``mesh``: a ("data", "model") mesh the step is split over
     instead (its "data" axis taking ``group``'s place); the state holds
-    the rank's shards."""
+    the rank's shards, under ``rules`` (default the config's)."""
     opt_cfg = opt_cfg or AdamWConfig()
-    rules = get_rules(cfg.rules)
+    rules = rules or get_rules(cfg.rules)
     split = groups = None
     if mesh is not None:
         if group is not None:
@@ -121,9 +153,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                   if tp.axis_size(mesh, a) > 1}
         if tp.axis_size(mesh, "data") > 1:
             group = mesh.get_group("data")
-    if group is not None and microbatches > 1:
-        raise ValueError("microbatches > 1 is not taken under data "
-                         "parallelism")
 
     def train_step(state: TrainState, batch: Dict) -> tuple:
         """(state, batch of tensors) -> (state, metrics); the params and
@@ -133,27 +162,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
 
     def _step(state: TrainState, batch: Dict) -> tuple:
         params = state.params
-        if microbatches > 1:
-            b = batch["tokens"].shape[0]
-            if b % microbatches:
-                raise ValueError(f"batch {b} does not split into "
-                                 f"{microbatches} microbatches")
-            grads = zeros_like_tree(params)
-            lsum = 0.0
-            for i in range(microbatches):
-                mb = {k: v.chunk(microbatches)[i] for k, v in batch.items()}
-                loss, _, grads = compute_grads(cfg, params, mb, grads)
-                lsum = lsum + loss
-            with torch.no_grad():
-                for _, g in tree_paths(grads):
-                    g.div_(microbatches)
-            loss = lsum / microbatches
-            metrics = {}
-        elif group is not None:
-            loss, metrics, grads = _dp_grads(cfg, params, batch, group,
-                                             split)
-        else:
-            loss, metrics, grads = compute_grads(cfg, params, batch)
+        loss, metrics, grads = _grads(cfg, params, batch, group, split,
+                                      microbatches)
         _, new_opt, opt_metrics = adamw_update(
             grads, state.opt, params, opt_cfg, schedule, split=split,
             groups=groups)

@@ -26,7 +26,10 @@ def test_capacity_is_the_cards():
 
 @pytest.mark.parametrize("arch, shape", chip_smoke.REPORT_CELLS)
 def test_cells_run_on_the_card_are_reported_to_fit(arch, shape):
-    art = report.report_cell(get_config(arch), get_shape(shape))
+    # phase 8 runs one device's data-parallel step: the rank of a mesh
+    # of the production mesh's 16 data ranks alone
+    art = report.report_cell(get_config(arch), get_shape(shape),
+                             mesh_shape={"data": 16, "model": 1})
     mem = art["memory"]
     assert mem["device_bytes"] == HBM_BYTES
     assert mem["fits"], (arch, shape, mem["peak_bytes_per_device"])

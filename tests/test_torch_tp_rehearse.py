@@ -17,7 +17,9 @@ over "model"), committed and restored, the split bf16 logits held to
 one process's, both routed by the split run's expert ids, and the
 split's router probabilities and choices held to one process's; qwen3-moe's
 f32 cut on a ("data" 2, "model" 2) mesh (its embed rows over "data",
-gathered a layer at a time) against the plain path.  The phases raise
+gathered a layer at a time) against the plain path.  Phase 8b: tiny
+qwen2.5-3b's serving cells as rank 0 of a ("data" 16, "model" 4) mesh,
+the KV cache over its sequence, run by 4 processes.  The phases raise
 on any failed check; these tests read their numbers."""
 import sys
 from pathlib import Path
@@ -121,3 +123,30 @@ def test_rehearsed_fsdp_cut(moe_lines):
     assert (data["broadcasts"], data["calls"]) == (
         line["data_gathers_per_forward"] * 2
         * (chip_smoke.CUT_STEPS_FSDP + 1), 0)
+
+
+def test_rehearsed_kv_seq_rank_of_the_mesh():
+    """Phase 8b rehearsed: tiny qwen2.5-3b's decode and prefill cells as
+    rank 0 of the ("data" 16, "model" 4) mesh, its cache over its
+    sequence, run by 4 processes: the rank's collectives those of its
+    ``meta`` trace (held on the CPU too: neither cell launches a kernel
+    whose plain version would add its own), each cell's split logits
+    (decode's, prefill's last token's) within twice bf16's own distance
+    of one process's whole-cache run of the same inputs, the f32 cut (its last two ranks' slots masked
+    throughout) within ``KV_SEQ_RTOL`` of the plain path, its tokens
+    equal."""
+    line = chip_smoke.kv_seq_phase(CPU, "cpu", rehearse=True)
+    for name, cell in line["cells"].items():
+        assert cell["sequences"] == 2
+        assert cell["collectives"]["counts"]["all-reduce"] > 0
+        assert cell["collectives"] == cell["meta_collectives"]
+        # every rank holds a quarter of the cache's slots
+        assert len(set(cell["cache_bytes_per_rank"])) == 1
+        assert cell["logits_rel_err_vs_one_process_bf16"] <= \
+            cell["logits_bound"]
+    decode = line["cells"]["decode_32k"]
+    assert decode["all_reduces"] > 0 and 0 < decode["all_reduce_share"] < 1
+    # the prefill cut (to half the tiny depth), held to its own trace
+    assert line["cells"]["prefill_32k"]["layers"] < decode["layers"]
+    assert line["plain_cut_tokens_equal"]
+    assert line["plain_cut_excess_of_max"] <= chip_smoke.KV_SEQ_RTOL

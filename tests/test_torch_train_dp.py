@@ -22,6 +22,17 @@ reference ``ElasticTrainer`` on 2 forced host devices (a subprocess).
   data-parallel steps' losses its train step's (rtol 1e-5): the masked
   mean over the whole batch, not the mean of the halves' means (which
   this batch moves well beyond rtol).
+* Microbatches under data parallelism (``train/step.py``'s ``_grads``):
+  2 ranks over a global batch of 4 in 2 microbatches and of 8 in 4, with
+  labels masked unevenly over the rows and with none masked.  The loss
+  and all-reduced gradient match the reference's microbatched gradient
+  (the mean over its contiguous blocks of rows, each block's loss over
+  its own unmasked targets, as its ``train_step``'s scan takes it; rtol
+  1e-5, each leaf atol 1e-6 of its largest) and two steps' losses its
+  ``train_step(microbatches=)``'s (rtol 1e-5).  Each rank holds other
+  rows of each block than its chunks' rank-major order would put there,
+  so a microbatch scored over another grouping's targets moves the loss
+  beyond rtol in the masked cases.
 * A restart across rank counts: 3 steps on 2 ranks and a commit, then a
   new trainer on 1 rank restarts from it and takes 3 more, matching the
   reference's uninterrupted run.
@@ -205,6 +216,62 @@ def test_uneven_masks_take_the_global_token_mean(arch, tmp_path):
                                           for k, v in batch.items()})[0])
               for i in (0, 2)]
     assert abs(np.mean(halves) - float(jloss)) > 1e-3 * abs(float(jloss))
+
+
+def _masked_batch(cfg, b, masked, seed=5, t=16):
+    """``b`` rows of ``t`` tokens; ``masked``: row i of the first half
+    keeps its first 1 + 3 i targets."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+    labels = toks.copy()
+    if masked:
+        for i in range(b // 2):
+            labels[i, 2 + 3 * i:] = -1
+    return {"tokens": toks, "labels": labels}
+
+
+@pytest.mark.parametrize("b,microbatches,masked", [
+    (4, 2, True), (4, 2, False), (8, 4, True)])
+def test_dp_microbatches_take_the_reference_blocks(b, microbatches, masked,
+                                                   tmp_path):
+    arch = "qwen2.5-3b"
+    jcfg, cfg = jax_get_config(arch, tiny=True), get_config(arch, tiny=True)
+    jopt = JaxAdamWConfig(lr=1e-3)
+    jstate = jax_make_train_state(jcfg, jax.random.key(2), jopt)
+    init = dict(zip(jax_leaf_names(jstate),
+                    [np.asarray(x) for x in jax.tree.leaves(jstate)]))
+    batch = _masked_batch(cfg, b, masked)
+    m = b // microbatches
+    jloss, jgrads = 0.0, None
+    for i in range(microbatches):
+        block = {k: jnp.asarray(v[i * m:(i + 1) * m])
+                 for k, v in batch.items()}
+        (loss, _), grads = jax.value_and_grad(
+            lambda p: jax_loss_fn(jcfg, p, block, impl="xla"),
+            has_aux=True)(jstate.params)
+        jloss = jloss + float(loss) / microbatches
+        grads = jax.tree.map(lambda g: np.asarray(g) / microbatches, grads)
+        jgrads = grads if jgrads is None else jax.tree.map(np.add, jgrads,
+                                                           grads)
+    jstep = jax.jit(jax_make_train_step(jcfg, jopt,
+                                        jax_warmup_cosine(1e-3, 2, 10),
+                                        microbatches=microbatches,
+                                        impl="xla"))
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jlosses = []
+    for _ in range(2):
+        jstate, jm = jstep(jstate, jbatch)
+        jlosses.append(float(jm["loss"]))
+    got = workers.spawn_world(workers.dp_grads, 2, tmp_path, arch, init,
+                              batch, 2, microbatches)
+    np.testing.assert_allclose(got["loss"], jloss, rtol=1e-5)
+    want = dict(zip(jax_leaf_names(jgrads), jax.tree.leaves(jgrads)))
+    assert sorted(got["grads"]) == sorted(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(
+            got["grads"][name], w, rtol=1e-5,
+            atol=1e-6 * max(np.abs(w).max(), 1e-30), err_msg=name)
+    np.testing.assert_allclose(got["losses"], jlosses, rtol=1e-5)
 
 
 def _nest(flat):

@@ -314,14 +314,15 @@ def trainer_restart_across_ranks(rank, world, tmp, arch, init, steps):
             cluster.close()
 
 
-def dp_grads(rank, world, tmp, arch, init, batch, steps):
+def dp_grads(rank, world, tmp, arch, init, batch, steps, microbatches=1):
     """The data-parallel loss and gradient over the world at ``init``
-    (rank-sliced ``batch``, numpy, the whole global batch), then the
-    losses of ``steps`` data-parallel train steps from it."""
+    (rank-sliced ``batch``, numpy, the whole global batch) in
+    ``microbatches``, then the losses of ``steps`` data-parallel train
+    steps from it."""
     from repro_torch.configs import get_config
     from repro_torch.optim import AdamWConfig, warmup_cosine
     from repro_torch.train import make_train_state, make_train_step
-    from repro_torch.train.step import _dp_grads
+    from repro_torch.train.step import _grads
 
     cfg = get_config(arch, tiny=True)
     opt = AdamWConfig(lr=1e-3)
@@ -331,10 +332,12 @@ def dp_grads(rank, world, tmp, arch, init, batch, steps):
     mine = {k: torch.from_numpy(v[rank * b:(rank + 1) * b])
             for k, v in batch.items()}
     group = dist.group.WORLD
-    loss, _, grads = _dp_grads(cfg, state.params, mine, group)
+    loss, _, grads = _grads(cfg, state.params, mine, group,
+                            microbatches=microbatches)
     out = {"loss": float(loss),
            "grads": {n: g.numpy().copy() for n, g in walk(grads)}}
-    step = make_train_step(cfg, opt, warmup_cosine(1e-3, 2, 10), group=group)
+    step = make_train_step(cfg, opt, warmup_cosine(1e-3, 2, 10),
+                           microbatches=microbatches, group=group)
     out["losses"] = [float(step(state, mine)[1]["loss"])
                      for _ in range(steps)]
     return out
@@ -462,7 +465,7 @@ def tp_train(rank, world, tmp, data, model, cases, steps):
     from repro_torch.optim import AdamWConfig, adamw_init, warmup_cosine
     from repro_torch.sharding import get_rules, make_tp_mesh, use_rules
     from repro_torch.train import TrainState, make_train_step
-    from repro_torch.train.step import _dp_grads, compute_grads
+    from repro_torch.train.step import _grads, compute_grads
 
     mesh = make_tp_mesh(data, model)
     out = []
@@ -478,7 +481,7 @@ def tp_train(rank, world, tmp, data, model, cases, steps):
                 for k, v in case["batch"].items()}
         with use_rules(mesh, get_rules(cfg.rules)):
             if data > 1:
-                loss, _, grads = _dp_grads(cfg, params, mine,
+                loss, _, grads = _grads(cfg, params, mine,
                                            mesh.get_group("data"),
                                            param_split(cfg, mesh))
             else:
@@ -503,3 +506,67 @@ def tp_world(rank, world, tmp, data, model, cases, steps):
     """``tp_serve`` then ``tp_train`` in one world."""
     return {"serve": tp_serve(rank, world, tmp, data, model, cases),
             "train": tp_train(rank, world, tmp, data, model, cases, steps)}
+
+
+# --------------------------------------------------------------------------
+# test_torch_kv_seq.py: the KV cache split over its sequence
+# --------------------------------------------------------------------------
+def kv_seq_serve(rank, world, tmp, data, model, cases):
+    """Each case ({arch, over, params (numpy tree), tokens, max_len,
+    steps}) served on a (data, model) mesh under the serving cells' rules
+    (``launch.specs.cell_rules``: the KV cache over its sequence where
+    the kv heads do not divide "model"), through ``init_cache(mesh=,
+    rules=)``, ``prefill`` and ``decode_step``: this rank's prefill
+    logits and cache leaves, which caches are split over their slots,
+    then ``steps`` greedy steps' tokens (its rows, global ids) and
+    logits and the cache after them.  Returns every rank's results."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.specs import cell_rules
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models.attention import KVSeqShard
+    from repro_torch.sharding import make_tp_mesh, tp, use_rules
+
+    mesh = make_tp_mesh(data, model)
+    out = []
+    for case in cases:
+        cfg = _tp_cfg(case)
+        rules = cell_rules(cfg, ShapeConfig("decode", "decode", 1, 1), mesh)
+        params = params_from_numpy(case["params"], "cpu", cfg, mesh)
+        toks = torch.from_numpy(case["tokens"])
+        rows = tp.data_rows(toks.shape[0], mesh)
+        cache = init_cache(cfg, rows.stop - rows.start, case["max_len"],
+                           device="cpu", mesh=mesh, rules=rules)
+        res = {"coord": (mesh.get_local_rank("data"),
+                         mesh.get_local_rank("model")),
+               "seq_split": sorted(
+                   n.rsplit("/", 1)[0] for n, _ in walk(cache)
+                   if n.endswith("/k") and isinstance(
+                       _at_path(cache, n.rsplit("/", 1)[0]), KVSeqShard))}
+        with torch.no_grad(), use_rules(mesh, rules):
+            logits, cache = prefill(cfg, params, {"tokens": toks[rows]},
+                                    cache)
+            res["cache_prefill"] = {n: t.numpy().copy()
+                                    for n, t in walk(cache)}
+            res["logits"], res["tokens"] = [logits.numpy().copy()], []
+            for _ in range(case["steps"]):
+                tok = tp.argmax(logits, cfg.padded_vocab)[:, None].to(
+                    torch.int32)
+                res["tokens"].append(tok.numpy().copy())
+                logits, cache = decode_step(cfg, params, cache, tok)
+                res["logits"].append(logits.numpy().copy())
+        res["cache"] = {n: t.numpy().copy() for n, t in walk(cache)}
+        out.append(res)
+    return _gathered(out)
+
+
+def _at_path(tree, name):
+    """The node of a dict / list / NamedTuple tree at a "/"-joined path."""
+    for k in name.split("/"):
+        if isinstance(tree, dict):
+            tree = tree[k]
+        elif isinstance(tree, list):
+            tree = tree[int(k)]
+        else:
+            tree = getattr(tree, k)
+    return tree
